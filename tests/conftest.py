@@ -28,3 +28,7 @@ def pytest_configure(config):
         "markers",
         "slow: heavyweight E2E (subprocess fault drills etc.) excluded "
         "from the tier-1 'not slow' run")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the PyTorch/CUDA port's kernels); "
+        "skips itself when no CUDA device is present")
