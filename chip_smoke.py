@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -8,29 +9,48 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
 0. Device: print the card's name and power limit (``nvidia-smi``), turn
    TF32 off for fp32 matmuls and convolutions.
 1. Build: compile every kernel under ``paddle_tpu_torch/csrc`` with
-   ``nvcc`` for sm_90a into ``build/paddle_tpu_torch`` (git-ignored); print
-   the build seconds and the ``-Xptxas -v`` register/shared-memory lines.
-2. Kernels against their plain PyTorch versions on the card, at the
-   shapes the serving path gives them: one JSON line per kernel and shape
-   with the error, its tolerance, the kernel's and the plain version's
-   times (CUDA events), the roofline bound and the library time (null:
-   no single PyTorch call computes either function).
-3. The slice at full width: a random-weight Llama-2-7B (bf16) served by
-   ``ContinuousBatchingEngine`` (mixed step) over 8 requests with prompts
-   of 64..1024 tokens, admitted 4 + 4 so that prefill chunks ride with
-   running decodes.  Both kernels must have launched layers x steps
-   times, the pool must be whole afterwards and every token in the
+   ``nvcc`` for sm_90a into ``build/paddle_tpu_torch`` (git-ignored), one
+   ``nvcc`` per source started together; print the build seconds and the
+   ``-Xptxas -v`` register/shared-memory lines.
+2. Serving kernels against their plain PyTorch versions on the card, at
+   the shapes the serving path gives them: one JSON line per kernel and
+   shape with the error, its tolerance, the kernel's and the plain
+   version's times (CUDA events), the roofline bound and the library
+   time (null: no single PyTorch call computes either function).
+3. The serving slice at full width: a random-weight Llama-2-7B (bf16)
+   served by ``ContinuousBatchingEngine`` (mixed step) over 8 requests
+   with prompts of 64..1024 tokens, admitted 4 + 4 so that prefill chunks
+   ride with running decodes.  Both kernels must have launched layers x
+   steps times, the pool must be whole afterwards and every token in the
    vocabulary.  The greedy token-match rate against the eager
    ``generate`` is reported, not asserted (random bf16 logits can tie).
    Then the same traffic once more under ``torch.profiler``: device time
    by kernel kind and the device's idle share.
-4. Parity at full width and reduced depth: the same model with 2 layers
-   in fp32 and the same traffic; the engine's tokens must match the
-   eager ``generate`` (which runs no kernel) at a mean per-request rate of
-   at least 0.98, counted up to each request's first divergence.  Then
-   the first step's logits against the eager forward by depth and dtype:
-   fp32 at all 32 layers (held to 1e-3) and bf16 at 2 layers.
-5. Before the last line, one JSON object with every kernel's numbers;
+4. Serving parity at full width and reduced depth: the same model with 2
+   layers in fp32 and the same traffic; the engine's tokens must match
+   the eager ``generate`` (which runs no kernel) at a mean per-request
+   rate of at least 0.98, counted up to each request's first divergence.
+   Then the first step's logits against the eager forward by depth and
+   dtype: fp32 at all 32 layers (held to 1e-3) and bf16 at 2 layers.
+5. The three flash kernels (forward, one-pass backward, two-kernel
+   backward) against their plain versions over fp32/bf16, head dims 64
+   and 128, causal or not, rope on and off, rectangular shapes and rows
+   that see nothing (``FLASH_CASES``), each within
+   :func:`flash_tolerance`; timed, with the bound and
+   ``scaled_dot_product_attention``'s time, at the 7B training shape and
+   at 16k.
+6. Training at full width and depth: Llama-2-7B bf16 through
+   ``TrainStep`` (AdamW with bf16 moments, recompute, clip 1.0, batch
+   2 x 2048), a warm-up and 4 timed steps: finite losses, the first near
+   its random-init value, exact flash launch counts; tokens/s, MFU, peak
+   memory, then one step under ``torch.profiler``.
+7. Training parity: Llama-2-7B widths at 2 layers in fp32, 3 steps
+   through the kernels against the same steps through the plain flash
+   versions on the card (loss trajectories within 1e-4).
+8. Long context: CodeLlama-7B's config at 2 layers, bf16, batch 1 x
+   16384, 2 steps: the router must take the two-kernel backward (once
+   per layer per step) and never the fused one.
+9. Before the last line, one JSON object with every kernel's numbers;
    the last line is ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX and nothing of ``paddle_tpu``.  Without
@@ -311,6 +331,250 @@ def phase_kernels():
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the flash kernels against their plain versions
+# ---------------------------------------------------------------------------
+# (name, B, Sq, Sk, H, D, dtype, rope, causal, kernels); "main" is the
+# training path's shape (Llama-2-7B, batch 2 x 2048) and "long_16k" the
+# long-context phase's, where the router takes the two-kernel backward.
+# The small cases cover head dim 64, fp32, no rope, no mask, key axes
+# longer and shorter than the query axis (rows that see nothing) and
+# lengths that are not a multiple of the kernels' 64-row tiles.
+ALL_FLASH = ("flash_fwd", "flash_bwd_fused", "flash_bwd_two_kernel")
+FLASH_CASES = (
+    ("main", 2, 2048, 2048, 32, 128, "bfloat16", True, True, ALL_FLASH),
+    ("main_fp32", 2, 2048, 2048, 32, 128, "float32", True, True, ALL_FLASH),
+    ("d64_full_rope", 1, 512, 512, 8, 64, "bfloat16", True, False,
+     ALL_FLASH),
+    ("d64_causal_ragged", 1, 200, 200, 4, 64, "float32", False, True,
+     ALL_FLASH),
+    ("rect_causal", 2, 192, 448, 4, 128, "bfloat16", False, True, ALL_FLASH),
+    ("dead_rows", 1, 448, 192, 4, 128, "float32", False, True, ALL_FLASH),
+    ("dead_rows_bf16_d64", 1, 300, 100, 4, 64, "bfloat16", False, True,
+     ALL_FLASH),
+    ("rect_full_ragged", 1, 100, 300, 4, 64, "float32", False, False,
+     ALL_FLASH),
+    ("long_16k", 1, 16384, 16384, 32, 128, "bfloat16", True, True,
+     ("flash_fwd", "flash_bwd_two_kernel")),
+)
+FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_fwd": "paddle_tpu/ops/pallas_kernels.py:176",
+    "flash_bwd_fused": "paddle_tpu/ops/pallas_kernels.py:480",
+    "flash_bwd_two_kernel": "paddle_tpu/ops/pallas_kernels.py:406",
+}
+# where each kernel's numbers in the final line come from: its shape and
+# the training path that launches it
+FLASH_MAIN = {"flash_fwd": ("main", "train_7b"),
+              "flash_bwd_fused": ("main", "train_7b"),
+              "flash_bwd_two_kernel": ("long_16k", "train_long_16k")}
+
+
+BF16_ULP = 2.0 ** -7     # one bf16 ulp of a value is at most this share
+NOISE_MARGIN = 4.0       # kernel vs plain rounding, in units of the plain's
+
+
+def flash_tolerance(want, dtype_name: str, noise=None):
+    """The allowed abs error of a flash kernel's output against the plain
+    version's ``want``, element by element (a float or a tensor shaped
+    like ``want``).
+
+    fp32: the two differ only in summation order (online vs two-pass
+    softmax, blocked dot products, and for the fused backward the order
+    of the atomic dq additions), so 2e-5 of the output's magnitude.
+
+    bf16: ``BF16_ULP * |want|`` (one ulp of each element: kernel and plain
+    round slightly different fp32 values and may land on neighbouring
+    bf16 values), plus ``NOISE_MARGIN`` times the largest ``noise`` in the
+    element's row (its D values), plus the fp32 allowance above (sums in
+    another order; it matters only where the bf16 terms vanish, e.g. a
+    causal row that sees one key).  ``noise`` (:func:`flash_noise`) is the
+    rounding the plain version does inside the function on these
+    inputs.  The kernel rounds the same operands at the same points; its
+    values differ from the plain version's only where its fp32 values
+    differ in the last bits (p rounded against the running row max, ds
+    where p differs), so its own rounding in a row is of the plain
+    version's size there.  Nothing here scales with the largest output
+    beyond the fp32 allowance."""
+    f32 = 2e-5 * max(1.0, want.float().abs().max().item())
+    if dtype_name == "float32":
+        return f32
+    row = noise.amax(dim=-1, keepdim=True)
+    return BF16_ULP * want.float().abs() + NOISE_MARGIN * row + f32
+
+
+def flash_noise(kernel, q, k, v, out, lse, g, causal, tables):
+    """The rounding the plain version of ``kernel`` does inside the
+    function, element by element: its output before the last rounding
+    less the plain version run in fp32 on the same inputs."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    f32 = torch.float32
+    qf, kf, vf, of, gf = (None if t is None else t.float()
+                          for t in (q, k, v, out, g))
+    if kernel == "flash_fwd":
+        raw = fa._flash_fwd_plain(q, k, v, causal, tables, out_dtype=f32)[:1]
+        ref = fa._flash_fwd_plain(qf, kf, vf, causal, tables)[:1]
+    else:
+        raw = fa._flash_bwd_plain(q, k, v, out, lse, g, causal, tables,
+                                  out_dtype=f32)
+        ref = fa._flash_bwd_plain(qf, kf, vf, of, lse, gf, causal, tables)
+    return tuple((a - b).abs() for a, b in zip(raw, ref))
+
+
+def flash_excess(got, want, tol) -> float:
+    """The largest ``|got - want| / tol`` over the elements (<= 1
+    passes)."""
+    import torch
+    diff = (got.float() - want.float()).abs()
+    tol = torch.as_tensor(tol, dtype=torch.float32, device=diff.device)
+    return (diff / tol).max().item()
+
+
+def _flash_case(B, Sq, Sk, H, D, dtype_name, rope, gen):
+    import torch
+    from paddle_tpu_torch.ops.flash_attention import rope_tables
+    dt = getattr(torch, dtype_name)
+
+    def rnd(S):
+        return torch.randn(B, S, H, D, generator=gen,
+                           device="cuda").to(dt)
+    q, k, v, g = rnd(Sq), rnd(Sk), rnd(Sk), rnd(Sq)
+    tables = rope_tables(Sq, D, 10000.0, device="cuda") if rope else None
+    return q, k, v, g, tables
+
+
+def _flash_work(kernel, B, Sq, Sk, H, D, itemsize, rope, causal):
+    """Bytes (each input read once, each output written once) and
+    operations the function needs: per visible (query, key) pair 4 D in
+    the forward (q.k and p.v) and 10 D in the backward (q.k, dO.v, p^T.dO,
+    ds^T.q, ds.k), the same for both backward forms."""
+    off = Sk - Sq
+    if causal:
+        pairs = sum(max(0, min(Sk, i + off + 1)) for i in range(Sq))
+    else:
+        pairs = Sq * Sk
+    pairs *= B * H
+    q_bytes, k_bytes = B * Sq * H * D * itemsize, B * Sk * H * D * itemsize
+    lse_bytes = B * H * Sq * 4
+    tab_bytes = 2 * Sq * D * 4 if rope else 0
+    if kernel == "flash_fwd":
+        return (2 * q_bytes + 2 * k_bytes + lse_bytes + tab_bytes,
+                4.0 * D * pairs)
+    # reads q, k, v, out, dO, lse; writes dq, dk, dv
+    return (4 * q_bytes + 4 * k_bytes + lse_bytes + tab_bytes,
+            10.0 * D * pairs)
+
+
+def _library_ms(q, k, v, g, causal, backward, iters):
+    """The one PyTorch call that computes the same function without rope:
+    ``scaled_dot_product_attention`` (its own flash kernels on the card)
+    forward, or the backward of one such call alone (the autograd graph
+    kept, ``torch.autograd.grad`` timed).  Used here as a yardstick only;
+    the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(backward)
+                  for t in (q, k, v))
+    if not backward:
+        return time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), iters)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    gt = g.transpose(1, 2)
+    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                               retain_graph=True), iters)
+
+
+def check_flash(name, B, Sq, Sk, H, D, dtype_name, rope, causal, kernels,
+                gen, timed: bool):
+    """Each kernel of ``kernels`` against its plain version on one case;
+    one JSON line per kernel.  With ``timed``, also the kernel's, the
+    plain version's and the library's times (CUDA events)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, g, tables = _flash_case(B, Sq, Sk, H, D, dtype_name, rope, gen)
+    rows = []
+    out, lse = fa.flash_fwd(q, k, v, causal, tables)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa._flash_fwd_plain(q, k, v, causal, tables)
+    dead = torch.isneginf(want_lse)
+    if not torch.equal(torch.isneginf(lse), dead) or not bool(
+            (out.transpose(1, 2)[dead] == 0).all()):
+        raise AssertionError("flash_fwd %s: rows that see nothing must "
+                             "give lse -inf and out 0" % name)
+    results = {"flash_fwd": ((out,), (want_out,), (lse, want_lse))}
+    for kern in kernels[1:]:
+        fn = getattr(fa, kern)
+        got = fn(q, k, v, out, lse, g, causal, tables)
+        torch.cuda.synchronize()
+        want = fa._flash_bwd_plain(q, k, v, out, lse, g, causal, tables)
+        results[kern] = (got, want, None)
+    iters = 3 if Sq > 4096 else 10
+    for kern in kernels:
+        got, want, lses = results[kern]
+        noise = (flash_noise(kern, q, k, v, out, lse, g, causal, tables)
+                 if dtype_name == "bfloat16" else (None,) * len(want))
+        errs, excess, atols, typical = [], [], [], []
+        for a, b, f in zip(got, want, noise):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError("%s %s: non-finite output" % (kern,
+                                                                   name))
+            tol = flash_tolerance(b, dtype_name, f)
+            errs.append((a.float() - b.float()).abs().max().item())
+            excess.append(flash_excess(a, b, tol))
+            atol = (torch.tensor([tol]) if dtype_name == "float32"
+                    else tol - BF16_ULP * b.float().abs())
+            atols.append([atol.median().item(), atol.max().item()])
+            typical.append(b.float().abs().median().item())
+        del noise
+        if lses is not None:
+            fin = ~dead
+            errs.append((lses[0][fin] - lses[1][fin]).abs().max().item())
+            excess.append(errs[-1] / 1e-4)
+            atols.append([1e-4, 1e-4])
+        if any(not (x <= 1.0) for x in excess):
+            raise AssertionError("%s %s: errors %s exceed the tolerance "
+                                 "(err/tol %s, atol %s)"
+                                 % (kern, name, errs, excess, atols))
+        n_bytes, flops = _flash_work(kern, B, Sq, Sk, H, D,
+                                     q.element_size(), rope, causal)
+        b_ms, b_by = bound_ms(n_bytes, flops, dtype_name)
+        row = dict(kernel=kern, case=name, dtype=dtype_name, B=B, Sq=Sq,
+                   Sk=Sk, H=H, D=D, rope=rope, causal=causal,
+                   max_abs_err=max(errs), errs=errs, err_over_tol=excess,
+                   atol_median_max=atols, median_abs=typical,
+                   rel_tol=BF16_ULP if dtype_name == "bfloat16" else 0.0,
+                   bound_ms=b_ms, bound_by=b_by)
+        if timed:
+            bwd = kern != "flash_fwd"
+            fn = getattr(fa, kern)
+            args = (q, k, v, out, lse, g) if bwd else (q, k, v)
+            plain = fa._flash_bwd_plain if bwd else fa._flash_fwd_plain
+            row.update(
+                kernel_ms=time_ms(lambda: fn(*args, causal, tables), iters),
+                plain_ms=time_ms(lambda: plain(*args, causal, tables), 2,
+                                 warmup=1),
+                library_ms=(_library_ms(q, k, v, g, causal, bwd, iters)
+                            if Sq == Sk and causal else None),
+                library_note="scaled_dot_product_attention%s on the same "
+                "inputs without rope (the rope variant adds two elementwise "
+                "passes to it)" % (" backward" if bwd else ""))
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def phase_flash_kernels():
+    import torch
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    rows = []
+    for case in FLASH_CASES:
+        rows += check_flash(*case, gen=gen,
+                            timed=case[0] in ("main", "long_16k"))
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phases 3-4: the served slice
 # ---------------------------------------------------------------------------
 def _prompts(vocab: int):
@@ -399,22 +663,34 @@ def _kernel_kind(name: str) -> str:
         return "ragged_paged_attention"
     if "rope_qkv" in name:
         return "rope_qkv_epilogue"
-    if any(w in name for w in ("gemm", "gemv", "xmma", "cutlass", "sm90")):
+    if "flash_fwd" in name:
+        return "flash_fwd"
+    if "flash_bwd_kv_kernel" in name or "dq_finalize" in name:
+        return "flash_bwd_kv (+dq finalize)"
+    if "flash_bwd_dq" in name:
+        return "flash_bwd_dq"
+    if any(w in name for w in ("gemm", "gemv", "xmma", "cutlass", "sm90",
+                               "nvjet")):
         return "matmul"
     return "other"
 
 
-def profile_serve(model, prompts, unprofiled_wall_s):
-    """The same traffic once more under ``torch.profiler``: device time by
-    kernel kind, and the device's idle share of the profiled run's wall
-    and of the unprofiled run's (``unprofiled_wall_s``; kernel durations
-    do not change under the profiler, its host overhead does)."""
+def profile_device(fn, unprofiled_wall_s):
+    """``fn()`` once under ``torch.profiler``: device time by kernel kind,
+    the top kernels, and the device's idle share of the profiled wall and
+    of ``unprofiled_wall_s`` (the same work without the profiler; kernel
+    durations do not change under it, its host overhead does)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, stats = serve(model, prompts)
+        # timed inside the context: starting the profiler is not the run
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     # device-side events only: a CPU op's device time repeats its kernels'
     kernels = [(e.key, e.self_device_time_total, e.count)
                for e in prof.key_averages()
@@ -428,17 +704,22 @@ def profile_serve(model, prompts, unprofiled_wall_s):
         kind = _kernel_kind(name)
         by_kind[kind] = by_kind.get(kind, 0.0) + t
     top = sorted(kernels, key=lambda k: -k[1])[:10]
-    row = dict(phase="profile_7b_bf16", wall_s=stats["wall_s"],
-               device_busy_s=busy_us / 1e6,
-               device_idle_share=1.0 - busy_us / 1e6 / stats["wall_s"],
-               unprofiled_wall_s=unprofiled_wall_s,
-               unprofiled_device_idle_share=(
-                   1.0 - busy_us / 1e6 / unprofiled_wall_s),
-               device_s_by_kind={k: v / 1e6 for k, v in by_kind.items()},
-               top_kernels=[dict(name=n[:80], device_s=t / 1e6, calls=c)
-                            for n, t, c in top])
+    return dict(profiled_wall_s=wall, device_busy_s=busy_us / 1e6,
+                device_idle_share=1.0 - busy_us / 1e6 / wall,
+                unprofiled_wall_s=unprofiled_wall_s,
+                unprofiled_device_idle_share=(
+                    1.0 - busy_us / 1e6 / unprofiled_wall_s),
+                device_s_by_kind={k: v / 1e6 for k, v in by_kind.items()},
+                top_kernels=[dict(name=n[:80], device_s=t / 1e6, calls=c)
+                             for n, t, c in top])
+
+
+def profile_serve(model, prompts, unprofiled_wall_s):
+    """The same traffic once more under ``torch.profiler`` (see
+    :func:`profile_device`)."""
+    row = dict(phase="profile_7b_bf16", **profile_device(
+        lambda: serve(model, prompts), unprofiled_wall_s))
     emit(row)
-    torch.cuda.synchronize()
     return row
 
 
@@ -456,8 +737,10 @@ def first_step_logits(eng, model, prompt):
                                    [(req, prompt.astype(np.int32), 0)])
     got = eng.mixed.logits_packed(pack, B)[0]
     cache.free_sequence(req.block_ids)
-    want = model(torch.from_numpy(prompt)[None].to(model.device))[0][0, -1]
-    want = want.float()
+    ids = torch.from_numpy(prompt)[None].to(model.device)
+    # the eager cache path (explicit empty caches): no kernel
+    want = model(ids, [(None, None)] * model.config.num_hidden_layers)[0]
+    want = want[0, -1].float()
     return dict(first_step_max_logit_diff=(got - want).abs().max().item(),
                 first_step_logit_std=want.std().item())
 
@@ -556,10 +839,259 @@ def phase_logits_by_depth():
     return rows
 
 
-def kernel_summary(rows, launches):
-    """One entry per kernel for the final JSON line: the main-path shape
-    (the 7B bf16 mixed pack) for the times, the worst error of any
-    shape."""
+# ---------------------------------------------------------------------------
+# phases 6-8: the training slice
+# ---------------------------------------------------------------------------
+TRAIN_LR = 3e-4
+TRAIN_BATCH = (2, 2048)        # Llama-2-7B: batch x sequence
+LONG_BATCH = (1, 16384)        # CodeLlama-7B's 16k context
+TRAIN_STEPS, TRAIN_WARMUP = 4, 1
+
+
+def _flash_launches():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return {k: getattr(fa, k).launches for k in ALL_FLASH}
+
+
+def _reset_flash_launches():
+    from paddle_tpu_torch.ops import flash_attention as fa
+    for k in ALL_FLASH:
+        getattr(fa, k).launches = 0
+
+
+def _tokens(vocab: int, shape, seed: int):
+    import torch
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(1, vocab, shape)).to("cuda")
+
+
+def _trainer(cfg, seed=SEED):
+    """A random-weight model on the card with ``TrainStep`` over AdamW
+    (bf16 moments for a bf16 model: no master weights), clip-norm 1.0."""
+    import torch
+    from paddle_tpu_torch.jit.train_step import TrainStep
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               LlamaPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator("cuda").manual_seed(seed))
+    opt = AdamW(TRAIN_LR, parameters=model.named_parameters(),
+                moment_dtype=cfg.dtype)
+    return model, TrainStep(model, LlamaPretrainingCriterion(), opt,
+                            clip_norm=1.0)
+
+
+def run_steps(step, ids, n):
+    """``n`` steps on ``ids`` (labels = inputs); the fp32 losses and the
+    wall seconds, host clock around work that ends in a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step(ids, ids) for _ in range(n)]
+    torch.cuda.synchronize()
+    return [x.item() for x in losses], time.perf_counter() - t0
+
+
+def init_loss(cfg) -> float:
+    """The expected first loss of a random-init model: the LM head's
+    N(0, initializer_range^2) weights over unit-RMS normed hidden states
+    give logits of variance ``s2 = hidden * initializer_range^2`` (1.64
+    for Llama-2-7B), independent of the labels, so the loss is
+    ``E[lse] = ln V + s2 / 2`` (11.19 for V = 32000), not ln V: the
+    softmax is near uniform only when s2 is small."""
+    s2 = cfg.hidden_size * cfg.initializer_range ** 2
+    return math.log(cfg.vocab_size) + s2 / 2
+
+
+def phase_train_7b():
+    """Llama-2-7B at full width and depth, bf16, AdamW with bf16 moments,
+    recompute, clip 1.0, batch 2 x 2048: one warm-up step, then
+    ``TRAIN_STEPS`` timed steps whose flash launches must be exact
+    (forward twice per layer: once, and once more in the recompute; the
+    fused backward once per layer; the two-kernel backward never), then
+    one profiled step."""
+    import torch
+    from paddle_tpu_torch.models.llama import (llama_7b_config,
+                                               llama_flops_per_token,
+                                               param_count)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = llama_7b_config(dtype="bfloat16", recompute=True)
+    t0 = time.perf_counter()
+    model, step = _trainer(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, S = TRAIN_BATCH
+    ids = _tokens(cfg.vocab_size, (B, S), SEED)
+    warm, warm_s = run_steps(step, ids, TRAIN_WARMUP)
+    _reset_flash_launches()
+    losses, wall = run_steps(step, ids, TRAIN_STEPS)
+    launches = _flash_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + losses
+    L = cfg.num_hidden_layers
+    tok_s = B * S * TRAIN_STEPS / wall
+    fpt = llama_flops_per_token(cfg, S)
+    row = dict(phase="train_7b_bf16", layers=L, params=param_count(cfg),
+               batch=B, seq=S, init_s=init_s, warmup_step_s=warm_s,
+               steps=TRAIN_STEPS, wall_s=wall, step_s=wall / TRAIN_STEPS,
+               losses=losses, expected_first_loss=init_loss(cfg),
+               tokens_per_s=tok_s, flops_per_token=fpt,
+               mfu=tok_s * fpt / PEAK_FLOPS["bfloat16"],
+               peak_memory_bytes=peak, launches=launches)
+    row["profile"] = profile_device(lambda: step(ids, ids),
+                                    wall / TRAIN_STEPS)
+    emit(row)
+    want = {"flash_fwd": 2 * L * TRAIN_STEPS,
+            "flash_bwd_fused": L * TRAIN_STEPS, "flash_bwd_two_kernel": 0}
+    if launches != want:
+        raise AssertionError("7B training launches %s, want %s"
+                             % (launches, want))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite training loss: %s" % losses)
+    if not abs(losses[0] - row["expected_first_loss"]) <= 0.5:
+        raise AssertionError("first loss %g is not within 0.5 of the "
+                             "random-init value %g"
+                             % (losses[0], row["expected_first_loss"]))
+    del model, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def _plain_attention():
+    """A context in which the model's attention runs the flash plain
+    versions on the card (``_flash_fwd_plain`` / ``_flash_bwd_plain``
+    under an autograd Function): the reference side of the training
+    parity phase.  The kernel wrappers are not touched."""
+    import contextlib
+    import torch
+    from paddle_tpu_torch.models import llama as lm
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    class PlainFlashRope(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, cos, sin):
+            out, lse = fa._flash_fwd_plain(q, k, v, True, (cos, sin))
+            ctx.save_for_backward(q, k, v, cos, sin, out, lse)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            q, k, v, cos, sin, out, lse = ctx.saved_tensors
+            return (*fa._flash_bwd_plain(q, k, v, out, lse, g.contiguous(),
+                                         True, (cos, sin)), None, None)
+
+    def plain(q, k, v, rotary_base, is_causal=True):
+        cos, sin = fa.rope_tables(q.shape[1], q.shape[3], rotary_base,
+                                  device=q.device)
+        return PlainFlashRope.apply(q, k, v, cos, sin)
+
+    @contextlib.contextmanager
+    def swapped():
+        orig = lm.flash_attention_rope
+        lm.flash_attention_rope = plain
+        try:
+            yield
+        finally:
+            lm.flash_attention_rope = orig
+    return swapped()
+
+
+PARITY_STEPS = 3
+# fp32 (TF32 off): kernel and plain paths differ in summation order only;
+# Adam may turn a rounding difference in a ~0 gradient into a +-lr move of
+# that parameter, which moves a loss near 10.4 by far less than 1e-4 of it
+PARITY_RTOL = 1e-4
+
+
+def phase_train_parity():
+    """Llama-2-7B widths at 2 layers in fp32: ``PARITY_STEPS`` steps
+    through the kernels against the same steps through the plain flash
+    versions on the card, same weights and batch; the loss trajectories
+    must agree to ``PARITY_RTOL``."""
+    import torch
+    from paddle_tpu_torch.models.llama import llama_7b_config
+    cfg = llama_7b_config(dtype="float32", num_hidden_layers=2,
+                          recompute=True)
+    ids = _tokens(cfg.vocab_size, TRAIN_BATCH, SEED + 1)
+    model, step = _trainer(cfg)
+    _reset_flash_launches()
+    got, wall = run_steps(step, ids, PARITY_STEPS)
+    launches = _flash_launches()
+    del model, step
+    torch.cuda.empty_cache()
+    model, step = _trainer(cfg)
+    with _plain_attention():
+        want, plain_wall = run_steps(step, ids, PARITY_STEPS)
+    del model, step
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    row = dict(phase="train_parity_2layer_fp32", steps=PARITY_STEPS,
+               kernel_losses=got, plain_losses=want, max_rel_diff=rel,
+               rtol=PARITY_RTOL, kernel_wall_s=wall, plain_wall_s=plain_wall,
+               launches=launches)
+    emit(row)
+    if not rel <= PARITY_RTOL:
+        raise AssertionError("fp32 training losses, kernels vs plain: %s vs "
+                             "%s (max rel diff %g > %g)"
+                             % (got, want, rel, PARITY_RTOL))
+    if launches["flash_fwd"] == 0 or launches["flash_bwd_fused"] == 0:
+        raise AssertionError("the fp32 parity run launched no flash "
+                             "kernel: %s" % launches)
+    return row
+
+
+def codellama_7b_config(**kw):
+    """CodeLlama-7B's public config (Llama-2-7B widths, vocabulary 32016,
+    rope_theta 1e6, 16384 positions)."""
+    from paddle_tpu_torch.models.llama import llama_7b_config
+    cfg = dict(vocab_size=32016, rope_theta=1e6,
+               max_position_embeddings=16384)
+    cfg.update(kw)
+    return llama_7b_config(**cfg)
+
+
+def phase_train_long():
+    """CodeLlama-7B at 2 layers, bf16, batch 1 x 16384, 2 steps: the
+    router must take the two-kernel backward (both halves once per layer
+    per step) and never the fused one."""
+    import torch
+    from paddle_tpu_torch.models.llama import llama_flops_per_token
+    cfg = codellama_7b_config(dtype="bfloat16", num_hidden_layers=2,
+                              recompute=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, step = _trainer(cfg)
+    ids = _tokens(cfg.vocab_size, LONG_BATCH, SEED + 2)
+    steps = 2
+    _reset_flash_launches()
+    losses, wall = run_steps(step, ids, steps)
+    launches = _flash_launches()
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": 2 * L * steps, "flash_bwd_fused": 0,
+            "flash_bwd_two_kernel": L * steps}
+    row = dict(phase="train_long_16k_bf16", layers=L, batch=LONG_BATCH[0],
+               seq=LONG_BATCH[1], steps=steps, wall_s=wall, losses=losses,
+               tokens_per_s=LONG_BATCH[0] * LONG_BATCH[1] * steps / wall,
+               flops_per_token_full_depth=llama_flops_per_token(
+                   codellama_7b_config(), LONG_BATCH[1]),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               launches=launches)
+    emit(row)
+    if launches != want:
+        raise AssertionError("16k training launches %s, want %s"
+                             % (launches, want))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite 16k training loss: %s" % losses)
+    del model, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernel_summary(rows, launches, flash_rows, train_launches):
+    """One entry per kernel for the final JSON line: the times at the
+    kernel's main-path shape, the worst error of any shape, and the
+    launches of the run of the path that drives it (``path``)."""
     def pick(rs, case):
         return next(r for r in rs if r["case"] == case
                     and r["dtype"] == "bfloat16")
@@ -571,11 +1103,22 @@ def kernel_summary(rows, launches):
              ROPE_REPLACES)):
         r = pick(rs, case)
         out.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                        launches=launches[name],
+                        launches=launches[name], path="serve_7b",
                         max_abs_err=max(x["max_abs_err"] for x in rs),
                         ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=None))
+    for name in ALL_FLASH:
+        case, path = FLASH_MAIN[name]
+        rs = [r for r in flash_rows if r["kernel"] == name]
+        r = next(x for x in rs if x["case"] == case)
+        out.append(dict(name=name, route="cuda", source=FLASH_SOURCE,
+                        replaces=FLASH_REPLACES[name],
+                        launches=train_launches[path][name], path=path,
+                        max_abs_err=max(x["max_abs_err"] for x in rs),
+                        ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        library_ms=r["library_ms"]))
     return out
 
 
@@ -592,7 +1135,14 @@ def main() -> int:
     slice_stats = phase_slice_7b()
     phase_parity_2l()
     phase_logits_by_depth()
-    emit({"kernels": kernel_summary(rows, slice_stats["launches"])})
+    flash_rows = phase_flash_kernels()
+    train = phase_train_7b()
+    phase_train_parity()
+    long = phase_train_long()
+    emit({"kernels": kernel_summary(
+        rows, slice_stats["launches"], flash_rows,
+        {"train_7b": train["launches"],
+         "train_long_16k": long["launches"]})})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

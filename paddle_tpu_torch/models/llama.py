@@ -1,10 +1,18 @@
 """Llama model family (counterpart of ``paddle_tpu/models/llama.py``).
 
-This module is the eager oracle of the serving slice: ``generate`` runs
-greedy decoding with dense per-layer K/V caches and no kernel, and the
-serving engine is held against it.  The reference's training fast path
-(neox rope fused into the flash kernels) is not ported in this slice; a
-forward without caches takes the same general path as the cache path.
+Two paths, as in the reference:
+
+- Without caches (training): ``forward(input_ids)`` returns the logits
+  with autograd on; attention is the neox-rope flash path
+  (``ops.flash_attention.flash_attention_rope``: the flash kernels on the
+  card, their plain versions on the CPU), and ``config.recompute``
+  recomputes each decoder layer in the backward
+  (``torch.utils.checkpoint``) while the model is in training mode.
+- With caches (inference): ``forward(input_ids, caches, position_offset)``
+  returns ``(logits, new caches)`` under ``torch.no_grad``, with separate
+  rope and causal attention and no kernel.  ``generate`` runs greedy
+  decoding on it and is the eager oracle the serving engine is held
+  against.
 
 Parameters live in ``config.dtype`` on the device given at construction
 (``device=None`` is the CUDA card) and are initialized from an explicit
@@ -18,10 +26,12 @@ from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, resolve_device
 from ..nn import functional as PF
 from ..nn.layers import Embedding, Linear, RMSNorm
+from ..ops.flash_attention import flash_attention_rope
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -44,6 +54,8 @@ class LlamaConfig:
     dtype: str = "float32"
     # qkv biases (qwen2-family architecture; llama proper has none)
     attention_bias: bool = False
+    # recompute each decoder layer in the backward (training mode only)
+    recompute: bool = False
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -81,8 +93,9 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaAttention(nn.Module):
-    """GQA attention with neox rotary embeddings over a dense K/V cache
-    (the reference's cache path)."""
+    """GQA attention with neox rotary embeddings: the fused rope + flash
+    path without a cache, the reference's general path over a dense K/V
+    cache with one."""
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
@@ -98,29 +111,48 @@ class LlamaAttention(nn.Module):
         self.o_proj = Linear(self.num_heads * self.head_dim, h,
                              device=device, dtype=dtype)
 
-    def forward(self, x, cache: Optional[KVCache] = None,
-                position_offset: int = 0):
-        """``x`` [B, S, h]; ``cache`` the layer's (k, v) [B, L, Hkv, D] so
-        far (or ``(None, None)``).  Returns ``(out, (k, v))`` with the new
-        tokens appended (before the GQA repeat)."""
+    def _qkv(self, x):
         B, S = x.shape[0], x.shape[1]
-        q = self.q_proj(x).reshape(B, S, self.num_heads, self.head_dim)
-        k = self.k_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).reshape(B, S, self.num_kv_heads, self.head_dim)
+        return (self.q_proj(x).reshape(B, S, self.num_heads, self.head_dim),
+                self.k_proj(x).reshape(B, S, self.num_kv_heads,
+                                       self.head_dim),
+                self.v_proj(x).reshape(B, S, self.num_kv_heads,
+                                       self.head_dim))
+
+    def forward(self, x):
+        """``x`` [B, S, h] -> ``out`` [B, S, h] through the fused rope +
+        flash path (positions from 0)."""
+        B, S = x.shape[0], x.shape[1]
+        q, k, v = self._qkv(x)
+        out = flash_attention_rope(q, self._repeat_kv(k), self._repeat_kv(v),
+                                   self.config.rope_theta, is_causal=True)
+        return self.o_proj(out.reshape(B, S, self.num_heads * self.head_dim))
+
+    def forward_with_cache(self, x, cache: KVCache, position_offset: int):
+        """``x`` [B, S, h] at positions from ``position_offset``; ``cache``
+        the layer's (k, v) [B, L, Hkv, D] so far, or ``(None, None)``.
+        Returns ``(out, (k, v))`` with the new tokens appended (before the
+        GQA repeat)."""
+        B, S = x.shape[0], x.shape[1]
+        q, k, v = self._qkv(x)
         q, k = PF.fused_rotary_position_embedding(
             q, k, position_offset=position_offset,
             rotary_emb_base=self.config.rope_theta)
-        if cache is not None and cache[0] is not None:
+        if cache[0] is not None:
             k = torch.cat([cache[0], k], dim=1)
             v = torch.cat([cache[1], v], dim=1)
         new_cache = (k, v)
-        if self.num_kv_heads != self.num_heads:
-            rep = self.num_heads // self.num_kv_heads
-            k = k.repeat_interleave(rep, dim=2)
-            v = v.repeat_interleave(rep, dim=2)
-        out = PF.scaled_dot_product_attention(q, k, v)
+        out = PF.scaled_dot_product_attention(q, self._repeat_kv(k),
+                                              self._repeat_kv(v))
         out = self.o_proj(out.reshape(B, S, self.num_heads * self.head_dim))
         return out, new_cache
+
+    def _repeat_kv(self, t: torch.Tensor) -> torch.Tensor:
+        """GQA: each kv head repeated for its group of query heads."""
+        if self.num_kv_heads == self.num_heads:
+            return t
+        return t.repeat_interleave(self.num_heads // self.num_kv_heads,
+                                   dim=2)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -133,11 +165,20 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps,
                                                 device, dtype)
+        self._recompute = config.recompute
 
-    def forward(self, x, cache: Optional[KVCache] = None,
-                position_offset: int = 0):
-        attn, new_cache = self.self_attn(self.input_layernorm(x), cache,
-                                         position_offset)
+    def _block(self, x):
+        h = x + self.self_attn(self.input_layernorm(x))
+        return h + self.mlp(self.post_attention_layernorm(h))
+
+    def forward(self, x):
+        if self._recompute and self.training:
+            return checkpoint(self._block, x, use_reentrant=False)
+        return self._block(x)
+
+    def forward_with_cache(self, x, cache: KVCache, position_offset: int):
+        attn, new_cache = self.self_attn.forward_with_cache(
+            self.input_layernorm(x), cache, position_offset)
         h = x + attn
         return h + self.mlp(self.post_attention_layernorm(h)), new_cache
 
@@ -156,12 +197,16 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, caches: Optional[List[KVCache]] = None,
                 position_offset: int = 0):
+        """Without ``caches``: the normed hidden states.  With them:
+        ``(hidden states, new caches)``."""
         h = self.embed_tokens(input_ids)
         if caches is None:
-            caches = [(None, None)] * len(self.layers)
+            for layer in self.layers:
+                h = layer(h)
+            return self.norm(h)
         new_caches = []
         for layer, cache in zip(self.layers, caches):
-            h, c = layer(h, cache, position_offset)
+            h, c = layer.forward_with_cache(h, cache, position_offset)
             new_caches.append(c)
         return self.norm(h), new_caches
 
@@ -169,7 +214,9 @@ class LlamaModel(nn.Module):
 class LlamaForCausalLM(nn.Module):
     """Llama with an LM head.  ``device=None`` places it on the CUDA card;
     ``generator`` (a ``torch.Generator`` on that device) initializes the
-    weights — without one they are drawn from a generator seeded 0."""
+    weights — without one they are drawn from a generator seeded 0.  The
+    parameters are trainable; the module starts in training mode (which
+    only decides ``config.recompute``)."""
 
     def __init__(self, config: LlamaConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
@@ -182,7 +229,6 @@ class LlamaForCausalLM(nn.Module):
                         Linear(config.hidden_size, config.vocab_size,
                                device=dev, dtype=dtype))
         self.init_weights(generator)
-        self.eval()
 
     @property
     def device(self) -> torch.device:
@@ -208,12 +254,16 @@ class LlamaForCausalLM(nn.Module):
             return h @ self.llama.embed_tokens.weight.t()
         return self.lm_head(h)
 
-    @torch.no_grad()
     def forward(self, input_ids, caches: Optional[List[KVCache]] = None,
                 position_offset: int = 0):
-        """``input_ids`` [B, S] -> ``(logits [B, S, V], new caches)``."""
-        h, caches = self.llama(input_ids, caches, position_offset)
-        return self.lm_logits(h), caches
+        """``input_ids`` [B, S] -> ``logits [B, S, V]`` (autograd on); with
+        ``caches`` (a list of per-layer ``(k, v)``, ``(None, None)`` for
+        empty) -> ``(logits, new caches)`` under ``torch.no_grad``."""
+        if caches is None:
+            return self.lm_logits(self.llama(input_ids))
+        with torch.no_grad():
+            h, caches = self.llama(input_ids, caches, position_offset)
+            return self.lm_logits(h), caches
 
     @torch.no_grad()
     def generate(self, input_ids: torch.Tensor, max_new_tokens: int = 16,
@@ -223,7 +273,7 @@ class LlamaForCausalLM(nn.Module):
         ``input_ids`` [B, L] -> [B, L + n] (``n <= max_new_tokens``; stops
         early when every row emitted ``eos_token_id``)."""
         ids = input_ids.to(self.device, torch.long)
-        logits, caches = self(ids)
+        logits, caches = self(ids, [(None, None)] * len(self.llama.layers))
         out = [ids]
         cur_len = ids.shape[1]
         for step in range(max_new_tokens):
@@ -236,6 +286,34 @@ class LlamaForCausalLM(nn.Module):
                 logits, caches = self(nxt, caches, position_offset=cur_len)
                 cur_len += 1
         return torch.cat(out, dim=1)
+
+
+class LlamaPretrainingCriterion(nn.Module):
+    """Shift-by-one LM loss with fp32 softmax (reference:
+    ``LlamaPretrainingCriterion``): the labels roll left by one and the
+    last position is filled with ``ignore_index``, so the logits are never
+    sliced; the loss is the mean over valid labels."""
+
+    def __init__(self, config: Optional[LlamaConfig] = None,
+                 ignore_index: int = -100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits: torch.Tensor,
+                labels: torch.Tensor) -> torch.Tensor:
+        tail = torch.full((labels.shape[0], 1), self.ignore_index,
+                          dtype=labels.dtype, device=labels.device)
+        shift = torch.cat([labels[:, 1:], tail], dim=1)
+        V = logits.shape[-1]
+        return PF.cross_entropy(logits.reshape(-1, V), shift.reshape(-1),
+                                ignore_index=self.ignore_index)
+
+
+def llama_flops_per_token(config: LlamaConfig, seq_len: int) -> float:
+    """``6 N`` plus the attention term ``12 L h S`` (reference:
+    ``llama_flops_per_token``; BASELINE.md's convention)."""
+    attn = 12 * config.num_hidden_layers * config.hidden_size * seq_len
+    return 6.0 * param_count(config) + attn
 
 
 def param_count(config: LlamaConfig) -> int:

@@ -56,6 +56,44 @@ def fused_rotary_position_embedding(q: torch.Tensor, k: torch.Tensor,
     return rope(q), rope(k)
 
 
+class _SoftmaxXent(torch.autograd.Function):
+    """Per-row softmax cross-entropy for hard labels (reference:
+    ``_fused_softmax_xent``): fp32 statistics, only the row lse saved, and
+    the gradient ``(softmax - onehot) * g`` emitted in the logits' dtype
+    (no fp32 [N, V] residual)."""
+
+    @staticmethod
+    def forward(ctx, logits, safe_idx, valid):
+        xm = logits.amax(dim=-1).to(torch.float32)
+        s = torch.exp(logits.to(torch.float32) - xm[:, None]).sum(dim=-1)
+        lse = torch.log(s) + xm
+        picked = logits.gather(1, safe_idx[:, None])[:, 0].to(torch.float32)
+        ctx.save_for_backward(logits, safe_idx, valid, lse)
+        return torch.where(valid, lse - picked, 0.0)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, safe_idx, valid, lse = ctx.saved_tensors
+        p = torch.exp(logits.to(torch.float32) - lse[:, None])
+        p.scatter_add_(1, safe_idx[:, None],
+                       torch.full_like(lse[:, None], -1.0))
+        p *= (g * valid.to(torch.float32))[:, None]
+        return p.to(logits.dtype), None, None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_index: int = -100) -> torch.Tensor:
+    """Mean softmax cross-entropy over the rows whose label is not
+    ``ignore_index`` (reference: ``nn/functional/loss.py``
+    ``cross_entropy``, hard labels, ``reduction="mean"``): ``logits``
+    [N, V] in any float dtype, ``labels`` [N] int; the softmax runs in
+    fp32, the loss is fp32 and the gradient is in the logits' dtype."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    loss = _SoftmaxXent.apply(logits, safe, valid)
+    return loss.sum() / torch.clamp(valid.to(torch.float32).sum(), min=1.0)
+
+
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor) -> torch.Tensor:
     """Causal attention, bottom-right aligned (a query row ``i`` of ``Sq``

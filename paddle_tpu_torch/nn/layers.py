@@ -1,8 +1,8 @@
 """Layers of the Llama path (counterparts of ``paddle_tpu/nn/layers.py``).
 
-Parameters are created uninitialized on the given device and dtype; the
-model initializes them from an explicit ``torch.Generator`` or loads them
-(``testing/parity.py``).
+Parameters are created uninitialized (and trainable) on the given device
+and dtype; the model initializes them from an explicit ``torch.Generator``
+or loads them (``testing/parity.py``).
 """
 from __future__ import annotations
 
@@ -24,9 +24,9 @@ class Linear(nn.Module):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
-                                               **kw), requires_grad=False)
-        self.bias = (nn.Parameter(torch.empty(out_features, **kw),
-                                  requires_grad=False) if bias else None)
+                                               **kw))
+        self.bias = (nn.Parameter(torch.empty(out_features, **kw))
+                     if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
@@ -41,7 +41,7 @@ class Embedding(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(
             torch.empty(num_embeddings, embedding_dim, device=device,
-                        dtype=dtype), requires_grad=False)
+                        dtype=dtype))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return F.embedding(ids, self.weight)
@@ -55,8 +55,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.epsilon = epsilon
         self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
-                                              dtype=dtype),
-                                   requires_grad=False)
+                                              dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return PF.rms_norm(x, self.weight, self.epsilon)

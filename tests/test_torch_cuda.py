@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch/CUDA port: each CUDA kernel against its
-plain PyTorch version, and the tiny engine against the eager model, on
-the device.  Every test skips itself when no CUDA device is present.
+plain PyTorch version, the tiny engine against the eager model, and a
+tiny training step through the flash kernels, on the device.  Every test
+skips itself when no CUDA device is present.
 
 This file imports neither JAX nor ``paddle_tpu``, so it also runs on a
 machine that has only PyTorch; there, skip the repository's conftest
@@ -12,10 +13,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import _ragged_case, ragged_tolerance
+from chip_smoke import (_flash_case, _ragged_case, flash_excess,
+                        flash_noise, flash_tolerance, ragged_tolerance)
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
-from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny_config
+from paddle_tpu_torch.jit.train_step import TrainStep
+from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                           LlamaPretrainingCriterion,
+                                           llama_tiny_config)
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import kernels as pk
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -114,3 +121,113 @@ def test_tiny_engine_on_card_matches_eager(cuda):
     eng.run_to_completion()
     assert [eng.result(x) for x in r] == want
     assert len(eng.caches[0]._free) == 64
+
+
+# (causal, rope, Sq, Sk): square, longer key axis, rows that see nothing
+# (Sq > Sk), and lengths off the kernels' 64-row tiles
+FLASH_SHAPES = {"causal_rope": (True, True, 130, 130),
+                "full_rope": (False, True, 96, 96),
+                "causal": (True, False, 200, 200),
+                "rect_causal": (True, False, 70, 190),
+                "dead_rows": (True, False, 190, 70),
+                "rect_full": (False, False, 50, 130)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_kernels_match_plain(cuda, dtype, D, shape):
+    """The forward and both backward forms against their plain versions
+    (chip_smoke's tolerances); each wrapper counts one launch; rows that
+    see nothing give lse -inf and out 0."""
+    causal, rope, Sq, Sk = FLASH_SHAPES[shape]
+    gen = torch.Generator(cuda).manual_seed(0)
+    q, k, v, g, tables = _flash_case(2, Sq, Sk, 3, D, dtype, rope, gen)
+    before = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_fused,
+                                   fa.flash_bwd_two_kernel)]
+    out, lse = fa.flash_fwd(q, k, v, causal, tables)
+    want_out, want_lse = fa._flash_fwd_plain(q, k, v, causal, tables)
+    dead = torch.isneginf(want_lse)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert dead.any() == (shape == "dead_rows")
+    assert (out.transpose(1, 2)[dead] == 0).all()
+    noise = dict.fromkeys(("flash_fwd", "flash_bwd"), (None,) * 3)
+    if dtype == "bfloat16":
+        noise = {kern: flash_noise(kern, q, k, v, out, lse, g, causal,
+                                   tables)
+                 for kern in ("flash_fwd", "flash_bwd")}
+    assert flash_excess(out, want_out, flash_tolerance(
+        want_out, dtype, noise["flash_fwd"][0])) <= 1.0
+    assert (lse[~dead] - want_lse[~dead]).abs().max().item() <= 1e-4
+    want = fa._flash_bwd_plain(q, k, v, out, lse, g, causal, tables)
+    for fn in (fa.flash_bwd_fused, fa.flash_bwd_two_kernel):
+        got = fn(q, k, v, out, lse, g, causal, tables)
+        torch.cuda.synchronize()
+        for a, b, f in zip(got, want, noise["flash_bwd"]):
+            assert torch.isfinite(a).all()
+            assert flash_excess(a, b, flash_tolerance(b, dtype, f)) <= 1.0
+    assert [f.launches for f in (fa.flash_fwd, fa.flash_bwd_fused,
+                                 fa.flash_bwd_two_kernel)] \
+        == [n + 1 for n in before]
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(1, 64, 2, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd(x, x, x, True)
+    y = torch.zeros(1, 64, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd(y.half(), y.half(), y.half(), True)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        fa.flash_fwd(y, torch.zeros(1, 32, 2, 64, device=cuda),
+                     torch.zeros(1, 32, 2, 64, device=cuda), True,
+                     fa.rope_tables(64, 64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(y.transpose(1, 2).contiguous().transpose(1, 2), y, y,
+                     True)
+
+
+def test_flash_attention_rope_launches_at_any_length(cuda):
+    """S=200 has no Pallas block (the reference falls back there); the
+    port still launches the forward kernel and the backward form the
+    reference's router picks for it (two-kernel: no key block), and a
+    head dim the kernels lack raises instead of falling back."""
+    gen = torch.Generator(cuda).manual_seed(1)
+    q, k, v = (torch.randn(1, 200, 4, 64, generator=gen, device=cuda)
+               .requires_grad_() for _ in range(3))
+    assert not fa.fused_bwd_taken(200)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_two_kernel.launches)
+    fa.flash_attention_rope(q, k, v).sum().backward()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_two_kernel.launches) \
+        == (before[0] + 1, before[1] + 1)
+    assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+    x = torch.zeros(1, 200, 4, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_rope(x, x, x)
+
+
+def test_tiny_train_step_on_card_matches_cpu(cuda):
+    """Three fp32 TrainStep steps of a tiny model (head dim 64) on the
+    card, through the flash kernels, against the same steps on the CPU
+    (plain versions): losses to 1e-4 relative."""
+    cfg = llama_tiny_config(hidden_size=256, num_attention_heads=4,
+                            num_key_value_heads=2, vocab_size=256,
+                            intermediate_size=256)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 256,
+                                                            (2, 128)))
+    losses = {}
+    for dev in ("cpu", cuda):
+        model = LlamaForCausalLM(cfg, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(0))
+        if dev != "cpu":
+            model.load_state_dict(cpu_state)
+        cpu_state = {k: t.clone() for k, t in model.state_dict().items()}
+        step = TrainStep(model, LlamaPretrainingCriterion(),
+                         AdamW(1e-3, parameters=model.named_parameters()),
+                         clip_norm=1.0)
+        before = fa.flash_fwd.launches
+        losses[str(dev)] = [step(ids.to(dev), ids.to(dev)).item()
+                            for _ in range(3)]
+        launched = fa.flash_fwd.launches - before
+    assert launched == 3 * cfg.num_hidden_layers
+    np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4)

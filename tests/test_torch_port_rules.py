@@ -16,9 +16,14 @@ import paddle_tpu  # noqa: F401  (the reference; the port must not need it)
 
 import paddle_tpu_torch
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
-from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny_config
+from paddle_tpu_torch.jit.train_step import TrainStep
+from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                           LlamaPretrainingCriterion,
+                                           llama_tiny_config)
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import rope_qkv_epilogue
 from paddle_tpu_torch.ops.paged_attention import ragged_paged_attention
+from paddle_tpu_torch.optimizer import AdamW
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(paddle_tpu_torch.__file__)
@@ -52,6 +57,11 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                                   n) for n in names if _forbidden(n)]
     assert not bad, bad
     assert len(_port_sources()) > 10
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for module in ("ops/flash_attention.py", "optimizer/optimizer.py",
+                   "jit/train_step.py", "models/llama.py",
+                   "nn/functional.py"):
+        assert os.path.join("paddle_tpu_torch", module) in scanned
 
 
 def test_importing_the_port_loads_no_jax():
@@ -68,6 +78,7 @@ def test_importing_the_port_loads_no_jax():
         " or m == 'paddle_tpu' or m.startswith('paddle_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'paddle_tpu_torch.inference.serving' in sys.modules\n"
+        "assert 'paddle_tpu_torch.jit.train_step' in sys.modules\n"
         "print('clean')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -149,3 +160,37 @@ def test_unported_request_options_raise(knobs):
     with pytest.raises(NotImplementedError, match="not ported"):
         eng.add_request(np.arange(1, 4), 2, **knobs)
     assert not eng.waiting
+
+
+FLASH_COUNTERS = (fa.flash_fwd, fa.flash_bwd_fused, fa.flash_bwd_two_kernel)
+
+
+def test_training_path_on_cpu_launches_no_flash_kernel():
+    """A TrainStep on the CPU runs the flash forward and backward through
+    their plain versions and counts no launch (counts are compared with
+    their values before, as above)."""
+    before = [f.launches for f in FLASH_COUNTERS]
+    model = _tiny()
+    step = TrainStep(model, LlamaPretrainingCriterion(),
+                     AdamW(1e-3, parameters=model.named_parameters()),
+                     clip_norm=1.0)
+    ids = torch.from_numpy(np.arange(1, 17).reshape(2, 8) % 64)
+    loss = step(ids, ids)
+    assert torch.isfinite(loss) and step.global_step == 1
+    q = torch.randn(1, 64, 2, 64, requires_grad=True)
+    out = fa.flash_attention_rope(q, q, q)
+    out.sum().backward()
+    fa.flash_bwd_two_kernel(*(t.detach() for t in (q, q, q)),
+                            *fa.flash_fwd(q.detach(), q.detach(),
+                                          q.detach(), True),
+                            torch.ones_like(out), True)
+    assert [f.launches for f in FLASH_COUNTERS] == before
+
+
+@pytest.mark.parametrize("option", ["mesh", "sharding"])
+def test_unported_train_step_options_raise(option):
+    model = _tiny()
+    opt = AdamW(1e-3, parameters=model.named_parameters())
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TrainStep(model, LlamaPretrainingCriterion(), opt,
+                  **{option: object()})

@@ -65,11 +65,15 @@ def _port_generate(port, prompt, n):
 
 
 def test_tiny_logits_match_reference(tiny_pair):
+    """The forward without caches (the training path: rope fused into
+    flash attention) returns the logits alone, as the reference does."""
     ref, port = tiny_pair
     ids = np.random.RandomState(0).randint(0, 128, (2, 11)).astype(np.int64)
     want = np.asarray(ref(paddle.to_tensor(ids))._value)
-    got, _ = port(torch.from_numpy(ids))
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+    got = port(torch.from_numpy(ids))
+    assert got.requires_grad
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                               atol=1e-5)
     assert param_count(port.config) == sum(p.numel()
                                            for p in port.parameters())
 
