@@ -13,25 +13,44 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    ``nvcc`` per source started together; print the build seconds and the
    ``-Xptxas -v`` register/shared-memory lines.
 2. Serving kernels against their plain PyTorch versions on the card, at
-   the shapes the serving path gives them: one JSON line per kernel and
-   shape with the error, its tolerance, the kernel's and the plain
-   version's times (CUDA events), the roofline bound and the library
-   time (null: no single PyTorch call computes either function).
-3. The serving slice at full width: a random-weight Llama-2-7B (bf16)
-   served by ``ContinuousBatchingEngine`` (mixed step) over 8 requests
-   with prompts of 64..1024 tokens, admitted 4 + 4 so that prefill chunks
-   ride with running decodes.  Both kernels must have launched layers x
-   steps times, the pool must be whole afterwards and every token in the
-   vocabulary.  The greedy token-match rate against the eager
-   ``generate`` is reported, not asserted (random bf16 logits can tie).
-   Then the same traffic once more under ``torch.profiler``: device time
-   by kernel kind and the device's idle share.
+   the shapes the serving paths give them: ragged paged attention (fp32/
+   bf16 and int8 pools), paged decode attention (fp32/bf16 and int8), the
+   RoPE + QKV epilogue; one JSON line per kernel and shape with the
+   error, its tolerance, the kernel's and the plain version's times (CUDA
+   events), the roofline bound and the library time (null: no single
+   PyTorch call computes any of them).  For int8 pools the tolerance is
+   per element (:func:`int8_tolerance`) and must reject planted faults:
+   the kernel run without each sequence's last key or last page, the
+   int8 math with p left unquantized, and the dequantizing reference.  Also the library time of
+   RMSNorm (kernel #4, not ported: it has no caller yet) at the shape the
+   layerwise 7B bench feeds it.
+3. The serving slice at full width: a random-weight Llama-2-7B (bf16),
+   built once, serves 8 requests with prompts of 64..1024 tokens, 32 new
+   tokens each, admitted 4 + 4 so that prefill chunks ride with running
+   decodes, through five engines: the mixed step; the split engine with
+   bucketed, chunked prefill (chunks of 256); the split engine with the
+   dense prefill; and both engines over int8 pools.  Each run's launch
+   counts must be exact for its engine (the mixed step: ragged attention
+   and epilogue once per layer per step; the split engine: decode
+   attention once per layer per decode step, the epilogue once per layer
+   per decode step and prefill chunk; int8 pools: the int8 variants and
+   the epilogue with amaxes; nothing else), the pool whole afterwards,
+   every token in the vocabulary, and the int8 pools must hold >= 1.9x
+   the pages per byte of the bf16 pools, scales counted.  Token matches
+   against the eager ``generate`` and between engines are reported, not
+   asserted (random bf16 logits can tie).  The mixed and split runs are
+   profiled once more under ``torch.profiler``: device time by kernel
+   kind and the device's idle share.
 4. Serving parity at full width and reduced depth: the same model with 2
-   layers in fp32 and the same traffic; the engine's tokens must match
-   the eager ``generate`` (which runs no kernel) at a mean per-request
-   rate of at least 0.98, counted up to each request's first divergence.
-   Then the first step's logits against the eager forward by depth and
-   dtype: fp32 at all 32 layers (held to 1e-3) and bf16 at 2 layers.
+   layers in fp32 and the same traffic; the mixed and split engines must
+   match the eager ``generate`` (which runs no kernel) and each other at a
+   mean per-request rate of at least 0.98, counted up to each request's
+   first divergence, and each engine over int8 pools must match itself
+   run through the plain int8 versions on the card at 0.98.  Its match
+   against its fp32-pool run is reported (see :func:`phase_parity_2l`).
+   Then the first step's
+   logits against the eager forward by depth and dtype: fp32 at all 32
+   layers (held to 1e-3) and bf16 at 2 layers.
 5. The three flash kernels (forward, one-pass backward, two-kernel
    backward) against their plain versions over fp32/bf16, head dims 64
    and 128, causal or not, rope on and off, rectangular shapes and rows
@@ -50,8 +69,10 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
 8. Long context: CodeLlama-7B's config at 2 layers, bf16, batch 1 x
    16384, 2 steps: the router must take the two-kernel backward (once
    per layer per step) and never the fused one.
-9. Before the last line, one JSON object with every kernel's numbers;
-   the last line is ``{"ok": true, "device": {...}}``.
+9. Before the last line, one JSON object with every kernel variant's
+   numbers; the last line is ``{"ok": true, "device": {...}}``.
+
+Each phase prints its wall seconds.
 
 The script imports nothing of JAX and nothing of ``paddle_tpu``.  Without
 a CUDA card it exits nonzero before printing any result.
@@ -69,19 +90,25 @@ import numpy as np
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core rate
-              "float32": 67e12}    # fp32 outside the tensor cores
+              "float32": 67e12,    # fp32 outside the tensor cores
+              "int8": 1979e12}     # dense tensor-core int8 rate
 
 RAGGED_SOURCE = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
 ROPE_SOURCE = "paddle_tpu_torch/csrc/rope_qkv.cu"
+DECODE_SOURCE = "paddle_tpu_torch/csrc/paged_decode_attention.cu"
 RAGGED_REPLACES = "paddle_tpu/ops/pallas_kernels.py:1443"
 ROPE_REPLACES = "paddle_tpu/ops/pallas_kernels.py:1779"
+DECODE_REPLACES = "paddle_tpu/ops/paged_attention.py:936"
 NO_LIBRARY = ("no single PyTorch call computes it: %s")
 
 # served traffic (phases 3 and 4)
 PROMPT_LENS = (64, 1024, 200, 768, 128, 512, 900, 320)
 NEW_TOKENS = 32
-ENGINE_KW = dict(mixed_step=True, max_batch_size=8, block_size=16,
-                 num_blocks=640, max_seq_len=1088, prefill_chunk_size=256)
+ENGINE_BASE = dict(max_batch_size=8, block_size=16, num_blocks=640,
+                   max_seq_len=1088, prefill_chunk_size=256)
+ENGINE_KW = dict(ENGINE_BASE, mixed_step=True)           # the mixed engine
+SPLIT_KW = dict(ENGINE_BASE, mixed_step=False, prefill_buckets="auto")
+DENSE_KW = dict(ENGINE_BASE, mixed_step=False, prefill_buckets=None)
 
 
 def emit(obj) -> None:
@@ -184,13 +211,19 @@ def _ragged_case(spans, T, H, Hkv, D, bs, dtype, gen, poison=False,
             as_dev(kv_len))
 
 
-def _ragged_work(spans, H, Hkv, D, bs, T, S, W, itemsize):
+def _ragged_work(spans, H, Hkv, D, bs, T, table_ints, itemsize,
+                 pool_itemsize=None):
     """Bytes (each input read once, the output written once) and
-    operations this pack needs: 4 per visible (query head, key, dim)."""
+    operations this pack needs: 4 per visible (query head, key, dim).
+    ``table_ints`` counts the int32 table entries; int8 pools
+    (``pool_itemsize`` 1) also read each used page's two fp32 scales."""
+    pool_itemsize = pool_itemsize or itemsize
     rows = sum(ql for ql, _ in spans)
-    kv_bytes = sum(kvl for _, kvl in spans) * Hkv * D * itemsize * 2
+    kv_bytes = sum(kvl for _, kvl in spans) * Hkv * D * pool_itemsize * 2
+    if pool_itemsize == 1:
+        kv_bytes += sum(-(-kvl // bs) for _, kvl in spans) * Hkv * 4 * 2
     n_bytes = (rows * H * D * itemsize + kv_bytes + T * H * D * itemsize
-               + S * (W + 3) * 4)
+               + table_ints * 4)
     pairs = sum(sum(kvl - ql + r + 1 for r in range(ql))
                 for ql, kvl in spans)
     return n_bytes, 4.0 * pairs * H * D
@@ -211,39 +244,261 @@ def ragged_tolerance(want) -> float:
     return 2.0 ** -7 * want.float().abs().max().item()
 
 
+def _quantize_pools(kc, vc, poison_page=None):
+    """int8 codes and per-page, per-head absmax scales [phys, Hkv] of
+    random fp pools (the scales of ``poison_page`` set to NaN: the kernels
+    must never read them).  Returns ``(kc8, vc8, key_scale, value_scale,
+    vmax)``, ``vmax`` the largest dequantized |v| of the other pages."""
+    import torch
+    from paddle_tpu_torch.ops.paged_attention import dequant_pages
+    from paddle_tpu_torch.quantization.functional import quantize_symmetric
+    out = []
+    for c in (kc, vc):
+        sc = torch.nan_to_num(c.float(), nan=0.0).abs().amax(dim=(1, 3))
+        codes = quantize_symmetric(torch.nan_to_num(c.float(), nan=0.0),
+                                   sc[:, None, :, None]).to(torch.int8)
+        out.append((codes, sc))
+    (kc8, ks), (vc8, vs) = out
+    keep = torch.ones(kc.shape[0], dtype=torch.bool, device=kc.device)
+    if poison_page is not None:
+        ks[poison_page] = float("nan")
+        vs[poison_page] = float("nan")
+        keep[poison_page] = False
+    vmax = dequant_pages(vc8[keep], vs[keep]).abs().max().item()
+    return kc8, vc8, ks, vs, vmax
+
+
+def int8_tolerance(want, flips, vmax: float):
+    """The int8 kernels' allowed abs error against their plain versions,
+    per element.  Both compute the same integer products and differ only
+    in the fp32 order of the exp, the running max and the merges (the
+    kernel's max is per warp or per tile, the plain version's per page):
+    fp32 rounding, held to 1e-5 * vmax, except where a probability code
+    rounds the other way.  Only a code whose value sits within
+    ``P_CODE_REL_WINDOW`` of a .5 boundary can, and ``flips`` (the plain
+    version's ``flip_bound``) is the most that all such codes move each
+    element.  bf16 outputs add both sides' rounding to bf16: at most 2^-8
+    of each value, so 2^-7 of the plain version's plus its share of the
+    fp32 part."""
+    import torch
+    e = flips.float() + 1e-5 * vmax
+    if want.dtype == torch.bfloat16:
+        return (1 + 2.0 ** -8) * e + BF16_ULP * (1 + BF16_ULP) * \
+            want.float().abs()
+    return e
+
+
+def cut_lengths(lens, floor, bs: int, by_page: bool):
+    """Planted fault: ``lens`` with each sequence's last key (or its last
+    page) left out, never below ``floor``."""
+    import torch
+    cut = (lens - 1) // bs * bs if by_page else lens - 1
+    return torch.maximum(cut, floor).to(lens.dtype)
+
+
+def dequantized_q(q):
+    """q's rows through the int8 kernels' q quantizer and back, fp32."""
+    from paddle_tpu_torch.quantization.functional import (
+        dequantize_symmetric, quantize_rows_symmetric)
+    return dequantize_symmetric(*quantize_rows_symmetric(q))
+
+
+def fault_excess(faults, want, tol):
+    """The largest |out - want| / tol of each planted fault's output: the
+    tolerance rejects the fault where it is above 1."""
+    return {name: ((out.float() - want.float()).abs() / tol).max().item()
+            for name, out in faults.items()}
+
+
+def check_faults(name, excess):
+    kept = [k for k, x in excess.items() if not x > 1.0]
+    if kept:
+        raise AssertionError("%s: the int8 tolerance does not reject the "
+                             "planted faults %s (%s)" % (name, kept, excess))
+
+
+def _int8_plain_faults(attend_fp, q, kc, vc, ks, vs):
+    """The planted faults that are not the kernel's own: the int8 math
+    with p left unquantized (q still quantized: fp attention of q's
+    dequantized codes over the dequantized pools), and the dequantizing
+    reference (fp attention of q itself over them)."""
+    from paddle_tpu_torch.ops.paged_attention import dequant_pages
+    kd, vd = dequant_pages(kc, ks), dequant_pages(vc, vs)
+    return {"p_unquantized": attend_fp(dequantized_q(q), kd, vd),
+            "dequant_reference": attend_fp(q.float(), kd, vd)}
+
+
 def check_ragged(case, spans, T, H, Hkv, D, bs, dtype_name, gen,
-                 span_q, poison=False, n_pad_spans=0):
+                 span_q, poison=False, n_pad_spans=0, quantized=False):
+    """The ragged kernel against its plain version on one pack (int8
+    pools when ``quantized``, with the planted faults the tolerance must
+    reject); one JSON line with the error, tolerance, times and bound."""
     import torch
     from paddle_tpu_torch.ops.paged_attention import (
-        _ragged_attention_plain, ragged_paged_attention)
+        _ragged_attention_int8_plain, _ragged_attention_plain,
+        ragged_paged_attention)
     dtype = getattr(torch, dtype_name)
     q, kc, vc, bt, q_off, q_len, kv_len = _ragged_case(
         spans, T, H, Hkv, D, bs, dtype, gen, poison, n_pad_spans)
     scale = 1.0 / math.sqrt(D)
-    args = (q, kc, vc, bt, q_off, q_len, kv_len, scale)
-    got = ragged_paged_attention(*args, span_q=span_q)
+    tables = (bt, q_off, q_len, kv_len)
+    scales, extra = {}, {}
+    if quantized:
+        kc, vc, ks, vs, vmax = _quantize_pools(
+            kc, vc, kc.shape[0] - 2 if poison else None)
+        scales = dict(key_scale=ks, value_scale=vs)
+
+        def plain():
+            return _ragged_attention_int8_plain(q, kc, vc, ks, vs, *tables,
+                                                scale)
+    else:
+        def plain():
+            return _ragged_attention_plain(q, kc, vc, *tables, scale)
+
+    def kernel(kv=kv_len):
+        return ragged_paged_attention(q, kc, vc, bt, q_off, q_len, kv, scale,
+                                      span_q=span_q, **scales)
+    got = kernel()
     torch.cuda.synchronize()
-    want = _ragged_attention_plain(*args)
-    err = (got.float() - want.float()).abs().max().item()
-    tol = ragged_tolerance(want)
-    if not (err <= tol) or not torch.isfinite(got).all():
-        raise AssertionError("ragged_paged_attention %s: max_abs_err %g > "
-                             "tol %g (or non-finite output)"
-                             % (case, err, tol))
+    if quantized:
+        want, flips = _ragged_attention_int8_plain(
+            q, kc, vc, ks, vs, *tables, scale, flip_bound=True)
+        tol = int8_tolerance(want, flips, vmax)
+        faults = {"kernel_drops_last_key": kernel(
+                      cut_lengths(kv_len, q_len, bs, False)),
+                  "kernel_drops_last_page": kernel(
+                      cut_lengths(kv_len, q_len, bs, True))}
+        faults.update(_int8_plain_faults(
+            lambda qq, kd, vd: _ragged_attention_plain(
+                qq, kd, vd, *tables, scale), q, kc, vc, ks, vs))
+        extra = dict(fault_excess=fault_excess(faults, want, tol),
+                     flips_max=flips.max().item())
+    else:
+        want = plain()
+        tol = ragged_tolerance(want)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    name = "ragged_paged_attention" + ("_int8" if quantized else "")
+    if not (diff <= tol).all() or not torch.isfinite(got).all():
+        raise AssertionError("%s %s %s: max_abs_err %g over tol (or "
+                             "non-finite output)" % (name, case, dtype_name,
+                                                     err))
+    if quantized:
+        check_faults("%s %s %s" % (name, case, dtype_name),
+                     extra["fault_excess"])
     S, W = bt.shape
-    n_bytes, flops = _ragged_work(spans, H, Hkv, D, bs, T, S, W,
-                                  q.element_size())
-    b_ms, b_by = bound_ms(n_bytes, flops, dtype_name)
-    row = dict(kernel="ragged_paged_attention", case=case,
-               dtype=dtype_name, T=T, H=H, Hkv=Hkv, D=D, block_size=bs,
-               spans=len(spans), max_abs_err=err, tol=tol,
-               kernel_ms=time_ms(lambda: ragged_paged_attention(
-                   *args, span_q=span_q), 20),
-               plain_ms=time_ms(lambda: _ragged_attention_plain(*args), 3,
-                                warmup=1),
+    n_bytes, flops = _ragged_work(spans, H, Hkv, D, bs, T, S * (W + 3),
+                                  q.element_size(), kc.element_size())
+    b_ms, b_by = bound_ms(n_bytes, flops,
+                          "int8" if quantized else dtype_name)
+    row = dict(kernel=name, case=case, dtype=dtype_name, T=T, H=H,
+               Hkv=Hkv, D=D, block_size=bs, spans=len(spans),
+               max_abs_err=err, err_over_tol=_err_over_tol(diff, tol),
+               kernel_ms=time_ms(kernel, 20),
+               plain_ms=time_ms(plain, 3, warmup=1),
                bound_ms=b_ms, bound_by=b_by, library_ms=None,
                library_note=NO_LIBRARY % "attention over a paged block "
-               "table with per-span positional masks")
+               "table with per-span positional masks", **extra)
+    emit(row)
+    return row
+
+
+def _err_over_tol(diff, tol) -> float:
+    """The largest error in units of its element's tolerance."""
+    return (diff / tol).max().item()
+
+
+def check_paged(case, seq_lens, n_masked, H, Hkv, D, bs, dtype_name, gen,
+                quantized=False):
+    """The decode kernel against its plain version: one query per slot at
+    ``seq_lens`` (distinct pages, every unused table entry aimed at a NaN
+    page, or at NaN scales for int8), plus ``n_masked`` slots as the
+    engine masks them (seq_len 1 over an all-sink row); int8 pools with
+    the planted faults the tolerance must reject."""
+    import torch
+    from paddle_tpu_torch.ops.paged_attention import (_paged_attention_plain,
+                                                      paged_attention)
+    dtype = getattr(torch, dtype_name)
+    B = len(seq_lens) + n_masked
+    q, kc, vc, bt, _, _, sl = _ragged_case(
+        [(1, s) for s in seq_lens], B, H, Hkv, D, bs, dtype, gen,
+        poison=True, n_pad_spans=n_masked)
+    scale = 1.0 / math.sqrt(D)
+    scales, extra = {}, {}
+    if quantized:
+        kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
+        scales = dict(key_scale=ks, value_scale=vs)
+
+    def kernel(lens=sl):
+        return paged_attention(q, kc, vc, bt, lens, scale, **scales)
+
+    def plain():
+        return _paged_attention_plain(q, kc, vc, bt, sl, scale, **scales)
+    got = kernel()
+    torch.cuda.synchronize()
+    if quantized:
+        want, flips = _paged_attention_plain(q, kc, vc, bt, sl, scale,
+                                             flip_bound=True, **scales)
+        tol = int8_tolerance(want, flips, vmax)
+        one = sl.clamp(max=1)
+        faults = {"kernel_drops_last_key": kernel(
+                      cut_lengths(sl, one, bs, False)),
+                  "kernel_drops_last_page": kernel(
+                      cut_lengths(sl, one, bs, True))}
+        faults.update(_int8_plain_faults(
+            lambda qq, kd, vd: _paged_attention_plain(
+                qq, kd, vd, bt, sl, scale), q, kc, vc, ks, vs))
+        extra = dict(fault_excess=fault_excess(faults, want, tol),
+                     flips_max=flips.max().item())
+    else:
+        want = plain()
+        tol = ragged_tolerance(want)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    name = "paged_attention" + ("_int8" if quantized else "")
+    if not (diff <= tol).all() or not torch.isfinite(got).all():
+        raise AssertionError("%s %s %s: max_abs_err %g over tol (or "
+                             "non-finite output)" % (name, case, dtype_name,
+                                                     err))
+    if quantized:
+        check_faults("%s %s %s" % (name, case, dtype_name),
+                     extra["fault_excess"])
+    spans = [(1, s) for s in seq_lens] + [(1, 1)] * n_masked
+    W = bt.shape[1]
+    n_bytes, flops = _ragged_work(spans, H, Hkv, D, bs, B, B * (W + 1),
+                                  q.element_size(), kc.element_size())
+    b_ms, b_by = bound_ms(n_bytes, flops,
+                          "int8" if quantized else dtype_name)
+    row = dict(kernel=name, case=case, dtype=dtype_name, B=B, H=H, Hkv=Hkv,
+               D=D, block_size=bs, max_abs_err=err,
+               err_over_tol=_err_over_tol(diff, tol),
+               kernel_ms=time_ms(kernel, 20),
+               plain_ms=time_ms(plain, 3, warmup=1), bound_ms=b_ms,
+               bound_by=b_by, library_ms=None,
+               library_note=NO_LIBRARY % "attention of one query per slot "
+               "over a paged block table with per-slot lengths", **extra)
+    emit(row)
+    return row
+
+
+def rms_norm_library(gen):
+    """Kernel #4 (RMSNorm, ``rms_norm_tpu``) has no caller yet and is not
+    ported: time the library call at the shape ``bench.py::
+    _bench_layerwise`` feeds a norm (Llama-2-7B hidden 4096, batch 2 x
+    2048 rows, bf16), beside the bound."""
+    import torch
+    rows_, h = 2 * 2048, 4096
+    x = torch.randn(rows_, h, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.ones(h, device="cuda", dtype=torch.bfloat16)
+    n_bytes = 2 * rows_ * h * 2 + h * 2
+    b_ms, b_by = bound_ms(n_bytes, 4.0 * rows_ * h, "bfloat16")
+    row = dict(kernel="rms_norm", case="7b_layerwise_2x2048",
+               dtype="bfloat16", rows=rows_, hidden=h,
+               status="library only, kernel not ported",
+               library_ms=time_ms(lambda: torch.nn.functional.rms_norm(
+                   x, (h,), w, 1e-6), 50),
+               bound_ms=b_ms, bound_by=b_by)
     emit(row)
     return row
 
@@ -300,33 +555,49 @@ def phase_kernels():
     mixed = decode + [(chunk, 1024)]
     # the engine pads the token axis to its budget: 8 for an all-decode
     # step, 512 for 8 decodes + a 256-token chunk; span_q = min(chunk, T)
-    rows = {"ragged": [], "rope": []}
+    rows = {"ragged": [], "rope": [], "ragged_int8": [], "decode": [],
+            "decode_int8": []}
     rows["ragged"].append(check_ragged(
         "7b_decode_8x1024", decode, 8, H, H, D, bs, "bfloat16", gen,
         span_q=8))
-    rows["ragged"].append(check_ragged(
-        "7b_mixed_8x1024+256", mixed, 512, H, H, D, bs, "bfloat16", gen,
-        span_q=chunk))
-    rows["ragged"].append(check_ragged(
-        "7b_mixed_8x1024+256", mixed, 512, H, H, D, bs, "float32", gen,
-        span_q=chunk))
-    for dt in ("bfloat16", "float32"):
-        rows["ragged"].append(check_ragged(
-            "gqa32x8_mixed_8x1024+256", mixed, 512, H, 8, D, bs, dt, gen,
-            span_q=chunk))
     # odd small shape: groups of 3, a 5-slot page, chunks starting
     # mid-page, a prefix-offset span, padding spans, and every unused
     # table entry aimed at a NaN page (the clamp must never read it)
     odd = [(1, 7), (13, 29), (3, 3), (1, 1), (9, 41), (2, 11)]
-    for dt in ("float32", "bfloat16"):
-        rows["ragged"].append(check_ragged(
-            "odd_poisoned", odd, 40, 6, 2, 64, 5, dt, gen, span_q=13,
-            poison=True, n_pad_spans=3))
+    for quantized in (False, True):
+        key = "ragged_int8" if quantized else "ragged"
+        for dt in ("bfloat16", "float32"):
+            rows[key].append(check_ragged(
+                "7b_mixed_8x1024+256", mixed, 512, H, H, D, bs, dt, gen,
+                span_q=chunk, quantized=quantized))
+            rows[key].append(check_ragged(
+                "gqa32x8_mixed_8x1024+256", mixed, 512, H, 8, D, bs, dt,
+                gen, span_q=chunk, quantized=quantized))
+            rows[key].append(check_ragged(
+                "odd_poisoned", odd, 40, 6, 2, 64, 5, dt, gen, span_q=13,
+                poison=True, n_pad_spans=3, quantized=quantized))
+    # the split engine's decode step: 8 slots at kv 1024 (the 7B decode
+    # shape), GQA 32/8, and an odd poisoned shape with masked slots
+    odd_lens = [7, 29, 3, 1, 41, 11, 16]
+    for quantized in (False, True):
+        key = "decode_int8" if quantized else "decode"
+        for dt in ("bfloat16", "float32"):
+            rows[key].append(check_paged(
+                "7b_decode_8x1024", [1024] * 8, 0, H, H, D, bs, dt, gen,
+                quantized))
+            rows[key].append(check_paged(
+                "gqa32x8_decode_8x1024", [1024] * 8, 0, H, 8, D, bs, dt, gen,
+                quantized))
+            for Dx, heads in ((64, (8, 2)), (32, (16, 2))):
+                rows[key].append(check_paged(
+                    "odd_poisoned_masked_D%d" % Dx, odd_lens, 3, heads[0],
+                    heads[1], Dx, 5, dt, gen, quantized))
     for N in (8, 512):
         for amax in (False, True):
             rows["rope"].append(check_rope(
                 "7b_T%d%s" % (N, "_amax" if amax else ""), N, H, H, D,
                 amax, gen))
+    rows["rms_norm"] = rms_norm_library(gen)
     return rows
 
 
@@ -583,18 +854,56 @@ def _prompts(vocab: int):
             for n in PROMPT_LENS]
 
 
+# every launch counter of the serving kernels, by the name the final line
+# gives the kernel variant: (module, wrapper, attribute)
+SERVING_COUNTERS = {
+    "ragged_paged_attention": ("paged_attention", "ragged_paged_attention",
+                               "launches"),
+    "ragged_paged_attention_int8": ("paged_attention",
+                                    "ragged_paged_attention",
+                                    "int8_launches"),
+    "paged_attention": ("paged_attention", "paged_attention", "launches"),
+    "paged_attention_int8": ("paged_attention", "paged_attention",
+                             "int8_launches"),
+    "rope_qkv_epilogue": ("kernels", "rope_qkv_epilogue", "launches"),
+    "rope_qkv_epilogue_amax": ("kernels", "rope_qkv_epilogue",
+                               "amax_launches"),
+}
+
+
+def _counter(name):
+    import importlib
+    mod, fn, attr = SERVING_COUNTERS[name]
+    return getattr(importlib.import_module("paddle_tpu_torch.ops." + mod),
+                   fn), attr
+
+
 def _reset_launches():
-    from paddle_tpu_torch.ops.kernels import rope_qkv_epilogue
-    from paddle_tpu_torch.ops.paged_attention import ragged_paged_attention
-    rope_qkv_epilogue.launches = 0
-    ragged_paged_attention.launches = 0
+    for name in SERVING_COUNTERS:
+        fn, attr = _counter(name)
+        setattr(fn, attr, 0)
 
 
 def _launches():
-    from paddle_tpu_torch.ops.kernels import rope_qkv_epilogue
-    from paddle_tpu_torch.ops.paged_attention import ragged_paged_attention
-    return {"ragged_paged_attention": ragged_paged_attention.launches,
-            "rope_qkv_epilogue": rope_qkv_epilogue.launches}
+    out = {}
+    for name in SERVING_COUNTERS:
+        fn, attr = _counter(name)
+        out[name] = getattr(fn, attr)
+    return out
+
+
+class _Calls:
+    """Counts the calls the engine makes to one of its steps."""
+
+    def __init__(self, step):
+        self.step, self.n = step, 0
+
+    def __call__(self, *args):
+        self.n += 1
+        return self.step(*args)
+
+    def __getattr__(self, name):
+        return getattr(self.step, name)
 
 
 def _match_rate(got, want):
@@ -607,12 +916,18 @@ def _match_rate(got, want):
     return n / max(1, len(want))
 
 
-def serve(model, prompts):
-    """Admit 4, step, admit 4, run to completion.  Returns the tokens per
-    request and the run's statistics (launch counts reset just before)."""
+def serve(model, prompts, engine_kw=None):
+    """Admit 4, step, admit 4, run to completion on an engine built with
+    ``engine_kw`` (default: the mixed engine).  Returns the engine, the
+    tokens per request and the run's statistics: the launch counts (reset
+    just before), engine steps, and for the split engine its decode steps
+    and prefill chunks."""
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
-    eng = ContinuousBatchingEngine(model, **ENGINE_KW)
+    eng = ContinuousBatchingEngine(model, **(engine_kw or ENGINE_KW))
+    eng.decode_step = _Calls(eng.decode_step)
+    if eng.prefill_step is not None:
+        eng.prefill_step = _Calls(eng.prefill_step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -641,24 +956,60 @@ def serve(model, prompts):
     if not all(len(o) == NEW_TOKENS for o in outs):
         raise AssertionError("a request ended early: %s"
                              % [len(o) for o in outs])
-    L = model.config.num_hidden_layers
-    for name, n in launches.items():
-        if n != L * steps:
-            raise AssertionError("%s launched %d times, want layers x steps "
-                                 "= %d" % (name, n, L * steps))
     gen_tok = sum(len(o) for o in outs)
-    stats = dict(steps=steps, prompt_tokens=int(sum(map(len, prompts))),
+    stats = dict(steps=steps, decode_steps=eng.decode_step.n,
+                 prefill_chunks=(eng.prefill_step.n
+                                 if eng.prefill_step is not None else 0),
+                 prompt_tokens=int(sum(map(len, prompts))),
                  generated_tokens=gen_tok, wall_s=wall,
                  tokens_per_s=gen_tok / wall,
                  prompt_and_generated_tokens_per_s=(
                      gen_tok + sum(map(len, prompts))) / wall,
                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
-                 launches=launches, token_budgets=list(eng.token_budgets),
-                 budgets_seen=sorted(eng.mixed.compile_counts))
+                 kv_pool_bytes=sum(c.pool_bytes() for c in eng.caches),
+                 launches=launches)
+    if eng.mixed is not None:
+        stats.update(token_budgets=list(eng.token_budgets),
+                     budgets_seen=sorted(eng.mixed.compile_counts))
+    if eng.prefill_step is not None:
+        seen = sorted(eng.prefill_step.compile_counts)
+        if len(seen) > len(eng.prefill_buckets):
+            raise AssertionError("bucket widths seen %s exceed the bucket "
+                                 "set %s" % (seen, eng.prefill_buckets))
+        stats.update(prefill_buckets=list(eng.prefill_buckets),
+                     buckets_seen=seen)
     return eng, outs, stats
 
 
+def expected_launches(engine_kw, stats, layers):
+    """The launches each serving kernel variant must show after one
+    ``serve`` run: every layer of every step goes through its engine's
+    kernels once, and through no other serving kernel."""
+    int8 = engine_kw.get("kv_dtype") == "int8"
+    want = dict.fromkeys(SERVING_COUNTERS, 0)
+    rope = "rope_qkv_epilogue_amax" if int8 else "rope_qkv_epilogue"
+    if engine_kw.get("mixed_step"):
+        attn = "ragged_paged_attention" + ("_int8" if int8 else "")
+        want[attn] = want[rope] = layers * stats["steps"]
+    else:
+        want["paged_attention" + ("_int8" if int8 else "")] = \
+            layers * stats["decode_steps"]
+        # the dense prefill ropes inside the model's cache path
+        want[rope] = layers * (stats["decode_steps"]
+                               + stats["prefill_chunks"])
+    return want
+
+
+def check_launches(name, engine_kw, stats, layers):
+    want = expected_launches(engine_kw, stats, layers)
+    if stats["launches"] != want:
+        raise AssertionError("%s launches %s, want %s"
+                             % (name, stats["launches"], want))
+
+
 def _kernel_kind(name: str) -> str:
+    if "paged_decode_kernel" in name:
+        return "paged_decode_attention"
     if "ragged_paged_attention" in name:
         return "ragged_paged_attention"
     if "rope_qkv" in name:
@@ -714,11 +1065,12 @@ def profile_device(fn, unprofiled_wall_s):
                              for n, t, c in top])
 
 
-def profile_serve(model, prompts, unprofiled_wall_s):
+def profile_serve(name, model, prompts, unprofiled_wall_s,
+                  engine_kw=None):
     """The same traffic once more under ``torch.profiler`` (see
     :func:`profile_device`)."""
-    row = dict(phase="profile_7b_bf16", **profile_device(
-        lambda: serve(model, prompts), unprofiled_wall_s))
+    row = dict(phase="profile_" + name, **profile_device(
+        lambda: serve(model, prompts, engine_kw), unprofiled_wall_s))
     emit(row)
     return row
 
@@ -754,11 +1106,24 @@ def eager_tokens(model, prompts):
     return outs
 
 
-def phase_slice_7b():
+def _rates(outs, ref):
+    rates = [_match_rate(o, r) for o, r in zip(outs, ref)]
+    return float(np.mean(rates)), rates
+
+
+def phase_serving_7b():
+    """Llama-2-7B bf16 at full width and depth, built once, serves the
+    same traffic through the mixed engine (then profiled), the split
+    engine with bucketed prefill (profiled), the split engine with the
+    dense prefill, and both engines over int8 pools.  Each run's launches
+    must be exact for its engine; the token matches against eager
+    ``generate`` and against the bf16-pool engines are reported, not
+    asserted (random bf16 logits tie)."""
     import torch
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_7b_config, param_count)
     cfg = llama_7b_config(dtype="bfloat16")
+    L = cfg.num_hidden_layers
     t0 = time.perf_counter()
     model = LlamaForCausalLM(
         cfg, generator=torch.Generator("cuda").manual_seed(SEED))
@@ -767,24 +1132,98 @@ def phase_slice_7b():
           % (param_count(cfg), param_count(cfg) * 2 / 1e9,
              time.perf_counter() - t0), flush=True)
     prompts = _prompts(cfg.vocab_size)
-    eng, outs, stats = serve(model, prompts)
-    kv_pool_bytes = 2 * sum(c.key_cache.nbytes for c in eng.caches)
-    stats.update(first_step_logits(eng, model, prompts[0]))
-    del eng
     ref = eager_tokens(model, prompts)
-    rates = [_match_rate(o, r) for o, r in zip(outs, ref)]
-    stats.update(phase="slice_7b_bf16", layers=cfg.num_hidden_layers,
-                 kv_pool_bytes=kv_pool_bytes,
-                 eager_match_rate=float(np.mean(rates)),
-                 eager_match_rate_per_request=rates)
-    emit(stats)
-    profile_serve(model, prompts, stats["wall_s"])
+    runs, outs = {}, {}
+    for name, kw in (("serve_7b", ENGINE_KW), ("serve_7b_split", SPLIT_KW),
+                     ("serve_7b_dense", DENSE_KW),
+                     ("serve_7b_kv8_split", dict(SPLIT_KW, kv_dtype="int8")),
+                     ("serve_7b_kv8_mixed", dict(ENGINE_KW,
+                                                 kv_dtype="int8"))):
+        t1 = time.perf_counter()
+        eng, outs[name], stats = serve(model, prompts, kw)
+        check_launches(name, kw, stats, L)
+        if name == "serve_7b":
+            stats.update(first_step_logits(eng, model, prompts[0]))
+        del eng
+        stats.update(phase=name + "_bf16", layers=L,
+                     engine={k: v for k, v in kw.items()
+                             if k not in ENGINE_BASE},
+                     phase_wall_s=time.perf_counter() - t1)
+        stats["eager_match_rate"], stats["eager_match_rate_per_request"] = \
+            _rates(outs[name], ref)
+        if "kv8" in name:
+            fp = "serve_7b" if kw.get("mixed_step") else "serve_7b_split"
+            stats["match_rate_vs_bf16_pool_engine"] = _rates(
+                outs[name], outs[fp])[0]
+            stats["pages_per_byte_vs_bf16_pool"] = (
+                runs[fp]["kv_pool_bytes"] / stats["kv_pool_bytes"])
+            if not stats["pages_per_byte_vs_bf16_pool"] >= 1.9:
+                raise AssertionError(
+                    "%s: int8 pools hold %.3fx the pages per byte of the "
+                    "bf16 pools, want >= 1.9" % (
+                        name, stats["pages_per_byte_vs_bf16_pool"]))
+        if name == "serve_7b_split":
+            stats["match_rate_vs_mixed_engine"] = _rates(
+                outs[name], outs["serve_7b"])[0]
+        emit(stats)
+        runs[name] = stats
+        if name in ("serve_7b", "serve_7b_split"):
+            runs[name]["profile"] = profile_serve(
+                name + "_bf16", model, prompts, stats["wall_s"], kw)
     del model
     torch.cuda.empty_cache()
-    return stats
+    return runs
+
+
+def swapped_attention():
+    """A context in which the serving steps' attention runs the kernels'
+    plain versions on the card (for int8 pools the Pallas int8 math: q
+    and p rows quantized, integer products).  The wrappers and their
+    counts are not touched; the epilogue kernel still runs."""
+    import contextlib
+    from paddle_tpu_torch.jit import serving_step as ss
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    def ragged(q, kc, vc, bt, qo, ql, kl, scale, span_q=0, key_scale=None,
+               value_scale=None):
+        if key_scale is not None:
+            return pa._ragged_attention_int8_plain(
+                q, kc, vc, key_scale, value_scale, bt, qo, ql, kl, scale)
+        return pa._ragged_attention_plain(q, kc, vc, bt, qo, ql, kl, scale)
+
+    def decode(q, kc, vc, bt, seq_lens, scale, key_scale=None,
+               value_scale=None):
+        return pa._paged_attention_plain(q, kc, vc, bt, seq_lens, scale,
+                                         key_scale, value_scale)
+
+    @contextlib.contextmanager
+    def swapped():
+        orig = ss.ragged_paged_attention, ss.paged_attention
+        ss.ragged_paged_attention, ss.paged_attention = ragged, decode
+        try:
+            yield
+        finally:
+            ss.ragged_paged_attention, ss.paged_attention = orig
+    return swapped()
 
 
 def phase_parity_2l():
+    """Llama-2-7B widths at 2 layers in fp32 (mean per-request token
+    matches up to the first divergence):
+
+    - the mixed and split engines against eager ``generate`` and against
+      each other, >= 0.98 each;
+    - each engine over int8 pools through the kernels against the same
+      engine through the plain int8 versions on the card (the same int8
+      math), >= 0.98: what the int8 kernels are answerable for;
+    - reported, not asserted: each int8-pool engine against its fp32-pool
+      run.  At these widths and random weights int8 KV storage itself
+      moves greedy tokens (32000 logits of std 1.3 leave top-1 margins
+      near 0.3): the reference's own engines show it on the CPU
+      (``tests/test_torch_split_serving.py::
+      test_kv8_vs_fp32_token_match_at_7b_widths``), so r13's 0.90
+      threshold, set on a 1M-parameter model, does not hold here.
+    """
     import torch
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_7b_config)
@@ -792,20 +1231,46 @@ def phase_parity_2l():
     model = LlamaForCausalLM(
         cfg, generator=torch.Generator("cuda").manual_seed(SEED))
     prompts = _prompts(cfg.vocab_size)
-    eng, outs, stats = serve(model, prompts)
     ref = eager_tokens(model, prompts)
-    rates = [_match_rate(o, r) for o, r in zip(outs, ref)]
-    stats.update(phase="parity_2layer_fp32",
-                 eager_match_rate=float(np.mean(rates)),
-                 eager_match_rate_per_request=rates,
-                 **first_step_logits(eng, model, prompts[0]))
-    emit(stats)
-    if not np.mean(rates) >= 0.98:
-        raise AssertionError("fp32 engine vs eager token match %.4f < 0.98"
-                             % np.mean(rates))
-    del eng, model
+    outs, row = {}, dict(phase="parity_2layer_fp32")
+    kv8 = dict(kv_dtype="int8")
+    for name, kw, swap in (
+            ("mixed", ENGINE_KW, False), ("split", SPLIT_KW, False),
+            ("kv8_mixed", dict(ENGINE_KW, **kv8), False),
+            ("kv8_split", dict(SPLIT_KW, **kv8), False),
+            ("kv8_mixed_plain", dict(ENGINE_KW, **kv8), True),
+            ("kv8_split_plain", dict(SPLIT_KW, **kv8), True)):
+        t0 = time.perf_counter()
+        if not swap:
+            eng, outs[name], stats = serve(model, prompts, kw)
+            check_launches("parity " + name, kw, stats,
+                           cfg.num_hidden_layers)
+            row[name + "_launches"] = stats["launches"]
+            if name == "mixed":
+                row.update(first_step_logits(eng, model, prompts[0]))
+        else:
+            with swapped_attention():
+                eng, outs[name], stats = serve(model, prompts, kw)
+        del eng
+        row[name + "_vs_eager"] = _rates(outs[name], ref)[0]
+        row[name + "_wall_s"] = time.perf_counter() - t0
+    gates = {"mixed_vs_eager": row["mixed_vs_eager"],
+             "split_vs_eager": row["split_vs_eager"]}
+    for a, b in (("split", "mixed"), ("kv8_mixed", "kv8_mixed_plain"),
+                 ("kv8_split", "kv8_split_plain")):
+        gates["%s_vs_%s" % (a, b)] = _rates(outs[a], outs[b])[0]
+    row.update(gates)
+    for mode in ("mixed", "split"):
+        row["kv8_%s_vs_fp32_%s" % (mode, mode)] = _rates(
+            outs["kv8_" + mode], outs[mode])[0]
+    emit(row)
+    for gate, rate in gates.items():
+        if not rate >= 0.98:
+            raise AssertionError("fp32 2-layer %s token match %.4f < 0.98"
+                                 % (gate, rate))
+    del model
     torch.cuda.empty_cache()
-    return stats
+    return row
 
 
 def phase_logits_by_depth():
@@ -1088,22 +1553,30 @@ def phase_train_long():
     return row
 
 
-def kernel_summary(rows, launches, flash_rows, train_launches):
-    """One entry per kernel for the final JSON line: the times at the
-    kernel's main-path shape, the worst error of any shape, and the
+def kernel_summary(rows, serving, flash_rows, train_launches):
+    """One entry per kernel variant for the final JSON line: the times at
+    the variant's main-path shape, the worst error of any shape, and the
     launches of the run of the path that drives it (``path``)."""
     def pick(rs, case):
         return next(r for r in rs if r["case"] == case
                     and r["dtype"] == "bfloat16")
     out = []
-    for name, rs, case, src, rep in (
+    for name, rs, case, src, rep, path in (
             ("ragged_paged_attention", rows["ragged"],
-             "7b_mixed_8x1024+256", RAGGED_SOURCE, RAGGED_REPLACES),
+             "7b_mixed_8x1024+256", RAGGED_SOURCE, RAGGED_REPLACES,
+             "serve_7b"),
             ("rope_qkv_epilogue", rows["rope"], "7b_T512", ROPE_SOURCE,
-             ROPE_REPLACES)):
+             ROPE_REPLACES, "serve_7b"),
+            ("paged_attention", rows["decode"], "7b_decode_8x1024",
+             DECODE_SOURCE, DECODE_REPLACES, "serve_7b_split"),
+            ("paged_attention_int8", rows["decode_int8"], "7b_decode_8x1024",
+             DECODE_SOURCE, DECODE_REPLACES, "serve_7b_kv8_split"),
+            ("ragged_paged_attention_int8", rows["ragged_int8"],
+             "7b_mixed_8x1024+256", RAGGED_SOURCE, RAGGED_REPLACES,
+             "serve_7b_kv8_mixed")):
         r = pick(rs, case)
         out.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                        launches=launches[name], path="serve_7b",
+                        launches=serving[path]["launches"][name], path=path,
                         max_abs_err=max(x["max_abs_err"] for x in rs),
                         ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -1123,24 +1596,35 @@ def kernel_summary(rows, launches, flash_rows, train_launches):
 
 
 def main() -> int:
+    """Every phase in order, then the kernels line and the ok line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs on "
               "the card only", file=sys.stderr)
         return 2
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
+    t_start = time.perf_counter()
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        print("phase %s: %.1f s (%.1f s since start)"
+              % (name, time.perf_counter() - t0,
+                 time.perf_counter() - t_start), flush=True)
+        return out
+
     phase_device()
-    phase_build()
-    rows = phase_kernels()
-    slice_stats = phase_slice_7b()
-    phase_parity_2l()
-    phase_logits_by_depth()
-    flash_rows = phase_flash_kernels()
-    train = phase_train_7b()
-    phase_train_parity()
-    long = phase_train_long()
+    run("build", phase_build)
+    rows = run("kernels", phase_kernels)
+    serving = run("serving_7b", phase_serving_7b)
+    run("parity_2l", phase_parity_2l)
+    run("logits", phase_logits_by_depth)
+    flash_rows = run("flash", phase_flash_kernels)
+    train = run("train_7b", phase_train_7b)
+    run("train_parity", phase_train_parity)
+    long = run("train_long", phase_train_long)
     emit({"kernels": kernel_summary(
-        rows, slice_stats["launches"], flash_rows,
+        rows, serving, flash_rows,
         {"train_7b": train["launches"],
          "train_long_16k": long["launches"]})})
     emit({"ok": True, "device": {"platform": "gpu",

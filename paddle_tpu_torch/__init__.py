@@ -13,11 +13,15 @@ This package imports ``torch``, never ``jax`` and nothing of
 
 Ported so far:
 
-- the single-device, greedy, fp32/bf16-pool serving path —
-  ``models.llama`` (its cache path is the eager oracle),
-  ``jit.serving_step.MixedStep`` (one fused mixed prefill+decode step)
-  and ``inference.serving.ContinuousBatchingEngine`` — with two kernels:
-  ragged paged attention and the fused RoPE + QKV epilogue;
+- single-device greedy serving — ``models.llama`` (its cache path is the
+  eager oracle), ``inference.serving.ContinuousBatchingEngine`` with the
+  reference's default split engine (``jit.serving_step.DecodeStep``,
+  the bucketed ``PrefillStep`` or the dense prefill's
+  ``prefill_scatter``) or the fused mixed step (``MixedStep``), lazy
+  page allocation, and model-dtype or int8 KV pools
+  (``quantization.functional``) — with three kernels: ragged paged
+  attention and paged decode attention (each over fp32/bf16 or int8
+  pools) and the fused RoPE + QKV epilogue;
 - the single-device training path — ``jit.train_step.TrainStep`` over
   ``optimizer`` (Adam, AdamW), ``models.llama.LlamaPretrainingCriterion``
   and the model's cache-less path with recompute — with three kernels in

@@ -1,20 +1,37 @@
 """Continuous batching over the paged KV cache (counterpart of
-``paddle_tpu/inference/serving.py``, ``mixed_step=True``).
+``paddle_tpu/inference/serving.py``).
 
-The scheduler keeps a fixed number of slots.  Every engine step packs the
-whole admission mix — each running slot as a length-1 decode span, each
-prefilling slot's next chunk as a span of up to ``prefill_chunk_size``
-tokens, as many chunks as the top token budget holds — into ONE fused
-``MixedStep`` over the ragged paged attention kernel.  Total tokens pad
-to a small geometric budget set; padding tokens write to the sink page
-and padding spans have ``q_len = 0``.
+The scheduler keeps a fixed number of slots.  Two engines, as in the
+reference:
 
-Ported: single device, greedy decoding, fp32/bf16 pools.  Every option of
-the reference engine that this slice leaves out (the split engine,
-sampling, speculative decoding, int8, tensor/context/expert parallelism,
-the prefix cache and its host tier, lazy page allocation, tracing and
-metrics, engine roles, explicit token budgets) raises ``NotImplementedError`` naming the feature
-when it is asked for; none is silently ignored.
+- **Split** (``mixed_step=False``, the default).  Every ``step()`` admits
+  waiting requests, advances at most one pending prefill chunk, then runs
+  ONE ``DecodeStep`` over all slots (the paged decode attention kernel;
+  masked slots write to the sink page).  A request prefills at admission
+  through the dense model forward and ``prefill_scatter``
+  (``prefill_buckets=None``), or through the bucketed ``PrefillStep``:
+  at once when its prompt fits one chunk, otherwise one chunk per step,
+  round-robin over prefilling slots.
+- **Mixed** (``mixed_step=True``).  Every step packs each running slot as
+  a length-1 decode span and as many pending prefill chunks as the top
+  token budget holds into ONE fused ``MixedStep`` over the ragged paged
+  attention kernel.  Total tokens pad to a small geometric budget set;
+  padding tokens write to the sink page and padding spans have
+  ``q_len = 0``.
+
+Both engines take ``kv_dtype="int8"`` (int8 pools with per-page, per-head
+scales; quantize on write, the int8 attention kernels on read; the dense
+prefill cannot write them) and ``lazy_alloc=True`` (pages allocated as a
+sequence grows; when the pool runs dry mid-decode the victim finishes
+early with ``truncated=True`` instead of ``step()`` raising).
+
+Ported: single device, greedy decoding.  Every option of the reference
+engine that this port leaves out (sampling, speculative decoding, weight
+quantization and quantized collectives, tensor/context/expert
+parallelism, the prefix cache and its host tier, tracing and metrics,
+engine roles, explicit token budgets, a pool dtype other than the
+model's or int8) raises ``NotImplementedError`` naming the feature when
+it is asked for; none is silently ignored.
 """
 from __future__ import annotations
 
@@ -23,8 +40,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+import torch
+
 from ..core.device import DeviceLike, resolve_device
-from ..jit.serving_step import MixedStep
+from ..jit.serving_step import (DecodeStep, MixedStep, PrefillStep,
+                                prefill_scatter)
 from ..ops.paged_attention import PagedKVCache
 
 
@@ -37,6 +57,9 @@ class GenerationRequest:
     eos_token_id: Optional[int] = None
     output_ids: List[int] = field(default_factory=list)
     state: str = "waiting"          # waiting -> prefilling -> running -> done
+    # True when the pool ran dry mid-decode (lazy_alloc) and the engine
+    # finished this request early instead of wedging the batch
+    truncated: bool = False
 
     # slot bookkeeping (set while admitted)
     slot: int = -1
@@ -50,57 +73,57 @@ def _unported(options: Dict[str, bool]) -> None:
     for name, asked in options.items():
         if asked:
             raise NotImplementedError(
-                "%s is not ported to paddle_tpu_torch yet (this slice "
-                "serves single-device greedy decoding through the mixed "
-                "step with fp32/bf16 pools)" % name)
+                "%s is not ported to paddle_tpu_torch yet (the port serves "
+                "single-device greedy decoding through the split or mixed "
+                "engine, with model-dtype or int8 pools)" % name)
 
 
 class ContinuousBatchingEngine:
-    """Slot scheduler + fused mixed prefill+decode step for
-    ``LlamaForCausalLM``.
+    """Slot scheduler over the split decode/prefill steps or the fused
+    mixed step, for ``LlamaForCausalLM``.
 
     ``add_request()`` may be called at any time, including between steps
     while other requests are mid-decode; ``step()`` advances every running
-    request by one token and every prefilling request by one chunk as far
-    as the top budget holds.  Greedy: interleaved execution gives each
+    request by one token.  Greedy: interleaved execution gives each
     request the tokens it would get alone.
 
     ``max_seq_len`` bounds prompt + generation per request and fixes the
     block-table width; it defaults to the pool's fair share per slot.
-    ``prefill_chunk_size`` bounds one span (default: the reference's auto
-    bucket top, ``min(pow2ceil(max_seq_len), 512)``).  ``token_budgets``
-    is the reference's ``"auto"`` geometric set, from the slot count up
-    past slots + chunk; an explicit tuple is not ported yet.
+    ``prefill_buckets`` (split engine): ``None`` for the dense prefill,
+    ``"auto"`` for the reference's geometric set (32, 64, ... up to
+    ``min(pow2ceil(max_seq_len), 512)``), or a tuple of widths.
+    ``prefill_chunk_size`` bounds one chunk (default: the top bucket).
+    ``token_budgets`` (mixed engine) is the reference's ``"auto"``
+    geometric set, from the slot count up past slots + chunk; an explicit
+    tuple is not ported yet.
 
     ``device=None`` is the CUDA card (raises without one); the model must
-    live on the same device.  Only ``mixed_step=True`` is ported.
+    live on the same device.
     """
 
     def __init__(self, model, max_batch_size: int = 8,
                  num_blocks: int = 256, block_size: int = 16,
                  max_seq_len: Optional[int] = None,
-                 prefill_chunk_size: Optional[int] = None,
-                 mixed_step: bool = True, token_budgets="auto",
-                 device: DeviceLike = None,
                  lazy_alloc: bool = False, prefill_buckets=None,
-                 enable_prefix_cache: bool = False, mesh=None,
-                 sharding=None, kv_dtype: Optional[str] = None,
+                 prefill_chunk_size: Optional[int] = None,
+                 enable_prefix_cache: bool = False,
+                 mixed_step: bool = False, token_budgets="auto",
+                 mesh=None, sharding=None, kv_dtype: Optional[str] = None,
                  weight_quant: Optional[str] = None,
                  quant_collectives: bool = False, sampling: bool = False,
                  draft_model=None, tracer=None, role: str = "mixed",
-                 host_tier_bytes: int = 0):
+                 host_tier_bytes: int = 0, device: DeviceLike = None):
         cfg = model.config
+        if kv_dtype not in (None, "float32", "bfloat16", "int8"):
+            raise ValueError(
+                "ContinuousBatchingEngine kv_dtype must be None (follow "
+                "the model dtype), 'float32', 'bfloat16' or 'int8'; got "
+                "%r" % (kv_dtype,))
         _unported({
-            "the split decode/prefill engine (mixed_step=False)":
-                not mixed_step,
-            "lazy page allocation (lazy_alloc)": bool(lazy_alloc),
-            "bucketed prefill (prefill_buckets)":
-                prefill_buckets is not None,
             "the prefix cache (enable_prefix_cache)":
                 bool(enable_prefix_cache),
             "multi-device serving (mesh/sharding)":
                 mesh is not None or sharding is not None,
-            "int8 KV pools (kv_dtype='int8')": kv_dtype == "int8",
             "a KV pool dtype other than the model's (kv_dtype)":
                 kv_dtype not in (None, "int8", cfg.dtype),
             "weight quantization (weight_quant)": weight_quant is not None,
@@ -115,6 +138,12 @@ class ContinuousBatchingEngine:
             "explicit token budgets (token_budgets other than 'auto')":
                 token_budgets != "auto",
         })
+        if kv_dtype == "int8" and not mixed_step and not prefill_buckets:
+            raise ValueError(
+                "quantized serving (kv_dtype='int8') needs a compiled "
+                "prefill path: pass mixed_step=True or prefill_buckets="
+                "'auto' — the dense prefill runs the model in fp and "
+                "writes unquantized K/V")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError("the model lives on %s but the engine serves "
@@ -123,11 +152,13 @@ class ContinuousBatchingEngine:
         self.cfg = cfg
         self.max_batch_size = max_batch_size
         self.block_size = block_size
+        self.lazy_alloc = bool(lazy_alloc)
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
         self.caches = [
             PagedKVCache(num_blocks, block_size, cfg.num_key_value_heads,
                          self.head_dim, cfg.torch_dtype, sink_block=True,
-                         device=self.device)
+                         device=self.device,
+                         kv_dtype="int8" if kv_dtype == "int8" else None)
             for _ in range(cfg.num_hidden_layers)]
         if max_seq_len is None:
             max_seq_len = max(block_size,
@@ -140,20 +171,53 @@ class ContinuousBatchingEngine:
         self.waiting: List[GenerationRequest] = []
         self.finished: Dict[int, GenerationRequest] = {}
         self._next_id = 0
-        # each running slot's last sampled token (its next decode input)
+        # slot-padded decode inputs: masked slots hold token 0, seq_len 0
+        # and an all-sink block-table row
         self._tokens = np.zeros((max_batch_size,), np.int32)
-
-        self.chunk_size = int(prefill_chunk_size
-                              or self._auto_buckets(self.max_seq_len)[-1])
-        budgets = self._auto_budgets_mixed(max_batch_size, self.chunk_size)
-        self.token_budgets = budgets
-        self.mixed = MixedStep(model, self.caches, self.bt_width,
-                               max_spans=max_batch_size,
-                               span_q=min(self.chunk_size, budgets[-1]))
-        # padding tokens spread over the sink page's slots
-        self._dest_pad = (np.arange(budgets[-1], dtype=np.int32)
-                          % block_size)
+        self._seq_lens = np.zeros((max_batch_size,), np.int32)
+        self._bt = np.full((max_batch_size, self.bt_width), self._sink,
+                           np.int32)
+        self._finished_this_step: Optional[List[int]] = None
         self._chunk_rr = 0           # round-robin cursor over chunk work
+        self.decode_step = DecodeStep(model, self.caches)
+
+        # ---- bucketed / chunked prefill (split engine) -------------------
+        if prefill_buckets == "auto":
+            buckets = self._auto_buckets(self.max_seq_len)
+        elif prefill_buckets:
+            buckets = tuple(sorted({int(b) for b in prefill_buckets}))
+        else:
+            buckets = None
+        self.prefill_buckets = buckets
+        self.chunk_size = None
+        self.prefill_step = None
+        if buckets:
+            self.chunk_size = int(prefill_chunk_size or buckets[-1])
+            if self.chunk_size > buckets[-1]:
+                raise ValueError(
+                    "prefill_chunk_size %d exceeds the top bucket %d — "
+                    "every chunk must map to a bucket"
+                    % (self.chunk_size, buckets[-1]))
+            self.prefill_step = PrefillStep(model, self.caches,
+                                            self.bt_width)
+
+        # ---- fused mixed prefill+decode step -------------------------------
+        self.token_budgets = None
+        self.mixed = None
+        if mixed_step:
+            if self.chunk_size is None:
+                self.chunk_size = int(
+                    prefill_chunk_size
+                    or self._auto_buckets(self.max_seq_len)[-1])
+            budgets = self._auto_budgets_mixed(max_batch_size,
+                                               self.chunk_size)
+            self.token_budgets = budgets
+            self.mixed = MixedStep(model, self.caches, self.bt_width,
+                                   max_spans=max_batch_size,
+                                   span_q=min(self.chunk_size, budgets[-1]))
+            # padding tokens spread over the sink page's slots
+            self._dest_pad = (np.arange(budgets[-1], dtype=np.int32)
+                              % block_size)
 
     @staticmethod
     def _auto_buckets(max_seq_len: int):
@@ -200,16 +264,20 @@ class ContinuousBatchingEngine:
         if len(prompt) == 0 or max_new_tokens < 1:
             raise ValueError("add_request needs a non-empty prompt and "
                              "max_new_tokens >= 1")
-        need = self.caches[0].blocks_needed(len(prompt) + max_new_tokens)
+        cache = self.caches[0]
+        need = cache.blocks_needed(len(prompt) + max_new_tokens)
         if need > self.bt_width:
             raise ValueError(
                 "request needs %d pages but the engine's block-table width "
                 "is %d (max_seq_len=%d); raise max_seq_len"
                 % (need, self.bt_width, self.max_seq_len))
-        if need > self.caches[0].num_blocks:
+        # lazy mode only needs the prompt to fit: the tail may be truncated
+        min_need = (cache.blocks_needed(len(prompt) + 1) if self.lazy_alloc
+                    else need)
+        if min_need > cache.num_blocks:
             raise ValueError(
                 "request needs %d pages but the pool only has %d; raise "
-                "num_blocks" % (need, self.caches[0].num_blocks))
+                "num_blocks" % (min_need, cache.num_blocks))
         req = GenerationRequest(req_id=self._next_id, prompt_ids=prompt,
                                 max_new_tokens=int(max_new_tokens),
                                 eos_token_id=eos_token_id)
@@ -221,10 +289,24 @@ class ContinuousBatchingEngine:
         return bool(self.waiting) or any(s is not None for s in self.slots)
 
     def step(self) -> List[int]:
-        """Admit waiting requests, then run one fused mixed step.  Returns
-        the req_ids finished this step."""
-        self._admit()
-        return self._run_mixed_step()
+        """Admit waiting requests, then advance one round: the mixed
+        engine packs every decode and as many chunks as fit into one
+        step; the split engine advances at most one prefill chunk, then
+        decodes every running slot.  Returns the req_ids finished this
+        step, those finished during admission (a one-token budget or EOS
+        on the first token) included."""
+        self._finished_this_step = fts = []
+        try:
+            self._admit()
+            if self.mixed is not None:
+                done = self._run_mixed_step()
+            else:
+                self._prefill_chunks()
+                done = self._decode_batch()
+        finally:
+            self._finished_this_step = None
+        seen = set(done)
+        return done + [rid for rid in fts if rid not in seen]
 
     def run_to_completion(self) -> Dict[int, List[int]]:
         while self.has_work():
@@ -233,6 +315,33 @@ class ContinuousBatchingEngine:
 
     def result(self, req_id: int) -> List[int]:
         return self.finished[req_id].output_ids
+
+    # ---- page allocation -----------------------------------------------
+    def _row_for(self, req: GenerationRequest) -> np.ndarray:
+        row = np.full((1, self.bt_width), self._sink, np.int32)
+        row[0, :len(req.block_ids)] = req.block_ids
+        return row
+
+    def _grow_pages(self) -> List[int]:
+        """Lazy mode, before the step: every running slot must own a page
+        for the position it writes (seq_len).  A slot the pool cannot
+        serve is the victim: finished early with ``truncated=True``, its
+        pages back in the pool, the batch decoding on."""
+        truncated = []
+        cache = self.caches[0]
+        for i, r in enumerate(list(self.slots)):
+            if r is None or r.state != "running":
+                continue
+            need = cache.blocks_needed(r.seq_len + 1)
+            while len(r.block_ids) < need and cache._free:
+                blk = cache.allocate_block()
+                self._bt[i, len(r.block_ids)] = blk
+                r.block_ids.append(blk)
+            if len(r.block_ids) < need:
+                r.truncated = True
+                self._finish(r)
+                truncated.append(r.req_id)
+        return truncated
 
     # ---- admission -----------------------------------------------------
     def _admit(self):
@@ -244,11 +353,13 @@ class ContinuousBatchingEngine:
             self.waiting.pop(0)
 
     def _try_admit(self, req: GenerationRequest, slot: int) -> bool:
-        """Reserve the request's pages (prompt + budget) and queue its
-        prefill chunks.  Returns False, with no side effects, when the pool
-        cannot cover it yet."""
+        """Reserve the request's pages (prompt + budget, or prompt + 1 in
+        lazy mode) and start (or finish) its prefill.  Returns False, with
+        no side effects, when the pool cannot cover it yet."""
         cache = self.caches[0]
-        need = cache.blocks_needed(len(req.prompt_ids) + req.max_new_tokens)
+        L = len(req.prompt_ids)
+        need = cache.blocks_needed(
+            L + (1 if self.lazy_alloc else req.max_new_tokens))
         if need > len(cache._free):
             return False
         req.block_ids = [cache.allocate_block() for _ in range(need)]
@@ -256,14 +367,94 @@ class ContinuousBatchingEngine:
         req.slot = slot
         req.state = "prefilling"
         self.slots[slot] = req
+        if self.mixed is not None:
+            pass            # chunks ride the mixed step packed this step()
+        elif self.prefill_step is None:
+            self._prefill_dense(req)
+        elif L <= self.chunk_size:
+            self._prefill_chunk(req)    # fits one bucket: at admission
+        # else: one chunk per step(), interleaved with decode
         return True
 
-    def _complete_prefill(self, req: GenerationRequest, first: int):
+    def _prefill_dense(self, req: GenerationRequest):
+        """The whole prompt through the model's cache path once, its
+        per-layer K/V written with ``prefill_scatter``, the first token
+        the argmax of the last position."""
+        ids = torch.from_numpy(req.prompt_ids[None, :]).to(self.device)
+        logits, kv = self.model(
+            ids, [(None, None)] * self.cfg.num_hidden_layers)
+        row = self._row_for(req)
+        prefill_scatter(self.caches, kv, row)
+        first = int(torch.argmax(logits[0, -1].to(torch.float32)))
+        req.prefill_pos = len(req.prompt_ids)
+        self._complete_prefill(req, first, row)
+
+    def _bucket_for(self, size: int) -> int:
+        for b in self.prefill_buckets:
+            if b >= size:
+                return b
+        raise AssertionError("chunk of %d tokens exceeds the top bucket %d"
+                             % (size, self.prefill_buckets[-1]))
+
+    def _prefill_chunks(self):
+        """Advance at most one pending prefill chunk, round-robin over
+        slots, so a long prompt never stalls the running decodes."""
+        if self.prefill_step is None:
+            return
+        n = self.max_batch_size
+        for k in range(n):
+            i = (self._chunk_rr + k) % n
+            r = self.slots[i]
+            if r is not None and r.state == "prefilling":
+                self._prefill_chunk(r)
+                self._chunk_rr = (i + 1) % n
+                return
+
+    def _prefill_chunk(self, req: GenerationRequest):
+        """One bucket-padded chunk through the PrefillStep; the final
+        chunk completes the prefill with its sampled first token."""
+        L = len(req.prompt_ids)
+        start = req.prefill_pos
+        size = min(self.chunk_size, L - start)
+        toks = np.zeros((1, self._bucket_for(size)), np.int32)
+        toks[0, :size] = req.prompt_ids[start:start + size]
+        row = self._row_for(req)
+        first = self.prefill_step(toks, start, size, row)
+        req.prefill_pos += size
+        if req.prefill_pos >= L:
+            self._complete_prefill(req, first, row)
+
+    def _complete_prefill(self, req: GenerationRequest, first: int,
+                          row: np.ndarray):
+        slot = req.slot
         req.seq_len = len(req.prompt_ids)
         req.state = "running"
         self._append_token(req, first)
-        if self.slots[req.slot] is req:     # still running after budget
-            self._tokens[req.slot] = first
+        if self.slots[slot] is req:     # still running after its budget
+            self._tokens[slot] = first
+            self._seq_lens[slot] = req.seq_len
+            self._bt[slot] = row[0]
+
+    # ---- split decode --------------------------------------------------
+    def _decode_batch(self) -> List[int]:
+        """ONE DecodeStep at the fixed slot count; masked slots (empty or
+        still prefilling) ride along on the sink page."""
+        done = self._grow_pages() if self.lazy_alloc else []
+        if not any(r is not None and r.state == "running"
+                   for r in self.slots):
+            return done
+        nxt = self.decode_step(self._tokens, self._seq_lens, self._bt)
+        for i, r in enumerate(list(self.slots)):
+            if r is None or r.state != "running":
+                continue
+            r.seq_len += 1
+            self._seq_lens[i] += 1
+            self._append_token(r, int(nxt[i]))
+            if self.slots[i] is r:
+                self._tokens[i] = nxt[i]
+            if r.state == "done":
+                done.append(r.req_id)
+        return done
 
     # ---- fused mixed prefill+decode step -------------------------------
     def _fill_mixed_pack(self, mx: MixedStep, budgets, spans):
@@ -350,7 +541,7 @@ class ContinuousBatchingEngine:
     def _run_mixed_step(self) -> List[int]:
         """Pack the admission mix into ONE fused MixedStep, dispatch, then
         apply the decode / prefill bookkeeping."""
-        done: List[int] = []
+        done = self._grow_pages() if self.lazy_alloc else []
         spans, _ = self._pack_spans()
         if not spans:
             return done
@@ -367,6 +558,7 @@ class ContinuousBatchingEngine:
             tok = int(nxt[si])
             if kind == "decode":
                 r.seq_len += 1
+                self._seq_lens[r.slot] += 1
                 self._append_token(r, tok)
                 if self.slots[r.slot] is r:
                     self._tokens[r.slot] = tok
@@ -375,7 +567,7 @@ class ContinuousBatchingEngine:
                 if r.prefill_pos >= len(r.prompt_ids):
                     # final chunk: tok is the sampled first token
                     # (earlier chunks' samples are discarded)
-                    self._complete_prefill(r, tok)
+                    self._complete_prefill(r, tok, self._row_for(r))
             if r.state == "done":
                 done.append(r.req_id)
         return done
@@ -388,15 +580,20 @@ class ContinuousBatchingEngine:
             self._finish(req)
 
     def _release_slot(self, req: GenerationRequest):
-        """Mask the request's slot and release its pages through the ONE
-        refcounted path."""
+        """Mask the request's slot back to token 0, seq_len 0 and the sink
+        page, and release its pages through the ONE refcounted path."""
         if req.slot >= 0:
-            self.slots[req.slot] = None
-            self._tokens[req.slot] = 0
+            s = req.slot
+            self.slots[s] = None
+            self._tokens[s] = 0
+            self._seq_lens[s] = 0
+            self._bt[s, :] = self._sink
         self.caches[0].free_sequence(req.block_ids)
         req.block_ids = []
 
     def _finish(self, req: GenerationRequest):
         req.state = "done"
+        if self._finished_this_step is not None:
+            self._finished_this_step.append(req.req_id)
         self._release_slot(req)
         self.finished[req.req_id] = req

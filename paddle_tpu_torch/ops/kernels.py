@@ -87,7 +87,8 @@ def rope_qkv_epilogue(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k_amax, v_amax)``; the amaxes are ``None`` unless ``with_amax``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    raise.  ``.launches`` counts the launches without the amaxes,
+    ``.amax_launches`` those with them (the int8 pools' writes)."""
     if q.device.type == "cpu":
         return _rope_qkv_epilogue_plain(q, k, v, cos, sin, with_amax)
     if q.device.type != "cuda":
@@ -131,8 +132,12 @@ def rope_qkv_epilogue(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               v_amax.data_ptr() if with_amax else None,
               N, H, Hkv, D, _DTYPE_CODE[q.dtype], int(with_amax), stream)
     _build.check(code, "rope_qkv_epilogue")
-    rope_qkv_epilogue.launches += 1
+    if with_amax:
+        rope_qkv_epilogue.amax_launches += 1
+    else:
+        rope_qkv_epilogue.launches += 1
     return q_rot, k_rot, k_amax, v_amax
 
 
 rope_qkv_epilogue.launches = 0
+rope_qkv_epilogue.amax_launches = 0

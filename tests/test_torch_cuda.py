@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch/CUDA port: each CUDA kernel against its
-plain PyTorch version, the tiny engine against the eager model, and a
-tiny training step through the flash kernels, on the device.  Every test
+plain PyTorch version, the tiny engines against the eager model and the
+CPU engines, and a tiny training step through the flash kernels, on the
+device.  Every test
 skips itself when no CUDA device is present.
 
 This file imports neither JAX nor ``paddle_tpu``, so it also runs on a
@@ -13,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (_flash_case, _ragged_case, flash_excess,
-                        flash_noise, flash_tolerance, ragged_tolerance)
+from chip_smoke import (_flash_case, _quantize_pools, _ragged_case,
+                        flash_excess, flash_noise, flash_tolerance,
+                        cut_lengths, int8_tolerance, ragged_tolerance)
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.jit.train_step import TrainStep
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
@@ -45,10 +47,11 @@ def test_rope_epilogue_kernel_bitwise(cuda, dtype, with_amax):
                for h in (H, Hkv, Hkv))
     pos = torch.randint(0, 4096, (N,), generator=g, device=cuda)
     cos, sin = pk.rope_tables_for_positions(pos, D)
-    before = pk.rope_qkv_epilogue.launches
+    counter = "amax_launches" if with_amax else "launches"
+    before = getattr(pk.rope_qkv_epilogue, counter)
     got = pk.rope_qkv_epilogue(q, k, v, cos, sin, with_amax)
     want = pk._rope_qkv_epilogue_plain(q, k, v, cos, sin, with_amax)
-    assert pk.rope_qkv_epilogue.launches == before + 1
+    assert getattr(pk.rope_qkv_epilogue, counter) == before + 1
     for a, b in zip(got, want):
         assert (a is None and b is None) or torch.equal(a, b)
 
@@ -114,13 +117,125 @@ def test_tiny_engine_on_card_matches_eager(cuda):
     want = [model.generate(torch.from_numpy(p)[None].to(cuda), 6)[
         0, len(p):].tolist() for p in prompts]
     eng = ContinuousBatchingEngine(model, max_batch_size=3, num_blocks=64,
-                                   block_size=8, prefill_chunk_size=16)
+                                   block_size=8, prefill_chunk_size=16,
+                                   mixed_step=True)
     r = [eng.add_request(p, 6) for p in prompts[:2]]
     eng.step()
     r += [eng.add_request(p, 6) for p in prompts[2:]]
     eng.run_to_completion()
     assert [eng.result(x) for x in r] == want
     assert len(eng.caches[0]._free) == 64
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (8, 2), (16, 2)],
+                         ids=["mha", "g2", "g4", "g8"])
+@pytest.mark.parametrize("D,bs", [(32, 4), (64, 5), (128, 16), (64, 32)])
+def test_paged_decode_kernel_matches_plain(cuda, quantized, dtype, heads, D,
+                                           bs):
+    """Slots of many lengths (one past a page edge, one of a single key),
+    NaN pages (or NaN scales) behind every unused table entry, and two
+    masked slots (seq_len 1 over an all-sink row)."""
+    H, Hkv = heads
+    lens = [7, 33, 1, 16, 70, 5]
+    gen = torch.Generator(cuda).manual_seed(1)
+    q, kc, vc, bt, _, _, sl = _ragged_case(
+        [(1, s) for s in lens], len(lens) + 2, H, Hkv, D, bs, dtype, gen,
+        poison=True, n_pad_spans=2)
+    scales = {}
+    if quantized:
+        kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
+        scales = dict(key_scale=ks, value_scale=vs)
+    counter = "int8_launches" if quantized else "launches"
+    before = getattr(pa.paged_attention, counter)
+    got = pa.paged_attention(q, kc, vc, bt, sl, **scales)
+    want = pa._paged_attention_plain(q, kc, vc, bt, sl, 1.0 / np.sqrt(D),
+                                     flip_bound=quantized, **scales)
+    torch.cuda.synchronize()
+    assert getattr(pa.paged_attention, counter) == before + 1
+    assert torch.isfinite(got).all()
+    if quantized:
+        want, flips = want
+        tol = int8_tolerance(want, flips, vmax)
+    else:
+        tol = ragged_tolerance(want)
+    assert (got.float() - want.float()).abs().le(tol).all()
+    if quantized:   # the limit rejects a kernel that skips each last page
+        cut = pa.paged_attention(q, kc, vc, bt, cut_lengths(
+            sl, sl.clamp(max=1), bs, True), **scales)
+        assert not (cut.float() - want.float()).abs().le(tol).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", [(4, 4), (6, 2), (8, 1)],
+                         ids=["mha", "gqa3", "mqa8"])
+@pytest.mark.parametrize("D,bs", [(32, 4), (64, 5), (128, 16), (64, 64)])
+def test_ragged_int8_kernel_matches_plain(cuda, dtype, heads, D, bs):
+    """The int8 variant of the ragged kernel over the same packs as the
+    fp one (tiles of whole pages, 64 / bs of them)."""
+    H, Hkv = heads
+    spans = [(1, 7), (70, 90), (3, 3), (1, 1), (9, 41), (2, 11)]
+    T = sum(q for q, _ in spans) + 5
+    q, kc, vc, bt, qo, ql, kl = _pack(spans, 2, T, H, Hkv, D, bs, dtype,
+                                      cuda)
+    kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
+    before = pa.ragged_paged_attention.int8_launches
+    got = pa.ragged_paged_attention(q, kc, vc, bt, qo, ql, kl, span_q=70,
+                                    key_scale=ks, value_scale=vs)
+    want, flips = pa._ragged_attention_int8_plain(
+        q, kc, vc, ks, vs, bt, qo, ql, kl, 1.0 / np.sqrt(D), flip_bound=True)
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_attention.int8_launches == before + 1
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().le(
+        int8_tolerance(want, flips, vmax)).all()
+    assert (got[sum(q for q, _ in spans):] == 0).all()
+
+
+def _tiny_engine_tokens(model, dev, **kw):
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 256, (n,)) for n in (3, 17, 40, 9)]
+    eng = ContinuousBatchingEngine(model, max_batch_size=3, num_blocks=64,
+                                   block_size=8, device=dev, **kw)
+    r = [eng.add_request(p, 6) for p in prompts[:2]]
+    eng.step()
+    r += [eng.add_request(p, 6) for p in prompts[2:]]
+    eng.run_to_completion()
+    assert len(eng.caches[0]._free) == 64
+    return [eng.result(x) for x in r]
+
+
+@pytest.mark.parametrize("mode", [
+    dict(), dict(prefill_buckets="auto", prefill_chunk_size=16),
+    dict(prefill_buckets="auto", prefill_chunk_size=16, kv_dtype="int8"),
+    dict(mixed_step=True, prefill_chunk_size=16, kv_dtype="int8")],
+    ids=["split_dense", "split_buckets", "split_kv8", "mixed_kv8"])
+def test_tiny_engines_on_card_match_cpu(cuda, mode):
+    """The split and int8 engines on the card (decode, ragged and epilogue
+    kernels) against the same engines on the CPU (plain versions), same
+    weights: fp32 tokens equal; int8 tokens at least 0.9 (a probability
+    code may round the other way on the card)."""
+    cfg = llama_tiny_config(num_hidden_layers=2, hidden_size=128,
+                            num_attention_heads=4, num_key_value_heads=2,
+                            vocab_size=256, intermediate_size=256)
+    models = {}
+    for dev in ("cpu", cuda):
+        models[str(dev)] = LlamaForCausalLM(
+            cfg, device=dev, generator=torch.Generator("cpu").manual_seed(0)
+            if dev == "cpu" else None)
+    models[str(cuda)].load_state_dict(models["cpu"].state_dict())
+    before = pa.paged_attention.launches + pa.paged_attention.int8_launches
+    got = _tiny_engine_tokens(models[str(cuda)], cuda, **mode)
+    want = _tiny_engine_tokens(models["cpu"], "cpu", **mode)
+    decodes = (pa.paged_attention.launches
+               + pa.paged_attention.int8_launches - before)
+    assert (decodes > 0) == (not mode.get("mixed_step"))
+    if "kv_dtype" not in mode:
+        assert got == want
+    else:
+        same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+        assert same / sum(len(w) for w in want) >= 0.9
 
 
 # (causal, rope, Sq, Sk): square, longer key axis, rows that see nothing

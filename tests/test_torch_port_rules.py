@@ -22,7 +22,8 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            llama_tiny_config)
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import rope_qkv_epilogue
-from paddle_tpu_torch.ops.paged_attention import ragged_paged_attention
+from paddle_tpu_torch.ops.paged_attention import (paged_attention,
+                                                  ragged_paged_attention)
 from paddle_tpu_torch.optimizer import AdamW
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -60,7 +61,8 @@ def test_ast_scan_finds_no_jax_or_reference_import():
     scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in ("ops/flash_attention.py", "optimizer/optimizer.py",
                    "jit/train_step.py", "models/llama.py",
-                   "nn/functional.py"):
+                   "nn/functional.py", "quantization/functional.py",
+                   "ops/online_softmax.py", "jit/serving_step.py"):
         assert os.path.join("paddle_tpu_torch", module) in scanned
 
 
@@ -107,29 +109,36 @@ def test_entry_points_default_to_the_card():
     assert paddle_tpu_torch.resolve_device("cpu") == torch.device("cpu")
 
 
-def test_launch_counters_stay_zero_on_cpu():
-    """The whole CPU engine path goes through both wrappers and never
+LAUNCH_COUNTERS = ((rope_qkv_epilogue, "launches"),
+                   (rope_qkv_epilogue, "amax_launches"),
+                   (ragged_paged_attention, "launches"),
+                   (ragged_paged_attention, "int8_launches"),
+                   (paged_attention, "launches"),
+                   (paged_attention, "int8_launches"))
+
+
+@pytest.mark.parametrize("mode", [
+    dict(), dict(prefill_buckets="auto", kv_dtype="int8"),
+    dict(mixed_step=True), dict(mixed_step=True, kv_dtype="int8")],
+    ids=["split", "split_int8", "mixed", "mixed_int8"])
+def test_launch_counters_stay_zero_on_cpu(mode):
+    """The whole CPU engine path goes through the wrappers and never
     launches a kernel (card tests in the same process may have counted
     launches before, so the counts must only stay where they were)."""
-    before = (rope_qkv_epilogue.launches, ragged_paged_attention.launches)
+    before = [getattr(f, a) for f, a in LAUNCH_COUNTERS]
     eng = ContinuousBatchingEngine(_tiny(), max_batch_size=2, num_blocks=8,
                                    block_size=4, prefill_chunk_size=4,
-                                   device="cpu")
+                                   device="cpu", **mode)
     eng.add_request(np.arange(1, 7), 3)
     eng.run_to_completion()
     assert eng.finished[0].output_ids
-    assert (rope_qkv_epilogue.launches,
-            ragged_paged_attention.launches) == before
+    assert [getattr(f, a) for f, a in LAUNCH_COUNTERS] == before
 
 
 UNPORTED_ENGINE = {
-    "mixed_step=False": dict(mixed_step=False),
-    "lazy_alloc": dict(lazy_alloc=True),
-    "prefill_buckets": dict(prefill_buckets="auto"),
     "enable_prefix_cache": dict(enable_prefix_cache=True),
     "mesh": dict(mesh=object()),
     "sharding": dict(sharding=object()),
-    "kv_dtype=int8": dict(kv_dtype="int8"),
     "kv_dtype=bfloat16 under fp32": dict(kv_dtype="bfloat16"),
     "weight_quant": dict(weight_quant="int8"),
     "quant_collectives": dict(quant_collectives=True),

@@ -162,7 +162,7 @@ def test_engine_slot_reuse_and_eos(tiny_pair):
     want = [_port_generate(port, p, 6) for p in prompts]
     eng = ContinuousBatchingEngine(port, max_batch_size=2, num_blocks=8,
                                    block_size=4, prefill_chunk_size=4,
-                                   device="cpu")
+                                   mixed_step=True, device="cpu")
     eos = want[3][2]
     rids = [eng.add_request(p, 6) for p in prompts[:3]]
     rids.append(eng.add_request(prompts[3], 6, eos_token_id=eos))
