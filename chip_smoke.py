@@ -21,9 +21,14 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    PyTorch call computes any of them).  For int8 pools the tolerance is
    per element (:func:`int8_tolerance`) and must reject planted faults:
    the kernel run without each sequence's last key or last page, the
-   int8 math with p left unquantized, and the dequantizing reference.  Also the library time of
-   RMSNorm (kernel #4, not ported: it has no caller yet) at the shape the
-   layerwise 7B bench feeds it.
+   int8 math with p left unquantized, and the dequantizing reference.
+   Then RMSNorm (kernel #4) against its plain version at the layerwise
+   7B shape (4096 rows x 4096) in bf16 and fp32, one row, 4097 rows,
+   hidden sizes 5120 and 8192 and sizes that are not a multiple of the
+   16-byte vector (:func:`check_rms_norm`, random weight, row scales from
+   10^-3.5 to 10), with ``torch.nn.functional.rms_norm``'s time; its
+   tolerance (:func:`rms_tolerance`) must reject the kernel run without
+   the weight and without ``eps``.
 3. The serving slice at full width: a random-weight Llama-2-7B (bf16),
    built once, serves 8 requests with prompts of 64..1024 tokens, 32 new
    tokens each, admitted 4 + 4 so that prefill chunks ride with running
@@ -69,7 +74,18 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
 8. Long context: CodeLlama-7B's config at 2 layers, bf16, batch 1 x
    16384, 2 steps: the router must take the two-kernel backward (once
    per layer per step) and never the fused one.
-9. Before the last line, one JSON object with every kernel variant's
+9. Layerwise training at full width and depth (``bench.py``'s headline
+   line): Llama-2-7B bf16 through ``LlamaLayerwiseTrainStep`` with
+   ``Adafactor(1e-3)``, batch 2 x 2048, a warm-up and 4 timed steps:
+   finite losses, the first near its random-init value, exact launch
+   counts (flash forward 2L, fused backward L, two-kernel backward 0 and
+   RMSNorm 4L + 1 per step), peak memory below 24 GB; tokens/s, MFU and
+   one profiled step.
+10. Layerwise parity: Llama-2-7B widths at 2 layers in fp32, 3 steps from
+   the same weights through the kernels, through their plain versions on
+   the card (losses within 1e-4 relative), and through ``TrainStep`` with
+   ``Adafactor`` (within 5e-4, the reference's own bound).
+11. Before the last line, one JSON object with every kernel variant's
    numbers; the last line is ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall seconds.
@@ -99,6 +115,8 @@ DECODE_SOURCE = "paddle_tpu_torch/csrc/paged_decode_attention.cu"
 RAGGED_REPLACES = "paddle_tpu/ops/pallas_kernels.py:1443"
 ROPE_REPLACES = "paddle_tpu/ops/pallas_kernels.py:1779"
 DECODE_REPLACES = "paddle_tpu/ops/paged_attention.py:936"
+RMS_SOURCE = "paddle_tpu_torch/csrc/rms_norm.cu"
+RMS_REPLACES = "paddle_tpu/ops/pallas_kernels.py:1078"
 NO_LIBRARY = ("no single PyTorch call computes it: %s")
 
 # served traffic (phases 3 and 4)
@@ -313,7 +331,7 @@ def fault_excess(faults, want, tol):
 def check_faults(name, excess):
     kept = [k for k, x in excess.items() if not x > 1.0]
     if kept:
-        raise AssertionError("%s: the int8 tolerance does not reject the "
+        raise AssertionError("%s: the tolerance does not reject the "
                              "planted faults %s (%s)" % (name, kept, excess))
 
 
@@ -481,24 +499,75 @@ def check_paged(case, seq_lens, n_masked, H, Hkv, D, bs, dtype_name, gen,
     return row
 
 
-def rms_norm_library(gen):
-    """Kernel #4 (RMSNorm, ``rms_norm_tpu``) has no caller yet and is not
-    ported: time the library call at the shape ``bench.py::
-    _bench_layerwise`` feeds a norm (Llama-2-7B hidden 4096, batch 2 x
-    2048 rows, bf16), beside the bound."""
+RMS_EPS = 1e-6
+# (case, rows, hidden): the layerwise 7B shape (batch 2 x 2048 tokens,
+# hidden 4096), one row, a row count that is not a power of two, the
+# wider Llama hidden sizes, and hidden sizes that are not a multiple of
+# the kernel's 16-byte vector (scalar loads)
+RMS_CASES = (("7b_layerwise_4096x4096", 4096, 4096), ("one_row", 1, 4096),
+             ("rows_4097", 4097, 4096), ("d5120", 1024, 5120),
+             ("d8192", 1024, 8192), ("d4099_scalar", 1000, 4099),
+             ("d100_scalar", 333, 100))
+RMS_MAIN = "7b_layerwise_4096x4096"
+
+
+def rms_tolerance(want, dtype_name: str):
+    """Per element: in bf16 one bf16 ulp of |want| (kernel and plain
+    version round the same fp32 value, a few fp32 ulps apart, once); in
+    fp32 eight fp32 ulps (another summation order, rsqrtf within 2 ulp,
+    two products)."""
     import torch
-    rows_, h = 2 * 2048, 4096
-    x = torch.randn(rows_, h, generator=gen, device="cuda").to(
-        torch.bfloat16)
-    w = torch.ones(h, device="cuda", dtype=torch.bfloat16)
-    n_bytes = 2 * rows_ * h * 2 + h * 2
-    b_ms, b_by = bound_ms(n_bytes, 4.0 * rows_ * h, "bfloat16")
-    row = dict(kernel="rms_norm", case="7b_layerwise_2x2048",
-               dtype="bfloat16", rows=rows_, hidden=h,
-               status="library only, kernel not ported",
+    w = want.float().abs().clamp(min=torch.finfo(torch.float32).tiny)
+    bits = 7 if dtype_name == "bfloat16" else 23
+    ulps = 1.0 if dtype_name == "bfloat16" else 8.0
+    return ulps * torch.exp2(torch.floor(torch.log2(w)) - bits)
+
+
+def _rms_inputs(rows, d, dtype, gen):
+    """Rows of N(0, 1) scaled by 10^-3.5 .. 10 (evenly in the exponent,
+    the first row smallest), so that every case has rows whose mean
+    square is near or below ``eps``; a weight of 1 + 0.1 N(0, 1)."""
+    import torch
+    dev = gen.device
+    scale = 10.0 ** torch.linspace(-3.5, 1.0, rows, device=dev)[:, None]
+    x = (torch.randn(rows, d, generator=gen, device=dev) * scale).to(dtype)
+    w = (1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)).to(dtype)
+    return x, w
+
+
+def check_rms_norm(case, rows, d, dtype_name, gen):
+    """Kernel #4 against its plain version: every element within
+    :func:`rms_tolerance`, and the same tolerance rejecting the kernel's
+    output without the weight (w = 1) and without ``eps`` (eps = 0)."""
+    import torch
+    from paddle_tpu_torch.ops.rms_norm import _rms_norm_plain, rms_norm_tpu
+    dtype = getattr(torch, dtype_name)
+    x, w = _rms_inputs(rows, d, dtype, gen)
+    got = rms_norm_tpu(x, w, RMS_EPS)
+    torch.cuda.synchronize()
+    want = _rms_norm_plain(x, w, RMS_EPS)
+    tol = rms_tolerance(want, dtype_name)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    if not (diff <= tol).all() or not torch.isfinite(got).all():
+        raise AssertionError("rms_norm %s %s: max_abs_err %g over tol (or "
+                             "non-finite output)" % (case, dtype_name, err))
+    faults = {"weight_dropped": rms_norm_tpu(x, torch.ones_like(w),
+                                             RMS_EPS),
+              "eps_dropped": rms_norm_tpu(x, w, 0.0)}
+    excess = fault_excess(faults, want, tol)
+    check_faults("rms_norm %s %s" % (case, dtype_name), excess)
+    es = x.element_size()
+    b_ms, b_by = bound_ms(2 * rows * d * es + d * es, 4.0 * rows * d,
+                          "float32")
+    row = dict(kernel="rms_norm", case=case, dtype=dtype_name, rows=rows,
+               hidden=d, max_abs_err=err,
+               err_over_tol=_err_over_tol(diff, tol), fault_excess=excess,
+               kernel_ms=time_ms(lambda: rms_norm_tpu(x, w, RMS_EPS), 50),
+               plain_ms=time_ms(lambda: _rms_norm_plain(x, w, RMS_EPS), 20),
+               bound_ms=b_ms, bound_by=b_by,
                library_ms=time_ms(lambda: torch.nn.functional.rms_norm(
-                   x, (h,), w, 1e-6), 50),
-               bound_ms=b_ms, bound_by=b_by)
+                   x, (d,), w, RMS_EPS), 50))
     emit(row)
     return row
 
@@ -597,7 +666,9 @@ def phase_kernels():
             rows["rope"].append(check_rope(
                 "7b_T%d%s" % (N, "_amax" if amax else ""), N, H, H, D,
                 amax, gen))
-    rows["rms_norm"] = rms_norm_library(gen)
+    rows["rms_norm"] = [check_rms_norm(case, n, d, dt, gen)
+                        for case, n, d in RMS_CASES
+                        for dt in ("bfloat16", "float32")]
     return rows
 
 
@@ -1020,6 +1091,8 @@ def _kernel_kind(name: str) -> str:
         return "flash_bwd_kv (+dq finalize)"
     if "flash_bwd_dq" in name:
         return "flash_bwd_dq"
+    if "rms_norm_kernel" in name:
+        return "rms_norm"
     if any(w in name for w in ("gemm", "gemv", "xmma", "cutlass", "sm90",
                                "nvjet")):
         return "matmul"
@@ -1313,15 +1386,23 @@ LONG_BATCH = (1, 16384)        # CodeLlama-7B's 16k context
 TRAIN_STEPS, TRAIN_WARMUP = 4, 1
 
 
-def _flash_launches():
+def _train_launches():
+    """The training kernels' launch counts: the three flash kernels and
+    RMSNorm (#4, the layerwise step's norms; ``TrainStep``'s model runs
+    the plain norm of ``nn.functional``)."""
     from paddle_tpu_torch.ops import flash_attention as fa
-    return {k: getattr(fa, k).launches for k in ALL_FLASH}
+    from paddle_tpu_torch.ops.rms_norm import rms_norm_tpu
+    out = {k: getattr(fa, k).launches for k in ALL_FLASH}
+    out["rms_norm"] = rms_norm_tpu.launches
+    return out
 
 
-def _reset_flash_launches():
+def _reset_train_launches():
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.rms_norm import rms_norm_tpu
     for k in ALL_FLASH:
         getattr(fa, k).launches = 0
+    rms_norm_tpu.launches = 0
 
 
 def _tokens(vocab: int, shape, seed: int):
@@ -1389,9 +1470,9 @@ def phase_train_7b():
     B, S = TRAIN_BATCH
     ids = _tokens(cfg.vocab_size, (B, S), SEED)
     warm, warm_s = run_steps(step, ids, TRAIN_WARMUP)
-    _reset_flash_launches()
+    _reset_train_launches()
     losses, wall = run_steps(step, ids, TRAIN_STEPS)
-    launches = _flash_launches()
+    launches = _train_launches()
     peak = torch.cuda.max_memory_allocated()
     losses = warm + losses
     L = cfg.num_hidden_layers
@@ -1408,7 +1489,8 @@ def phase_train_7b():
                                     wall / TRAIN_STEPS)
     emit(row)
     want = {"flash_fwd": 2 * L * TRAIN_STEPS,
-            "flash_bwd_fused": L * TRAIN_STEPS, "flash_bwd_two_kernel": 0}
+            "flash_bwd_fused": L * TRAIN_STEPS, "flash_bwd_two_kernel": 0,
+            "rms_norm": 0}
     if launches != want:
         raise AssertionError("7B training launches %s, want %s"
                              % (launches, want))
@@ -1423,15 +1505,19 @@ def phase_train_7b():
     return row
 
 
-def _plain_attention():
-    """A context in which the model's attention runs the flash plain
-    versions on the card (``_flash_fwd_plain`` / ``_flash_bwd_plain``
-    under an autograd Function): the reference side of the training
-    parity phase.  The kernel wrappers are not touched."""
+def _plain_kernels():
+    """A context in which the model's and the layerwise step's attention
+    run the flash plain versions on the card (``_flash_fwd_plain`` /
+    ``_flash_bwd_plain`` under an autograd Function) and the layerwise
+    step's norms kernel #4's plain version (differentiated by autograd):
+    the reference side of the training parity phases.  The kernel
+    wrappers are not touched."""
     import contextlib
     import torch
+    from paddle_tpu_torch.jit import layerwise as lw
     from paddle_tpu_torch.models import llama as lm
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops.rms_norm import _rms_norm_plain
 
     class PlainFlashRope(torch.autograd.Function):
         @staticmethod
@@ -1451,15 +1537,34 @@ def _plain_attention():
                                   device=q.device)
         return PlainFlashRope.apply(q, k, v, cos, sin)
 
+    def plain_sdpa(q, k, v, cos, sin, causal=True):
+        return PlainFlashRope.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), cos, sin)
+
+    swaps = ((lm, "flash_attention_rope", plain),
+             (lw, "flash_rope_sdpa", plain_sdpa),
+             (lw, "rms_norm", _rms_norm_plain))
+
     @contextlib.contextmanager
     def swapped():
-        orig = lm.flash_attention_rope
-        lm.flash_attention_rope = plain
+        orig = [getattr(mod, name) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
         try:
             yield
         finally:
-            lm.flash_attention_rope = orig
+            for (mod, name, _), fn in zip(swaps, orig):
+                setattr(mod, name, fn)
     return swapped()
+
+
+def check_plain_run(name):
+    """The reference side of a parity phase, run with the counts reset
+    just before it, launched no training kernel."""
+    launched = {k: n for k, n in _train_launches().items() if n}
+    if launched:
+        raise AssertionError("%s: the plain run launched kernels %s"
+                             % (name, launched))
 
 
 PARITY_STEPS = 3
@@ -1480,14 +1585,16 @@ def phase_train_parity():
                           recompute=True)
     ids = _tokens(cfg.vocab_size, TRAIN_BATCH, SEED + 1)
     model, step = _trainer(cfg)
-    _reset_flash_launches()
+    _reset_train_launches()
     got, wall = run_steps(step, ids, PARITY_STEPS)
-    launches = _flash_launches()
+    launches = _train_launches()
     del model, step
     torch.cuda.empty_cache()
     model, step = _trainer(cfg)
-    with _plain_attention():
+    _reset_train_launches()
+    with _plain_kernels():
         want, plain_wall = run_steps(step, ids, PARITY_STEPS)
+    check_plain_run("fp32 training parity")
     del model, step
     torch.cuda.empty_cache()
     rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
@@ -1529,12 +1636,12 @@ def phase_train_long():
     model, step = _trainer(cfg)
     ids = _tokens(cfg.vocab_size, LONG_BATCH, SEED + 2)
     steps = 2
-    _reset_flash_launches()
+    _reset_train_launches()
     losses, wall = run_steps(step, ids, steps)
-    launches = _flash_launches()
+    launches = _train_launches()
     L = cfg.num_hidden_layers
     want = {"flash_fwd": 2 * L * steps, "flash_bwd_fused": 0,
-            "flash_bwd_two_kernel": L * steps}
+            "flash_bwd_two_kernel": L * steps, "rms_norm": 0}
     row = dict(phase="train_long_16k_bf16", layers=L, batch=LONG_BATCH[0],
                seq=LONG_BATCH[1], steps=steps, wall_s=wall, losses=losses,
                tokens_per_s=LONG_BATCH[0] * LONG_BATCH[1] * steps / wall,
@@ -1550,6 +1657,159 @@ def phase_train_long():
         raise AssertionError("non-finite 16k training loss: %s" % losses)
     del model, step
     torch.cuda.empty_cache()
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phases 9-10: layerwise training
+# ---------------------------------------------------------------------------
+LAYERWISE_LR = 1e-3               # bench.py::_bench_layerwise's Adafactor
+LAYERWISE_PEAK_BYTES = 24e9
+LAYERWISE_TRAINSTEP_RTOL = 5e-4   # the reference's bound (test_layerwise)
+
+
+def _layerwise(cfg, seed=SEED):
+    """A random-init ``LlamaLayerwiseTrainStep`` on the card with
+    ``Adafactor(LAYERWISE_LR)``."""
+    from paddle_tpu_torch.jit.layerwise import LlamaLayerwiseTrainStep
+    from paddle_tpu_torch.optimizer import Adafactor
+    return LlamaLayerwiseTrainStep(
+        cfg, Adafactor(LAYERWISE_LR, parameters=[])).init(seed)
+
+
+def phase_train_7b_layerwise():
+    """``bench.py``'s headline line on the card: Llama-2-7B bf16 through
+    the layerwise step with Adafactor, batch 2 x 2048, one warm-up step
+    and ``TRAIN_STEPS`` timed steps whose launches must be exact (per
+    step: flash forward 2L, once in the forward sweep and once in the
+    reverse sweep's recompute; the fused backward L; RMSNorm 4L + 1, two
+    norms per block in each sweep and the final norm once, outside the
+    head's per-chunk recompute), peak memory below
+    ``LAYERWISE_PEAK_BYTES``; then one profiled step."""
+    import torch
+    from paddle_tpu_torch.models.llama import (llama_7b_config,
+                                               llama_flops_per_token)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    cfg = llama_7b_config(dtype="bfloat16")
+    t0 = time.perf_counter()
+    step = _layerwise(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params_bytes = torch.cuda.memory_allocated()
+    B, S = TRAIN_BATCH
+    ids = _tokens(cfg.vocab_size, (B, S), SEED)
+    warm, warm_s = run_steps(step, ids, TRAIN_WARMUP)
+    _reset_train_launches()
+    losses, wall = run_steps(step, ids, TRAIN_STEPS)
+    launches = _train_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = warm + losses
+    L = cfg.num_hidden_layers
+    tok_s = B * S * TRAIN_STEPS / wall
+    fpt = llama_flops_per_token(cfg, S)
+    row = dict(phase="train_7b_layerwise_bf16", layers=L,
+               params=step.param_count(), optimizer="Adafactor(%g)"
+               % LAYERWISE_LR, batch=B, seq=S, init_s=init_s,
+               warmup_step_s=warm_s, steps=TRAIN_STEPS, wall_s=wall,
+               step_s=wall / TRAIN_STEPS, losses=losses,
+               expected_first_loss=init_loss(cfg), tokens_per_s=tok_s,
+               flops_per_token=fpt,
+               mfu=tok_s * fpt / PEAK_FLOPS["bfloat16"],
+               resident_before_bytes=resident,
+               params_and_state_bytes=params_bytes - resident,
+               peak_memory_bytes=peak, launches=launches)
+    row["profile"] = profile_device(lambda: step(ids, ids),
+                                    wall / TRAIN_STEPS)
+    emit(row)
+    want = {"flash_fwd": 2 * L * TRAIN_STEPS,
+            "flash_bwd_fused": L * TRAIN_STEPS, "flash_bwd_two_kernel": 0,
+            "rms_norm": (4 * L + 1) * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError("7B layerwise launches %s, want %s"
+                             % (launches, want))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError("non-finite layerwise loss: %s" % losses)
+    if not abs(losses[0] - row["expected_first_loss"]) <= 0.5:
+        raise AssertionError("first layerwise loss %g is not within 0.5 of "
+                             "the random-init value %g"
+                             % (losses[0], row["expected_first_loss"]))
+    if not peak < LAYERWISE_PEAK_BYTES:
+        raise AssertionError("7B layerwise peak memory %.3f GB is not "
+                             "below %.0f GB" % (peak / 1e9,
+                                                LAYERWISE_PEAK_BYTES / 1e9))
+    del step
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_layerwise_parity():
+    """Llama-2-7B widths at 2 layers in fp32, ``PARITY_STEPS`` steps from
+    the same weights and batch: the layerwise step through the kernels
+    (flash and #4) against the same steps through their plain versions on
+    the card (``PARITY_RTOL``), and against ``TrainStep`` with
+    ``Adafactor`` over the eager model (``LAYERWISE_TRAINSTEP_RTOL``;
+    there Adafactor factors ``[out, in]`` matrices, equal in exact
+    arithmetic)."""
+    import torch
+    from paddle_tpu_torch.jit.layerwise import LlamaLayerwiseTrainStep
+    from paddle_tpu_torch.jit.train_step import TrainStep
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               LlamaPretrainingCriterion,
+                                               llama_7b_config)
+    from paddle_tpu_torch.optimizer import Adafactor
+    cfg = llama_7b_config(dtype="float32", num_hidden_layers=2)
+    ids = _tokens(cfg.vocab_size, TRAIN_BATCH, SEED + 3)
+    state = _layerwise(cfg).state_dict()
+
+    def layerwise():
+        return LlamaLayerwiseTrainStep(
+            cfg, Adafactor(LAYERWISE_LR, parameters=[])).set_state_dict(state)
+    _reset_train_launches()
+    got, wall = run_steps(layerwise(), ids, PARITY_STEPS)
+    launches = _train_launches()
+    torch.cuda.empty_cache()
+    _reset_train_launches()
+    with _plain_kernels():
+        plain, plain_wall = run_steps(layerwise(), ids, PARITY_STEPS)
+    check_plain_run("fp32 layerwise parity")
+    torch.cuda.empty_cache()
+    model = LlamaForCausalLM(cfg)
+    model.load_state_dict(state)
+    del state
+    fused = TrainStep(model, LlamaPretrainingCriterion(),
+                      Adafactor(LAYERWISE_LR,
+                                parameters=model.named_parameters()))
+    train_step, ts_wall = run_steps(fused, ids, PARITY_STEPS)
+    del model, fused
+    torch.cuda.empty_cache()
+    rel_plain = max(abs(a - b) / abs(b) for a, b in zip(got, plain))
+    diff_ts = max(abs(a - b) / max(1.0, abs(b))
+                  for a, b in zip(got, train_step))
+    row = dict(phase="layerwise_parity_2layer_fp32", steps=PARITY_STEPS,
+               kernel_losses=got, plain_losses=plain,
+               train_step_losses=train_step, max_rel_diff_plain=rel_plain,
+               rtol_plain=PARITY_RTOL, max_diff_train_step=diff_ts,
+               tol_train_step=LAYERWISE_TRAINSTEP_RTOL, kernel_wall_s=wall,
+               plain_wall_s=plain_wall, train_step_wall_s=ts_wall,
+               launches=launches)
+    emit(row)
+    if not rel_plain <= PARITY_RTOL:
+        raise AssertionError("fp32 layerwise losses, kernels vs plain: %s "
+                             "vs %s (max rel diff %g > %g)"
+                             % (got, plain, rel_plain, PARITY_RTOL))
+    if not diff_ts < LAYERWISE_TRAINSTEP_RTOL:
+        raise AssertionError("fp32 layerwise vs TrainStep + Adafactor: %s "
+                             "vs %s (%g >= %g)" % (got, train_step, diff_ts,
+                                                   LAYERWISE_TRAINSTEP_RTOL))
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": 2 * L * PARITY_STEPS,
+            "flash_bwd_fused": L * PARITY_STEPS, "flash_bwd_two_kernel": 0,
+            "rms_norm": (4 * L + 1) * PARITY_STEPS}
+    if launches != want:
+        raise AssertionError("fp32 layerwise launches %s, want %s"
+                             % (launches, want))
     return row
 
 
@@ -1581,6 +1841,16 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
                         ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=None))
+    rs = rows["rms_norm"]
+    r = pick(rs, RMS_MAIN)
+    out.append(dict(name="rms_norm", route="cuda", source=RMS_SOURCE,
+                    replaces=RMS_REPLACES,
+                    launches=train_launches["train_7b_layerwise"]["rms_norm"],
+                    path="train_7b_layerwise",
+                    max_abs_err=max(x["max_abs_err"] for x in rs),
+                    ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                    bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                    library_ms=r["library_ms"]))
     for name in ALL_FLASH:
         case, path = FLASH_MAIN[name]
         rs = [r for r in flash_rows if r["kernel"] == name]
@@ -1623,10 +1893,13 @@ def main() -> int:
     train = run("train_7b", phase_train_7b)
     run("train_parity", phase_train_parity)
     long = run("train_long", phase_train_long)
+    layerwise = run("train_7b_layerwise", phase_train_7b_layerwise)
+    run("layerwise_parity", phase_layerwise_parity)
     emit({"kernels": kernel_summary(
         rows, serving, flash_rows,
         {"train_7b": train["launches"],
-         "train_long_16k": long["launches"]})})
+         "train_long_16k": long["launches"],
+         "train_7b_layerwise": layerwise["launches"]})})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

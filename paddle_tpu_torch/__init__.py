@@ -26,7 +26,11 @@ Ported so far:
   ``optimizer`` (Adam, AdamW), ``models.llama.LlamaPretrainingCriterion``
   and the model's cache-less path with recompute — with three kernels in
   ``ops.flash_attention``: the neox-rope flash forward and its one-pass
-  and two-kernel backward.
+  and two-kernel backward;
+- the layerwise training step — ``jit.layerwise.LlamaLayerwiseTrainStep``
+  (the optimizer applied per layer inside the reverse sweep) with
+  ``optimizer.Adafactor`` — over the flash kernels and the RMSNorm kernel
+  of ``ops.rms_norm``.
 """
 from .core.device import resolve_device  # noqa: F401
 

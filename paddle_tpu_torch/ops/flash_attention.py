@@ -463,11 +463,17 @@ def flash_attention_rope(query, key, value, rotary_base: float = 10000.0,
         raise ValueError("flash_attention_rope: in-kernel rope requires "
                          "Sq == Sk; got %d and %d" % (S, key.shape[1]))
     cos, sin = rope_tables(S, D, rotary_base, device=query.device)
-    if not _kernel_ok(query):
-        return _chunked_sdpa(_rope_cast(query, cos, sin),
-                             _rope_cast(key, cos, sin), value, is_causal)
-    return FlashRopeAttention.apply(query.contiguous(), key.contiguous(),
-                                    value.contiguous(), cos, sin, is_causal)
+    return flash_rope_sdpa(query, key, value, cos, sin, is_causal)
+
+
+def flash_rope_sdpa(q, k, v, cos, sin, causal: bool = True) -> torch.Tensor:
+    """:func:`flash_attention_rope` with the rope tables given (reference:
+    ``_flash_rope_sdpa``), for callers that build them once per step."""
+    if not _kernel_ok(q):
+        return _chunked_sdpa(_rope_cast(q, cos, sin), _rope_cast(k, cos, sin),
+                             v, causal)
+    return FlashRopeAttention.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), cos, sin, causal)
 
 
 def flash_attention(query, key, value, is_causal: bool = False):

@@ -1,3 +1,4 @@
-from .optimizer import Adam, AdamW, Optimizer, adam_update  # noqa: F401
+from .optimizer import (Adafactor, Adam, AdamW, Optimizer,  # noqa: F401
+                        adam_update)
 
-__all__ = ["Optimizer", "Adam", "AdamW", "adam_update"]
+__all__ = ["Optimizer", "Adam", "AdamW", "Adafactor", "adam_update"]

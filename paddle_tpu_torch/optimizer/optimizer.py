@@ -1,13 +1,15 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer/optimizer.py``):
 the base with learning rate, weight decay and fp32 master weights, Adam
-with a moment dtype, and AdamW with decoupled decay.
+with a moment dtype, AdamW with decoupled decay, and Adafactor.
 
-The update is a plain function over tensors (:func:`adam_update`),
-applied to each parameter in place under ``torch.no_grad``: the math runs
-in fp32 in the reference's order of operations, the moments are stored in
+Each update rule (``_update_rule(p, g, state, lr)``) updates one tensor
+and its state in place under ``torch.no_grad``: the math runs in fp32 in
+the reference's order of operations, the moments are stored in
 ``moment_dtype``, and the beta powers are kept per parameter.  In place
 is the port's choice where the reference returns new arrays: it keeps one
-copy of the parameters and moments on the card.
+copy of the parameters and moments on the card.  ``p`` and the state may
+be views, so the layerwise step (``jit/layerwise.py``) applies the same
+rule to one layer's slice of its stacked buffers.
 """
 from __future__ import annotations
 
@@ -177,3 +179,84 @@ class AdamW(Adam):
     def _update_rule(self, p, g, state, lr):
         adam_update(p, g, state, lr, self._beta1, self._beta2, self._eps,
                     decoupled=True)
+
+
+class Adafactor(Optimizer):
+    """Adafactor (Shazeer & Stern 2018; reference: ``Adafactor``): factored
+    second moments for parameters of two or more dimensions (a row factor
+    ``vr`` over ``shape[:-1]`` and a column factor ``vc`` over
+    ``shape[:-2] + shape[-1:]``, fp32), a full ``v`` for 1-D ones, the
+    update RMS-clipped to ``clip_threshold`` and, with
+    ``scale_parameter``, scaled by ``max(epsilon2, rms(p))``; ``beta1``
+    adds a first moment stored in ``moment_dtype``; ``weight_decay``
+    decays by the same scaled step size."""
+
+    def __init__(self, learning_rate: float = 0.001,
+                 beta1: Optional[float] = None, epsilon1: float = 1e-30,
+                 epsilon2: float = 1e-3, clip_threshold: float = 1.0,
+                 decay_rate: float = 0.8, scale_parameter: bool = True,
+                 parameters: Optional[Params] = None,
+                 weight_decay: Optional[float] = None,
+                 moment_dtype: str = "float32"):
+        super().__init__(learning_rate, parameters, weight_decay)
+        if str(moment_dtype) not in _MOMENT_DTYPES:
+            raise ValueError("moment_dtype must be one of %s; got %r"
+                             % (sorted(_MOMENT_DTYPES), moment_dtype))
+        self._beta1 = beta1
+        self._eps1, self._eps2 = epsilon1, epsilon2
+        self._clip_threshold = clip_threshold
+        self._decay_rate = decay_rate
+        self._scale_parameter = scale_parameter
+        self._moment_dtype = _MOMENT_DTYPES[str(moment_dtype)]
+
+    def _init_state(self, name, p):
+        f32 = dict(dtype=torch.float32, device=p.device)
+        shape = tuple(p.shape)
+        st = {"step": torch.zeros((), **f32)}
+        if len(shape) >= 2:
+            st["vr"] = torch.zeros(shape[:-1], **f32)
+            st["vc"] = torch.zeros(shape[:-2] + shape[-1:], **f32)
+        else:
+            st["v"] = torch.zeros(shape, **f32)
+        if self._beta1 is not None:
+            st["m"] = torch.zeros(shape, dtype=self._moment_dtype,
+                                  device=p.device)
+        return st
+
+    def _update_rule(self, p, g, state, lr):
+        g32 = g.to(torch.float32)
+        t = state["step"] + 1.0
+        rho = 1.0 - torch.pow(t, -self._decay_rate)
+        gsq = g32.square() + self._eps1
+        new = {"step": t}
+        if g32.dim() >= 2:
+            vr = rho * state["vr"] + (1 - rho) * gsq.mean(dim=-1)
+            vc = rho * state["vc"] + (1 - rho) * gsq.mean(dim=-2)
+            new["vr"], new["vc"] = vr, vc
+            # u = g / sqrt(v) with v_ij = vr_i * vc_j / mean_i(vr)
+            r = torch.rsqrt(vr / vr.mean(dim=-1, keepdim=True))
+            c = torch.rsqrt(vc)
+            u = g32 * r[..., :, None] * c[..., None, :]
+        else:
+            v = rho * state["v"] + (1 - rho) * gsq
+            new["v"] = v
+            u = g32 * torch.rsqrt(v)
+        del gsq
+        rms_u = u.square().mean().sqrt()
+        u = u / torch.clamp(rms_u / self._clip_threshold, min=1.0)
+        if self._beta1 is not None:
+            m = self._beta1 * state["m"].to(torch.float32) \
+                + (1 - self._beta1) * u
+            new["m"] = m
+            u = m
+        p32 = p.to(torch.float32)
+        alpha = lr
+        if self._scale_parameter:
+            alpha = lr * torch.clamp(p32.square().mean().sqrt(),
+                                     min=self._eps2)
+        if self._weight_decay is not None:
+            # decay rides the same RMS-scaled step size as the update
+            p32 = p32 * (1.0 - alpha * float(self._weight_decay))
+        p.copy_(p32 - alpha * u)
+        for k, val in new.items():
+            state[k].copy_(val)

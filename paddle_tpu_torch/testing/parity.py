@@ -3,7 +3,8 @@
 The reference (``paddle_tpu``) names its Llama parameters as the port
 does (``llama.layers.0.self_attn.q_proj.weight``, ...), but stores every
 ``Linear`` weight as ``[in, out]`` where the port stores torch's
-``[out, in]``.  The state arrives as plain numpy arrays, so this module
+``[out, in]``.  The layerwise step's stacked buffers have one layout in
+both packages.  The state arrives as plain numpy arrays, so this module
 imports nothing of the reference.
 """
 from __future__ import annotations
@@ -55,3 +56,17 @@ def load_paddle_tpu_weights(model: nn.Module,
             raise ValueError("%s: port shape %s vs reference %s"
                              % (name, tuple(p.shape), tuple(t.shape)))
         p.copy_(t.to(device=p.device, dtype=p.dtype))
+
+
+def layerwise_params_from_paddle_tpu(np_params) -> Dict:
+    """The reference ``LlamaLayerwiseTrainStep.params`` tree (``emb``,
+    ``norm``, ``head`` and ``blocks``, as numpy) as the port's stacked
+    buffers: the same layout, so plain copies (load them with the port
+    step's ``set_params``)."""
+    def copy(a):
+        return torch.tensor(np.ascontiguousarray(np.asarray(a)))
+
+    out = {name: copy(np_params[name]) for name in ("emb", "norm", "head")}
+    out["blocks"] = {name: copy(a) for name, a in
+                     np_params["blocks"].items()}
+    return out

@@ -1,7 +1,7 @@
 """Card-only tests of the PyTorch/CUDA port: each CUDA kernel against its
 plain PyTorch version, the tiny engines against the eager model and the
-CPU engines, and a tiny training step through the flash kernels, on the
-device.  Every test
+CPU engines, and tiny training steps (``TrainStep`` and the layerwise
+step) through the kernels, on the device.  Every test
 skips itself when no CUDA device is present.
 
 This file imports neither JAX nor ``paddle_tpu``, so it also runs on a
@@ -15,16 +15,19 @@ import pytest
 import torch
 
 from chip_smoke import (_flash_case, _quantize_pools, _ragged_case,
-                        flash_excess, flash_noise, flash_tolerance,
-                        cut_lengths, int8_tolerance, ragged_tolerance)
+                        _rms_inputs, flash_excess, flash_noise,
+                        flash_tolerance, cut_lengths, int8_tolerance,
+                        ragged_tolerance, rms_tolerance)
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+from paddle_tpu_torch.jit.layerwise import LlamaLayerwiseTrainStep
 from paddle_tpu_torch.jit.train_step import TrainStep
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            LlamaPretrainingCriterion,
                                            llama_tiny_config)
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import kernels as pk
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.ops import rms_norm as rn
+from paddle_tpu_torch.optimizer import Adafactor, AdamW
 from paddle_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -346,3 +349,72 @@ def test_tiny_train_step_on_card_matches_cpu(cuda):
         launched = fa.flash_fwd.launches - before
     assert launched == 3 * cfg.num_hidden_layers
     np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(37, 4096), (1, 64), (129, 5120),
+                                    (64, 8192), (50, 100), (33, 4099)])
+def test_rms_norm_kernel_matches_plain(cuda, dtype, rows, d):
+    """#4 against its plain version within ``chip_smoke.rms_tolerance``
+    (vector and scalar paths, leading dims), and the autograd Function's
+    gradients on the card against the same Function on the CPU."""
+    gen = torch.Generator(cuda).manual_seed(rows)
+    x, w = _rms_inputs(rows, d, getattr(torch, dtype), gen)
+    x = x.reshape(1, rows, d)
+    before = rn.rms_norm_tpu.launches
+    got = rn.rms_norm_tpu(x, w, 1e-6)
+    assert rn.rms_norm_tpu.launches == before + 1
+    want = rn._rms_norm_plain(x, w, 1e-6)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert ((got.float() - want.float()).abs()
+            <= rms_tolerance(want, dtype)).all()
+    g = torch.randn(x.shape, generator=gen, device=cuda).to(x.dtype)
+    grads = {}
+    for dev in ("cpu", cuda):
+        xd, wd = (t.detach().to(dev).requires_grad_() for t in (x, w))
+        rn.RMSNormKernel.apply(xd, wd, 1e-6).backward(g.to(dev))
+        grads[str(dev)] = (xd.grad.cpu().float(), wd.grad.cpu().float())
+    assert rn.rms_norm_tpu.launches == before + 2
+    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+        if dtype == "float32":
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-5 * b.abs().max().item())
+        else:
+            assert ((a - b).abs() <= rms_tolerance(b, dtype)
+                    + 2.0 ** -7 * b.abs().max()).all()
+
+
+def test_rms_norm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(4, 64, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        rn.rms_norm_tpu(x, torch.ones(64, device=cuda,
+                                      dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="weight"):
+        rn.rms_norm_tpu(x, torch.ones(32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.rms_norm_tpu(torch.zeros(64, 4, device=cuda).t(),
+                        torch.ones(64, device=cuda))
+
+
+def test_tiny_layerwise_step_on_card_matches_cpu(cuda):
+    """Three fp32 layerwise steps of a tiny model (head dim 64) on the
+    card, through the flash kernels and #4, against the same steps on
+    the CPU (plain versions) from the same weights: losses to 1e-4
+    relative; launches exact."""
+    cfg = llama_tiny_config(hidden_size=256, num_attention_heads=4,
+                            num_key_value_heads=2, vocab_size=256,
+                            intermediate_size=256)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 256,
+                                                            (2, 128)))
+    cpu = LlamaLayerwiseTrainStep(cfg, Adafactor(1e-3, parameters=[]),
+                                  device="cpu").init(0)
+    card = LlamaLayerwiseTrainStep(cfg, Adafactor(1e-3, parameters=[]),
+                                   device=cuda).set_state_dict(
+                                       cpu.state_dict())
+    before = (fa.flash_fwd.launches, rn.rms_norm_tpu.launches)
+    want = [cpu(ids, ids).item() for _ in range(3)]
+    got = [card(ids.to(cuda), ids.to(cuda)).item() for _ in range(3)]
+    L = cfg.num_hidden_layers
+    assert (fa.flash_fwd.launches, rn.rms_norm_tpu.launches) == (
+        before[0] + 3 * 2 * L, before[1] + 3 * (4 * L + 1))
+    np.testing.assert_allclose(got, want, rtol=1e-4)

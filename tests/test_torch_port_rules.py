@@ -16,6 +16,7 @@ import paddle_tpu  # noqa: F401  (the reference; the port must not need it)
 
 import paddle_tpu_torch
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+from paddle_tpu_torch.jit.layerwise import LlamaLayerwiseTrainStep
 from paddle_tpu_torch.jit.train_step import TrainStep
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            LlamaPretrainingCriterion,
@@ -24,6 +25,7 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import rope_qkv_epilogue
 from paddle_tpu_torch.ops.paged_attention import (paged_attention,
                                                   ragged_paged_attention)
+from paddle_tpu_torch.ops.rms_norm import rms_norm_tpu
 from paddle_tpu_torch.optimizer import AdamW
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,7 +64,8 @@ def test_ast_scan_finds_no_jax_or_reference_import():
     for module in ("ops/flash_attention.py", "optimizer/optimizer.py",
                    "jit/train_step.py", "models/llama.py",
                    "nn/functional.py", "quantization/functional.py",
-                   "ops/online_softmax.py", "jit/serving_step.py"):
+                   "ops/online_softmax.py", "jit/serving_step.py",
+                   "jit/layerwise.py", "ops/rms_norm.py"):
         assert os.path.join("paddle_tpu_torch", module) in scanned
 
 
@@ -104,6 +107,8 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         ContinuousBatchingEngine(_tiny(), max_batch_size=2, num_blocks=8,
                                  block_size=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LlamaLayerwiseTrainStep(_tiny().config)
     with pytest.raises(RuntimeError, match="CUDA"):
         paddle_tpu_torch.resolve_device(None)
     assert paddle_tpu_torch.resolve_device("cpu") == torch.device("cpu")
@@ -203,3 +208,14 @@ def test_unported_train_step_options_raise(option):
     with pytest.raises(NotImplementedError, match="not ported"):
         TrainStep(model, LlamaPretrainingCriterion(), opt,
                   **{option: object()})
+
+
+def test_layerwise_path_on_cpu_launches_no_kernel():
+    """A layerwise step on the CPU runs the flash kernels' and RMSNorm's
+    plain versions and counts no launch."""
+    counters = FLASH_COUNTERS + (rms_norm_tpu,)
+    before = [f.launches for f in counters]
+    step = LlamaLayerwiseTrainStep(_tiny().config, device="cpu").init(0)
+    ids = torch.from_numpy(np.arange(1, 17).reshape(2, 8) % 64)
+    assert torch.isfinite(step(ids, ids))
+    assert [f.launches for f in counters] == before
