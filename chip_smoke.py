@@ -58,11 +58,15 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    layers (held to 1e-3) and bf16 at 2 layers.
 5. The three flash kernels (forward, one-pass backward, two-kernel
    backward) against their plain versions over fp32/bf16, head dims 64
-   and 128, causal or not, rope on and off, rectangular shapes and rows
-   that see nothing (``FLASH_CASES``), each within
-   :func:`flash_tolerance`; timed, with the bound and
+   and 128, causal or not, rope on and off, rectangular shapes, rows
+   that see nothing and sequences of 1 and 65 tokens (``FLASH_CASES``),
+   each within :func:`flash_tolerance` against the plain version of its
+   own form (the backward forms round at the reference's points, which
+   differ); timed, with the achieved TFLOP/s, the bound and
    ``scaled_dot_product_attention``'s time, at the 7B training shape and
-   at 16k.
+   at 16k.  In bf16 the forward and the two-kernel backward are the
+   tensor-core kernels of ``csrc/flash_attention_sm90.cu``; the rest run
+   on the CUDA cores (``csrc/flash_attention.cu``).
 6. Training at full width and depth: Llama-2-7B bf16 through
    ``TrainStep`` (AdamW with bf16 moments, recompute, clip 1.0, batch
    2 x 2048), a warm-up and 4 timed steps: finite losses, the first near
@@ -95,6 +99,7 @@ a CUDA card it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -680,7 +685,9 @@ def phase_kernels():
 # long-context phase's, where the router takes the two-kernel backward.
 # The small cases cover head dim 64, fp32, no rope, no mask, key axes
 # longer and shorter than the query axis (rows that see nothing) and
-# lengths that are not a multiple of the kernels' 64-row tiles.
+# lengths that are not a multiple of the kernels' 64-row tiles, each in
+# both dtypes (the bf16 forward and two-kernel backward are the tensor-core
+# kernels), and sequences of 1 and 65 tokens.
 ALL_FLASH = ("flash_fwd", "flash_bwd_fused", "flash_bwd_two_kernel")
 FLASH_CASES = (
     ("main", 2, 2048, 2048, 32, 128, "bfloat16", True, True, ALL_FLASH),
@@ -689,16 +696,30 @@ FLASH_CASES = (
      ALL_FLASH),
     ("d64_causal_ragged", 1, 200, 200, 4, 64, "float32", False, True,
      ALL_FLASH),
+    ("d64_causal_ragged_bf16", 1, 200, 200, 4, 64, "bfloat16", False, True,
+     ALL_FLASH),
     ("rect_causal", 2, 192, 448, 4, 128, "bfloat16", False, True, ALL_FLASH),
     ("dead_rows", 1, 448, 192, 4, 128, "float32", False, True, ALL_FLASH),
+    ("dead_rows_bf16", 1, 448, 192, 4, 128, "bfloat16", False, True,
+     ALL_FLASH),
     ("dead_rows_bf16_d64", 1, 300, 100, 4, 64, "bfloat16", False, True,
      ALL_FLASH),
     ("rect_full_ragged", 1, 100, 300, 4, 64, "float32", False, False,
      ALL_FLASH),
+    ("rect_full_ragged_bf16", 1, 100, 300, 4, 64, "bfloat16", False, False,
+     ALL_FLASH),
+    ("one_token_rope", 2, 1, 1, 4, 128, "bfloat16", True, True, ALL_FLASH),
+    ("s65_rope_d64", 2, 65, 65, 4, 64, "bfloat16", True, True, ALL_FLASH),
     ("long_16k", 1, 16384, 16384, 32, 128, "bfloat16", True, True,
      ("flash_fwd", "flash_bwd_two_kernel")),
 )
+# the timed cases: the training shapes, and the fp32 variants (the CUDA
+# cores) at the 7B one
+FLASH_TIMED = ("main", "main_fp32", "long_16k")
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+FLASH_TC_SOURCE = "paddle_tpu_torch/csrc/flash_attention_sm90.cu"
+# the kernels whose bf16 variants run on the tensor cores
+FLASH_TC = ("flash_fwd", "flash_bwd_two_kernel")
 FLASH_REPLACES = {
     "flash_fwd": "paddle_tpu/ops/pallas_kernels.py:176",
     "flash_bwd_fused": "paddle_tpu/ops/pallas_kernels.py:480",
@@ -709,6 +730,14 @@ FLASH_REPLACES = {
 FLASH_MAIN = {"flash_fwd": ("main", "train_7b"),
               "flash_bwd_fused": ("main", "train_7b"),
               "flash_bwd_two_kernel": ("long_16k", "train_long_16k")}
+
+
+def flash_source(kernel, dtype_name):
+    """The source whose kernel a call of ``kernel`` in ``dtype_name``
+    launches (the wrappers route by dtype)."""
+    if dtype_name == "bfloat16" and kernel in FLASH_TC:
+        return FLASH_TC_SOURCE
+    return FLASH_SOURCE
 
 
 BF16_ULP = 2.0 ** -7     # one bf16 ulp of a value is at most this share
@@ -744,6 +773,11 @@ def flash_tolerance(want, dtype_name: str, noise=None):
     return BF16_ULP * want.float().abs() + NOISE_MARGIN * row + f32
 
 
+# the plain backward form each backward kernel stands for
+FLASH_FORM = {"flash_bwd_fused": "fused",
+              "flash_bwd_two_kernel": "two_kernel"}
+
+
 def flash_noise(kernel, q, k, v, out, lse, g, causal, tables):
     """The rounding the plain version of ``kernel`` does inside the
     function, element by element: its output before the last rounding
@@ -757,9 +791,11 @@ def flash_noise(kernel, q, k, v, out, lse, g, causal, tables):
         raw = fa._flash_fwd_plain(q, k, v, causal, tables, out_dtype=f32)[:1]
         ref = fa._flash_fwd_plain(qf, kf, vf, causal, tables)[:1]
     else:
+        form = FLASH_FORM[kernel]
         raw = fa._flash_bwd_plain(q, k, v, out, lse, g, causal, tables,
-                                  out_dtype=f32)
-        ref = fa._flash_bwd_plain(qf, kf, vf, of, lse, gf, causal, tables)
+                                  form=form, out_dtype=f32)
+        ref = fa._flash_bwd_plain(qf, kf, vf, of, lse, gf, causal, tables,
+                                  form=form)
     return tuple((a - b).abs() for a, b in zip(raw, ref))
 
 
@@ -848,7 +884,8 @@ def check_flash(name, B, Sq, Sk, H, D, dtype_name, rope, causal, kernels,
         fn = getattr(fa, kern)
         got = fn(q, k, v, out, lse, g, causal, tables)
         torch.cuda.synchronize()
-        want = fa._flash_bwd_plain(q, k, v, out, lse, g, causal, tables)
+        want = fa._flash_bwd_plain(q, k, v, out, lse, g, causal, tables,
+                                   form=FLASH_FORM[kern])
         results[kern] = (got, want, None)
     iters = 3 if Sq > 4096 else 10
     for kern in kernels:
@@ -885,14 +922,19 @@ def check_flash(name, B, Sq, Sk, H, D, dtype_name, rope, causal, kernels,
                    max_abs_err=max(errs), errs=errs, err_over_tol=excess,
                    atol_median_max=atols, median_abs=typical,
                    rel_tol=BF16_ULP if dtype_name == "bfloat16" else 0.0,
-                   bound_ms=b_ms, bound_by=b_by)
+                   bound_ms=b_ms, bound_by=b_by,
+                   source=flash_source(kern, dtype_name))
         if timed:
             bwd = kern != "flash_fwd"
             fn = getattr(fa, kern)
             args = (q, k, v, out, lse, g) if bwd else (q, k, v)
-            plain = fa._flash_bwd_plain if bwd else fa._flash_fwd_plain
+            kernel_ms = time_ms(lambda: fn(*args, causal, tables), iters)
+            plain = (functools.partial(fa._flash_bwd_plain,
+                                       form=FLASH_FORM[kern])
+                     if bwd else fa._flash_fwd_plain)
             row.update(
-                kernel_ms=time_ms(lambda: fn(*args, causal, tables), iters),
+                kernel_ms=kernel_ms, flops=flops,
+                tflop_per_s=flops / (kernel_ms * 1e-3) / 1e12,
                 plain_ms=time_ms(lambda: plain(*args, causal, tables), 2,
                                  warmup=1),
                 library_ms=(_library_ms(q, k, v, g, causal, bwd, iters)
@@ -911,7 +953,7 @@ def phase_flash_kernels():
     rows = []
     for case in FLASH_CASES:
         rows += check_flash(*case, gen=gen,
-                            timed=case[0] in ("main", "long_16k"))
+                            timed=case[0] in FLASH_TIMED)
         torch.cuda.empty_cache()
     return rows
 
@@ -1085,6 +1127,14 @@ def _kernel_kind(name: str) -> str:
         return "ragged_paged_attention"
     if "rope_qkv" in name:
         return "rope_qkv_epilogue"
+    if "fwd_tc_kernel" in name:
+        return "flash_fwd (tensor cores)"
+    if "bwd_dq_tc_kernel" in name:
+        return "flash_bwd_dq (tensor cores)"
+    if "bwd_kv_tc_kernel" in name:
+        return "flash_bwd_kv (tensor cores)"
+    if "rope_round_kernel" in name or "delta_kernel" in name:
+        return "flash pre-passes (rope, delta)"
     if "flash_fwd" in name:
         return "flash_fwd"
     if "flash_bwd_kv_kernel" in name or "dq_finalize" in name:
@@ -1529,8 +1579,11 @@ def _plain_kernels():
         @staticmethod
         def backward(ctx, g):
             q, k, v, cos, sin, out, lse = ctx.saved_tensors
+            form = ("fused" if fa.fused_bwd_taken(k.shape[1])
+                    else "two_kernel")
             return (*fa._flash_bwd_plain(q, k, v, out, lse, g.contiguous(),
-                                         True, (cos, sin)), None, None)
+                                         True, (cos, sin), form=form),
+                    None, None)
 
     def plain(q, k, v, rotary_base, is_causal=True):
         cos, sin = fa.rope_tables(q.shape[1], q.shape[3], rotary_base,
@@ -1855,7 +1908,7 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
         case, path = FLASH_MAIN[name]
         rs = [r for r in flash_rows if r["kernel"] == name]
         r = next(x for x in rs if x["case"] == case)
-        out.append(dict(name=name, route="cuda", source=FLASH_SOURCE,
+        out.append(dict(name=name, route="cuda", source=r["source"],
                         replaces=FLASH_REPLACES[name],
                         launches=train_launches[path][name], path=path,
                         max_abs_err=max(x["max_abs_err"] for x in rs),

@@ -1,25 +1,35 @@
-// Flash attention with fused neox rope for Hopper (sm_90a): the forward,
-// the one-pass backward and the two-kernel backward of the training path.
+// Flash attention with fused neox rope on the CUDA cores (sm_90a): the
+// fp32 forward and two-kernel backward, and the one-pass backward in fp32
+// and bf16.  The bf16 forward and two-kernel backward run on the tensor
+// cores, in flash_attention_sm90.cu; this library has no bf16
+// instantiation of them (its entries return cudaErrorInvalidValue).
 //
 // Replaces (paddle_tpu/ops/pallas_kernels.py):
-// - _flash_fwd_kernel (launched by _flash_attention_value): flash_fwd_kernel
+// - _flash_fwd_kernel (launched by _flash_attention_value), fp32:
+//   flash_fwd_kernel
 // - _flash_bwd_kv_kernel with emit_dq (launched by
-//   _flash_attention_bwd_fused): flash_bwd_kv_kernel<EMIT_DQ=true> followed
-//   by dq_finalize_kernel
+//   _flash_attention_bwd_fused), fp32 and bf16:
+//   flash_bwd_kv_kernel<EMIT_DQ=true> followed by dq_finalize_kernel
 // - _flash_bwd_dq_kernel + _flash_bwd_kv_kernel (launched by
-//   _flash_attention_bwd): flash_bwd_dq_kernel + flash_bwd_kv_kernel<false>
+//   _flash_attention_bwd), fp32: flash_bwd_dq_kernel +
+//   flash_bwd_kv_kernel<false>
 //
 // What they compute.  q [B, Sq, H, D], k/v [B, Sk, H, D], out/dout like
 // q, lse [B, H, Sq] fp32 (natural log, -inf for a row that sees nothing);
 // query row i sees key j iff j <= i + Sk - Sq when causal.  Scores are
-// kept in exp2 space: the q tile is roped (optional), multiplied by
-// c = scale * log2(e) and rounded to the input type once; k is roped and
-// rounded; p is rounded to the input type before p.V (and before
-// p^T.dO), ds before ds.K and ds^T.Q; the gradients of q and k leave
-// through the inverse rotation (the rope VJP, cos and -sin).  All math is
-// fp32.  The rope expressions use __fmul_rn/__fadd_rn so that nvcc cannot
-// contract them into FMAs: the rounded operands are then bitwise those of
-// the plain PyTorch version (paddle_tpu_torch/ops/flash_attention.py).
+// kept in exp2 space: exactly one score operand carries c = scale *
+// log2(e), multiplied in after the (optional) rope and before the one
+// rounding to the input type.  The forward and the dq kernel put c on
+// their resident q tile (scores round(rope(q) c) . round(rope(k))); the
+// k-tile kernel puts it on its resident k tile (scores round(rope(q)) .
+// round(rope(k) c)), so its dk reads the one roped q tile and its fused
+// dq share is ds . Ks / log2(e).  These are the reference's points.  p is
+// rounded to the input type before p.V (and before p^T.dO), ds before
+// ds.K and ds^T.Q; the gradients of q and k leave through the inverse
+// rotation (the rope VJP, cos and -sin).  All math is fp32.  The rope
+// expressions use __fmul_rn/__fadd_rn so that nvcc cannot contract them
+// into FMAs: the rounded operands are then bitwise those of the plain
+// PyTorch version (paddle_tpu_torch/ops/flash_attention.py).
 //
 // Design (simple and right first; tensor cores, TMA and pipelining later).
 // 256 threads per block; q and k tiles of 64 rows; every tile lives in
@@ -37,7 +47,8 @@
 //   registers; it loops over the q tiles from the first that sees the k
 //   tile, recomputing p from the lse and delta = rowsum(dO * O) per q
 //   tile.  With EMIT_DQ it also adds each (k tile, q tile) share of dq,
-//   times scale, into a zeroed fp32 workspace with atomicAdd: the TPU
+//   ds . Ks times 1/log2(e) (Ks carries c), into a zeroed fp32 workspace
+//   with atomicAdd: the TPU
 //   kernel writes per-k-tile partials because it has no atomics.  The
 //   order of the additions changes from run to run, so dq is not bitwise
 //   deterministic.  dq_finalize_kernel then applies the inverse rope and
@@ -50,9 +61,10 @@
 // a q tile does 64 x 2 x D operations per key it reads, far above the
 // ~295 operations per byte where the H100 turns compute bound.  These
 // kernels run on the fp32 CUDA cores (67 TFLOP/s peak, and the 4x4
-// register tile reads two shared-memory words per two FMAs), not on the
-// bf16 tensor cores (989 TFLOP/s), so they sit well above their bound:
-// mma/wgmma tiles are the next step.
+// register tile reads two shared-memory words per two FMAs).  fp32 stays
+// here: on the tensor cores fp32 inputs would be TF32 (about three
+// decimal digits).  The bf16 one-pass backward is next onto the tensor
+// cores, as an extension of flash_attention_sm90.cu's dk/dv kernel.
 #include <math.h>
 
 #include "common.cuh"
@@ -64,6 +76,7 @@ constexpr int kB = 64;        // rows of a q tile and of a k tile
 constexpr int kLdP = kB + 1;  // padded row of a [64, 64] score tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kInvLog2e = 0.6931471805599453f;  // 1 / log2(e)
 
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
@@ -363,12 +376,11 @@ __global__ void __launch_bounds__(kThreads)
                         float scale) {
   constexpr int NC = D / 16, LD = D + 1;
   extern __shared__ float smem[];
-  float* Ks = smem;            // [64][LD] roped k
+  float* Ks = smem;            // [64][LD] exp2-space k (roped, times c)
   float* Vs = Ks + kB * LD;    // [64][LD]
-  float* Qs = Vs + kB * LD;    // [64][LD] exp2-space q
+  float* Qs = Vs + kB * LD;    // [64][LD] roped q (scores and dk)
   float* dOs = Qs + kB * LD;   // [64][LD]
-  float* Qr = dOs + kB * LD;   // [64][D]  roped q (the dk operand)
-  float* Ps = Qr + kB * D;     // [64][kLdP]
+  float* Ps = dOs + kB * LD;   // [64][kLdP]
   float* dSs = Ps + kB * kLdP; // [64][kLdP]
   float* dl = dSs + kB * kLdP; // [64] delta
   float* l2 = dl + kB;         // [64] lse * log2(e)
@@ -380,7 +392,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t khead = ((size_t)b * Sk * H + h) * D;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
-  load_tile<T, D, ROPE, false>(Ks, LD, k + khead, rs, k0, Sk, cos, sin, 1.f);
+  load_tile<T, D, ROPE, true>(Ks, LD, k + khead, rs, k0, Sk, cos, sin, c);
   load_tile<T, D, false, false>(Vs, LD, v + khead, rs, k0, Sk, cos, sin, 1.f);
   const int n_qt = (Sq + kB - 1) / kB;
   const int first_row = causal ? max(0, k0 - off) : 0;
@@ -394,8 +406,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int qt = first_row / kB; qt < n_qt; ++qt) {
     const int q0 = qt * kB;
     __syncthreads();  // the previous q tile is consumed
-    load_tile<T, D, ROPE, true>(Qs, LD, q + qhead, rs, q0, Sq, cos, sin, c);
-    load_tile<T, D, ROPE, false>(Qr, D, q + qhead, rs, q0, Sq, cos, sin, 1.f);
+    load_tile<T, D, ROPE, false>(Qs, LD, q + qhead, rs, q0, Sq, cos, sin,
+                                 1.f);
     load_tile<T, D, false, false>(dOs, LD, g + qhead, rs, q0, Sq, cos, sin,
                                   1.f);
     row_stats<T, D>(dl, l2, o + qhead, g + qhead, lse + (size_t)bh * Sq, rs,
@@ -407,7 +419,7 @@ __global__ void __launch_bounds__(kThreads)
     p_ds<T>(Ps, dSs, s, dp, dl, l2, q0, k0, Sq, Sk, causal, ty, tx);
     __syncthreads();
     mm_tn<kB, NC>(dva, Ps, kLdP, dOs, LD, ty, tx);
-    mm_tn<kB, NC>(dka, dSs, kLdP, Qr, D, ty, tx);
+    mm_tn<kB, NC>(dka, dSs, kLdP, Qs, LD, ty, tx);
     if (EMIT_DQ) {
       float dqp[4][NC] = {};
       mm_nn<kB, NC>(dqp, dSs, kLdP, Ks, LD, ty, tx);
@@ -418,7 +430,7 @@ __global__ void __launch_bounds__(kThreads)
         float* dst = dq_acc + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
         for (int j = 0; j < NC; ++j)
-          atomicAdd(dst + tx + 16 * j, dqp[a][j] * scale);
+          atomicAdd(dst + tx + 16 * j, dqp[a][j] * kInvLog2e);
       }
     }
   }
@@ -526,7 +538,7 @@ constexpr size_t fwd_smem() {
 }
 template <int D>
 constexpr size_t bwd_kv_smem() {
-  return (4 * kB * (D + 1) + kB * D + 2 * kB * kLdP + 2 * kB) * sizeof(float);
+  return (4 * kB * (D + 1) + 2 * kB * kLdP + 2 * kB) * sizeof(float);
 }
 template <int D>
 constexpr size_t bwd_dq_smem() {
@@ -561,75 +573,80 @@ int fwd(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// the two-kernel backward: the dq kernel, then the k-tile kernel
 template <typename T, int D, bool ROPE>
-int bwd(const Args& a, bool fused) {
-  const dim3 kv_grid((a.Sk + kB - 1) / kB, a.B * a.H);
+int bwd_two_kernel(const Args& a) {
   cudaError_t err;
-  if (!fused) {
-    auto dqk = flash_bwd_dq_kernel<T, D, ROPE>;
-    if ((err = set_smem(dqk, bwd_dq_smem<D>())) != cudaSuccess)
-      return (int)err;
-    dim3 grid((a.Sq + kB - 1) / kB, a.B * a.H);
-    dqk<<<grid, kThreads, bwd_dq_smem<D>(), a.st>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o,
-        (const T*)a.g, (const float*)a.lse, (const float*)a.cos,
-        (const float*)a.sin, (T*)a.dq, a.H, a.Sq, a.Sk, a.causal, a.c,
-        a.scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  auto kvk = fused ? flash_bwd_kv_kernel<T, D, ROPE, true>
-                   : flash_bwd_kv_kernel<T, D, ROPE, false>;
-  if ((err = set_smem(kvk, bwd_kv_smem<D>())) != cudaSuccess) return (int)err;
-  kvk<<<kv_grid, kThreads, bwd_kv_smem<D>(), a.st>>>(
+  auto dqk = flash_bwd_dq_kernel<T, D, ROPE>;
+  if ((err = set_smem(dqk, bwd_dq_smem<D>())) != cudaSuccess) return (int)err;
+  dim3 grid((a.Sq + kB - 1) / kB, a.B * a.H);
+  dqk<<<grid, kThreads, bwd_dq_smem<D>(), a.st>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o,
       (const T*)a.g, (const float*)a.lse, (const float*)a.cos,
-      (const float*)a.sin, (T*)a.dk, (T*)a.dv, (float*)a.dq_acc, a.H, a.Sq,
-      a.Sk, a.causal, a.c, a.scale);
+      (const float*)a.sin, (T*)a.dq, a.H, a.Sq, a.Sk, a.causal, a.c,
+      a.scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (fused) {
-    const size_t n = (size_t)a.B * a.Sq * a.H * D;
-    dq_finalize_kernel<T, D, ROPE><<<(unsigned)((n + 255) / 256), 256, 0,
-                                     a.st>>>(
-        (const float*)a.dq_acc, (const float*)a.cos, (const float*)a.sin,
-        (T*)a.dq, a.H, a.Sq, n);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  return 0;
+  auto kvk = flash_bwd_kv_kernel<T, D, ROPE, false>;
+  if ((err = set_smem(kvk, bwd_kv_smem<D>())) != cudaSuccess) return (int)err;
+  kvk<<<dim3((a.Sk + kB - 1) / kB, a.B * a.H), kThreads, bwd_kv_smem<D>(),
+        a.st>>>((const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o,
+                (const T*)a.g, (const float*)a.lse, (const float*)a.cos,
+                (const float*)a.sin, (T*)a.dk, (T*)a.dv, nullptr, a.H, a.Sq,
+                a.Sk, a.causal, a.c, a.scale);
+  return (int)cudaGetLastError();
 }
 
-// dtype x head dim x rope -> one instantiation
-template <template <typename, int, bool> class Op>
-int dispatch(int dtype, int D, int rope, const Args& a, bool fused) {
-#define PTT_CASE(T, DD, R) \
-  if (D == DD && (rope != 0) == R) return Op<T, DD, R>::run(a, fused);
-  if (dtype == 0) {
-    PTT_CASE(float, 64, false) PTT_CASE(float, 64, true)
-    PTT_CASE(float, 128, false) PTT_CASE(float, 128, true)
-  } else if (dtype == 1) {
-    PTT_CASE(__nv_bfloat16, 64, false) PTT_CASE(__nv_bfloat16, 64, true)
-    PTT_CASE(__nv_bfloat16, 128, false) PTT_CASE(__nv_bfloat16, 128, true)
-  }
-#undef PTT_CASE
-  return (int)cudaErrorInvalidValue;
+// the one-pass backward: the k-tile kernel adding dq shares, then the
+// finishing pass
+template <typename T, int D, bool ROPE>
+int bwd_fused(const Args& a) {
+  cudaError_t err;
+  auto kvk = flash_bwd_kv_kernel<T, D, ROPE, true>;
+  if ((err = set_smem(kvk, bwd_kv_smem<D>())) != cudaSuccess) return (int)err;
+  kvk<<<dim3((a.Sk + kB - 1) / kB, a.B * a.H), kThreads, bwd_kv_smem<D>(),
+        a.st>>>((const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o,
+                (const T*)a.g, (const float*)a.lse, (const float*)a.cos,
+                (const float*)a.sin, (T*)a.dk, (T*)a.dv, (float*)a.dq_acc,
+                a.H, a.Sq, a.Sk, a.causal, a.c, a.scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t n = (size_t)a.B * a.Sq * a.H * D;
+  dq_finalize_kernel<T, D, ROPE><<<(unsigned)((n + 255) / 256), 256, 0,
+                                   a.st>>>(
+      (const float*)a.dq_acc, (const float*)a.cos, (const float*)a.sin,
+      (T*)a.dq, a.H, a.Sq, n);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D, bool ROPE>
 struct FwdOp {
-  static int run(const Args& a, bool) { return fwd<T, D, ROPE>(a); }
+  static int run(const Args& a) { return fwd<T, D, ROPE>(a); }
 };
 template <typename T, int D, bool ROPE>
-struct BwdOp {
-  static int run(const Args& a, bool fused) {
-    return bwd<T, D, ROPE>(a, fused);
-  }
+struct FusedOp {
+  static int run(const Args& a) { return bwd_fused<T, D, ROPE>(a); }
 };
+template <typename T, int D, bool ROPE>
+struct TwoKernelOp {
+  static int run(const Args& a) { return bwd_two_kernel<T, D, ROPE>(a); }
+};
+
+// head dim x rope -> one instantiation of Op for the input type T
+template <template <typename, int, bool> class Op, typename T>
+int dispatch(int D, int rope, const Args& a) {
+  if (D == 64)
+    return rope ? Op<T, 64, true>::run(a) : Op<T, 64, false>::run(a);
+  if (D == 128)
+    return rope ? Op<T, 128, true>::run(a) : Op<T, 128, false>::run(a);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
 // Layouts: q/out [B, Sq, H, D], k/v [B, Sk, H, D], all contiguous in the
 // input type (dtype 0 = float32, 1 = bfloat16); lse [B, H, Sq] float32;
 // cos/sin [S, D] float32 (null without rope).  c = log2(e) / sqrt(D).
-// Returns the launches' cudaGetLastError().
+// Returns the launches' cudaGetLastError(); the forward takes float32
+// only (cudaErrorInvalidValue otherwise).
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* cos, const void* sin, void* out,
                              void* lse, int B, int H, int Sq, int Sk, int D,
@@ -640,12 +657,14 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   a.lse_out = lse;
   a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.causal = causal, a.c = c;
   a.st = (cudaStream_t)stream;
-  return dispatch<FwdOp>(dtype, D, rope, a, false);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return dispatch<FwdOp, float>(D, rope, a);
 }
 
-// fused = 1: the one-pass backward, adding dq into dq_acc ([B, Sq, H, D]
-// float32, zeroed by the caller) and finishing it into dq; fused = 0: the
-// two-kernel backward (dq_acc unused).  scale = 1 / sqrt(D).
+// fused = 1: the one-pass backward (float32 or bfloat16), adding dq into
+// dq_acc ([B, Sq, H, D] float32, zeroed by the caller) and finishing it
+// into dq; fused = 0: the two-kernel backward, float32 only (dq_acc
+// unused).  scale = 1 / sqrt(D).
 extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* dout,
                              const void* lse, const void* cos,
@@ -660,5 +679,9 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
   a.dq_acc = dq_acc;
   a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.causal = causal, a.c = c;
   a.scale = scale, a.st = (cudaStream_t)stream;
-  return dispatch<BwdOp>(dtype, D, rope, a, fused != 0);
+  if (fused && dtype == 0) return dispatch<FusedOp, float>(D, rope, a);
+  if (fused && dtype == 1)
+    return dispatch<FusedOp, __nv_bfloat16>(D, rope, a);
+  if (!fused && dtype == 0) return dispatch<TwoKernelOp, float>(D, rope, a);
+  return (int)cudaErrorInvalidValue;
 }

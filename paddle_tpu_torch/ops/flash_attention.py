@@ -1,7 +1,12 @@
 """Flash attention with fused neox rope, forward and backward (counterpart
 of the flash section of ``paddle_tpu/ops/pallas_kernels.py``).
 
-Kernels, all in ``csrc/flash_attention.cu`` (one library):
+Kernels, in two libraries: ``csrc/flash_attention_sm90.cu`` (bf16 on the
+tensor cores: the forward on ``wgmma``, the two-kernel backward on
+``mma.sync`` tiles fed by ``ldmatrix``, both behind a ``cp.async`` ring)
+and ``csrc/flash_attention.cu`` (the CUDA cores: every fp32 variant, and
+the one-pass backward in both dtypes).  The wrappers choose
+by dtype.
 
 - ``flash_fwd`` replaces ``_flash_fwd_kernel`` (launched by
   ``_flash_attention_value``): online-softmax forward, optional neox rope
@@ -23,11 +28,15 @@ heads in place, so nothing is transposed.  Causal masking is bottom-right
 aligned: query row ``i`` sees key ``j`` iff ``j <= i + Sk - Sq``.
 
 Rounding points (shared by the kernels and their plain versions, and
-taken from the Pallas kernels): scores live in exp2 space, the roped q
-is scaled by ``scale*log2(e)`` and cast to q's dtype, the roped k is cast
-to k's dtype, p is cast to v's dtype before ``p @ v`` (and to dO's before
-``p^T @ dO``), ds is cast to k's dtype; everything else is fp32.  In fp32
-the casts are no-ops; in bf16 they make kernel and plain comparable.
+taken from the Pallas kernels): scores live in exp2 space with ``c =
+scale*log2(e)`` on exactly one operand, multiplied in after the rope and
+before the one cast to the input dtype.  The forward and the two-kernel
+dq put c on q (``round(rope(q) c) . round(rope(k))``); dk, dv and the
+fused dq put it on k (``round(rope(q)) . round(rope(k) c)``), as the
+reference's dk/dv kernel folds c into its resident k tile.  p is cast to
+v's dtype before ``p @ v`` (and to dO's before ``p^T @ dO``), ds is cast
+to k's dtype; everything else is fp32.  In fp32 the casts are no-ops; in
+bf16 they make kernel and plain comparable.
 
 Each wrapper takes the plain version for CPU tensors and counts nothing;
 for CUDA tensors it launches its kernel or raises.
@@ -111,16 +120,20 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 
 def _rounded_operands(q, k, rope: Rope):
-    """``(qs, kr, qr)`` in the compute dtype: the exp2-space q (roped,
-    times ``scale*log2e``, cast to q's dtype), the roped k cast to k's
-    dtype, and the roped q cast to q's dtype (the dk operand)."""
+    """``(qs, kr, qr, ks)`` in the compute dtype, each rounded to its
+    input's dtype once: the exp2-space q (roped, times ``c =
+    scale*log2e``), the roped k, the roped q, and the exp2-space k (roped,
+    times c).  Exactly one score operand carries c: the forward and the
+    two-kernel dq use ``qs . kr``; dk, dv and the fused dq use
+    ``qr . ks`` (the reference's dk/dv kernel folds c into its resident k
+    tile)."""
     acc = _acc_dtype(q.dtype)
     c = (1.0 / math.sqrt(q.shape[-1])) * _LOG2E
     qf, kf = q.to(acc), k.to(acc)
     if rope is not None:
         qf, kf = _rope(qf, *rope), _rope(kf, *rope)
-    qs = (qf * c).to(q.dtype).to(acc)
-    return qs, kf.to(k.dtype).to(acc), qf.to(q.dtype).to(acc)
+    return ((qf * c).to(q.dtype).to(acc), kf.to(k.dtype).to(acc),
+            qf.to(q.dtype).to(acc), (kf * c).to(k.dtype).to(acc))
 
 
 def _head_chunks(B: int, H: int, Sq: int, Sk: int):
@@ -153,7 +166,7 @@ def _flash_fwd_plain(q, k, v, causal: bool, rope: Rope = None,
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     acc = _acc_dtype(q.dtype)
-    qs, kr, _ = _rounded_operands(q, k, rope)
+    qs, kr, _, _ = _rounded_operands(q, k, rope)
     vf = v.to(acc)
     vis = _visible(Sq, Sk, causal, q.device)
     out_dtype = out_dtype or q.dtype
@@ -173,18 +186,39 @@ def _flash_fwd_plain(q, k, v, causal: bool, rope: Rope = None,
     return out, lse
 
 
+def _p_ds(a, b, g_h, v_h, lse2, dlt, vis, ds_dtype):
+    """p = exp2(a . b^T - lse2) (0 where masked or the row sees nothing)
+    and ds = p * (dO . v^T - delta) rounded to ``ds_dtype``, for one head
+    block; ``a . b^T`` are exp2-space scores."""
+    s = (a @ b.transpose(1, 2)).masked_fill(~vis, float("-inf"))
+    p = torch.where(torch.isfinite(lse2), torch.exp2(s - lse2), 0.0)
+    dp = g_h @ v_h.transpose(1, 2)
+    return p, (p * (dp - dlt)).to(ds_dtype).to(p.dtype)
+
+
 def _flash_bwd_plain(q, k, v, out, lse, g, causal: bool, rope: Rope = None,
-                     out_dtype: Optional[torch.dtype] = None):
-    """Plain PyTorch version of both backward forms (they compute the
-    same function): ``(dq, dk, dv)`` in the input dtypes (or all in
-    ``out_dtype``, which skips the last rounding).  p is
-    recomputed from the saved lse, ``delta = rowsum(dO * O)``, and the
-    inverse rope is applied to dq and dk."""
+                     *, form: str, out_dtype: Optional[torch.dtype] = None):
+    """Plain PyTorch version of the backward form ``form`` (``"fused"``
+    or ``"two_kernel"``): ``(dq, dk, dv)`` in the input dtypes (or all in
+    ``out_dtype``, which skips the last rounding).  p is recomputed from
+    the saved lse, ``delta = rowsum(dO * O)``, and the inverse rope is
+    applied to dq and dk.
+
+    The forms compute one function and differ only in where they round
+    (the reference's kernels): in both, dk and dv come from the scores
+    ``qr . ks`` (c on the k operand), ``dk = ds^T qr * scale`` and
+    ``dv = p^T dO`` with p rounded; the fused dq is ``ds ks / log2e``
+    from the same scores, the two-kernel dq ``ds kr * scale`` from the
+    scores ``qs . kr`` (c on the q operand).  ds is rounded to k's dtype
+    in each."""
+    if form not in ("fused", "two_kernel"):
+        raise ValueError("form must be 'fused' or 'two_kernel', got %r"
+                         % (form,))
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     acc = _acc_dtype(q.dtype)
     scale = 1.0 / math.sqrt(D)
-    qs, kr, qr = _rounded_operands(q, k, rope)
+    qs, kr, qr, ks = _rounded_operands(q, k, rope)
     vf, gf = v.to(acc), g.to(acc)
     delta = (gf * out.to(acc)).sum(dim=-1)                 # [B, Sq, H]
     vis = _visible(Sq, Sk, causal, q.device)
@@ -192,20 +226,24 @@ def _flash_bwd_plain(q, k, v, out, lse, g, causal: bool, rope: Rope = None,
     dk = torch.empty(B, Sk, H, D, dtype=acc, device=q.device)
     dv = torch.empty(B, Sk, H, D, dtype=acc, device=q.device)
     for b, h0, h1 in _head_chunks(B, H, Sq, Sk):
-        g_h = _heads(gf, b, h0, h1)
-        k_h = _heads(kr, b, h0, h1)
-        s = _heads(qs, b, h0, h1) @ k_h.transpose(1, 2)
-        s = s.masked_fill(~vis, float("-inf"))
+        g_h, v_h = _heads(gf, b, h0, h1), _heads(vf, b, h0, h1)
+        qr_h, ks_h = _heads(qr, b, h0, h1), _heads(ks, b, h0, h1)
         lse2 = (lse[b, h0:h1].to(acc) * _LOG2E)[..., None]
-        p = torch.where(torch.isfinite(lse2), torch.exp2(s - lse2), 0.0)
-        dp = g_h @ _heads(vf, b, h0, h1).transpose(1, 2)
         dlt = delta[b, :, h0:h1].transpose(0, 1)[..., None]
-        ds = (p * (dp - dlt)).to(k.dtype).to(acc)
+        p, ds = _p_ds(qr_h, ks_h, g_h, v_h, lse2, dlt, vis, k.dtype)
         dv[b, :, h0:h1] = (p.to(g.dtype).to(acc).transpose(1, 2)
                            @ g_h).transpose(0, 1)
-        dq[b, :, h0:h1] = ((ds @ k_h) * scale).transpose(0, 1)
-        dk[b, :, h0:h1] = ((ds.transpose(1, 2) @ _heads(qr, b, h0, h1))
+        dk[b, :, h0:h1] = ((ds.transpose(1, 2) @ qr_h)
                            * scale).transpose(0, 1)
+        if form == "fused":
+            dq_h = (ds @ ks_h) * (1.0 / _LOG2E)
+        else:
+            del p, ds
+            kr_h = _heads(kr, b, h0, h1)
+            _, ds = _p_ds(_heads(qs, b, h0, h1), kr_h, g_h, v_h, lse2, dlt,
+                          vis, k.dtype)
+            dq_h = (ds @ kr_h) * scale
+        dq[b, :, h0:h1] = dq_h.transpose(0, 1)
     if rope is not None:
         dq, dk = _rope(dq, *rope, neg_sin=True), _rope(dk, *rope,
                                                        neg_sin=True)
@@ -266,6 +304,8 @@ def _kernel_ok(q: torch.Tensor) -> bool:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 def _entries():
+    """The CUDA-core library's entries: the fp32 forward, and the
+    backward (fp32 both forms, bf16 the fused one)."""
     lib = _build.load("flash_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = lib.ptt_flash_fwd, lib.ptt_flash_bwd
@@ -273,6 +313,20 @@ def _entries():
         fwd.argtypes = [P] * 7 + [I] * 7 + [F, I, P]
         fwd.restype = ctypes.c_int
         bwd.argtypes = [P] * 12 + [I] * 7 + [F, F, I, I, P]
+        bwd.restype = ctypes.c_int
+    return fwd, bwd
+
+
+def _tc_entries():
+    """The tensor-core library's entries: the bf16 forward and the bf16
+    two-kernel backward."""
+    lib = _build.load("flash_attention_sm90")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fwd, bwd = lib.ptt_flash_fwd_tc, lib.ptt_flash_bwd_two_kernel_tc
+    if fwd.argtypes is None:
+        fwd.argtypes = [P] * 8 + [I] * 7 + [F, P]
+        fwd.restype = ctypes.c_int
+        bwd.argtypes = [P] * 15 + [I] * 7 + [F, F, P]
         bwd.restype = ctypes.c_int
     return fwd, bwd
 
@@ -327,13 +381,23 @@ def flash_fwd(q, k, v, causal: bool, rope: Rope = None):
     Sk = k.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
-    fwd, _ = _entries()
     cos_p, sin_p = _rope_ptrs(rope)
-    code = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p,
-               out.data_ptr(), lse.data_ptr(), B, H, Sq, Sk, D,
-               int(causal), int(rope is not None),
-               (1.0 / math.sqrt(D)) * _LOG2E, _DTYPE_CODE[q.dtype],
-               torch.cuda.current_stream(q.device).cuda_stream)
+    c = (1.0 / math.sqrt(D)) * _LOG2E
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if q.dtype == torch.bfloat16:
+        fwd, _ = _tc_entries()
+        # the roped k, written once per call by the kernel's pre-pass
+        kr = torch.empty_like(k) if rope is not None else None
+        code = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p,
+                   out.data_ptr(), lse.data_ptr(),
+                   None if kr is None else kr.data_ptr(), B, H, Sq, Sk, D,
+                   int(causal), int(rope is not None), c, stream)
+    else:
+        fwd, _ = _entries()
+        code = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p,
+                   out.data_ptr(), lse.data_ptr(), B, H, Sq, Sk, D,
+                   int(causal), int(rope is not None), c,
+                   _DTYPE_CODE[q.dtype], stream)
     _build.check(code, "flash_fwd")
     flash_fwd.launches += 1
     return out, lse
@@ -349,19 +413,36 @@ def _flash_bwd(what, fused, q, k, v, out, lse, g, causal, rope):
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError("%s: lse must be [B, H, Sq] float32" % what)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    cos_p, sin_p = _rope_ptrs(rope)
+    c, scale = (1.0 / math.sqrt(D)) * _LOG2E, 1.0 / math.sqrt(D)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if not fused and q.dtype == torch.bfloat16:
+        # scratch of the tensor-core backward's pre-passes: delta and
+        # lse * log2(e) per row, and with rope the roped q and k
+        delta, lse2 = (torch.empty(B, H, Sq, dtype=torch.float32,
+                                   device=q.device) for _ in range(2))
+        qr, kr = ((torch.empty_like(q), torch.empty_like(k))
+                  if rope is not None else (None, None))
+        _, bwd = _tc_entries()
+        code = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   g.data_ptr(), lse.data_ptr(), cos_p, sin_p, dq.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(),
+                   None if kr is None else kr.data_ptr(),
+                   None if qr is None else qr.data_ptr(), delta.data_ptr(),
+                   lse2.data_ptr(), B, H, Sq, Sk, D, int(causal),
+                   int(rope is not None), c, scale, stream)
+        _build.check(code, what)
+        return dq, dk, dv
     # fp32 dq workspace the fused kernel adds into (zeroed here)
     dq_acc = (torch.zeros(B, Sq, H, D, dtype=torch.float32, device=q.device)
               if fused else None)
     _, bwd = _entries()
-    cos_p, sin_p = _rope_ptrs(rope)
     code = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                g.data_ptr(), lse.data_ptr(), cos_p, sin_p, dq.data_ptr(),
                dk.data_ptr(), dv.data_ptr(),
                dq_acc.data_ptr() if fused else None, B, H, Sq, Sk, D,
-               int(causal), int(rope is not None),
-               (1.0 / math.sqrt(D)) * _LOG2E, 1.0 / math.sqrt(D),
-               _DTYPE_CODE[q.dtype], int(fused),
-               torch.cuda.current_stream(q.device).cuda_stream)
+               int(causal), int(rope is not None), c, scale,
+               _DTYPE_CODE[q.dtype], int(fused), stream)
     _build.check(code, what)
     return dq, dk, dv
 
@@ -371,7 +452,8 @@ def flash_bwd_fused(q, k, v, out, lse, g, causal: bool, rope: Rope = None):
     ``(dq, dk, dv)``.  ``out``/``lse`` from :func:`flash_fwd`, ``g`` the
     gradient of ``out``."""
     if q.device.type == "cpu":
-        return _flash_bwd_plain(q, k, v, out, lse, g, causal, rope)
+        return _flash_bwd_plain(q, k, v, out, lse, g, causal, rope,
+                                form="fused")
     res = _flash_bwd("flash_bwd_fused", True, q, k, v, out, lse, g, causal,
                      rope)
     flash_bwd_fused.launches += 1
@@ -383,7 +465,8 @@ def flash_bwd_two_kernel(q, k, v, out, lse, g, causal: bool,
     """Two-kernel (FlashAttention-2) backward, deterministic:
     ``(dq, dk, dv)``; arguments as :func:`flash_bwd_fused`."""
     if q.device.type == "cpu":
-        return _flash_bwd_plain(q, k, v, out, lse, g, causal, rope)
+        return _flash_bwd_plain(q, k, v, out, lse, g, causal, rope,
+                                form="two_kernel")
     res = _flash_bwd("flash_bwd_two_kernel", False, q, k, v, out, lse, g,
                      causal, rope)
     flash_bwd_two_kernel.launches += 1

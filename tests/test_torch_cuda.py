@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (_flash_case, _quantize_pools, _ragged_case,
-                        _rms_inputs, flash_excess, flash_noise,
+from chip_smoke import (FLASH_FORM, _flash_case, _quantize_pools,
+                        _ragged_case, _rms_inputs, flash_excess, flash_noise,
                         flash_tolerance, cut_lengths, int8_tolerance,
                         ragged_tolerance, rms_tolerance)
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
@@ -269,24 +269,121 @@ def test_flash_kernels_match_plain(cuda, dtype, D, shape):
     assert torch.equal(torch.isneginf(lse), dead)
     assert dead.any() == (shape == "dead_rows")
     assert (out.transpose(1, 2)[dead] == 0).all()
-    noise = dict.fromkeys(("flash_fwd", "flash_bwd"), (None,) * 3)
+    kernels = ("flash_fwd", "flash_bwd_fused", "flash_bwd_two_kernel")
+    noise = dict.fromkeys(kernels, (None,) * 3)
     if dtype == "bfloat16":
         noise = {kern: flash_noise(kern, q, k, v, out, lse, g, causal,
                                    tables)
-                 for kern in ("flash_fwd", "flash_bwd")}
+                 for kern in kernels}
     assert flash_excess(out, want_out, flash_tolerance(
         want_out, dtype, noise["flash_fwd"][0])) <= 1.0
     assert (lse[~dead] - want_lse[~dead]).abs().max().item() <= 1e-4
-    want = fa._flash_bwd_plain(q, k, v, out, lse, g, causal, tables)
-    for fn in (fa.flash_bwd_fused, fa.flash_bwd_two_kernel):
-        got = fn(q, k, v, out, lse, g, causal, tables)
+    for kern in kernels[1:]:
+        got = getattr(fa, kern)(q, k, v, out, lse, g, causal, tables)
         torch.cuda.synchronize()
-        for a, b, f in zip(got, want, noise["flash_bwd"]):
+        want = fa._flash_bwd_plain(q, k, v, out, lse, g, causal, tables,
+                                   form=FLASH_FORM[kern])
+        for a, b, f in zip(got, want, noise[kern]):
             assert torch.isfinite(a).all()
             assert flash_excess(a, b, flash_tolerance(b, dtype, f)) <= 1.0
     assert [f.launches for f in (fa.flash_fwd, fa.flash_bwd_fused,
                                  fa.flash_bwd_two_kernel)] \
         == [n + 1 for n in before]
+
+
+# (rope, causal) pairs for the tensor-core kernels' sweep
+TC_MODES = {"rope_causal": (True, True), "rope_full": (True, False),
+            "causal": (False, True), "full": (False, False)}
+
+
+@pytest.mark.parametrize("S", [1, 63, 65, 200, 2048])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("mode", sorted(TC_MODES))
+def test_bf16_tensor_core_kernels_match_plain(cuda, mode, D, S):
+    """The bf16 forward and two-kernel backward (the tensor-core kernels
+    of ``csrc/flash_attention_sm90.cu``) against their plain versions
+    under ``chip_smoke.flash_tolerance``, over sequence lengths off and on
+    the 64-row tiles; one launch each."""
+    rope, causal = TC_MODES[mode]
+    gen = torch.Generator(cuda).manual_seed(S)
+    q, k, v, g, tables = _flash_case(1, S, S, 2, D, "bfloat16", rope, gen)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_two_kernel.launches)
+    out, lse = fa.flash_fwd(q, k, v, causal, tables)
+    dq, dk, dv = fa.flash_bwd_two_kernel(q, k, v, out, lse, g, causal,
+                                         tables)
+    torch.cuda.synchronize()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_two_kernel.launches) \
+        == (before[0] + 1, before[1] + 1)
+    want_out, want_lse = fa._flash_fwd_plain(q, k, v, causal, tables)
+    noise = flash_noise("flash_fwd", q, k, v, None, None, None, causal,
+                        tables)[0]
+    assert flash_excess(out, want_out, flash_tolerance(
+        want_out, "bfloat16", noise)) <= 1.0
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    want = fa._flash_bwd_plain(q, k, v, out, lse, g, causal, tables,
+                               form="two_kernel")
+    noise = flash_noise("flash_bwd_two_kernel", q, k, v, out, lse, g,
+                        causal, tables)
+    for a, b, f in zip((dq, dk, dv), want, noise):
+        assert flash_excess(a, b, flash_tolerance(b, "bfloat16", f)) <= 1.0
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_tensor_core_kernels_dead_rows(cuda, D):
+    """Sq > Sk, causal: the first Sq - Sk rows see nothing; the forward
+    gives them lse -inf and out 0, the backward dq 0, and the rest
+    matches the plain versions."""
+    gen = torch.Generator(cuda).manual_seed(D)
+    q, k, v, g, _ = _flash_case(2, 333, 120, 3, D, "bfloat16", False, gen)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    dq, dk, dv = fa.flash_bwd_two_kernel(q, k, v, out, lse, g, True)
+    torch.cuda.synchronize()
+    dead = torch.isneginf(fa._flash_fwd_plain(q, k, v, True)[1])
+    assert dead.sum().item() == 2 * 3 * (333 - 120)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert (out.transpose(1, 2)[dead] == 0).all()
+    assert (dq.transpose(1, 2)[dead] == 0).all()
+    want = fa._flash_bwd_plain(q, k, v, out, lse, g, True,
+                               form="two_kernel")
+    noise = flash_noise("flash_bwd_two_kernel", q, k, v, out, lse, g, True,
+                        None)
+    for a, b, f in zip((dq, dk, dv), want, noise):
+        assert flash_excess(a, b, flash_tolerance(b, "bfloat16", f)) <= 1.0
+
+
+@pytest.mark.parametrize("rope", [False, True])
+def test_repaired_fused_backward_matches_its_form(cuda, rope):
+    """#2 (the CUDA-core one-pass backward) in bf16 against the plain
+    version of its own form: scores ``round(rope(q)) . round(rope(k) c)``
+    for dk, dv and dq, and dq as ``ds . ks / log2(e)``."""
+    gen = torch.Generator(cuda).manual_seed(7)
+    q, k, v, g, tables = _flash_case(1, 256, 256, 2, 128, "bfloat16", rope,
+                                     gen)
+    out, lse = fa.flash_fwd(q, k, v, False, tables)
+    got = fa.flash_bwd_fused(q, k, v, out, lse, g, False, tables)
+    torch.cuda.synchronize()
+    want = fa._flash_bwd_plain(q, k, v, out, lse, g, False, tables,
+                               form="fused")
+    noise = flash_noise("flash_bwd_fused", q, k, v, out, lse, g, False,
+                        tables)
+    for a, b, f in zip(got, want, noise):
+        assert flash_excess(a, b, flash_tolerance(b, "bfloat16", f)) <= 1.0
+
+
+def test_bf16_calls_cannot_reach_the_cuda_core_variants(cuda):
+    """The CUDA-core library holds no bf16 forward and no bf16 two-kernel
+    backward: its entries refuse them (cudaErrorInvalidValue = 1), so a
+    bf16 call reaches only the tensor-core kernels."""
+    fwd, bwd = fa._entries()
+    x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device=cuda)
+    st = torch.cuda.current_stream().cuda_stream
+    assert fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), None, None,
+               x.data_ptr(), lse.data_ptr(), 1, 2, 64, 64, 64, 1, 0, 0.18,
+               1, st) == 1
+    assert bwd(*([x.data_ptr()] * 5), lse.data_ptr(), None, None,
+               *([x.data_ptr()] * 3), None, 1, 2, 64, 64, 64, 1, 0, 0.18,
+               0.125, 1, 0, st) == 1
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):

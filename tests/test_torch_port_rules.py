@@ -219,3 +219,39 @@ def test_layerwise_path_on_cpu_launches_no_kernel():
     ids = torch.from_numpy(np.arange(1, 17).reshape(2, 8) % 64)
     assert torch.isfinite(step(ids, ids))
     assert [f.launches for f in counters] == before
+
+
+CUDA_SOURCES = ("flash_attention", "flash_attention_sm90",
+                "paged_decode_attention", "ragged_paged_attention", "rms_norm",
+                "rope_qkv")
+
+
+def test_cuda_source_list_is_complete():
+    from paddle_tpu_torch import _build
+    assert tuple(_build.kernel_names()) == tuple(sorted(CUDA_SOURCES))
+
+
+@pytest.mark.parametrize("name", CUDA_SOURCES)
+def test_cuda_source_states_what_it_replaces_and_its_bound(name):
+    """Each kernel source names the TPU kernel it replaces (a function of
+    ``paddle_tpu``), states what bounds it on the card, includes no
+    PyTorch header (the plain C interface that builds in seconds), and
+    exports only entries that a module of the port binds."""
+    with open(os.path.join(PKG, "csrc", name + ".cu")) as f:
+        text = f.read()
+    head = text[:text.index("#include")]
+    assert "Replaces" in head and "paddle_tpu/ops/" in head
+    assert "Bound on the card" in head
+    includes = [line for line in text.splitlines()
+                if line.startswith("#include")]
+    assert not any("torch" in line or "ATen" in line for line in includes)
+    entries = [line.split("(")[0].split()[-1]
+               for line in text.splitlines()
+               if line.startswith('extern "C"')]
+    assert entries
+    bound = ""
+    for path in _port_sources():
+        with open(path) as f:
+            bound += f.read()
+    for entry in entries:
+        assert entry in bound, entry

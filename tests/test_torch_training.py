@@ -207,13 +207,16 @@ def test_bf16_flash_tolerance_rejects_a_dropped_tile(output):
         wrong[:, -64:] = fa._flash_fwd_plain(q[:, -64:], k[:, :-64],
                                              v[:, :-64], False)[0]
     else:
-        want = fa._flash_bwd_plain(q, k, v, out, lse, g, True)[2]
+        want = fa._flash_bwd_plain(q, k, v, out, lse, g, True,
+                                   form="fused")[2]
         f32 = fa._flash_bwd_plain(q.float(), k.float(), v.float(),
-                                  out.float(), lse, g.float(), True)[2]
-        noise = flash_noise("flash_bwd", q, k, v, out, lse, g, True,
+                                  out.float(), lse, g.float(), True,
+                                  form="fused")[2]
+        noise = flash_noise("flash_bwd_fused", q, k, v, out, lse, g, True,
                             None)[2]
         last = fa._flash_bwd_plain(q[:, -64:], k, v, out[:, -64:],
-                                   lse[..., -64:], g[:, -64:], True)[2]
+                                   lse[..., -64:], g[:, -64:], True,
+                                   form="fused")[2]
         wrong = (want.float() - last.float()).to(torch.bfloat16)
     tol = flash_tolerance(want, "bfloat16", noise)
     assert flash_excess(f32.to(torch.bfloat16), want, tol) <= 1.0
