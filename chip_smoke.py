@@ -14,21 +14,29 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    ``-Xptxas -v`` register/shared-memory lines.
 2. Serving kernels against their plain PyTorch versions on the card, at
    the shapes the serving paths give them: ragged paged attention (fp32/
-   bf16 and int8 pools), paged decode attention (fp32/bf16 and int8), the
-   RoPE + QKV epilogue; one JSON line per kernel and shape with the
-   error, its tolerance, the kernel's and the plain version's times (CUDA
-   events), the roofline bound and the library time (null: no single
-   PyTorch call computes any of them).  For int8 pools the tolerance is
-   per element (:func:`int8_tolerance`) and must reject planted faults:
-   the kernel run without each sequence's last key or last page, the
-   int8 math with p left unquantized, and the dequantizing reference.
-   Then RMSNorm (kernel #4) against its plain version at the layerwise
-   7B shape (4096 rows x 4096) in bf16 and fp32, one row, 4097 rows,
-   hidden sizes 5120 and 8192 and sizes that are not a multiple of the
-   16-byte vector (:func:`check_rms_norm`, random weight, row scales from
-   10^-3.5 to 10), with ``torch.nn.functional.rms_norm``'s time; its
+   bf16 and int8 pools; for bf16 q the tensor-core kernel over the host
+   work list the mixed step builds: the all-decode step, the mixed step,
+   GQA at head dims 128 and 96, and poisoned odd packs at block sizes 5
+   and 16), paged decode attention (fp32/bf16 and int8, head dims 32 to
+   128), the RoPE + QKV epilogue; one JSON line per kernel and shape with
+   the error, its tolerance, the kernel's and the plain version's times
+   (CUDA events), the roofline bound and the library time (null: no
+   single PyTorch call computes any of them).  For int8 pools the
+   tolerance is per element (:func:`int8_tolerance`) and must reject
+   planted faults: the kernel run without each sequence's last key or
+   last page, the int8 math with p left unquantized, and the dequantizing
+   reference.  Then RMSNorm (kernel #4) against its plain version at the
+   layerwise 7B shape (4096 rows x 4096) in bf16 and fp32, one row, 4097
+   rows, hidden sizes 5120 and 8192 and sizes that are not a multiple of
+   the 16-byte vector (:func:`check_rms_norm`, random weight, row scales
+   from 10^-3.5 to 10), with ``torch.nn.functional.rms_norm``'s time; its
    tolerance (:func:`rms_tolerance`) must reject the kernel run without
-   the weight and without ``eps``.
+   the weight and without ``eps``.  The same for #4's layerwise variant
+   (rounded before the weight, as the reference's layerwise norm) at the
+   7B shape, which the layerwise step runs; in bf16 it is held bitwise to
+   its plain version except near a bf16 rounding midpoint, a rule that
+   must reject #4's own rounding point.  Times are device time
+   (:func:`time_ms`).
 3. The serving slice at full width: a random-weight Llama-2-7B (bf16),
    built once, serves 8 requests with prompts of 64..1024 tokens, 32 new
    tokens each, admitted 4 + 4 so that prefill chunks ride with running
@@ -43,9 +51,12 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    every token in the vocabulary, and the int8 pools must hold >= 1.9x
    the pages per byte of the bf16 pools, scales counted.  Token matches
    against the eager ``generate`` and between engines are reported, not
-   asserted (random bf16 logits can tie).  The mixed and split runs are
-   profiled once more under ``torch.profiler``: device time by kernel
-   kind and the device's idle share.
+   asserted (random bf16 logits can tie).  The mixed engine serves the
+   traffic ``SERVE_REPEATS`` times: its wall is the median, with the
+   spread of the runs and of their steps' host seconds.  The mixed and
+   split runs are profiled once more under ``torch.profiler``: device
+   time by kernel kind, the device's idle share and the host operators'
+   own time.
 4. Serving parity at full width and reduced depth: the same model with 2
    layers in fp32 and the same traffic; the mixed and split engines must
    match the eager ``generate`` (which runs no kernel) and each other at a
@@ -57,14 +68,17 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    logits against the eager forward by depth and dtype: fp32 at all 32
    layers (held to 1e-3) and bf16 at 2 layers.
 5. The three flash kernels (forward, one-pass backward, two-kernel
-   backward) against their plain versions over fp32/bf16, head dims 64
-   and 128, causal or not, rope on and off, rectangular shapes, rows
-   that see nothing and sequences of 1 and 65 tokens (``FLASH_CASES``),
-   each within :func:`flash_tolerance` against the plain version of its
-   own form (the backward forms round at the reference's points, which
-   differ); timed, with the achieved TFLOP/s, the bound and
-   ``scaled_dot_product_attention``'s time, at the 7B training shape and
-   at 16k.  In bf16 the forward and the two-kernel backward are the
+   backward) against their plain versions over fp32/bf16, head dims 32,
+   64, 96 and 128, causal or not, rope on and off, rectangular shapes,
+   rows that see nothing and sequences of 1 and 65 tokens
+   (``FLASH_CASES``), each within :func:`flash_tolerance` against the
+   plain version of its own form (the backward forms round at the
+   reference's points, which differ); the one-pass backward called twice
+   must give bitwise-equal dq, dk and dv at the 7B shape in both dtypes,
+   with rows that see nothing and on a rectangular causal case
+   (``FLASH_DETERMINISM``); timed, with the achieved TFLOP/s, the bound
+   and ``scaled_dot_product_attention``'s time, at the 7B training shape
+   and at 16k.  In bf16 at head dims 64 and 128 all three are the
    tensor-core kernels of ``csrc/flash_attention_sm90.cu``; the rest run
    on the CUDA cores (``csrc/flash_attention.cu``).
 6. Training at full width and depth: Llama-2-7B bf16 through
@@ -93,6 +107,11 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    numbers; the last line is ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall seconds.
+
+    python3 chip_smoke.py --timing-of DIR
+
+times the kernels of the checkout at ``DIR`` by both timing methods
+(:func:`timing_of`), to hold two commits' kernel times on one yardstick.
 
 The script imports nothing of JAX and nothing of ``paddle_tpu``.  Without
 a CUDA card it exits nonzero before printing any result.
@@ -138,20 +157,50 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, iters: int, warmup: int = 3) -> float:
+# device cycles of the sleep the timed calls queue behind (~11 ms); grown
+# when the host takes longer to queue the calls
+TIMING_SLEEP_CYCLES = 20_000_000
+
+
+def time_ms(fn, iters: int, warmup: int = 3, queued: bool = True) -> float:
     """Mean milliseconds of ``fn`` by CUDA events over ``iters`` calls
-    after ``warmup`` calls."""
+    after ``warmup`` calls: device time.  The calls are queued behind a
+    device-side sleep, so that the host has enqueued them all before the
+    device starts the first; the events then time the device's work back
+    to back, not the wrappers' host time (which a kernel of tens of
+    microseconds would otherwise wait on).  If the host took longer to
+    queue them than the device slept, the run is repeated with a longer
+    sleep; a function that waits for the device itself (a plain version
+    that reads lengths back) returns only after the sleep, and is timed
+    as it runs, its host time included.  ``queued=False`` is the earlier
+    timing: the calls issued onto an idle device, so each call's time
+    is the larger of its device time and its wrapper's host time
+    (``python3 chip_smoke.py --timing-of DIR`` gives both for a tree)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
+    cycles = TIMING_SLEEP_CYCLES if queued else 0
+    for _ in range(3):
+        slept = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        slept.record()
+        if cycles:
+            torch.cuda._sleep(cycles)
+        t0 = time.perf_counter()
+        start.record()
         fn()
-    end.record()
-    torch.cuda.synchronize()
+        first_ms = 1e3 * (time.perf_counter() - t0)
+        for _ in range(iters - 1):
+            fn()
+        end.record()
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        sleep_ms = slept.elapsed_time(start)
+        if not queued or host_ms < sleep_ms or first_ms >= sleep_ms:
+            break
+        cycles = int(cycles * 2 * host_ms / sleep_ms)
     return start.elapsed_time(end) / iters
 
 
@@ -359,12 +408,16 @@ def check_ragged(case, spans, T, H, Hkv, D, bs, dtype_name, gen,
     import torch
     from paddle_tpu_torch.ops.paged_attention import (
         _ragged_attention_int8_plain, _ragged_attention_plain,
-        ragged_paged_attention)
+        ragged_paged_attention, ragged_work)
     dtype = getattr(torch, dtype_name)
     q, kc, vc, bt, q_off, q_len, kv_len = _ragged_case(
         spans, T, H, Hkv, D, bs, dtype, gen, poison, n_pad_spans)
     scale = 1.0 / math.sqrt(D)
     tables = (bt, q_off, q_len, kv_len)
+    # the work list the mixed step builds on the host (used by the bf16
+    # tensor-core kernel, ignored by the fp32 one)
+    work = torch.from_numpy(ragged_work(q_len.cpu(), kv_len.cpu(), H, Hkv,
+                                        bs)).to(q.device)
     scales, extra = {}, {}
     if quantized:
         kc, vc, ks, vs, vmax = _quantize_pools(
@@ -380,7 +433,7 @@ def check_ragged(case, spans, T, H, Hkv, D, bs, dtype_name, gen,
 
     def kernel(kv=kv_len):
         return ragged_paged_attention(q, kc, vc, bt, q_off, q_len, kv, scale,
-                                      span_q=span_q, **scales)
+                                      span_q=span_q, work=work, **scales)
     got = kernel()
     torch.cuda.synchronize()
     if quantized:
@@ -516,16 +569,43 @@ RMS_CASES = (("7b_layerwise_4096x4096", 4096, 4096), ("one_row", 1, 4096),
 RMS_MAIN = "7b_layerwise_4096x4096"
 
 
-def rms_tolerance(want, dtype_name: str):
+def rms_tolerance(want, dtype_name: str, weight=None):
     """Per element: in bf16 one bf16 ulp of |want| (kernel and plain
     version round the same fp32 value, a few fp32 ulps apart, once); in
     fp32 eight fp32 ulps (another summation order, rsqrtf within 2 ulp,
-    two products)."""
+    two products).  ``weight``: #4's layerwise variant, which rounds
+    twice, the normalised value n and then n * w; where the fp32 values
+    of n straddle a rounding boundary, the first rounding moves the output
+    by one ulp of n times |w| before the second, so the limit is one ulp
+    at each rounding point: that term is added (n = want / w)."""
     import torch
-    w = want.float().abs().clamp(min=torch.finfo(torch.float32).tiny)
+    tiny = torch.finfo(torch.float32).tiny
     bits = 7 if dtype_name == "bfloat16" else 23
     ulps = 1.0 if dtype_name == "bfloat16" else 8.0
-    return ulps * torch.exp2(torch.floor(torch.log2(w)) - bits)
+
+    def ulp(x):
+        x = x.abs().clamp(min=tiny)
+        return ulps * torch.exp2(torch.floor(torch.log2(x)) - bits)
+    tol = ulp(want.float())
+    if weight is not None:
+        w = weight.float()
+        tol = tol + ulp(want.float() / w) * w.abs()
+    return tol
+
+
+# the layerwise variant in bf16: bitwise to its plain version except where
+# the fp32 normalised value lies within this many fp32 ulps of a bf16
+# rounding midpoint (kernel and plain version sum and rsqrt in another
+# order, a few fp32 ulps apart; a bf16 ulp is 65,536 of them)
+RMS_MIDPOINT_ULPS = 16
+
+
+def near_bf16_midpoint(n, ulps: int):
+    """Elements of the fp32 tensor ``n`` within ``ulps`` fp32 ulps of a
+    bf16 rounding midpoint (low 16 bits of the fp32 pattern 0x8000)."""
+    import torch
+    return ((n.contiguous().view(torch.int32) & 0xFFFF) - 0x8000).abs() \
+        <= ulps
 
 
 def _rms_inputs(rows, d, dtype, gen):
@@ -540,39 +620,74 @@ def _rms_inputs(rows, d, dtype, gen):
     return x, w
 
 
-def check_rms_norm(case, rows, d, dtype_name, gen):
-    """Kernel #4 against its plain version: every element within
+def check_rms_norm(case, rows, d, dtype_name, gen, round_first=False):
+    """Kernel #4 (with ``round_first``, its layerwise variant, which rounds
+    before the weight) against its plain version: every element within
     :func:`rms_tolerance`, and the same tolerance rejecting the kernel's
-    output without the weight (w = 1) and without ``eps`` (eps = 0)."""
+    output without the weight (w = 1) and without ``eps`` (eps = 0).  In
+    bf16 the variant is held bitwise to its plain version except at
+    elements whose fp32 normalised value lies within
+    ``RMS_MIDPOINT_ULPS`` of a bf16 midpoint, and the same rule must
+    reject #4's own rounding point (the kernel run with ``round_first``
+    off: ``round_last_off_midpoint`` elements differ away from a
+    midpoint)."""
     import torch
     from paddle_tpu_torch.ops.rms_norm import _rms_norm_plain, rms_norm_tpu
     dtype = getattr(torch, dtype_name)
     x, w = _rms_inputs(rows, d, dtype, gen)
-    got = rms_norm_tpu(x, w, RMS_EPS)
+    kw = dict(round_first=round_first)
+    got = rms_norm_tpu(x, w, RMS_EPS, **kw)
     torch.cuda.synchronize()
-    want = _rms_norm_plain(x, w, RMS_EPS)
-    tol = rms_tolerance(want, dtype_name)
+    want = _rms_norm_plain(x, w, RMS_EPS, **kw)
+    tol = rms_tolerance(want, dtype_name, w if round_first else None)
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
+    name = "rms_norm" + ("_round_first" if round_first else "")
     if not (diff <= tol).all() or not torch.isfinite(got).all():
-        raise AssertionError("rms_norm %s %s: max_abs_err %g over tol (or "
-                             "non-finite output)" % (case, dtype_name, err))
+        raise AssertionError("%s %s %s: max_abs_err %g over tol (or "
+                             "non-finite output)" % (name, case, dtype_name,
+                                                     err))
     faults = {"weight_dropped": rms_norm_tpu(x, torch.ones_like(w),
-                                             RMS_EPS),
-              "eps_dropped": rms_norm_tpu(x, w, 0.0)}
+                                             RMS_EPS, **kw),
+              "eps_dropped": rms_norm_tpu(x, w, 0.0, **kw)}
     excess = fault_excess(faults, want, tol)
-    check_faults("rms_norm %s %s" % (case, dtype_name), excess)
+    check_faults("%s %s %s" % (name, case, dtype_name), excess)
+    extra = {}
+    if round_first and dtype_name == "bfloat16":
+        x32 = x.float()
+        edge = near_bf16_midpoint(
+            x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + RMS_EPS),
+            RMS_MIDPOINT_ULPS)
+
+        def off_midpoint(out):
+            return int(((out != want) & ~edge).sum().item())
+        extra = dict(differ=int((got != want).sum().item()),
+                     differ_off_midpoint=off_midpoint(got),
+                     near_midpoint=int(edge.sum().item()),
+                     round_last_off_midpoint=off_midpoint(
+                         rms_norm_tpu(x, w, RMS_EPS)))
+        if extra["differ_off_midpoint"]:
+            raise AssertionError(
+                "%s %s: %d elements differ from the plain version away "
+                "from a bf16 midpoint" % (name, case,
+                                          extra["differ_off_midpoint"]))
+        if not extra["round_last_off_midpoint"]:
+            raise AssertionError(
+                "%s %s: the bitwise rule does not reject the round-last "
+                "kernel" % (name, case))
     es = x.element_size()
     b_ms, b_by = bound_ms(2 * rows * d * es + d * es, 4.0 * rows * d,
                           "float32")
-    row = dict(kernel="rms_norm", case=case, dtype=dtype_name, rows=rows,
+    row = dict(kernel=name, case=case, dtype=dtype_name, rows=rows,
                hidden=d, max_abs_err=err,
                err_over_tol=_err_over_tol(diff, tol), fault_excess=excess,
-               kernel_ms=time_ms(lambda: rms_norm_tpu(x, w, RMS_EPS), 50),
-               plain_ms=time_ms(lambda: _rms_norm_plain(x, w, RMS_EPS), 20),
+               kernel_ms=time_ms(lambda: rms_norm_tpu(x, w, RMS_EPS, **kw),
+                                 50),
+               plain_ms=time_ms(lambda: _rms_norm_plain(x, w, RMS_EPS, **kw),
+                                20),
                bound_ms=b_ms, bound_by=b_by,
                library_ms=time_ms(lambda: torch.nn.functional.rms_norm(
-                   x, (d,), w, RMS_EPS), 50))
+                   x, (d,), w, RMS_EPS), 50), **extra)
     emit(row)
     return row
 
@@ -631,15 +746,24 @@ def phase_kernels():
     # step, 512 for 8 decodes + a 256-token chunk; span_q = min(chunk, T)
     rows = {"ragged": [], "rope": [], "ragged_int8": [], "decode": [],
             "decode_int8": []}
-    rows["ragged"].append(check_ragged(
-        "7b_decode_8x1024", decode, 8, H, H, D, bs, "bfloat16", gen,
-        span_q=8))
-    # odd small shape: groups of 3, a 5-slot page, chunks starting
-    # mid-page, a prefix-offset span, padding spans, and every unused
-    # table entry aimed at a NaN page (the clamp must never read it)
+    # odd small shapes: groups of 3, chunks starting mid-page, a
+    # prefix-offset span, padding spans, and every unused table entry aimed
+    # at a NaN page (the clamp must never read it); at block size 5 (the
+    # int8 pools then take the CUDA-core kernel) and 16 (a chunk of two
+    # 128-vector tiles; the tensor-core kernel's decode and chunk items)
     odd = [(1, 7), (13, 29), (3, 3), (1, 1), (9, 41), (2, 11)]
+    odd16 = [(1, 7), (90, 130), (3, 3), (1, 1), (9, 41), (2, 11), (1, 64)]
     for quantized in (False, True):
         key = "ragged_int8" if quantized else "ragged"
+        # the all-decode step (8 decode spans: the tensor-core kernel's
+        # decode items; with GQA 32/8 too few blocks for the card, so each
+        # span is split over 4 blocks)
+        rows[key].append(check_ragged(
+            "7b_decode_8x1024", decode, 8, H, H, D, bs, "bfloat16", gen,
+            span_q=8, quantized=quantized))
+        rows[key].append(check_ragged(
+            "gqa32x8_decode_8x1024", decode, 8, H, 8, D, bs, "bfloat16",
+            gen, span_q=8, quantized=quantized))
         for dt in ("bfloat16", "float32"):
             rows[key].append(check_ragged(
                 "7b_mixed_8x1024+256", mixed, 512, H, H, D, bs, dt, gen,
@@ -648,10 +772,17 @@ def phase_kernels():
                 "gqa32x8_mixed_8x1024+256", mixed, 512, H, 8, D, bs, dt,
                 gen, span_q=chunk, quantized=quantized))
             rows[key].append(check_ragged(
+                "gqa32x8_d96_mixed_8x1024+256", mixed, 512, H, 8, 96, bs,
+                dt, gen, span_q=chunk, quantized=quantized))
+            rows[key].append(check_ragged(
                 "odd_poisoned", odd, 40, 6, 2, 64, 5, dt, gen, span_q=13,
                 poison=True, n_pad_spans=3, quantized=quantized))
+            rows[key].append(check_ragged(
+                "odd_poisoned_bs16", odd16, 200, 6, 2, 64, 16, dt, gen,
+                span_q=90, poison=True, n_pad_spans=2, quantized=quantized))
     # the split engine's decode step: 8 slots at kv 1024 (the 7B decode
-    # shape), GQA 32/8, and an odd poisoned shape with masked slots
+    # shape), GQA 32/8 at head dims 128 and 96, and an odd poisoned shape
+    # with masked slots
     odd_lens = [7, 29, 3, 1, 41, 11, 16]
     for quantized in (False, True):
         key = "decode_int8" if quantized else "decode"
@@ -662,6 +793,9 @@ def phase_kernels():
             rows[key].append(check_paged(
                 "gqa32x8_decode_8x1024", [1024] * 8, 0, H, 8, D, bs, dt, gen,
                 quantized))
+            rows[key].append(check_paged(
+                "gqa32x8_d96_decode_8x1024", [1024] * 8, 0, H, 8, 96, bs, dt,
+                gen, quantized))
             for Dx, heads in ((64, (8, 2)), (32, (16, 2))):
                 rows[key].append(check_paged(
                     "odd_poisoned_masked_D%d" % Dx, odd_lens, 3, heads[0],
@@ -674,6 +808,10 @@ def phase_kernels():
     rows["rms_norm"] = [check_rms_norm(case, n, d, dt, gen)
                         for case, n, d in RMS_CASES
                         for dt in ("bfloat16", "float32")]
+    # the layerwise step's variant (round before the weight), at its shape
+    rows["rms_norm"] += [check_rms_norm(RMS_MAIN, 4096, 4096, dt, gen,
+                                        round_first=True)
+                         for dt in ("bfloat16", "float32")]
     return rows
 
 
@@ -710,6 +848,12 @@ FLASH_CASES = (
      ALL_FLASH),
     ("one_token_rope", 2, 1, 1, 4, 128, "bfloat16", True, True, ALL_FLASH),
     ("s65_rope_d64", 2, 65, 65, 4, 64, "bfloat16", True, True, ALL_FLASH),
+    ("d32_rope", 2, 300, 300, 4, 32, "bfloat16", True, True, ALL_FLASH),
+    ("d32_rope_fp32", 2, 300, 300, 4, 32, "float32", True, True, ALL_FLASH),
+    ("d96_dead_rows", 1, 200, 100, 4, 96, "bfloat16", False, True,
+     ALL_FLASH),
+    ("d96_full_rope_fp32", 1, 130, 130, 4, 96, "float32", True, False,
+     ALL_FLASH),
     ("long_16k", 1, 16384, 16384, 32, 128, "bfloat16", True, True,
      ("flash_fwd", "flash_bwd_two_kernel")),
 )
@@ -718,8 +862,13 @@ FLASH_CASES = (
 FLASH_TIMED = ("main", "main_fp32", "long_16k")
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 FLASH_TC_SOURCE = "paddle_tpu_torch/csrc/flash_attention_sm90.cu"
-# the kernels whose bf16 variants run on the tensor cores
-FLASH_TC = ("flash_fwd", "flash_bwd_two_kernel")
+# the kernels whose bf16 variants run on the tensor cores, and the head
+# dims they take there (bf16 at 32 and 96 runs on the CUDA cores)
+FLASH_TC = ("flash_fwd", "flash_bwd_fused", "flash_bwd_two_kernel")
+FLASH_TC_HEAD_DIMS = (64, 128)
+# the cases where two calls of the one-pass backward must give bitwise
+# equal dq, dk and dv (its dq shares are summed in k-tile order)
+FLASH_DETERMINISM = ("main", "main_fp32", "dead_rows_bf16", "rect_causal")
 FLASH_REPLACES = {
     "flash_fwd": "paddle_tpu/ops/pallas_kernels.py:176",
     "flash_bwd_fused": "paddle_tpu/ops/pallas_kernels.py:480",
@@ -732,10 +881,11 @@ FLASH_MAIN = {"flash_fwd": ("main", "train_7b"),
               "flash_bwd_two_kernel": ("long_16k", "train_long_16k")}
 
 
-def flash_source(kernel, dtype_name):
-    """The source whose kernel a call of ``kernel`` in ``dtype_name``
-    launches (the wrappers route by dtype)."""
-    if dtype_name == "bfloat16" and kernel in FLASH_TC:
+def flash_source(kernel, dtype_name, D):
+    """The source whose kernel a call of ``kernel`` in ``dtype_name`` at
+    head dim ``D`` launches (the wrappers route by dtype and head dim)."""
+    if dtype_name == "bfloat16" and kernel in FLASH_TC \
+            and D in FLASH_TC_HEAD_DIMS:
         return FLASH_TC_SOURCE
     return FLASH_SOURCE
 
@@ -923,7 +1073,16 @@ def check_flash(name, B, Sq, Sk, H, D, dtype_name, rope, causal, kernels,
                    atol_median_max=atols, median_abs=typical,
                    rel_tol=BF16_ULP if dtype_name == "bfloat16" else 0.0,
                    bound_ms=b_ms, bound_by=b_by,
-                   source=flash_source(kern, dtype_name))
+                   source=flash_source(kern, dtype_name, D))
+        if kern == "flash_bwd_fused" and name in FLASH_DETERMINISM:
+            again = fa.flash_bwd_fused(q, k, v, out, lse, g, causal, tables)
+            torch.cuda.synchronize()
+            row["bitwise_repeat"] = all(
+                torch.equal(a, b) for a, b in zip(got, again))
+            if not row["bitwise_repeat"]:
+                raise AssertionError("flash_bwd_fused %s: two calls differ "
+                                     "(dq, dk, dv must be deterministic)"
+                                     % name)
         if timed:
             bwd = kern != "flash_fwd"
             fn = getattr(fa, kern)
@@ -1029,12 +1188,22 @@ def _match_rate(got, want):
     return n / max(1, len(want))
 
 
+def _spread(xs):
+    """Median, min, max, 90th percentile and sum of ``xs``."""
+    a = np.asarray(xs, np.float64)
+    return dict(median=float(np.median(a)), min=float(a.min()),
+                max=float(a.max()), p90=float(np.percentile(a, 90)),
+                sum=float(a.sum()), n=int(a.size))
+
+
 def serve(model, prompts, engine_kw=None):
     """Admit 4, step, admit 4, run to completion on an engine built with
     ``engine_kw`` (default: the mixed engine).  Returns the engine, the
     tokens per request and the run's statistics: the launch counts (reset
-    just before), engine steps, and for the split engine its decode steps
-    and prefill chunks."""
+    just before), engine steps (and the spread of their host seconds:
+    ``eng.step()`` returns once the step is queued, or once it has read
+    its tokens back), and for the split engine its decode steps and
+    prefill chunks."""
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(model, **(engine_kw or ENGINE_KW))
@@ -1044,16 +1213,21 @@ def serve(model, prompts, engine_kw=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
+    step_s = []
+
+    def step():
+        t = time.perf_counter()
+        eng.step()
+        step_s.append(time.perf_counter() - t)
     t0 = time.perf_counter()
     rids = [eng.add_request(p, NEW_TOKENS) for p in prompts[:4]]
-    eng.step()
-    steps = 1
+    step()
     rids += [eng.add_request(p, NEW_TOKENS) for p in prompts[4:]]
     while eng.has_work():
-        eng.step()
-        steps += 1
+        step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    steps = len(step_s)
     launches = _launches()
     outs = [eng.result(r) for r in rids]
     cache = eng.caches[0]
@@ -1080,6 +1254,7 @@ def serve(model, prompts, engine_kw=None):
                      gen_tok + sum(map(len, prompts))) / wall,
                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
                  kv_pool_bytes=sum(c.pool_bytes() for c in eng.caches),
+                 step_host_s=_spread(step_s),
                  launches=launches)
     if eng.mixed is not None:
         stats.update(token_budgets=list(eng.token_budgets),
@@ -1123,7 +1298,7 @@ def check_launches(name, engine_kw, stats, layers):
 def _kernel_kind(name: str) -> str:
     if "paged_decode_kernel" in name:
         return "paged_decode_attention"
-    if "ragged_paged_attention" in name:
+    if "ragged_paged_attention" in name or "ragged_tc_kernel" in name:
         return "ragged_paged_attention"
     if "rope_qkv" in name:
         return "rope_qkv_epilogue"
@@ -1178,7 +1353,15 @@ def profile_device(fn, unprofiled_wall_s):
         kind = _kernel_kind(name)
         by_kind[kind] = by_kind.get(kind, 0.0) + t
     top = sorted(kernels, key=lambda k: -k[1])[:10]
+    # host side: the operators' own CPU time (without their children)
+    host = sorted(((e.key, e.self_cpu_time_total, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU
+                   and e.self_cpu_time_total > 0), key=lambda k: -k[1])
     return dict(profiled_wall_s=wall, device_busy_s=busy_us / 1e6,
+                host_self_s=sum(t for _, t, _ in host) / 1e6,
+                top_host_ops=[dict(name=n[:80], self_s=t / 1e6, calls=c)
+                              for n, t, c in host[:12]],
                 device_idle_share=1.0 - busy_us / 1e6 / wall,
                 unprofiled_wall_s=unprofiled_wall_s,
                 unprofiled_device_idle_share=(
@@ -1196,6 +1379,33 @@ def profile_serve(name, model, prompts, unprofiled_wall_s,
         lambda: serve(model, prompts, engine_kw), unprofiled_wall_s))
     emit(row)
     return row
+
+
+# runs of the mixed engine over the same traffic: its wall follows the
+# host, so it is given as the median of these with their spread
+SERVE_REPEATS = 5
+
+
+def _repeat_serve(name, model, prompts, kw, layers, first):
+    """``SERVE_REPEATS - 1`` more runs of the traffic that gave ``first``
+    (each with exact launches): every run's wall and the spread of its
+    steps' host seconds, and the median wall with its throughput (the
+    row's ``wall_s`` and ``tokens_per_s``; the first run's are kept as
+    ``first_wall_s``)."""
+    walls, steps = [first["wall_s"]], [first["step_host_s"]]
+    for _ in range(SERVE_REPEATS - 1):
+        _, _, st = serve(model, prompts, kw)
+        check_launches(name, kw, st, layers)
+        walls.append(st["wall_s"])
+        steps.append(st["step_host_s"])
+    wall = float(np.median(walls))
+    return dict(first_wall_s=first["wall_s"], walls_s=walls,
+                wall_s=wall, wall_spread_s=_spread(walls),
+                tokens_per_s=first["generated_tokens"] / wall,
+                prompt_and_generated_tokens_per_s=(
+                    first["generated_tokens"] + first["prompt_tokens"])
+                / wall,
+                step_host_s_by_run=steps)
 
 
 def first_step_logits(eng, model, prompt):
@@ -1267,6 +1477,7 @@ def phase_serving_7b():
         check_launches(name, kw, stats, L)
         if name == "serve_7b":
             stats.update(first_step_logits(eng, model, prompts[0]))
+            stats.update(_repeat_serve(name, model, prompts, kw, L, stats))
         del eng
         stats.update(phase=name + "_bf16", layers=L,
                      engine={k: v for k, v in kw.items()
@@ -1308,7 +1519,7 @@ def swapped_attention():
     from paddle_tpu_torch.ops import paged_attention as pa
 
     def ragged(q, kc, vc, bt, qo, ql, kl, scale, span_q=0, key_scale=None,
-               value_scale=None):
+               value_scale=None, work=None):
         if key_scale is not None:
             return pa._ragged_attention_int8_plain(
                 q, kc, vc, key_scale, value_scale, bt, qo, ql, kl, scale)
@@ -1559,7 +1770,8 @@ def _plain_kernels():
     """A context in which the model's and the layerwise step's attention
     run the flash plain versions on the card (``_flash_fwd_plain`` /
     ``_flash_bwd_plain`` under an autograd Function) and the layerwise
-    step's norms kernel #4's plain version (differentiated by autograd):
+    step's norms the plain version of kernel #4's layerwise variant
+    (differentiated by autograd):
     the reference side of the training parity phases.  The kernel
     wrappers are not touched."""
     import contextlib
@@ -1596,7 +1808,8 @@ def _plain_kernels():
 
     swaps = ((lm, "flash_attention_rope", plain),
              (lw, "flash_rope_sdpa", plain_sdpa),
-             (lw, "rms_norm", _rms_norm_plain))
+             (lw, "rms_norm", functools.partial(_rms_norm_plain,
+                                                round_first=True)))
 
     @contextlib.contextmanager
     def swapped():
@@ -1888,22 +2101,33 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
              "7b_mixed_8x1024+256", RAGGED_SOURCE, RAGGED_REPLACES,
              "serve_7b_kv8_mixed")):
         r = pick(rs, case)
-        out.append(dict(name=name, route="cuda", source=src, replaces=rep,
-                        launches=serving[path]["launches"][name], path=path,
-                        max_abs_err=max(x["max_abs_err"] for x in rs),
-                        ms=r["kernel_ms"], plain_ms=r["plain_ms"],
-                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                        library_ms=None))
+        entry = dict(name=name, route="cuda", source=src, replaces=rep,
+                     launches=serving[path]["launches"][name], path=path,
+                     max_abs_err=max(x["max_abs_err"] for x in rs),
+                     ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                     library_ms=None)
+        if name.startswith("ragged"):   # the all-decode step, beside it
+            d = pick(rs, "7b_decode_8x1024")
+            entry.update(decode_only_ms=d["kernel_ms"],
+                         decode_only_bound_ms=d["bound_ms"])
+        out.append(entry)
+    # the layerwise step launches #4's round-first variant; #4's own
+    # rounding point (no path launches it) is timed beside it
     rs = rows["rms_norm"]
-    r = pick(rs, RMS_MAIN)
-    out.append(dict(name="rms_norm", route="cuda", source=RMS_SOURCE,
-                    replaces=RMS_REPLACES,
+    r, last = (next(x for x in rs if x["case"] == RMS_MAIN and x["kernel"]
+                    == k and x["dtype"] == "bfloat16")
+               for k in ("rms_norm_round_first", "rms_norm"))
+    out.append(dict(name="rms_norm", variant="round_first", route="cuda",
+                    source=RMS_SOURCE, replaces=RMS_REPLACES,
                     launches=train_launches["train_7b_layerwise"]["rms_norm"],
                     path="train_7b_layerwise",
-                    max_abs_err=max(x["max_abs_err"] for x in rs),
+                    max_abs_err=max(x["max_abs_err"] for x in rs
+                                    if x["kernel"] == r["kernel"]),
                     ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                     bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                    library_ms=r["library_ms"]))
+                    library_ms=r["library_ms"],
+                    round_last_ms=last["kernel_ms"]))
     for name in ALL_FLASH:
         case, path = FLASH_MAIN[name]
         rs = [r for r in flash_rows if r["kernel"] == name]
@@ -1918,6 +2142,48 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
     return out
 
 
+def timing_of(tree: str) -> int:
+    """``--timing-of DIR``: the kernels of the checkout at ``DIR`` (its
+    ``paddle_tpu_torch`` and its ``chip_smoke.py``, e.g. an earlier commit
+    unpacked with ``git archive``) timed by both methods, the device time
+    of :func:`time_ms` ("queued") and the earlier timing ("paced",
+    ``queued=False``): its phases 2 and 5 run once with each, and one JSON line
+    per case gives every time of the case under both.  Run it for two
+    trees in one call to compare them on one yardstick."""
+    import importlib.util
+    import os
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    spec = importlib.util.spec_from_file_location(
+        "tree_chip_smoke", os.path.join(tree, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    import paddle_tpu_torch
+    if not paddle_tpu_torch.__file__.startswith(tree + os.sep):
+        raise AssertionError("imported %s, not the tree's package"
+                             % paddle_tpu_torch.__file__)
+    mod.phase_device()
+    mod.phase_build()
+    runs = {}
+    for method, fn in (("paced", functools.partial(time_ms, queued=False)),
+                       ("queued", time_ms)):
+        got = []
+        mod.time_ms, mod.emit = fn, got.append
+        mod.phase_kernels()
+        mod.phase_flash_kernels()
+        runs[method] = [r for r in got if "kernel" in r]
+    for a, b in zip(runs["paced"], runs["queued"]):
+        if (a["kernel"], a.get("case"), a.get("dtype")) != (
+                b["kernel"], b.get("case"), b.get("dtype")):
+            raise AssertionError("the two passes ran other cases")
+        emit(dict(tree=tree, kernel=a["kernel"], case=a.get("case"),
+                  dtype=a.get("dtype"), bound_ms=a.get("bound_ms"),
+                  **{m: {k: v for k, v in r.items()
+                         if k.endswith("_ms") and k != "bound_ms"}
+                     for m, r in (("paced", a), ("queued", b))}))
+    return 0
+
+
 def main() -> int:
     """Every phase in order, then the kernels line and the ok line."""
     import torch
@@ -1925,6 +2191,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's main path runs on "
               "the card only", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--timing-of"]:
+        return timing_of(sys.argv[2])
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
     t_start = time.perf_counter()
 

@@ -1,18 +1,21 @@
-// Flash attention with fused neox rope on the CUDA cores (sm_90a): the
-// fp32 forward and two-kernel backward, and the one-pass backward in fp32
-// and bf16.  The bf16 forward and two-kernel backward run on the tensor
-// cores, in flash_attention_sm90.cu; this library has no bf16
-// instantiation of them (its entries return cudaErrorInvalidValue).
+// Flash attention with fused neox rope on the CUDA cores (sm_90a): every
+// fp32 variant (forward, one-pass and two-kernel backward), and the bf16
+// variants at head dims 32 and 96.  bf16 at head dims 64 and 128 runs on
+// the tensor cores, in flash_attention_sm90.cu; this library has no bf16
+// instantiation there (its entries return cudaErrorInvalidValue).
 //
 // Replaces (paddle_tpu/ops/pallas_kernels.py):
-// - _flash_fwd_kernel (launched by _flash_attention_value), fp32:
+// - _flash_fwd_kernel (launched by _flash_attention_value):
 //   flash_fwd_kernel
 // - _flash_bwd_kv_kernel with emit_dq (launched by
-//   _flash_attention_bwd_fused), fp32 and bf16:
-//   flash_bwd_kv_kernel<EMIT_DQ=true> followed by dq_finalize_kernel
+//   _flash_attention_bwd_fused): flash_bwd_kv_kernel<EMIT_DQ=true>
+//   followed by dq_finalize_kernel
 // - _flash_bwd_dq_kernel + _flash_bwd_kv_kernel (launched by
-//   _flash_attention_bwd), fp32: flash_bwd_dq_kernel +
-//   flash_bwd_kv_kernel<false>
+//   _flash_attention_bwd): flash_bwd_dq_kernel + flash_bwd_kv_kernel<false>
+// Head dims 32, 64, 96 and 128: every D whose half is a multiple of 16
+// (the 4x4 register tile below keeps D/16 columns a thread, and the rope
+// partner d +- D/2 must sit in the same thread).  The reference computes
+// every D <= 128; D 80 or 112 raise here.
 //
 // What they compute.  q [B, Sq, H, D], k/v [B, Sk, H, D], out/dout like
 // q, lse [B, H, Sq] fp32 (natural log, -inf for a row that sees nothing);
@@ -31,28 +34,36 @@
 // into FMAs: the rounded operands are then bitwise those of the plain
 // PyTorch version (paddle_tpu_torch/ops/flash_attention.py).
 //
-// Design (simple and right first; tensor cores, TMA and pipelining later).
-// 256 threads per block; q and k tiles of 64 rows; every tile lives in
-// shared memory as fp32, rows padded to D + 1 floats where a product reads
-// them across rows.  Thread (ty, tx) = (tid / 16, tid % 16) owns rows
-// ty + 16a (a < 4) and columns tx + 16b of every 64-row product, so a
-// row's 64 columns sit in 16 lanes of one warp (row max / sum with four
-// shuffles), and the partner column d +- D/2 of the rope lies in the same
-// thread (the inverse rope runs in registers).
+// Design (simple and right first).  256 threads per block; q and k tiles
+// of 64 rows; every tile lives in shared memory as fp32, rows padded to
+// D + 1 floats where a product reads them across rows.  Thread (ty, tx) =
+// (tid / 16, tid % 16) owns rows ty + 16a (a < 4) and columns tx + 16b of
+// every 64-row product, so a row's 64 columns sit in 16 lanes of one warp
+// (row max / sum with four shuffles), and the partner column d +- D/2 of
+// the rope lies in the same thread (the inverse rope runs in registers).
 // - Forward: one block per (q tile, b*h), late q tiles first (the causal
 //   ones carry the most keys).  It loops over the k tiles up to the causal
 //   limit with an online softmax (FA2: unnormalised accumulator, one
 //   division by l at the store) and stores only rows < Sq.
-// - Backward, k-tile kernel: one block per (k tile, b*h), dk and dv in
+// - Backward, k-tile kernel: one block per (b*h, k tile), dk and dv in
 //   registers; it loops over the q tiles from the first that sees the k
 //   tile, recomputing p from the lse and delta = rowsum(dO * O) per q
 //   tile.  With EMIT_DQ it also adds each (k tile, q tile) share of dq,
 //   ds . Ks times 1/log2(e) (Ks carries c), into a zeroed fp32 workspace
-//   with atomicAdd: the TPU
-//   kernel writes per-k-tile partials because it has no atomics.  The
-//   order of the additions changes from run to run, so dq is not bitwise
-//   deterministic.  dq_finalize_kernel then applies the inverse rope and
-//   the cast.
+//   in k-tile order (common.cuh's wait_turn / pass_turn: the TPU kernel
+//   writes per-k-block partials and sums them in order; here one
+//   workspace and a counter per (b*h, q tile) give the same fixed order),
+//   so dq is bitwise deterministic.  dq_finalize_kernel then applies the
+//   inverse rope and the cast.
+//   Why the ordered adds cannot deadlock: the block of k tile j waits only
+//   for blocks of k tiles j' < j of its head (every k tile below j visits
+//   the q tiles that j visits: the first visited q tile grows with the k
+//   tile).  Blocks take their (b*h, k tile) from a ticket drawn as they
+//   start, b*h fastest (common.cuh's take_ticket), so each such block
+//   started earlier and is resident or done; the lowest unfinished ticket
+//   waits on nothing unfinished and makes progress.  Under the card's
+//   usual in-order dispatch the tickets equal the block indices, and all
+//   of a head's k tiles j - 1 have started before any tile j does.
 // - Backward, q-tile kernel (two-kernel form): one block per (q tile,
 //   b*h), dq in registers, loops over the k tiles up to the causal limit;
 //   no atomics, so the two-kernel backward is deterministic.
@@ -63,9 +74,10 @@
 // kernels run on the fp32 CUDA cores (67 TFLOP/s peak, and the 4x4
 // register tile reads two shared-memory words per two FMAs).  fp32 stays
 // here: on the tensor cores fp32 inputs would be TF32 (about three
-// decimal digits).  The bf16 one-pass backward is next onto the tensor
-// cores, as an extension of flash_attention_sm90.cu's dk/dv kernel.
+// decimal digits).
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -372,8 +384,8 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ cos,
                         const float* __restrict__ sin, T* __restrict__ dk,
                         T* __restrict__ dv, float* __restrict__ dq_acc,
-                        int H, int Sq, int Sk, int causal, float c,
-                        float scale) {
+                        int* __restrict__ dq_turn, int H, int Sq, int Sk,
+                        int causal, float c, float scale) {
   constexpr int NC = D / 16, LD = D + 1;
   extern __shared__ float smem[];
   float* Ks = smem;            // [64][LD] exp2-space k (roped, times c)
@@ -385,8 +397,16 @@ __global__ void __launch_bounds__(kThreads)
   float* dl = dSs + kB * kLdP; // [64] delta
   float* l2 = dl + kB;         // [64] lse * log2(e)
 
-  const int k0 = blockIdx.x * kB;  // early k tiles (the heavy ones) first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  // (b*h, k tile), b*h fastest; with EMIT_DQ in the order blocks start
+  // (dq_turn[0] is the ticket counter, the turns follow; see common.cuh)
+  int bx = blockIdx.x, kt = blockIdx.y;
+  if (EMIT_DQ) {
+    const int v = ptt::take_ticket(dq_turn);
+    bx = v % gridDim.x;
+    kt = v / gridDim.x;
+  }
+  const int k0 = kt * kB;  // early k tiles (the heavy ones) first
+  const int bh = bx, b = bh / H, h = bh % H;
   const int rs = H * D, off = Sk - Sq;
   const size_t qhead = ((size_t)b * Sq * H + h) * D;
   const size_t khead = ((size_t)b * Sk * H + h) * D;
@@ -423,6 +443,18 @@ __global__ void __launch_bounds__(kThreads)
     if (EMIT_DQ) {
       float dqp[4][NC] = {};
       mm_nn<kB, NC>(dqp, dSs, kLdP, Ks, LD, ty, tx);
+      // k tile kt's turn on this q tile (see the header)
+      int* turn = dq_turn + 1 + (size_t)bh * n_qt + qt;
+      ptt::wait_turn(turn, kt);
+      // every load before the first store (one L2 round trip)
+      float cur[4][NC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int row = min(q0 + ty + 16 * a, Sq - 1);
+        const float* src = dq_acc + (((size_t)b * Sq + row) * H + h) * D;
+#pragma unroll
+        for (int j = 0; j < NC; ++j) cur[a][j] = __ldcg(src + tx + 16 * j);
+      }
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         const int row = q0 + ty + 16 * a;
@@ -430,8 +462,9 @@ __global__ void __launch_bounds__(kThreads)
         float* dst = dq_acc + (((size_t)b * Sq + row) * H + h) * D;
 #pragma unroll
         for (int j = 0; j < NC; ++j)
-          atomicAdd(dst + tx + 16 * j, dqp[a][j] * kInvLog2e);
+          __stcg(dst + tx + 16 * j, cur[a][j] + dqp[a][j] * kInvLog2e);
       }
+      ptt::pass_turn(turn, kt + 1);
     }
   }
 
@@ -511,27 +544,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dq = inverse-rope(dq_acc) cast to T, one thread per element.
-template <typename T, int D, bool ROPE>
-__global__ void dq_finalize_kernel(const float* __restrict__ acc,
-                                   const float* __restrict__ cos,
-                                   const float* __restrict__ sin,
-                                   T* __restrict__ dq, int H, int Sq,
-                                   size_t n) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
-  float x = acc[e];
-  if (ROPE) {
-    constexpr int half = D / 2;
-    const int d = (int)(e % D);
-    const size_t pos = (e / ((size_t)D * H)) % Sq;
-    const float rot = d < half ? -acc[e + half] : acc[e - half];
-    x = __fsub_rn(__fmul_rn(x, cos[pos * D + d]),
-                  __fmul_rn(rot, sin[pos * D + d]));
-  }
-  dq[e] = ptt::from_f32<T>(x);
-}
-
 template <int D>
 constexpr size_t fwd_smem() {
   return (2 * kB * (D + 1) + kB * D + kB * kLdP) * sizeof(float);
@@ -554,7 +566,7 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 
 struct Args {
   const void *q, *k, *v, *o, *g, *lse, *cos, *sin;
-  void *out, *lse_out, *dq, *dk, *dv, *dq_acc;
+  void *out, *lse_out, *dq, *dk, *dv, *dq_acc, *dq_turn;
   int B, H, Sq, Sk, causal;
   float c, scale;
   cudaStream_t st;
@@ -588,30 +600,30 @@ int bwd_two_kernel(const Args& a) {
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   auto kvk = flash_bwd_kv_kernel<T, D, ROPE, false>;
   if ((err = set_smem(kvk, bwd_kv_smem<D>())) != cudaSuccess) return (int)err;
-  kvk<<<dim3((a.Sk + kB - 1) / kB, a.B * a.H), kThreads, bwd_kv_smem<D>(),
+  kvk<<<dim3(a.B * a.H, (a.Sk + kB - 1) / kB), kThreads, bwd_kv_smem<D>(),
         a.st>>>((const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o,
                 (const T*)a.g, (const float*)a.lse, (const float*)a.cos,
-                (const float*)a.sin, (T*)a.dk, (T*)a.dv, nullptr, a.H, a.Sq,
-                a.Sk, a.causal, a.c, a.scale);
+                (const float*)a.sin, (T*)a.dk, (T*)a.dv, nullptr, nullptr,
+                a.H, a.Sq, a.Sk, a.causal, a.c, a.scale);
   return (int)cudaGetLastError();
 }
 
-// the one-pass backward: the k-tile kernel adding dq shares, then the
-// finishing pass
+// the one-pass backward: the k-tile kernel adding dq shares in k-tile
+// order, then the finishing pass
 template <typename T, int D, bool ROPE>
 int bwd_fused(const Args& a) {
   cudaError_t err;
   auto kvk = flash_bwd_kv_kernel<T, D, ROPE, true>;
   if ((err = set_smem(kvk, bwd_kv_smem<D>())) != cudaSuccess) return (int)err;
-  kvk<<<dim3((a.Sk + kB - 1) / kB, a.B * a.H), kThreads, bwd_kv_smem<D>(),
+  kvk<<<dim3(a.B * a.H, (a.Sk + kB - 1) / kB), kThreads, bwd_kv_smem<D>(),
         a.st>>>((const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.o,
                 (const T*)a.g, (const float*)a.lse, (const float*)a.cos,
                 (const float*)a.sin, (T*)a.dk, (T*)a.dv, (float*)a.dq_acc,
-                a.H, a.Sq, a.Sk, a.causal, a.c, a.scale);
+                (int*)a.dq_turn, a.H, a.Sq, a.Sk, a.causal, a.c, a.scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t n = (size_t)a.B * a.Sq * a.H * D;
-  dq_finalize_kernel<T, D, ROPE><<<(unsigned)((n + 255) / 256), 256, 0,
-                                   a.st>>>(
+  ptt::dq_finalize_kernel<T, D, ROPE><<<(unsigned)((n + 255) / 256), 256,
+                                        0, a.st>>>(
       (const float*)a.dq_acc, (const float*)a.cos, (const float*)a.sin,
       (T*)a.dq, a.H, a.Sq, n);
   return (int)cudaGetLastError();
@@ -630,23 +642,33 @@ struct TwoKernelOp {
   static int run(const Args& a) { return bwd_two_kernel<T, D, ROPE>(a); }
 };
 
-// head dim x rope -> one instantiation of Op for the input type T
+template <template <typename, int, bool> class Op, typename T, int D>
+int with_rope(int rope, const Args& a) {
+  return rope ? Op<T, D, true>::run(a) : Op<T, D, false>::run(a);
+}
+
+// head dim x rope -> one instantiation of Op for the input type T: fp32
+// at every head dim, bf16 at 32 and 96 only (64 and 128 are the tensor
+// cores')
 template <template <typename, int, bool> class Op, typename T>
 int dispatch(int D, int rope, const Args& a) {
-  if (D == 64)
-    return rope ? Op<T, 64, true>::run(a) : Op<T, 64, false>::run(a);
-  if (D == 128)
-    return rope ? Op<T, 128, true>::run(a) : Op<T, 128, false>::run(a);
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  if (D == 32) return with_rope<Op, T, 32>(rope, a);
+  if (D == 96) return with_rope<Op, T, 96>(rope, a);
+  if constexpr (kF32) {
+    if (D == 64) return with_rope<Op, T, 64>(rope, a);
+    if (D == 128) return with_rope<Op, T, 128>(rope, a);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Layouts: q/out [B, Sq, H, D], k/v [B, Sk, H, D], all contiguous in the
-// input type (dtype 0 = float32, 1 = bfloat16); lse [B, H, Sq] float32;
-// cos/sin [S, D] float32 (null without rope).  c = log2(e) / sqrt(D).
-// Returns the launches' cudaGetLastError(); the forward takes float32
-// only (cudaErrorInvalidValue otherwise).
+// input type (dtype 0 = float32, 1 = bfloat16: head dims 32 and 96 only);
+// lse [B, H, Sq] float32; cos/sin [S, D] float32 (null without rope).
+// c = log2(e) / sqrt(D).  Returns the launches' cudaGetLastError()
+// (cudaErrorInvalidValue for a dtype or head dim this library lacks).
 extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
                              const void* cos, const void* sin, void* out,
                              void* lse, int B, int H, int Sq, int Sk, int D,
@@ -657,31 +679,36 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   a.lse_out = lse;
   a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.causal = causal, a.c = c;
   a.st = (cudaStream_t)stream;
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  return dispatch<FwdOp, float>(D, rope, a);
+  if (dtype == 0) return dispatch<FwdOp, float>(D, rope, a);
+  if (dtype == 1) return dispatch<FwdOp, __nv_bfloat16>(D, rope, a);
+  return (int)cudaErrorInvalidValue;
 }
 
-// fused = 1: the one-pass backward (float32 or bfloat16), adding dq into
-// dq_acc ([B, Sq, H, D] float32, zeroed by the caller) and finishing it
-// into dq; fused = 0: the two-kernel backward, float32 only (dq_acc
-// unused).  scale = 1 / sqrt(D).
+// fused = 1: the one-pass backward, adding dq into dq_acc ([B, Sq, H, D]
+// float32) in k-tile order under dq_turn (1 + B * H * ceil(Sq / 64)
+// int32: the ticket, then the turns), both zeroed by the caller, and
+// finishing it into dq;
+// fused = 0: the two-kernel backward (dq_acc, dq_turn unused).  scale =
+// 1 / sqrt(D).  dtype as for ptt_flash_fwd.
 extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* dout,
                              const void* lse, const void* cos,
                              const void* sin, void* dq, void* dk, void* dv,
-                             void* dq_acc, int B, int H, int Sq, int Sk,
-                             int D, int causal, int rope, float c,
-                             float scale, int dtype, int fused,
+                             void* dq_acc, void* dq_turn, int B, int H,
+                             int Sq, int Sk, int D, int causal, int rope,
+                             float c, float scale, int dtype, int fused,
                              void* stream) {
   Args a = {};
   a.q = q, a.k = k, a.v = v, a.o = out, a.g = dout, a.lse = lse;
   a.cos = cos, a.sin = sin, a.dq = dq, a.dk = dk, a.dv = dv;
-  a.dq_acc = dq_acc;
+  a.dq_acc = dq_acc, a.dq_turn = dq_turn;
   a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.causal = causal, a.c = c;
   a.scale = scale, a.st = (cudaStream_t)stream;
-  if (fused && dtype == 0) return dispatch<FusedOp, float>(D, rope, a);
-  if (fused && dtype == 1)
-    return dispatch<FusedOp, __nv_bfloat16>(D, rope, a);
-  if (!fused && dtype == 0) return dispatch<TwoKernelOp, float>(D, rope, a);
+  if (dtype == 0)
+    return fused ? dispatch<FusedOp, float>(D, rope, a)
+                 : dispatch<TwoKernelOp, float>(D, rope, a);
+  if (dtype == 1)
+    return fused ? dispatch<FusedOp, __nv_bfloat16>(D, rope, a)
+                 : dispatch<TwoKernelOp, __nv_bfloat16>(D, rope, a);
   return (int)cudaErrorInvalidValue;
 }

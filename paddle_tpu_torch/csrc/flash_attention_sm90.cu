@@ -1,13 +1,16 @@
 // Flash attention with fused neox rope on Hopper's tensor cores (sm_90a),
-// bf16: the forward and the two-kernel (FlashAttention-2) backward of the
-// training path.
+// bf16 at head dims 64 and 128: the forward and both backward forms of
+// the training path.
 //
 // Replaces (paddle_tpu/ops/pallas_kernels.py), bf16 variants:
 // - _flash_fwd_kernel (launched by _flash_attention_value): fwd_tc_kernel
+// - _flash_bwd_kv_kernel with emit_dq (launched by
+//   _flash_attention_bwd_fused): bwd_kv_tc_kernel<EMIT_DQ=true> +
+//   dq_finalize_kernel
 // - _flash_bwd_dq_kernel + _flash_bwd_kv_kernel without emit_dq (launched
-//   by _flash_attention_bwd): bwd_dq_tc_kernel + bwd_kv_tc_kernel
-// The fp32 variants and the one-pass backward stay on the CUDA cores in
-// flash_attention.cu.
+//   by _flash_attention_bwd): bwd_dq_tc_kernel + bwd_kv_tc_kernel<false>
+// The fp32 variants, and bf16 at head dims 32 and 96, run on the CUDA
+// cores in flash_attention.cu.
 //
 // What they compute: what flash_attention.cu's kernels compute, at the
 // same rounding points.  q/out/dout [B, Sq, H, D], k/v [B, Sk, H, D] bf16,
@@ -15,9 +18,10 @@
 // query row i sees key j iff j <= i + Sk - Sq when causal.  Scores live in
 // exp2 space with c = scale * log2(e) on exactly one operand: the forward
 // and the dq kernel use round(rope(q) c) . round(rope(k)), the dk/dv
-// kernel round(rope(q)) . round(rope(k) c).  p is rounded to bf16 before
-// p.V and p^T.dO, ds before ds.K and ds^T.Q; dq and dk leave through the
-// inverse rotation.  Accumulation is fp32.
+// kernel (and the one-pass dq share, ds . Ks / log2(e)) round(rope(q)) .
+// round(rope(k) c).  p is rounded to bf16 before p.V and p^T.dO, ds
+// before ds.K and ds^T.Q; dq and dk leave through the inverse rotation.
+// Accumulation is fp32.
 //
 // Bound on the card: operations.  At the training shapes (S 2048 and
 // 16384, D 128) a 64-row tile does 2 x 64 x D operations per key element
@@ -41,8 +45,7 @@
 // - The score accumulator has the layout of the A operand of the next
 //   product (m16n8k16's, and per warp wgmma's), so p (and ds) go from
 //   registers, rounded to bf16, straight into it (FlashAttention-2's
-//   register reuse); nothing of the [S, S] scores reaches shared or
-//   device memory.
+//   register reuse); nothing of the [S, S] scores reaches device memory.
 // - Rope: a pre-pass writes round(rope(k)) (and, for the backward,
 //   round(rope(q))) once per call as bf16 scratch, so no streamed tile is
 //   roped again per block; each block ropes and scales its resident tile
@@ -56,19 +59,47 @@
 //   softmax with an unnormalised accumulator and one division by l at
 //   the store.
 // - dq kernel: one block of 4 warps per (64-row q tile, b*h), k and v
-//   tiles streamed.  dk/dv kernel, in the transposed form: one block of 4
-//   warps per (64-key tile, b*h), keys as the M rows, q, dO, lse and delta
-//   tiles streamed, S^T = K~ Q^T and dP^T = V dO^T in 32-column halves.
-//   Both are deterministic (no atomics); memory stays O(S D + S).
+//   tiles streamed.  dk/dv kernel, in the transposed form: one block of 8
+//   warps per (128-key tile, b*h), keys as the M rows, q, dO, lse and
+//   delta tiles streamed 64 rows at a time, S^T = K~ Q^T and dP^T = V
+//   dO^T in 32-column halves; both are deterministic (no atomics); memory
+//   stays O(S D + S).
+// - The one-pass form (EMIT_DQ) adds, per half tile, the dq share of the
+//   block's 128 keys, dS Ks / log2(e): ds^T goes through shared memory
+//   (its rounding point) and comes back by ldmatrix.trans as the A
+//   operand with q rows as M; each warp multiplies a 16 x D/4 piece and
+//   adds it to the fp32 workspace at once (dq_share: D/8 floats a thread
+//   live, so the share never sits in registers beside dk and dv for
+//   long).  The shares are added in k-tile order: a counter per (b*h,
+//   half tile) passes the turn (common.cuh's wait_turn / pass_turn), and
+//   blocks take their (b*h, k tile) from a ticket drawn as they start,
+//   b*h fastest, so a block waits only for lower tickets, which have
+//   started and are resident or done (no deadlock, whatever the card's
+//   dispatch order).  The reference sums per-k-block partials in order;
+//   this sums per-k-tile shares in order, so dq is bitwise deterministic
+//   with one [B, Sq, H, D] fp32 workspace (67 MB at the 7B shape) where
+//   per-tile partials would take 16 of them.  128 keys a block (not 64)
+//   halve the workspace's read-modify-write traffic and the chain's
+//   length; the wait comes before the share's product, so the workspace
+//   reads are in flight during it.  dq_finalize_kernel applies the
+//   inverse rope and the cast.
 // - Grids are (b*h, tile) with the heaviest causal tiles at tile 0: the
 //   card starts blocks x first, so every head's heaviest tiles start in
 //   the first waves and the last wave holds the lightest.
 // - Only tiles that hold a masked element (the causal diagonal, ragged
 //   tails) evaluate the mask; tiles no row sees are skipped.
+//
+// Registers (ptxas -v, sm_90a): the D-128 dk/dv kernel uses all 255
+// registers of its 256-thread block (one block an SM) with small spills:
+// 28-36 bytes of spill stores in the two-kernel form, 48-60 in the
+// one-pass form; the D-128 forward 32-36 (128 registers, two blocks an
+// SM); the D-64 kernels and the dq kernels (240 registers) do not spill
+// (D-64 dq with rope: 4 bytes).
 #include <math.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -76,83 +107,12 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kBN = 64;          // keys per streamed k tile, rows per q tile
 constexpr int kFwdWG = 2;        // forward: 2 warpgroups x 64 = 128 q rows
-constexpr int kBwdWarps = 4;     // backward: 4 x 16 = 64 rows per block
+constexpr int kBwdWarps = 4;     // dq kernel: 4 x 16 = 64 q rows a block
+constexpr int kKvWarps = 8;      // dk/dv kernel: 8 x 16 = 128 keys a block
 constexpr int kSub = 32;         // q columns per half of the dk/dv tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// ---------------------------------------------------------------------------
-// PTX wrappers
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared; zero-filled when !valid (src must still be a
-// valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += a . b, m16n8k16, bf16 operands, fp32 accumulator
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats rounded to bf16 (nearest even, as torch's cast), lo in the
-// low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t u) {
-  return __uint_as_float(u << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t u) {
-  return __uint_as_float(u & 0xffff0000u);
-}
+constexpr float kInvLog2e = 0.6931471805599453f;  // 1 / log2(e)
 
 // ---------------------------------------------------------------------------
 // shared-memory tiles: [rows][D] bf16, 16-byte chunks swizzled by row % 8
@@ -803,17 +763,99 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
 // ---------------------------------------------------------------------------
 // backward, dk/dv kernel (transposed): one block per (64-key tile, b*h)
 // ---------------------------------------------------------------------------
-template <int D, bool ROPE>
-__global__ void __launch_bounds__(kBwdWarps * 32)
+// dS^T of one half tile, [kBN keys][kSub q] bf16 (64-byte rows), its
+// 16-byte chunks swizzled by (key >> 1) & 3: the 32-bit stores of the
+// accumulator layout and the ldmatrix.trans reads are conflict-free
+__device__ __forceinline__ int dst_at(int key, int col) {
+  return key * kSub + ((((col >> 3) ^ (key >> 1)) & 3) << 3) + (col & 7);
+}
+
+// The one-pass form's dq share of one half tile (q rows r0 .. r0 + kSub),
+// dQ += dS Ks / log2(e), added into dq_acc in k-tile order.  ds^T (keys
+// as rows, in the accumulator layout of the calling warp's 16 keys) goes
+// through shared memory, rounded to bf16 as for dS^T Q; warp w then
+// computes q rows 16 (w & 1) .. of the half over D columns (w >> 1) D/4 ..
+// from the block's 128 keys: A = dS by ldmatrix.trans of dS^T, B = Ks
+// ([keys][D], row-major) by ldmatrix.trans.  The share lives in registers
+// only until it is added (D/8 floats a thread).
+template <int D>
+__device__ __forceinline__ void dq_share(
+    bf16* dSt, const float (&ds)[kSub / 8][4], const bf16* Ks, int m0,
+    int lane, float* __restrict__ dq_acc, int* __restrict__ dq_turn, int kt,
+    int bh, int b, int h, int H, int Sq, int r0, int half_idx) {
+  constexpr int BN = kKvWarps * 16, NJ = kSub / 8;
+  constexpr int NC = D / (kKvWarps / 2), NH = NC / 8;  // columns, n8 tiles
+  const int g = lane >> 2, t = lane & 3, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(dSt + dst_at(m0 + g + 8 * i,
+                                                8 * j + 2 * t)) =
+          pack_bf16(ds[j][2 * i], ds[j][2 * i + 1]);
+  // this k tile's turn on the half (one counter per b*h and half tile, 2
+  // per 64-row q tile, after the ticket); its barrier also publishes dS^T.
+  // The workspace is then read at once, every load before the first
+  // store (one L2 round trip, not one per element: the compiler moves no
+  // load past a store that may alias), so the reads are in flight while
+  // the share is multiplied
+  int* turn =
+      dq_turn + 1 + (size_t)bh * 2 * ((Sq + kBN - 1) / kBN) + half_idx;
+  ptt::wait_turn(turn, kt);
+  const int qm = (warp & 1) * 16, n0 = (warp >> 1) * NC;
+  float2* dst[2];
+  float2 cur[2][NH];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = min(r0 + qm + g + 8 * i, Sq - 1);
+    dst[i] = reinterpret_cast<float2*>(
+        dq_acc + (((size_t)b * Sq + row) * H + h) * D + n0 + 2 * t);
+#pragma unroll
+    for (int n = 0; n < NH; ++n) cur[i][n] = __ldcg(dst[i] + 4 * n);
+  }
+  float acc[NH][4];
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    uint32_t a[4];
+    const int key = kk * 16 + (lane & 7) + (lane >> 4) * 8;
+    ldsm_x4_t(a, smem_u32(dSt + dst_at(key, qm + ((lane >> 3) & 1) * 8)));
+#pragma unroll
+    for (int nn = 0; nn < NH / 2; ++nn) {
+      uint32_t bb[4];
+      frag_bt<D>(bb, Ks, kk * 16, n0 + nn * 16, lane);
+      mma(acc[2 * nn], a, bb[0], bb[1]);
+      mma(acc[2 * nn + 1], a, bb[2], bb[3]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (r0 + qm + g + 8 * i >= Sq) continue;
+#pragma unroll
+    for (int n = 0; n < NH; ++n) {
+      cur[i][n].x += acc[n][2 * i] * kInvLog2e;
+      cur[i][n].y += acc[n][2 * i + 1] * kInvLog2e;
+      __stcg(dst[i] + 4 * n, cur[i][n]);
+    }
+  }
+  ptt::pass_turn(turn, kt + 1);  // also frees dSt for the next half
+}
+
+template <int D, bool ROPE, bool EMIT_DQ>
+__global__ void __launch_bounds__(kKvWarps * 32)
     bwd_kv_tc_kernel(const bf16* __restrict__ qr, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ g,
                      const float* __restrict__ delta,
                      const float* __restrict__ lse2,
                      const float* __restrict__ cos,
                      const float* __restrict__ sin, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int Sq, int Sk,
+                     bf16* __restrict__ dv, float* __restrict__ dq_acc,
+                     int* __restrict__ dq_turn, int H, int Sq, int Sk,
                      int causal, float c, float scale) {
-  constexpr int NT = kBwdWarps * 32, BN = kBwdWarps * 16;
+  constexpr int NT = kKvWarps * 32, BN = kKvWarps * 16;
   constexpr int NJ = kSub / 8, ND = D / 8;
   typedef RowSwz<D> L;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -823,9 +865,18 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
   bf16* dOs = Qs + 2 * kBN * D;                   // [2][kBN][D]
   float* L2s = reinterpret_cast<float*>(dOs + 2 * kBN * D);  // [2][kBN]
   float* DLs = L2s + 2 * kBN;                                 // [2][kBN]
+  bf16* dSt = reinterpret_cast<bf16*>(DLs + 2 * kBN);  // [BN][kSub] (dq)
 
-  const int k0 = blockIdx.y * BN;  // early (causal: heaviest) k tiles first
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  // (b*h, k tile), b*h fastest; the one-pass form in the order blocks
+  // start (dq_turn[0] is the ticket counter, the turns follow)
+  int bx = blockIdx.x, kt = blockIdx.y;
+  if (EMIT_DQ) {
+    const int tk = ptt::take_ticket(dq_turn);
+    bx = tk % gridDim.x;
+    kt = tk / gridDim.x;
+  }
+  const int k0 = kt * BN;  // early (causal: heaviest) k tiles first
+  const int bh = bx, b = bh / H, h = bh % H;
   const int rs = H * D, off = Sk - Sq;
   const size_t qhead = ((size_t)b * Sq * H + h) * D;
   const size_t khead = ((size_t)b * Sk * H + h) * D;
@@ -899,6 +950,9 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
         }
       mm_p_tile<D, kSub / 16, NJ>(dva, s, dOt, c0, lane);  // dV += P^T dO
       mm_p_tile<D, kSub / 16, NJ>(dka, dp, Qt, c0, lane);  // dK += dS^T Q
+      if (EMIT_DQ) dq_share<D>(dSt, dp, Ks, m0, lane, dq_acc, dq_turn, kt,
+                               bh, b, h, H, Sq, q0 + c0,
+                               (qt * kBN + c0) / kSub);
     }
     __syncthreads();
   }
@@ -925,8 +979,9 @@ constexpr size_t dq_smem() {
 }
 template <int D>
 constexpr size_t kv_smem() {
-  return (size_t)(2 * kBwdWarps * 16 + 4 * kBN) * D * sizeof(bf16) +
-         4 * kBN * sizeof(float);
+  // + the one-pass form's dS^T half tile
+  return (size_t)(2 * kKvWarps * 16 + 4 * kBN) * D * sizeof(bf16) +
+         4 * kBN * sizeof(float) + kKvWarps * 16 * kSub * sizeof(bf16);
 }
 
 template <typename K>
@@ -938,7 +993,8 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 
 struct Args {
   const void *q, *k, *v, *o, *g, *lse, *cos, *sin;
-  void *out, *lse_out, *dq, *dk, *dv, *kr, *qr, *delta, *lse2;
+  void *out, *lse_out, *dq, *dk, *dv, *kr, *qr, *delta, *lse2, *dq_acc,
+      *dq_turn;
   int B, H, Sq, Sk, causal;
   float c, scale;
   cudaStream_t st;
@@ -974,21 +1030,44 @@ int fwd(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// the pre-passes of both backward forms: delta and lse2, and with rope
+// round(rope(q)) into qr (and, for the two-kernel form, round(rope(k))
+// into kr)
 template <int D, bool ROPE>
-int bwd(const Args& a) {
+int bwd_prepasses(const Args& a, bool rope_k) {
   int err;
   const size_t rows = (size_t)a.B * a.Sq * a.H;
   delta_kernel<D><<<(unsigned)((rows * 32 + 255) / 256), 256, 0, a.st>>>(
       (const bf16*)a.o, (const bf16*)a.g, (const float*)a.lse,
       (float*)a.delta, (float*)a.lse2, a.H, a.Sq, rows);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  const bf16 *kk = (const bf16*)a.k, *qq = (const bf16*)a.q;
-  if (ROPE) {
-    if ((err = rope_round<D>(a.k, a.kr, a, a.Sk)) != 0) return err;
-    if ((err = rope_round<D>(a.q, a.qr, a, a.Sq)) != 0) return err;
-    kk = (const bf16*)a.kr;
-    qq = (const bf16*)a.qr;
-  }
+  if (ROPE && rope_k && (err = rope_round<D>(a.k, a.kr, a, a.Sk)) != 0)
+    return err;
+  if (ROPE) return rope_round<D>(a.q, a.qr, a, a.Sq);
+  return 0;
+}
+
+template <int D, bool ROPE, bool EMIT_DQ>
+int launch_kv(const Args& a) {
+  int err;
+  auto kvk = bwd_kv_tc_kernel<D, ROPE, EMIT_DQ>;
+  if ((err = (int)set_smem(kvk, kv_smem<D>())) != 0) return err;
+  constexpr int BN = kKvWarps * 16;
+  kvk<<<dim3(a.B * a.H, (a.Sk + BN - 1) / BN), kKvWarps * 32, kv_smem<D>(),
+        a.st>>>(ROPE ? (const bf16*)a.qr : (const bf16*)a.q,
+                (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.g,
+                (const float*)a.delta, (const float*)a.lse2,
+                (const float*)a.cos, (const float*)a.sin, (bf16*)a.dk,
+                (bf16*)a.dv, (float*)a.dq_acc, (int*)a.dq_turn, a.H, a.Sq,
+                a.Sk, a.causal, a.c, a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D, bool ROPE>
+int bwd(const Args& a) {
+  int err;
+  if ((err = bwd_prepasses<D, ROPE>(a, true)) != 0) return err;
+  const bf16* kk = ROPE ? (const bf16*)a.kr : (const bf16*)a.k;
   constexpr int BM = kBwdWarps * 16;
   auto dqk = bwd_dq_tc_kernel<D, ROPE>;
   if ((err = (int)set_smem(dqk, dq_smem<D>())) != 0) return err;
@@ -998,13 +1077,21 @@ int bwd(const Args& a) {
                 (const float*)a.cos, (const float*)a.sin, (bf16*)a.dq, a.H,
                 a.Sq, a.Sk, a.causal, a.c, a.scale);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  auto kvk = bwd_kv_tc_kernel<D, ROPE>;
-  if ((err = (int)set_smem(kvk, kv_smem<D>())) != 0) return err;
-  kvk<<<dim3(a.B * a.H, (a.Sk + BM - 1) / BM), kBwdWarps * 32, kv_smem<D>(),
-        a.st>>>(qq, (const bf16*)a.k, (const bf16*)a.v, (const bf16*)a.g,
-                (const float*)a.delta, (const float*)a.lse2,
-                (const float*)a.cos, (const float*)a.sin, (bf16*)a.dk,
-                (bf16*)a.dv, a.H, a.Sq, a.Sk, a.causal, a.c, a.scale);
+  return launch_kv<D, ROPE, false>(a);
+}
+
+// the one-pass backward: the dk/dv kernel adding the dq shares in k-tile
+// order, then the finishing pass
+template <int D, bool ROPE>
+int bwd_fused(const Args& a) {
+  int err;
+  if ((err = bwd_prepasses<D, ROPE>(a, false)) != 0) return err;
+  if ((err = launch_kv<D, ROPE, true>(a)) != 0) return err;
+  const size_t n = (size_t)a.B * a.Sq * a.H * D;
+  ptt::dq_finalize_kernel<bf16, D, ROPE>
+      <<<(unsigned)((n + 255) / 256), 256, 0, a.st>>>(
+          (const float*)a.dq_acc, (const float*)a.cos, (const float*)a.sin,
+          (bf16*)a.dq, a.H, a.Sq, n);
   return (int)cudaGetLastError();
 }
 
@@ -1015,6 +1102,10 @@ struct FwdOp {
 template <int D, bool ROPE>
 struct BwdOp {
   static int run(const Args& a) { return bwd<D, ROPE>(a); }
+};
+template <int D, bool ROPE>
+struct FusedOp {
+  static int run(const Args& a) { return bwd_fused<D, ROPE>(a); }
 };
 
 // head dim x rope -> one instantiation
@@ -1061,4 +1152,25 @@ extern "C" int ptt_flash_bwd_two_kernel_tc(
   a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.causal = causal, a.c = c;
   a.scale = scale, a.st = (cudaStream_t)stream;
   return dispatch<BwdOp>(D, rope, a);
+}
+
+// The one-pass backward, bf16: dq, dk, dv like q, k, v.  Scratch from the
+// caller: delta and lse2 [B, H, Sq] float32; with rope qr like q
+// (round(rope(q))), else null; dq_acc [B, Sq, H, D] float32 and dq_turn
+// (1 + B * H * 2 * ceil(Sq / 64) int32: the ticket, then the turns), both
+// zeroed.  scale = 1 / sqrt(D).
+extern "C" int ptt_flash_bwd_fused_tc(
+    const void* q, const void* k, const void* v, const void* out,
+    const void* dout, const void* lse, const void* cos, const void* sin,
+    void* dq, void* dk, void* dv, void* qr, void* delta, void* lse2,
+    void* dq_acc, void* dq_turn, int B, int H, int Sq, int Sk, int D,
+    int causal, int rope, float c, float scale, void* stream) {
+  Args a = {};
+  a.q = q, a.k = k, a.v = v, a.o = out, a.g = dout, a.lse = lse;
+  a.cos = cos, a.sin = sin, a.dq = dq, a.dk = dk, a.dv = dv;
+  a.qr = qr, a.delta = delta, a.lse2 = lse2, a.dq_acc = dq_acc;
+  a.dq_turn = dq_turn;
+  a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.causal = causal, a.c = c;
+  a.scale = scale, a.st = (cudaStream_t)stream;
+  return dispatch<FusedOp>(D, rope, a);
 }

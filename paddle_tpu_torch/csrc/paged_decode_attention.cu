@@ -3,7 +3,9 @@
 //
 // Replaces: paddle_tpu/ops/paged_attention.py _paged_decode_kernel
 // (launched by _paged_attention_pallas), both variants: fp32/bf16 pools
-// and int8 pools with per-page, per-head fp32 scales.
+// and int8 pools with per-page, per-head fp32 scales.  Head dims 32, 64,
+// 96 and 128 (D / 32 columns a lane; at 96 a lane's 3 values load as 2-
+// or 4-byte pieces, see Vec).
 //
 // What it computes.  Slot b's query q[b] (H heads, grouped over Hkv kv
 // heads as [Hkv, groups], query head h*groups + j <-> kv head h) attends
@@ -60,8 +62,11 @@ namespace {
 
 constexpr int kWarps = 8;
 
+// a lane's N consecutive values as one load where the width allows: the
+// alignment is the largest power of two dividing the width (D 96: 3 values
+// a lane, loaded 2- or 4-byte-wise)
 template <typename P, int N>
-struct alignas(sizeof(P) * N) Vec {
+struct alignas((sizeof(P) * N) & -(sizeof(P) * N)) Vec {
   P v[N];
 };
 
@@ -266,6 +271,7 @@ int dispatch_d(int D, int G, const void* q, const void* k_pool,
   switch (D) {
     case 32: return dispatch_g<T, P, Q8, 32>(G, PTT_DECODE_ARGS);
     case 64: return dispatch_g<T, P, Q8, 64>(G, PTT_DECODE_ARGS);
+    case 96: return dispatch_g<T, P, Q8, 96>(G, PTT_DECODE_ARGS);
     case 128: return dispatch_g<T, P, Q8, 128>(G, PTT_DECODE_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }

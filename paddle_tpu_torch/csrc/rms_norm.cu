@@ -3,6 +3,11 @@
 // Replaces: paddle_tpu/ops/pallas_kernels.py _rms_kernel (launched by
 // rms_norm_tpu).  x [rows, d] (fp32 or bf16), w [d] of the same dtype:
 //   out = (x * rsqrt(mean(x^2) + eps) * w) in fp32, cast once to x's dtype.
+// The ROUND_FIRST variant computes what the reference's layerwise step
+// normalises with (paddle_tpu/jit/layerwise.py _rms_norm, which has no
+// kernel): round(x * rsqrt(mean(x^2) + eps)) * w, rounded again to x's
+// dtype.  A product of two bf16 values is exact in fp32, so its one
+// rounding is the bf16 multiply's.  In fp32 the two variants are equal.
 //
 // Bound on the card: bytes.  Each element is read once and written once
 // with a handful of fp32 operations, far below the ~295 operations per
@@ -42,7 +47,8 @@ __device__ __forceinline__ float block_sum(float x, float* smem) {
 }
 
 // VEC: the row is read and written as 16-byte vectors of 16/sizeof(T).
-template <typename T, bool VEC>
+// ROUND_FIRST: round to T before the weight multiply (the layerwise norm).
+template <typename T, bool VEC, bool ROUND_FIRST>
 __global__ void rms_norm_kernel(const T* __restrict__ x,
                                 const T* __restrict__ w, T* __restrict__ out,
                                 int d, float eps) {
@@ -76,16 +82,18 @@ __global__ void rms_norm_kernel(const T* __restrict__ x,
     Vec res;
     T* o = reinterpret_cast<T*>(&res);
 #pragma unroll
-    for (int j = 0; j < V; ++j)
-      o[j] = ptt::from_f32<T>(
-          __fmul_rn(__fmul_rn(ptt::to_f32(e[j]), r), ptt::to_f32(we[j])));
+    for (int j = 0; j < V; ++j) {
+      float n = __fmul_rn(ptt::to_f32(e[j]), r);
+      if (ROUND_FIRST) n = ptt::to_f32(ptt::from_f32<T>(n));
+      o[j] = ptt::from_f32<T>(__fmul_rn(n, ptt::to_f32(we[j])));
+    }
     orow[i] = res;
   }
 }
 
-template <typename T>
-void launch(const void* x, const void* w, void* out, int rows, int d,
-            float eps, cudaStream_t stream) {
+template <typename T, bool ROUND_FIRST>
+void launch_variant(const void* x, const void* w, void* out, int rows,
+                    int d, float eps, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = d % V == 0 && ((uintptr_t)x % 16) == 0 &&
                    ((uintptr_t)w % 16) == 0 && ((uintptr_t)out % 16) == 0;
@@ -95,24 +103,35 @@ void launch(const void* x, const void* w, void* out, int rows, int d,
   if (threads < 32) threads = 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
   if (vec)
-    rms_norm_kernel<T, true><<<rows, threads, 0, stream>>>(
+    rms_norm_kernel<T, true, ROUND_FIRST><<<rows, threads, 0, stream>>>(
         (const T*)x, (const T*)w, (T*)out, d, eps);
   else
-    rms_norm_kernel<T, false><<<rows, threads, 0, stream>>>(
+    rms_norm_kernel<T, false, ROUND_FIRST><<<rows, threads, 0, stream>>>(
         (const T*)x, (const T*)w, (T*)out, d, eps);
+}
+
+template <typename T>
+void launch(const void* x, const void* w, void* out, int rows, int d,
+            float eps, int round_first, cudaStream_t stream) {
+  if (round_first)
+    launch_variant<T, true>(x, w, out, rows, d, eps, stream);
+  else
+    launch_variant<T, false>(x, w, out, rows, d, eps, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError().
+// dtype: 0 = float32, 1 = bfloat16; round_first: the layerwise variant.
+// Returns cudaGetLastError().
 extern "C" int ptt_rms_norm(const void* x, const void* w, void* out, int rows,
-                            int d, float eps, int dtype, void* stream) {
+                            int d, float eps, int dtype, int round_first,
+                            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    launch<float>(x, w, out, rows, d, eps, st);
+    launch<float>(x, w, out, rows, d, eps, round_first, st);
   else if (dtype == 1)
-    launch<__nv_bfloat16>(x, w, out, rows, d, eps, st);
+    launch<__nv_bfloat16>(x, w, out, rows, d, eps, round_first, st);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -31,9 +31,10 @@ in :meth:`~LlamaLayerwiseTrainStep.from_model`,
 :meth:`~LlamaLayerwiseTrainStep.state_dict` and
 :meth:`~LlamaLayerwiseTrainStep.set_state_dict`.
 
-Kernels: the norms run kernel #4 (``ops.rms_norm``, with the kernel's
-rounding: one cast after the weight multiply), attention the flash
-kernels (``ops.flash_attention``), on [B, S, H, D] in place.
+Kernels: the norms run kernel #4's layerwise variant (``ops.rms_norm``
+with ``round_first``: the reference's ``_rms_norm`` rounds the normalised
+input before the weight multiply), attention the flash kernels
+(``ops.flash_attention``), on [B, S, H, D] in place.
 """
 from __future__ import annotations
 
@@ -51,9 +52,13 @@ from ..optimizer import Adafactor, Optimizer
 
 __all__ = ["LlamaLayerwiseTrainStep"]
 
-# kernel #4 with its gradient, by a module-level name (as is
-# flash_rope_sdpa) so that a parity run can put the plain versions in
-rms_norm = RMSNormKernel.apply
+
+def rms_norm(x, w, eps):
+    """Kernel #4's layerwise variant with its gradient (reference:
+    ``_rms_norm``), by a module-level name (as is ``flash_rope_sdpa``) so
+    that a parity run can put the plain versions in."""
+    return RMSNormKernel.apply(x, w, eps, True)
+
 
 # stacked-buffer leaf -> LlamaForCausalLM parameter name
 _KEY_MAP = {

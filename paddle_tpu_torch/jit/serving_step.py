@@ -20,7 +20,9 @@ import torch
 
 from ..ops.kernels import rope_qkv_epilogue, rope_tables_for_positions
 from ..ops.paged_attention import (chunk_prefill_attention, paged_attention,
-                                   ragged_paged_attention, write_chunk_kv,
+                                   ragged_paged_attention,
+                                   ragged_tensor_cores, ragged_work,
+                                   write_chunk_kv,
                                    write_chunk_kv_q8, write_decode_kv,
                                    write_decode_kv_q8, write_prefill_kv,
                                    write_ragged_kv, write_ragged_kv_q8)
@@ -97,7 +99,9 @@ class MixedStep:
 
     Host operand: ONE packed int32 buffer of ``4T + S*(W+4)`` values (the
     reference's layout, see :meth:`new_pack`), copied to the device once
-    per step.
+    per step; on the card with bf16 the ragged kernel's work list
+    (``ragged_work``, built from the pack's span lengths) rides in the
+    same copy.
     """
 
     row_extra = 4      # q_offset / q_len / kv_len / sample_row
@@ -143,7 +147,21 @@ class MixedStep:
         scale = 1.0 / math.sqrt(D)
         span_q = min(self.span_q, T)
 
-        dev_pack = torch.from_numpy(pack).to(self.device)
+        c0 = self.caches[0]
+        work = None
+        if self.device.type == "cuda" and ragged_tensor_cores(
+                cfg.torch_dtype, c0.quantized, c0.block_size):
+            # the ragged kernel's work list, built here from the host
+            # pack's span lengths and shipped in the pack's one copy
+            spans = pack[4 * T:].reshape(S, W + self.row_extra)
+            work_host = ragged_work(spans[:, W + 1], spans[:, W + 2],
+                                    cfg.num_attention_heads,
+                                    cfg.num_key_value_heads, c0.block_size)
+            dev = torch.from_numpy(np.concatenate([pack, work_host])).to(
+                self.device)
+            dev_pack, work = dev[:pack.size], dev[pack.size:]
+        else:
+            dev_pack = torch.from_numpy(pack).to(self.device)
         tok_tab = dev_pack[:4 * T].view(4, T)
         span_tab = dev_pack[4 * T:].view(S, W + self.row_extra)
         tokens = tok_tab[0].long()
@@ -172,7 +190,7 @@ class MixedStep:
                 return ragged_paged_attention(
                     q, c.key_cache, c.value_cache, bt, q_offsets, q_lens,
                     kv_lens, scale, span_q=span_q, key_scale=c.key_scale,
-                    value_scale=c.value_scale)
+                    value_scale=c.value_scale, work=work)
             x = _attend_layer(layer, x, cos, sin, cache, write, attend)
         x = llama.norm(x)
         return self.model.lm_logits(x[sample_rows]).to(torch.float32)

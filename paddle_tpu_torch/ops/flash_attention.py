@@ -1,22 +1,23 @@
 """Flash attention with fused neox rope, forward and backward (counterpart
 of the flash section of ``paddle_tpu/ops/pallas_kernels.py``).
 
-Kernels, in two libraries: ``csrc/flash_attention_sm90.cu`` (bf16 on the
-tensor cores: the forward on ``wgmma``, the two-kernel backward on
-``mma.sync`` tiles fed by ``ldmatrix``, both behind a ``cp.async`` ring)
-and ``csrc/flash_attention.cu`` (the CUDA cores: every fp32 variant, and
-the one-pass backward in both dtypes).  The wrappers choose
-by dtype.
+Kernels, in two libraries: ``csrc/flash_attention_sm90.cu`` (bf16 at head
+dims 64 and 128 on the tensor cores: the forward on ``wgmma``, both
+backward forms on ``mma.sync`` tiles fed by ``ldmatrix``, behind a
+``cp.async`` ring) and ``csrc/flash_attention.cu`` (the CUDA cores: every
+fp32 variant, and bf16 at head dims 32 and 96).  The wrappers choose by
+dtype and head dim.  Head dims 32, 64, 96 and 128 have kernels; other
+head dims up to 128 raise on the card (the reference computes them).
 
 - ``flash_fwd`` replaces ``_flash_fwd_kernel`` (launched by
   ``_flash_attention_value``): online-softmax forward, optional neox rope
   on the q/k tiles, natural-log lse (``-inf`` for rows that see nothing).
 - ``flash_bwd_fused`` replaces ``_flash_bwd_kv_kernel(emit_dq=True)``
   (launched by ``_flash_attention_bwd_fused``): one pass over the k tiles
-  writes dk/dv and adds each tile's dq share into an fp32 workspace with
-  atomics, then a small pass applies the inverse rope and the cast.  The
-  order of those additions differs from run to run, so dq is not
-  bitwise deterministic (dk and dv are).
+  writes dk/dv and adds each k tile's dq share into an fp32 workspace in
+  k-tile order (a counter per q-row block passes the turn; the reference
+  sums per-k-block partials in order), then a small pass applies the
+  inverse rope and the cast.  dq, dk and dv are bitwise deterministic.
 - ``flash_bwd_two_kernel`` replaces ``_flash_bwd_dq_kernel`` +
   ``_flash_bwd_kv_kernel`` (launched by ``_flash_attention_bwd``): a dq
   kernel per q tile and a dk/dv kernel per k tile, no atomics, so the
@@ -52,7 +53,8 @@ import torch
 from .. import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 96, 128)      # head dims with a kernel
+_TC_HEAD_DIMS = (64, 128)           # bf16 on the tensor cores
 _LANES = 128
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
@@ -304,31 +306,39 @@ def _kernel_ok(q: torch.Tensor) -> bool:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 def _entries():
-    """The CUDA-core library's entries: the fp32 forward, and the
-    backward (fp32 both forms, bf16 the fused one)."""
+    """The CUDA-core library's entries: the forward and the backward
+    (both forms), fp32 at every head dim, bf16 at 32 and 96."""
     lib = _build.load("flash_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = lib.ptt_flash_fwd, lib.ptt_flash_bwd
     if fwd.argtypes is None:
         fwd.argtypes = [P] * 7 + [I] * 7 + [F, I, P]
         fwd.restype = ctypes.c_int
-        bwd.argtypes = [P] * 12 + [I] * 7 + [F, F, I, I, P]
+        bwd.argtypes = [P] * 13 + [I] * 7 + [F, F, I, I, P]
         bwd.restype = ctypes.c_int
     return fwd, bwd
 
 
 def _tc_entries():
-    """The tensor-core library's entries: the bf16 forward and the bf16
-    two-kernel backward."""
+    """The tensor-core library's entries, bf16 at head dims 64 and 128:
+    the forward, the two-kernel backward and the one-pass backward."""
     lib = _build.load("flash_attention_sm90")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = lib.ptt_flash_fwd_tc, lib.ptt_flash_bwd_two_kernel_tc
+    fused = lib.ptt_flash_bwd_fused_tc
     if fwd.argtypes is None:
         fwd.argtypes = [P] * 8 + [I] * 7 + [F, P]
         fwd.restype = ctypes.c_int
         bwd.argtypes = [P] * 15 + [I] * 7 + [F, F, P]
         bwd.restype = ctypes.c_int
-    return fwd, bwd
+        fused.argtypes = [P] * 16 + [I] * 7 + [F, F, P]
+        fused.restype = ctypes.c_int
+    return fwd, bwd, fused
+
+
+def _on_tensor_cores(q) -> bool:
+    """bf16 at head dims 64 and 128 runs ``flash_attention_sm90.cu``."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] in _TC_HEAD_DIMS
 
 
 def _check(what: str, q, k, v, rope: Rope, more=()):
@@ -342,7 +352,8 @@ def _check(what: str, q, k, v, rope: Rope, more=()):
                          "equal B, H, D" % (what, tuple(q.shape),
                                             tuple(k.shape), tuple(v.shape)))
     if D not in _HEAD_DIMS:
-        raise ValueError("%s: head_dim %d not in %s" % (what, D, _HEAD_DIMS))
+        raise ValueError("%s: no kernel for head_dim %d (kernels: %s)"
+                         % (what, D, _HEAD_DIMS))
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError("%s: q/k/v must share one dtype of float32/"
@@ -370,6 +381,10 @@ def _rope_ptrs(rope: Rope):
                                               rope[1].data_ptr())
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def flash_fwd(q, k, v, causal: bool, rope: Rope = None):
     """Flash forward: ``q`` [B, Sq, H, D], ``k``/``v`` [B, Sk, H, D],
     ``rope`` optional ``(cos, sin)`` [S, D] fp32 (needs Sq == Sk).
@@ -384,13 +399,12 @@ def flash_fwd(q, k, v, causal: bool, rope: Rope = None):
     cos_p, sin_p = _rope_ptrs(rope)
     c = (1.0 / math.sqrt(D)) * _LOG2E
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if q.dtype == torch.bfloat16:
-        fwd, _ = _tc_entries()
+    if _on_tensor_cores(q):
+        fwd, _, _ = _tc_entries()
         # the roped k, written once per call by the kernel's pre-pass
         kr = torch.empty_like(k) if rope is not None else None
         code = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), cos_p, sin_p,
-                   out.data_ptr(), lse.data_ptr(),
-                   None if kr is None else kr.data_ptr(), B, H, Sq, Sk, D,
+                   out.data_ptr(), lse.data_ptr(), _ptr(kr), B, H, Sq, Sk, D,
                    int(causal), int(rope is not None), c, stream)
     else:
         fwd, _ = _entries()
@@ -416,41 +430,56 @@ def _flash_bwd(what, fused, q, k, v, out, lse, g, causal, rope):
     cos_p, sin_p = _rope_ptrs(rope)
     c, scale = (1.0 / math.sqrt(D)) * _LOG2E, 1.0 / math.sqrt(D)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if not fused and q.dtype == torch.bfloat16:
-        # scratch of the tensor-core backward's pre-passes: delta and
-        # lse * log2(e) per row, and with rope the roped q and k
+    tc = _on_tensor_cores(q)
+    dq_acc = dq_turn = None
+    if fused:
+        # the fp32 dq workspace and the counters that order its adds (a
+        # ticket, then one per b*h and q-row block: 64 rows, or 32 on the
+        # tensor cores), zeroed together
+        n_acc = B * Sq * H * D
+        n_turn = 1 + B * H * (2 if tc else 1) * -(-Sq // 64)
+        ws = torch.zeros(n_acc + n_turn, dtype=torch.float32,
+                         device=q.device)
+        dq_acc, dq_turn = ws[:n_acc], ws[n_acc:].view(torch.int32)
+    if tc:
+        # scratch of the tensor-core pre-passes: delta and lse * log2(e)
+        # per row, and with rope the roped q (and k, two-kernel form)
         delta, lse2 = (torch.empty(B, H, Sq, dtype=torch.float32,
                                    device=q.device) for _ in range(2))
-        qr, kr = ((torch.empty_like(q), torch.empty_like(k))
-                  if rope is not None else (None, None))
-        _, bwd = _tc_entries()
-        code = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   g.data_ptr(), lse.data_ptr(), cos_p, sin_p, dq.data_ptr(),
-                   dk.data_ptr(), dv.data_ptr(),
-                   None if kr is None else kr.data_ptr(),
-                   None if qr is None else qr.data_ptr(), delta.data_ptr(),
-                   lse2.data_ptr(), B, H, Sq, Sk, D, int(causal),
-                   int(rope is not None), c, scale, stream)
+        qr = torch.empty_like(q) if rope is not None else None
+        _, two_kernel, one_pass = _tc_entries()
+        if fused:
+            code = one_pass(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                g.data_ptr(), lse.data_ptr(), cos_p, sin_p, dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), _ptr(qr), delta.data_ptr(),
+                lse2.data_ptr(), dq_acc.data_ptr(), dq_turn.data_ptr(), B,
+                H, Sq, Sk, D, int(causal), int(rope is not None), c, scale,
+                stream)
+        else:
+            kr = torch.empty_like(k) if rope is not None else None
+            code = two_kernel(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                g.data_ptr(), lse.data_ptr(), cos_p, sin_p, dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), _ptr(kr), _ptr(qr),
+                delta.data_ptr(), lse2.data_ptr(), B, H, Sq, Sk, D,
+                int(causal), int(rope is not None), c, scale, stream)
         _build.check(code, what)
         return dq, dk, dv
-    # fp32 dq workspace the fused kernel adds into (zeroed here)
-    dq_acc = (torch.zeros(B, Sq, H, D, dtype=torch.float32, device=q.device)
-              if fused else None)
     _, bwd = _entries()
     code = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                g.data_ptr(), lse.data_ptr(), cos_p, sin_p, dq.data_ptr(),
-               dk.data_ptr(), dv.data_ptr(),
-               dq_acc.data_ptr() if fused else None, B, H, Sq, Sk, D,
-               int(causal), int(rope is not None), c, scale,
+               dk.data_ptr(), dv.data_ptr(), _ptr(dq_acc), _ptr(dq_turn), B,
+               H, Sq, Sk, D, int(causal), int(rope is not None), c, scale,
                _DTYPE_CODE[q.dtype], int(fused), stream)
     _build.check(code, what)
     return dq, dk, dv
 
 
 def flash_bwd_fused(q, k, v, out, lse, g, causal: bool, rope: Rope = None):
-    """One-pass flash backward (dq shares added with fp32 atomics):
-    ``(dq, dk, dv)``.  ``out``/``lse`` from :func:`flash_fwd`, ``g`` the
-    gradient of ``out``."""
+    """One-pass flash backward (dq shares summed in k-tile order, so the
+    result is deterministic): ``(dq, dk, dv)``.  ``out``/``lse`` from
+    :func:`flash_fwd`, ``g`` the gradient of ``out``."""
     if q.device.type == "cpu":
         return _flash_bwd_plain(q, k, v, out, lse, g, causal, rope,
                                 form="fused")

@@ -13,7 +13,11 @@ Kernels (CUDA C++, built by ``_build.py``):
 - ``csrc/ragged_paged_attention.cu`` replaces ``_ragged_paged_kernel``
   (``paddle_tpu/ops/pallas_kernels.py``, launched by
   ``_ragged_paged_attention_pallas``): the mixed step's attention, for
-  fp32/bf16 pools and, with ``key_scale``/``value_scale``, int8 pools;
+  fp32/bf16 pools and, with ``key_scale``/``value_scale``, int8 pools.
+  bf16 q runs its tensor-core kernel over a work list built on the host
+  (:func:`ragged_work`: chunk tiles on ``mma.sync``, decode spans split
+  over a block's warps, and a long one over several blocks); fp32 q runs
+  its CUDA-core kernel;
 - ``csrc/paged_decode_attention.cu`` replaces ``_paged_decode_kernel``
   (launched by ``_paged_attention_pallas``): the split engine's decode
   attention, one query per slot, for the same pool types.
@@ -44,7 +48,7 @@ from ..quantization.functional import (dequantize_symmetric,
 from .online_softmax import online_softmax_update
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (32, 64, 96, 128)
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "int8": torch.int8}
 
@@ -545,9 +549,99 @@ def _ragged_entry():
     fn = _build.load("ragged_paged_attention").ptt_ragged_paged_attention
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P] * 10 + [I] * 9 + [F, F, F, I, I, P]
+        fn.argtypes = [P] * 13 + [I] * 10 + [F, F, F, I, I, P]
         fn.restype = ctypes.c_int
     return fn
+
+
+# the tensor-core ragged kernel's work items (csrc/ragged_paged_attention.cu)
+RAGGED_TILE_Q = 128          # query vectors (rows x groups) per chunk item
+RAGGED_DECODE = 0x8000       # an item's low half: a decode item ...
+RAGGED_SPLIT_SHIFT = 7       # ... of (bits 7-14) + 1 splits, (bits 0-6) its own
+_DECODE_MAX_GROUPS = 8       # decode items: query heads per kv head
+_DECODE_MAX_BLOCK = 32       # decode items: keys per page (one per lane)
+_DECODE_MAX_SPLITS = 64
+_DECODE_MIN_SPLIT_PAGES = 8  # a split gives each of its 8 warps a page
+# blocks the decode items should fill once spans are split: two on each
+# of the H100's 132 SMs; spans are split only while fewer than half of
+# that are launched
+_DECODE_TARGET_BLOCKS = 264
+
+
+def ragged_tensor_cores(dtype: torch.dtype, quantized: bool,
+                        block_size: int) -> bool:
+    """Whether :func:`ragged_paged_attention` runs the tensor-core kernel
+    on the card for q of ``dtype``: bf16 q over bf16 pools, or over int8
+    pools whose block size is a multiple of 8 dividing 64 (a page then
+    covers whole 8-key tiles of the s8 products)."""
+    return dtype == torch.bfloat16 and (
+        not quantized or (block_size % 8 == 0 and 64 % block_size == 0))
+
+
+def ragged_work(q_lens, kv_lens, heads: int, kv_heads: int,
+                block_size: int) -> np.ndarray:
+    """The tensor-core kernel's work list for one step, built on the host
+    from the spans' ``q_lens`` and ``kv_lens`` (host arrays): int32 items
+    ``span << 16 | code``, chunk items first (the longest work starts
+    first), one per ``RAGGED_TILE_Q`` query vectors of a span (code =
+    the tile), then the decode spans (``q_len`` 1; code ``RAGGED_DECODE |
+    (n - 1) << RAGGED_SPLIT_SHIFT | i``, split ``i`` of ``n``), whose keys
+    the block's warps share.  While the step's blocks would not give each
+    SM one (fewer than 132), a long decode span is split over up to
+    ``ceil(264 / (decode spans x kv heads))`` blocks of at least 8 pages
+    each, merged in split order by the last of them.  Padding spans
+    (``q_len`` 0) get none, so no block is launched to return at once.
+    The step passes it to every layer's call."""
+    groups = heads // kv_heads
+    decode = (groups <= _DECODE_MAX_GROUPS
+              and block_size <= _DECODE_MAX_BLOCK)
+    q_lens = np.asarray(q_lens).tolist()
+    kv_lens = np.asarray(kv_lens).tolist()
+    chunk, dec = [], []
+    for s, ql in enumerate(q_lens):
+        if ql == 1 and decode:
+            dec.append(s)
+        elif ql > 0:
+            chunk += [s << 16 | t
+                      for t in range(-(-ql * groups // RAGGED_TILE_Q))]
+    splits = 1
+    if dec and ((len(chunk) + len(dec)) * kv_heads
+                < _DECODE_TARGET_BLOCKS // 2):
+        splits = min(_DECODE_MAX_SPLITS,
+                     -(-_DECODE_TARGET_BLOCKS // (len(dec) * kv_heads)))
+    items = chunk
+    for s in dec:
+        pages = -(-kv_lens[s] // block_size)
+        n = max(1, min(splits, pages // _DECODE_MIN_SPLIT_PAGES))
+        items += [s << 16 | RAGGED_DECODE | (n - 1) << RAGGED_SPLIT_SHIFT | i
+                  for i in range(n)]
+    return np.asarray(items, np.int32)
+
+
+# per (device, stream), grown on demand and reused by the calls on that
+# stream, which run one after another: the split decode items' partial
+# states (written before they are read in a call) and their arrival
+# counters (zeroed once, reset by the block that merges, so a call leaves
+# them zero for the next).  Calls on another stream get their own, so
+# concurrent calls never share a counter.  A kernel that stops part-way
+# can leave a counter nonzero only through a device fault, which leaves
+# the CUDA context unusable for any later call.
+_SPLIT_SCRATCH = {}
+
+
+def _split_scratch(device, stream: int, n_partials: int, n_counters: int):
+    """``(partials, counters)`` of ``stream`` (a ``cuda_stream`` handle):
+    fp32 and int32 device buffers of at least these sizes."""
+    key = (device, stream)
+    bufs = _SPLIT_SCRATCH.get(key)
+    if bufs is None or bufs[0].numel() < n_partials \
+            or bufs[1].numel() < n_counters:
+        bufs = _SPLIT_SCRATCH[key] = (
+            torch.empty(max(n_partials, 1 << 20), dtype=torch.float32,
+                        device=device),
+            torch.zeros(max(n_counters, 1 << 12), dtype=torch.int32,
+                        device=device))
+    return bufs
 
 
 def ragged_paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
@@ -556,14 +650,17 @@ def ragged_paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
                            q_offsets: torch.Tensor, q_lens: torch.Tensor,
                            kv_lens: torch.Tensor, scale=None,
                            span_q: int = 0, key_scale=None,
-                           value_scale=None) -> torch.Tensor:
+                           value_scale=None, work=None) -> torch.Tensor:
     """Ragged paged attention over packed spans: ``q`` [T, H, D], pools
     [phys, bs, Hkv, D], ``block_tables`` [S, W] int32, ``q_offsets`` /
     ``q_lens`` / ``kv_lens`` [S] int32.  ``span_q`` bounds every q_len
-    (the step's static chunk size; the kernel tiles rows up to it).
-    ``key_scale``/``value_scale`` [phys, Hkv] fp32 select the int8
-    variant over int8 pools.  Returns [T, H, D] in q's dtype; rows outside
-    every span are 0.
+    (the step's static chunk size; the CUDA-core kernel tiles rows up to
+    it).  ``key_scale``/``value_scale`` [phys, Hkv] fp32 select the int8
+    variant over int8 pools.  ``work``: :func:`ragged_work` of these
+    spans on q's device, required by the tensor-core kernel
+    (:func:`ragged_tensor_cores`; the step builds it on the host, so the
+    call never waits for the device) and unused otherwise.  Returns
+    [T, H, D] in q's dtype; rows outside every span are 0.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise.  ``.launches`` counts the fp32/bf16-pool kernel,
@@ -599,16 +696,38 @@ def ragged_paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
                          "block sizes up to 64; got %d" % bs)
     out = torch.zeros_like(q)
     c_qk, c_pv = _int8_folds(float(scale)) if quantized else (0.0, 0.0)
-    fn = _ragged_entry()
+    partials = counters = None
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    if ragged_tensor_cores(q.dtype, quantized, bs):
+        if work is None:
+            raise ValueError("ragged_paged_attention: the tensor-core "
+                             "kernel needs work=ragged_work(q_lens, "
+                             "kv_lens, ...) of the step's spans")
+        if work.dtype != torch.int32 or work.device != q.device \
+                or work.dim() != 1 or not work.is_contiguous():
+            raise ValueError("ragged_paged_attention: work must be a "
+                             "contiguous 1-D int32 tensor on %s" % q.device)
+        if work.numel() == 0:
+            return out
+        # split decode items' partial softmax states, [item, Hkv, groups,
+        # D + 2] fp32, and their arrival counters [item, Hkv]
+        partials, counters = _split_scratch(
+            q.device, stream, work.numel() * H * (D + 2), work.numel() * Hkv)
+    else:
+        work = None
+    fn = _ragged_entry()
     code = fn(q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
               key_scale.data_ptr() if quantized else None,
               value_scale.data_ptr() if quantized else None,
               block_tables.data_ptr(), q_offsets.data_ptr(),
-              q_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-              S, W, H, Hkv, D, bs, key_cache.stride(0), key_cache.stride(1),
-              span_q, float(scale), c_qk, c_pv, _DTYPE_CODE[q.dtype],
-              int(quantized), stream)
+              q_lens.data_ptr(), kv_lens.data_ptr(),
+              None if work is None else work.data_ptr(),
+              None if partials is None else partials.data_ptr(),
+              None if counters is None else counters.data_ptr(),
+              out.data_ptr(), S, W, H, Hkv, D, bs, key_cache.stride(0),
+              key_cache.stride(1), span_q,
+              0 if work is None else work.numel(), float(scale), c_qk, c_pv,
+              _DTYPE_CODE[q.dtype], int(quantized), stream)
     _build.check(code, "ragged_paged_attention")
     if quantized:
         ragged_paged_attention.int8_launches += 1

@@ -17,7 +17,8 @@ import torch
 from chip_smoke import (FLASH_FORM, _flash_case, _quantize_pools,
                         _ragged_case, _rms_inputs, flash_excess, flash_noise,
                         flash_tolerance, cut_lengths, int8_tolerance,
-                        ragged_tolerance, rms_tolerance)
+                        near_bf16_midpoint, ragged_tolerance, rms_tolerance,
+                        RMS_MIDPOINT_ULPS)
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.jit.layerwise import LlamaLayerwiseTrainStep
 from paddle_tpu_torch.jit.train_step import TrainStep
@@ -80,7 +81,8 @@ def test_ragged_attention_kernel_matches_plain(cuda, dtype, heads, D, bs):
     T = sum(q for q, _ in spans) + 5
     args = _pack(spans, 2, T, H, Hkv, D, bs, dtype, cuda)
     before = pa.ragged_paged_attention.launches
-    got = pa.ragged_paged_attention(*args, span_q=70)
+    got = pa.ragged_paged_attention(*args, span_q=70,
+                                    work=_work(args, H, Hkv, bs))
     want = pa._ragged_attention_plain(*args, 1.0 / np.sqrt(D))
     torch.cuda.synchronize()
     assert pa.ragged_paged_attention.launches == before + 1
@@ -88,6 +90,13 @@ def test_ragged_attention_kernel_matches_plain(cuda, dtype, heads, D, bs):
     err = (got.float() - want.float()).abs().max().item()
     assert err <= ragged_tolerance(want)
     assert (got[sum(q for q, _ in spans):] == 0).all()
+
+
+def _work(args, H, Hkv, bs):
+    """The step's work list for a pack (used by the tensor-core kernel)."""
+    q_lens, kv_lens = args[5], args[6]
+    return torch.from_numpy(pa.ragged_work(q_lens.cpu(), kv_lens.cpu(), H,
+                                           Hkv, bs)).to(q_lens.device)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -185,7 +194,9 @@ def test_ragged_int8_kernel_matches_plain(cuda, dtype, heads, D, bs):
     kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
     before = pa.ragged_paged_attention.int8_launches
     got = pa.ragged_paged_attention(q, kc, vc, bt, qo, ql, kl, span_q=70,
-                                    key_scale=ks, value_scale=vs)
+                                    key_scale=ks, value_scale=vs,
+                                    work=_work((q, kc, vc, bt, qo, ql, kl),
+                                               H, Hkv, bs))
     want, flips = pa._ragged_attention_int8_plain(
         q, kc, vc, ks, vs, bt, qo, ql, kl, 1.0 / np.sqrt(D), flip_bound=True)
     torch.cuda.synchronize()
@@ -194,6 +205,150 @@ def test_ragged_int8_kernel_matches_plain(cuda, dtype, heads, D, bs):
     assert (got.float() - want.float()).abs().le(
         int8_tolerance(want, flips, vmax)).all()
     assert (got[sum(q for q, _ in spans):] == 0).all()
+
+
+# spans (q_len, kv_len) for the tensor-core ragged kernel: decode spans
+# (decode items), a chunk of several 128-vector tiles, a prefix-offset
+# span, a one-key span and a short chunk
+TC_SPANS = [(1, 300), (130, 170), (1, 1), (3, 3), (1, 64), (40, 200)]
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("heads", [(4, 4), (8, 2), (12, 1)],
+                         ids=["mha", "gqa4", "gqa12"])
+@pytest.mark.parametrize("D,bs", [(32, 8), (64, 16), (96, 16), (128, 32),
+                                  (128, 64)])
+def test_ragged_tensor_core_kernel_matches_plain(cuda, quantized, heads, D,
+                                                 bs):
+    """#5's tensor-core kernel (bf16 q) over its host work list: decode
+    items (groups <= 8, pages <= 32 keys: the block's warps split the
+    span) and chunk items on mma.sync (bf16, or s8 with one MMA per page
+    for int8 pools), with NaN pages (or NaN scales) behind every unused
+    table entry and two padding spans; rows outside spans stay 0; one
+    launch; the int8 limit rejects the kernel run without each span's
+    last page."""
+    H, Hkv = heads
+    T = sum(q for q, _ in TC_SPANS) + 5
+    q, kc, vc, bt, qo, ql, kl = _pack(TC_SPANS, 2, T, H, Hkv, D, bs,
+                                      torch.bfloat16, cuda)
+    scales, counter = {}, "launches"
+    if quantized:
+        kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
+        scales, counter = dict(key_scale=ks, value_scale=vs), "int8_launches"
+    work_np = pa.ragged_work(ql.cpu(), kl.cpu(), H, Hkv, bs)
+    decode_spans = len({s for s in (work_np >> 16)[
+        (work_np & pa.RAGGED_DECODE) != 0]})
+    assert decode_spans == (3 if H // Hkv <= 8 and bs <= 32 else 0)
+    work = torch.from_numpy(work_np).to(cuda)
+    before = getattr(pa.ragged_paged_attention, counter)
+    got = pa.ragged_paged_attention(q, kc, vc, bt, qo, ql, kl, span_q=130,
+                                    work=work, **scales)
+    scale = 1.0 / np.sqrt(D)
+    torch.cuda.synchronize()
+    assert getattr(pa.ragged_paged_attention, counter) == before + 1
+    assert torch.isfinite(got).all()
+    if quantized:
+        want, flips = pa._ragged_attention_int8_plain(
+            q, kc, vc, ks, vs, bt, qo, ql, kl, scale, flip_bound=True)
+        tol = int8_tolerance(want, flips, vmax)
+    else:
+        want = pa._ragged_attention_plain(q, kc, vc, bt, qo, ql, kl, scale)
+        tol = ragged_tolerance(want)
+    assert (got.float() - want.float()).abs().le(tol).all()
+    assert (got[sum(q for q, _ in TC_SPANS):] == 0).all()
+    if quantized:
+        cut = pa.ragged_paged_attention(q, kc, vc, bt, qo, ql, cut_lengths(
+            kl, ql, bs, True), span_q=130, work=work, **scales)
+        assert not (cut.float() - want.float()).abs().le(tol).all()
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_ragged_tensor_core_kernel_requires_its_work_list(cuda, quantized):
+    """The tensor-core kernel takes the step's host-built work list and
+    never builds one itself (that would wait for the device): without it
+    the wrapper raises, naming ``ragged_work``, and launches nothing."""
+    q, kc, vc, bt, qo, ql, kl = _pack(TC_SPANS, 1, 400, 8, 2, 64, 16,
+                                      torch.bfloat16, cuda)
+    scales, counter = {}, "launches"
+    if quantized:
+        kc, vc, ks, vs, _ = _quantize_pools(kc, vc, kc.shape[0] - 2)
+        scales, counter = dict(key_scale=ks, value_scale=vs), "int8_launches"
+    before = getattr(pa.ragged_paged_attention, counter)
+    with pytest.raises(ValueError, match="ragged_work"):
+        pa.ragged_paged_attention(q, kc, vc, bt, qo, ql, kl, **scales)
+    assert getattr(pa.ragged_paged_attention, counter) == before
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("heads,bs", [((8, 1), 16), ((32, 8), 8),
+                                      ((4, 2), 32)])
+def test_ragged_split_decode_items_match_plain(cuda, quantized, heads, bs):
+    """Long decode spans on a few kv heads: the work list splits each over
+    several blocks (a run of pages each), and the last block of a span to
+    arrive merges the splits in split order.  Against the plain version
+    (NaN pages behind unused entries), bitwise equal over repeated calls
+    (the order of arrival does not matter), and the arrival counters are
+    left zero for the next call."""
+    H, Hkv = heads
+    spans = [(1, 3000), (1, 129), (1, 700), (5, 40)]
+    T = sum(q for q, _ in spans) + 3
+    q, kc, vc, bt, qo, ql, kl = _pack(spans, 1, T, H, Hkv, 64, bs,
+                                      torch.bfloat16, cuda)
+    scales = {}
+    if quantized:
+        kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
+        scales = dict(key_scale=ks, value_scale=vs)
+    work_np = pa.ragged_work(ql.cpu(), kl.cpu(), H, Hkv, bs)
+    dec = work_np[(work_np & pa.RAGGED_DECODE) != 0]
+    n_split = ((dec & 0x7FFF) >> pa.RAGGED_SPLIT_SHIFT) + 1
+    assert n_split.max() > 1                 # some span is split
+    work = torch.from_numpy(work_np).to(cuda)
+    outs = [pa.ragged_paged_attention(q, kc, vc, bt, qo, ql, kl, work=work,
+                                      **scales) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not pa._split_scratch(cuda, stream, 1, 1)[1].any()
+    scale = 1.0 / np.sqrt(64)
+    if quantized:
+        want, flips = pa._ragged_attention_int8_plain(
+            q, kc, vc, ks, vs, bt, qo, ql, kl, scale, flip_bound=True)
+        tol = int8_tolerance(want, flips, vmax)
+    else:
+        want = pa._ragged_attention_plain(q, kc, vc, bt, qo, ql, kl, scale)
+        tol = ragged_tolerance(want)
+    assert torch.isfinite(outs[0]).all()
+    assert (outs[0].float() - want.float()).abs().le(tol).all()
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_kernel_matches_plain_at_head_dim_96(cuda, quantized,
+                                                          dtype):
+    """#7 at head dim 96 (3 columns a lane: loads of 6 or 12 bytes),
+    GQA 32/8 and 8/2, NaN pages behind unused entries."""
+    for H, Hkv, bs in ((32, 8, 16), (8, 2, 5)):
+        lens = [7, 33, 1, 16, 70, 5]
+        gen = torch.Generator(cuda).manual_seed(2)
+        q, kc, vc, bt, _, _, sl = _ragged_case(
+            [(1, s) for s in lens], len(lens), H, Hkv, 96, bs, dtype, gen,
+            poison=True)
+        scales = {}
+        if quantized:
+            kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
+            scales = dict(key_scale=ks, value_scale=vs)
+        got = pa.paged_attention(q, kc, vc, bt, sl, **scales)
+        want = pa._paged_attention_plain(q, kc, vc, bt, sl,
+                                         1.0 / np.sqrt(96),
+                                         flip_bound=quantized, **scales)
+        torch.cuda.synchronize()
+        if quantized:
+            want, flips = want
+            tol = int8_tolerance(want, flips, vmax)
+        else:
+            tol = ragged_tolerance(want)
+        assert torch.isfinite(got).all()
+        assert (got.float() - want.float()).abs().le(tol).all()
 
 
 def _tiny_engine_tokens(model, dev, **kw):
@@ -251,10 +406,7 @@ FLASH_SHAPES = {"causal_rope": (True, True, 130, 130),
                 "rect_full": (False, False, 50, 130)}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
-def test_flash_kernels_match_plain(cuda, dtype, D, shape):
+def _check_flash_kernels(cuda, dtype, D, shape):
     """The forward and both backward forms against their plain versions
     (chip_smoke's tolerances); each wrapper counts one launch; rows that
     see nothing give lse -inf and out 0."""
@@ -289,6 +441,26 @@ def test_flash_kernels_match_plain(cuda, dtype, D, shape):
     assert [f.launches for f in (fa.flash_fwd, fa.flash_bwd_fused,
                                  fa.flash_bwd_two_kernel)] \
         == [n + 1 for n in before]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_kernels_match_plain(cuda, dtype, D, shape):
+    """At head dims 64 and 128 (:func:`_check_flash_kernels`)."""
+    _check_flash_kernels(cuda, dtype, D, shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 96])
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_kernels_match_plain_at_head_dims_32_and_96(cuda, dtype, D,
+                                                          shape):
+    """Head dims 32 (``llama_tiny_config``'s) and 96 compute on the card,
+    as the reference computes every D <= 128: the CUDA-core kernels of
+    ``csrc/flash_attention.cu`` in both dtypes
+    (:func:`_check_flash_kernels`)."""
+    _check_flash_kernels(cuda, dtype, D, shape)
 
 
 # (rope, causal) pairs for the tensor-core kernels' sweep
@@ -351,11 +523,74 @@ def test_bf16_tensor_core_kernels_dead_rows(cuda, D):
         assert flash_excess(a, b, flash_tolerance(b, "bfloat16", f)) <= 1.0
 
 
+@pytest.mark.parametrize("S", [1, 65, 200, 1024])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("mode", sorted(TC_MODES))
+def test_bf16_fused_tensor_core_backward_matches_plain(cuda, mode, D, S):
+    """#2 on the tensor cores (``bwd_kv_tc_kernel<EMIT_DQ>`` of
+    ``csrc/flash_attention_sm90.cu``) against the plain version of its
+    form, rope on and off, causal or not, over lengths on and off the
+    64-row tiles (ragged tails); one launch each."""
+    rope, causal = TC_MODES[mode]
+    gen = torch.Generator(cuda).manual_seed(S + D)
+    q, k, v, g, tables = _flash_case(2, S, S, 3, D, "bfloat16", rope, gen)
+    out, lse = fa.flash_fwd(q, k, v, causal, tables)
+    before = fa.flash_bwd_fused.launches
+    got = fa.flash_bwd_fused(q, k, v, out, lse, g, causal, tables)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_fused.launches == before + 1
+    want = fa._flash_bwd_plain(q, k, v, out, lse, g, causal, tables,
+                               form="fused")
+    noise = flash_noise("flash_bwd_fused", q, k, v, out, lse, g, causal,
+                        tables)
+    for a, b, f in zip(got, want, noise):
+        assert torch.isfinite(a).all()
+        assert flash_excess(a, b, flash_tolerance(b, "bfloat16", f)) <= 1.0
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_fused_tensor_core_backward_dead_rows(cuda, D):
+    """Sq > Sk, causal: the rows that see nothing get dq 0 (no k tile
+    adds a share for them), and the rest matches the plain version."""
+    gen = torch.Generator(cuda).manual_seed(D + 1)
+    q, k, v, g, _ = _flash_case(2, 333, 120, 3, D, "bfloat16", False, gen)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    dq, dk, dv = fa.flash_bwd_fused(q, k, v, out, lse, g, True)
+    torch.cuda.synchronize()
+    dead = torch.isneginf(lse)
+    assert (dq.transpose(1, 2)[dead] == 0).all()
+    want = fa._flash_bwd_plain(q, k, v, out, lse, g, True, form="fused")
+    noise = flash_noise("flash_bwd_fused", q, k, v, out, lse, g, True, None)
+    for a, b, f in zip((dq, dk, dv), want, noise):
+        assert flash_excess(a, b, flash_tolerance(b, "bfloat16", f)) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ["causal_rope", "dead_rows", "long"])
+def test_flash_bwd_fused_is_bitwise_deterministic(cuda, dtype, shape):
+    """Two calls of the one-pass backward give bitwise-equal dq, dk and
+    dv: the dq shares are summed in k-tile order (no atomics), in both
+    dtypes (fp32: the CUDA-core kernel; bf16: the tensor-core one)."""
+    B, Sq, Sk, H, rope = {"causal_rope": (2, 300, 300, 4, True),
+                          "dead_rows": (1, 448, 192, 4, False),
+                          "long": (1, 2048, 2048, 8, True)}[shape]
+    gen = torch.Generator(cuda).manual_seed(3)
+    q, k, v, g, tables = _flash_case(B, Sq, Sk, H, 128, dtype, rope, gen)
+    out, lse = fa.flash_fwd(q, k, v, True, tables)
+    first = fa.flash_bwd_fused(q, k, v, out, lse, g, True, tables)
+    for _ in range(3):
+        again = fa.flash_bwd_fused(q, k, v, out, lse, g, True, tables)
+        torch.cuda.synchronize()
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("rope", [False, True])
 def test_repaired_fused_backward_matches_its_form(cuda, rope):
-    """#2 (the CUDA-core one-pass backward) in bf16 against the plain
-    version of its own form: scores ``round(rope(q)) . round(rope(k) c)``
-    for dk, dv and dq, and dq as ``ds . ks / log2(e)``."""
+    """#2 (the one-pass backward; bf16 at D 128 runs the tensor-core
+    kernel) against the plain version of its own form: scores
+    ``round(rope(q)) . round(rope(k) c)`` for dk, dv and dq, and dq as
+    ``ds . ks / log2(e)``."""
     gen = torch.Generator(cuda).manual_seed(7)
     q, k, v, g, tables = _flash_case(1, 256, 256, 2, 128, "bfloat16", rope,
                                      gen)
@@ -371,24 +606,27 @@ def test_repaired_fused_backward_matches_its_form(cuda, rope):
 
 
 def test_bf16_calls_cannot_reach_the_cuda_core_variants(cuda):
-    """The CUDA-core library holds no bf16 forward and no bf16 two-kernel
-    backward: its entries refuse them (cudaErrorInvalidValue = 1), so a
-    bf16 call reaches only the tensor-core kernels."""
+    """At head dims 64 and 128 the CUDA-core library holds no bf16
+    forward and no bf16 backward of either form: its entries refuse them
+    (cudaErrorInvalidValue = 1), so a bf16 call there reaches only the
+    tensor-core kernels.  (bf16 at head dims 32 and 96 runs here.)"""
     fwd, bwd = fa._entries()
-    x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
-    lse = torch.zeros(1, 2, 64, device=cuda)
     st = torch.cuda.current_stream().cuda_stream
-    assert fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), None, None,
-               x.data_ptr(), lse.data_ptr(), 1, 2, 64, 64, 64, 1, 0, 0.18,
-               1, st) == 1
-    assert bwd(*([x.data_ptr()] * 5), lse.data_ptr(), None, None,
-               *([x.data_ptr()] * 3), None, 1, 2, 64, 64, 64, 1, 0, 0.18,
-               0.125, 1, 0, st) == 1
+    for D in (64, 128):
+        x = torch.zeros(1, 64, 2, D, device=cuda, dtype=torch.bfloat16)
+        lse = torch.zeros(1, 2, 64, device=cuda)
+        assert fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), None, None,
+                   x.data_ptr(), lse.data_ptr(), 1, 2, 64, 64, D, 1, 0,
+                   0.18, 1, st) == 1
+        for fused in (0, 1):
+            assert bwd(*([x.data_ptr()] * 5), lse.data_ptr(), None, None,
+                       *([x.data_ptr()] * 3), None, None, 1, 2, 64, 64, D,
+                       1, 0, 0.18, 0.125, 1, fused, st) == 1
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros(1, 64, 2, 32, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
+    x = torch.zeros(1, 64, 2, 80, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 80"):
         fa.flash_fwd(x, x, x, True)
     y = torch.zeros(1, 64, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -405,8 +643,9 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
 def test_flash_attention_rope_launches_at_any_length(cuda):
     """S=200 has no Pallas block (the reference falls back there); the
     port still launches the forward kernel and the backward form the
-    reference's router picks for it (two-kernel: no key block), and a
-    head dim the kernels lack raises instead of falling back."""
+    reference's router picks for it (two-kernel: no key block).  Head dim
+    32 (``llama_tiny_config``'s) computes on the card too, as the
+    reference computes it, and matches the plain versions."""
     gen = torch.Generator(cuda).manual_seed(1)
     q, k, v = (torch.randn(1, 200, 4, 64, generator=gen, device=cuda)
                .requires_grad_() for _ in range(3))
@@ -416,9 +655,23 @@ def test_flash_attention_rope_launches_at_any_length(cuda):
     assert (fa.flash_fwd.launches, fa.flash_bwd_two_kernel.launches) \
         == (before[0] + 1, before[1] + 1)
     assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
-    x = torch.zeros(1, 200, 4, 32, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_rope(x, x, x)
+    x = [torch.randn(1, 200, 4, 32, generator=gen, device=cuda)
+         .requires_grad_() for _ in range(3)]
+    before = (fa.flash_fwd.launches, fa.flash_bwd_two_kernel.launches)
+    out = fa.flash_attention_rope(*x)
+    out.sum().backward()
+    assert (fa.flash_fwd.launches, fa.flash_bwd_two_kernel.launches) \
+        == (before[0] + 1, before[1] + 1)
+    cos, sin = fa.rope_tables(200, 32, device=cuda)
+    xs = [t.detach() for t in x]
+    want_out, want_lse = fa._flash_fwd_plain(*xs, True, (cos, sin))
+    assert (out - want_out).abs().max().item() <= 2e-5
+    want = fa._flash_bwd_plain(*xs, want_out, want_lse,
+                               torch.ones_like(want_out), True, (cos, sin),
+                               form="two_kernel")
+    for t, w in zip(x, want):
+        assert (t.grad - w).abs().max().item() <= 2e-5 * max(
+            1.0, w.abs().max().item())
 
 
 def test_tiny_train_step_on_card_matches_cpu(cuda):
@@ -479,6 +732,34 @@ def test_rms_norm_kernel_matches_plain(cuda, dtype, rows, d):
         else:
             assert ((a - b).abs() <= rms_tolerance(b, dtype)
                     + 2.0 ** -7 * b.abs().max()).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_layerwise_variant_matches_plain(cuda, dtype):
+    """#4's layerwise variant (``round_first``: rounds before the weight,
+    as the reference's layerwise ``_rms_norm``) against its plain version
+    per element at one bf16 ulp at each of its two rounding points (fp32:
+    8 ulps; ``chip_smoke.rms_tolerance`` with the weight), counted as a
+    launch of #4.  In bf16 it is bitwise equal to its plain version except
+    where the fp32 normalised value lies within ``RMS_MIDPOINT_ULPS`` fp32
+    ulps of a bf16 midpoint, and that rule rejects the kernel run at #4's
+    own rounding point (``round_first`` off)."""
+    gen = torch.Generator(cuda).manual_seed(9)
+    x, w = _rms_inputs(333, 4096, getattr(torch, dtype), gen)
+    before = rn.rms_norm_tpu.launches
+    got = rn.rms_norm_tpu(x, w, 1e-6, round_first=True)
+    assert rn.rms_norm_tpu.launches == before + 1
+    want = rn._rms_norm_plain(x, w, 1e-6, round_first=True)
+    assert ((got.float() - want.float()).abs()
+            <= rms_tolerance(want, dtype, w)).all()
+    if dtype == "bfloat16":
+        x32 = x.float()
+        edge = near_bf16_midpoint(
+            x32 * torch.rsqrt((x32 * x32).mean(-1, keepdim=True) + 1e-6),
+            RMS_MIDPOINT_ULPS)
+        assert not ((got != want) & ~edge).any()
+        round_last = rn.rms_norm_tpu(x, w, 1e-6)
+        assert ((round_last != want) & ~edge).any()
 
 
 def test_rms_norm_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -36,12 +36,15 @@ FWD_MAX_EXCESS = 1.0
 # (causal, rope, Sq, Sk, D, block): the witness (where the fused dq read
 # 1.1 of the limit while the plain backward put c on q in both forms),
 # then the causal mask with rope, a longer key axis, and rows that see
-# nothing (Sq > Sk)
+# nothing (Sq > Sk); then the head dims the CUDA-core kernels take in
+# bf16 (32, llama_tiny_config's, and 96) over several k blocks
 CASES = {
     "witness": (False, False, 256, 256, 128, 64),
     "causal_rope": (True, True, 64, 64, 32, 32),
     "rect_causal": (True, False, 32, 64, 32, 32),
     "dead_rows_causal": (True, False, 64, 32, 32, 32),
+    "d32_full_rope": (False, True, 128, 128, 32, 64),
+    "d96_causal_rope": (True, True, 128, 128, 96, 64),
 }
 FORMS = {"flash_bwd_fused": ref_pk._flash_attention_bwd_fused,
          "flash_bwd_two_kernel": ref_pk._flash_attention_bwd}

@@ -127,15 +127,12 @@ def _ragged_pack(spans, n_pad, H, Hkv, D, bs=4, nb=64, seed=42):
     return q, kc, vc, kc_p, vc_p, bt, q_off, q_len, kv_len
 
 
-@pytest.mark.parametrize("heads", [(4, 2), (4, 4)], ids=["gqa", "mha"])
-@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
-def test_ragged_attention_plain_matches_reference(case, heads):
+def _check_ragged_plain(case, heads, D):
     """Valid rows within 1e-5 of the reference's XLA path; the port runs
     on pools whose unused pages are NaN, so any read past a span's used
     pages would show."""
     spans, n_pad = RAGGED_CASES[case]
     H, Hkv = heads
-    D = 16
     q, kc, vc, kc_p, vc_p, bt, q_off, q_len, kv_len = _ragged_pack(
         spans, n_pad, H, Hkv, D)
     scale = 1.0 / np.sqrt(D)
@@ -154,6 +151,92 @@ def test_ragged_attention_plain_matches_reference(case, heads):
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got[valid], want[valid], rtol=0, atol=1e-5)
     assert (got[~valid] == 0).all()          # padding rows are defined
+
+
+@pytest.mark.parametrize("heads", [(4, 2), (4, 4)], ids=["gqa", "mha"])
+@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
+def test_ragged_attention_plain_matches_reference(case, heads):
+    """At head dim 16 (see :func:`_check_ragged_plain`)."""
+    _check_ragged_plain(case, heads, 16)
+
+
+@pytest.mark.parametrize("D", [32, 96])
+@pytest.mark.parametrize("heads", [(4, 2), (4, 4)], ids=["gqa", "mha"])
+@pytest.mark.parametrize("case", ["padding_spans", "ragged_mix"])
+def test_ragged_attention_plain_matches_reference_at_head_dims(case, heads,
+                                                               D):
+    """The head dims the card's kernels take beyond 64 and 128: 32 (the
+    tiny config's) and 96 (see :func:`_check_ragged_plain`)."""
+    _check_ragged_plain(case, heads, D)
+
+
+# spans as (q_len, kv_len): chunk spans, decode spans and padding spans
+_WORK_SPANS = [(256, 1024), (1, 700), (0, 1), (130, 130), (1, 5), (0, 1)]
+
+
+def _decode_items(work):
+    """(span, split, n_split) of the decode items of a work list."""
+    dec = work[(work & pa.RAGGED_DECODE) != 0]
+    code = dec & 0xFFFF
+    return [(int(s), int(c & 0x7F), int(((c & 0x7FFF) >> 7) + 1))
+            for s, c in zip(dec >> 16, code)]
+
+
+@pytest.mark.parametrize("heads", [(32, 32), (32, 8), (48, 4)],
+                         ids=["mha", "gqa4", "gqa12"])
+def test_ragged_work_list(heads):
+    """The tensor-core kernel's work list: chunk spans cut into tiles of
+    ``RAGGED_TILE_Q`` query vectors (rows x groups), listed first, then
+    the decode spans; padding spans get none.  Decode items need at most
+    8 groups and pages of at most 32 keys (otherwise a one-row span is a
+    chunk item); while the blocks would not give each of the card's 132
+    SMs one, a long decode span is split into consecutive items of at
+    least 8 pages, in split order."""
+    H, Hkv = heads
+    G = H // Hkv
+    q_lens = np.array([a for a, _ in _WORK_SPANS], np.int32)
+    kv_lens = np.array([b for _, b in _WORK_SPANS], np.int32)
+    work = pa.ragged_work(q_lens, kv_lens, H, Hkv, 16)
+    assert work.dtype == np.int32
+    decode = (work & pa.RAGGED_DECODE) != 0
+    n_dec = int(decode.sum())
+    assert decode[len(work) - n_dec:].all()      # chunk items first
+    want_chunk = [(s, t) for s, ql in enumerate(q_lens) if ql > 1 or
+                  (ql == 1 and G > 8)
+                  for t in range(-(-ql * G // pa.RAGGED_TILE_Q))]
+    got_chunk = list(zip((work >> 16)[~decode], (work & 0xFFFF)[~decode]))
+    assert got_chunk == want_chunk
+    items = _decode_items(work)
+    if G > 8:
+        assert items == []
+        return
+    assert sorted({s for s, _, _ in items}) == [1, 4]
+    blocks = (len(want_chunk) + 2) * Hkv
+    for s in (1, 4):
+        splits = [(i, n) for t, i, n in items if t == s]
+        n = splits[0][1]
+        assert splits == [(i, n) for i in range(n)]    # consecutive, in order
+        pages = -(-kv_lens[s] // 16)
+        if blocks >= 132 or pages < 16:
+            assert n == 1
+        else:
+            assert 1 < n <= pages // 8
+    # pages of more than 32 keys: one-row spans run as chunk items
+    wide = pa.ragged_work(q_lens, kv_lens, H, Hkv, 64)
+    assert not ((wide & pa.RAGGED_DECODE) != 0).any()
+
+
+@pytest.mark.parametrize("bs", [4, 5, 8, 16, 32, 64])
+def test_ragged_tensor_core_routing(bs):
+    """Which ragged kernel a call takes on the card: bf16 q runs the
+    tensor-core kernel over bf16 pools at any block size, over int8 pools
+    at block sizes that are multiples of 8 dividing 64; fp32 q the
+    CUDA-core kernel."""
+    assert pa.ragged_tensor_cores(torch.bfloat16, False, bs)
+    assert pa.ragged_tensor_cores(torch.bfloat16, True, bs) == (
+        bs in (8, 16, 32, 64))
+    assert not pa.ragged_tensor_cores(torch.float32, False, bs)
+    assert not pa.ragged_tensor_cores(torch.float32, True, bs)
 
 
 def test_write_ragged_kv_matches_reference_scatter():

@@ -325,7 +325,9 @@ def test_adam_update_matches_reference_update_rule(case):
     td = torch.bfloat16 if pdtype == "bfloat16" else torch.float32
     ref_p = paddle.create_parameter([6, 5], "float32")
     ref_p._value = jnp.asarray(p0).astype(jd)
-    port_p = torch.nn.Parameter(torch.from_numpy(p0).to(td))
+    # copies: on the CPU jnp.asarray may share a 64-byte-aligned numpy
+    # buffer, which the port's in-place update would then change
+    port_p = torch.nn.Parameter(torch.from_numpy(p0.copy()).to(td))
     if kind == "adamw":
         ref = ref_opt.AdamW(lr, parameters=[ref_p], weight_decay=wd,
                             multi_precision=multi, moment_dtype=moments)
@@ -341,7 +343,7 @@ def test_adam_update_matches_reference_update_rule(case):
     for gnp in grads:
         pv, st = ref._update_rule(pv, jnp.asarray(gnp).astype(jd), st,
                                   {"lr": jnp.asarray(lr, jnp.float32)})
-        port_p.grad = torch.from_numpy(gnp).to(td)
+        port_p.grad = torch.from_numpy(gnp.copy()).to(td)
         port.step()
     pst = port.state("w")
     assert sorted(pst) == sorted(k for k in st if k != "wd") + (
