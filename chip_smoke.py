@@ -17,8 +17,11 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    bf16 and int8 pools; for bf16 q the tensor-core kernel over the host
    work list the mixed step builds: the all-decode step, the mixed step,
    GQA at head dims 128 and 96, and poisoned odd packs at block sizes 5
-   and 16), paged decode attention (fp32/bf16 and int8, head dims 32 to
-   128), the RoPE + QKV epilogue; one JSON line per kernel and shape with
+   and 16 and head dims 64, 80 and 112), paged decode attention (fp32/
+   bf16 and int8, head dims 32 to 128 with 80 and 112, GQA 32/8 and
+   28/4, block sizes 5 to 128, 8 slots at kv 1024 and 4096, 32 at 2048;
+   two calls bitwise equal), the RoPE + QKV epilogue; one JSON line per
+   kernel and shape with
    the error, its tolerance, the kernel's and the plain version's times
    (CUDA events), the roofline bound and the library time (null: no
    single PyTorch call computes any of them).  For int8 pools the
@@ -54,9 +57,9 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    asserted (random bf16 logits can tie).  The mixed engine serves the
    traffic ``SERVE_REPEATS`` times: its wall is the median, with the
    spread of the runs and of their steps' host seconds.  The mixed and
-   split runs are profiled once more under ``torch.profiler``: device
-   time by kernel kind, the device's idle share and the host operators'
-   own time.
+   split runs (and the split run over int8 pools) are profiled once more
+   under ``torch.profiler`` (device activity): device time by kernel
+   kind and the device's idle share.
 4. Serving parity at full width and reduced depth: the same model with 2
    layers in fp32 and the same traffic; the mixed and split engines must
    match the eager ``generate`` (which runs no kernel) and each other at a
@@ -69,7 +72,8 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    layers (held to 1e-3) and bf16 at 2 layers.
 5. The three flash kernels (forward, one-pass backward, two-kernel
    backward) against their plain versions over fp32/bf16, head dims 32,
-   64, 96 and 128, causal or not, rope on and off, rectangular shapes,
+   64, 96 and 128 (80 and 112 padded per half by the wrappers), causal
+   or not, rope on and off, rectangular shapes,
    rows that see nothing and sequences of 1 and 65 tokens
    (``FLASH_CASES``), each within :func:`flash_tolerance` against the
    plain version of its own form (the backward forms round at the
@@ -111,7 +115,8 @@ Each phase prints its wall seconds.
     python3 chip_smoke.py --timing-of DIR
 
 times the kernels of the checkout at ``DIR`` by both timing methods
-(:func:`timing_of`), to hold two commits' kernel times on one yardstick.
+(:func:`timing_of`), to hold two commits' kernel times on one
+yardstick.
 
 The script imports nothing of JAX and nothing of ``paddle_tpu``.  Without
 a CUDA card it exits nonzero before printing any result.
@@ -490,8 +495,12 @@ def check_paged(case, seq_lens, n_masked, H, Hkv, D, bs, dtype_name, gen,
     ``seq_lens`` (distinct pages, every unused table entry aimed at a NaN
     page, or at NaN scales for int8), plus ``n_masked`` slots as the
     engine masks them (seq_len 1 over an all-sink row); int8 pools with
-    the planted faults the tolerance must reject."""
+    the planted faults the tolerance must reject.  A second call must
+    give the same bits (the kernel merges split states in split order).
+    The plain version (host loops for int8 pools, up to seconds a call at
+    the widest shape) is timed over one call."""
     import torch
+    from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops.paged_attention import (_paged_attention_plain,
                                                       paged_attention)
     dtype = getattr(torch, dtype_name)
@@ -511,7 +520,11 @@ def check_paged(case, seq_lens, n_masked, H, Hkv, D, bs, dtype_name, gen,
     def plain():
         return _paged_attention_plain(q, kc, vc, bt, sl, scale, **scales)
     got = kernel()
+    again = kernel()
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("paged_attention %s %s: two calls differ"
+                             % (case, dtype_name))
     if quantized:
         want, flips = _paged_attention_plain(q, kc, vc, bt, sl, scale,
                                              flip_bound=True, **scales)
@@ -547,9 +560,13 @@ def check_paged(case, seq_lens, n_masked, H, Hkv, D, bs, dtype_name, gen,
                           "int8" if quantized else dtype_name)
     row = dict(kernel=name, case=case, dtype=dtype_name, B=B, H=H, Hkv=Hkv,
                D=D, block_size=bs, max_abs_err=err,
-               err_over_tol=_err_over_tol(diff, tol),
+               err_over_tol=_err_over_tol(diff, tol), bitwise_repeat=True,
+               # (a tree from before the split design, timed by
+               # timing_of, runs one block a slot)
+               splits=(pa.decode_splits(B, Hkv, H // Hkv, W)[0]
+                       if hasattr(pa, "decode_splits") else 1),
                kernel_ms=time_ms(kernel, 20),
-               plain_ms=time_ms(plain, 3, warmup=1), bound_ms=b_ms,
+               plain_ms=time_ms(plain, 1, warmup=1), bound_ms=b_ms,
                bound_by=b_by, library_ms=None,
                library_note=NO_LIBRARY % "attention of one query per slot "
                "over a paged block table with per-slot lengths", **extra)
@@ -736,6 +753,17 @@ def check_rope(case, N, H, Hkv, D, with_amax, gen):
     return row
 
 
+# #7 at scale: 32/32 heads, D 128, block size 16, bf16 q
+DECODE_SCALE_CASES = (("long_8x4096", [4096] * 8),
+                      ("wide_32x2048", [2048] * 32))
+
+
+def decode_at_scale(gen, quantized):
+    """#7 at ``DECODE_SCALE_CASES`` (:func:`check_paged`)."""
+    return [check_paged(case, lens, 0, 32, 32, 128, 16, "bfloat16", gen,
+                        quantized) for case, lens in DECODE_SCALE_CASES]
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator("cuda").manual_seed(SEED)
@@ -780,13 +808,31 @@ def phase_kernels():
             rows[key].append(check_ragged(
                 "odd_poisoned_bs16", odd16, 200, 6, 2, 64, 16, dt, gen,
                 span_q=90, poison=True, n_pad_spans=2, quantized=quantized))
+            # head dims without a kernel of their own: q and the output
+            # padded, the pools read at their width (int8 at 80 and 112,
+            # multiples of 16, on the tensor cores in bf16)
+            for Dx in (80, 112):
+                rows[key].append(check_ragged(
+                    "odd_poisoned_bs16_d%d" % Dx, odd16, 200, 6, 2, Dx, 16,
+                    dt, gen, span_q=90, poison=True, n_pad_spans=2,
+                    quantized=quantized))
     # the split engine's decode step: 8 slots at kv 1024 (the 7B decode
-    # shape), GQA 32/8 at head dims 128 and 96, and an odd poisoned shape
-    # with masked slots
+    # shape), GQA 32/8 at head dims 128 and 96 (each slot split over
+    # blocks), Qwen2-7B's 28/4 (7 query heads a kv head), an odd poisoned
+    # shape with masked slots at head dims 32, 64, 80 and 112 and block
+    # sizes 5, 16, 64 and 128; in bf16 a long context and a wide batch
     odd_lens = [7, 29, 3, 1, 41, 11, 16]
     for quantized in (False, True):
         key = "decode_int8" if quantized else "decode"
+        rows[key] += decode_at_scale(gen, quantized)
         for dt in ("bfloat16", "float32"):
+            rows[key].append(check_paged(
+                "g7_28x4_decode_8x1024", [1024] * 8, 0, 28, 4, D, bs, dt,
+                gen, quantized))
+            for Dx, bsx in ((80, 16), (112, 16), (64, 64), (64, 128)):
+                rows[key].append(check_paged(
+                    "odd_poisoned_masked_D%d_bs%d" % (Dx, bsx),
+                    odd_lens + [300], 3, 8, 2, Dx, bsx, dt, gen, quantized))
             rows[key].append(check_paged(
                 "7b_decode_8x1024", [1024] * 8, 0, H, H, D, bs, dt, gen,
                 quantized))
@@ -854,6 +900,10 @@ FLASH_CASES = (
      ALL_FLASH),
     ("d96_full_rope_fp32", 1, 130, 130, 4, 96, "float32", True, False,
      ALL_FLASH),
+    ("d80_rope", 2, 300, 300, 4, 80, "bfloat16", True, True, ALL_FLASH),
+    ("d80_rope_fp32", 2, 300, 300, 4, 80, "float32", True, True, ALL_FLASH),
+    ("d112_dead_rows", 1, 200, 100, 4, 112, "bfloat16", False, True,
+     ALL_FLASH),
     ("long_16k", 1, 16384, 16384, 32, 128, "bfloat16", True, True,
      ("flash_fwd", "flash_bwd_two_kernel")),
 )
@@ -862,10 +912,6 @@ FLASH_CASES = (
 FLASH_TIMED = ("main", "main_fp32", "long_16k")
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 FLASH_TC_SOURCE = "paddle_tpu_torch/csrc/flash_attention_sm90.cu"
-# the kernels whose bf16 variants run on the tensor cores, and the head
-# dims they take there (bf16 at 32 and 96 runs on the CUDA cores)
-FLASH_TC = ("flash_fwd", "flash_bwd_fused", "flash_bwd_two_kernel")
-FLASH_TC_HEAD_DIMS = (64, 128)
 # the cases where two calls of the one-pass backward must give bitwise
 # equal dq, dk and dv (its dq shares are summed in k-tile order)
 FLASH_DETERMINISM = ("main", "main_fp32", "dead_rows_bf16", "rect_causal")
@@ -881,13 +927,11 @@ FLASH_MAIN = {"flash_fwd": ("main", "train_7b"),
               "flash_bwd_two_kernel": ("long_16k", "train_long_16k")}
 
 
-def flash_source(kernel, dtype_name, D):
-    """The source whose kernel a call of ``kernel`` in ``dtype_name`` at
-    head dim ``D`` launches (the wrappers route by dtype and head dim)."""
-    if dtype_name == "bfloat16" and kernel in FLASH_TC \
-            and D in FLASH_TC_HEAD_DIMS:
-        return FLASH_TC_SOURCE
-    return FLASH_SOURCE
+def flash_source(dtype_name):
+    """The source whose kernels a flash call in ``dtype_name`` launches:
+    bf16 runs on the tensor cores at every head dim (padded to 64 or
+    128), fp32 on the CUDA cores."""
+    return FLASH_TC_SOURCE if dtype_name == "bfloat16" else FLASH_SOURCE
 
 
 BF16_ULP = 2.0 ** -7     # one bf16 ulp of a value is at most this share
@@ -1073,7 +1117,7 @@ def check_flash(name, B, Sq, Sk, H, D, dtype_name, rope, causal, kernels,
                    atol_median_max=atols, median_abs=typical,
                    rel_tol=BF16_ULP if dtype_name == "bfloat16" else 0.0,
                    bound_ms=b_ms, bound_by=b_by,
-                   source=flash_source(kern, dtype_name, D))
+                   source=flash_source(dtype_name))
         if kern == "flash_bwd_fused" and name in FLASH_DETERMINISM:
             again = fa.flash_bwd_fused(q, k, v, out, lse, g, causal, tables)
             torch.cuda.synchronize()
@@ -1325,15 +1369,18 @@ def _kernel_kind(name: str) -> str:
 
 
 def profile_device(fn, unprofiled_wall_s):
-    """``fn()`` once under ``torch.profiler``: device time by kernel kind,
-    the top kernels, and the device's idle share of the profiled wall and
-    of ``unprofiled_wall_s`` (the same work without the profiler; kernel
-    durations do not change under it, its host overhead does)."""
+    """``fn()`` once under ``torch.profiler``, device activity only:
+    device time by kernel kind, the top kernels, and the device's idle
+    share of the profiled wall and of ``unprofiled_wall_s`` (the same work
+    without the profiler; kernel durations do not change under it, its
+    host overhead does).  Host operators are not recorded: for a run of
+    many small operators the profiler takes minutes to sort their events,
+    and the host's share is read as the idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_start = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         # timed inside the context: starting the profiler is not the run
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1341,8 +1388,9 @@ def profile_device(fn, unprofiled_wall_s):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only: a CPU op's device time repeats its kernels'
+    averages = prof.key_averages()
     kernels = [(e.key, e.self_device_time_total, e.count)
-               for e in prof.key_averages()
+               for e in averages
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy_us = sum(t for _, t, _ in kernels)
@@ -1353,15 +1401,8 @@ def profile_device(fn, unprofiled_wall_s):
         kind = _kernel_kind(name)
         by_kind[kind] = by_kind.get(kind, 0.0) + t
     top = sorted(kernels, key=lambda k: -k[1])[:10]
-    # host side: the operators' own CPU time (without their children)
-    host = sorted(((e.key, e.self_cpu_time_total, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CPU
-                   and e.self_cpu_time_total > 0), key=lambda k: -k[1])
     return dict(profiled_wall_s=wall, device_busy_s=busy_us / 1e6,
-                host_self_s=sum(t for _, t, _ in host) / 1e6,
-                top_host_ops=[dict(name=n[:80], self_s=t / 1e6, calls=c)
-                              for n, t, c in host[:12]],
+                profile_s=time.perf_counter() - t_start,
                 device_idle_share=1.0 - busy_us / 1e6 / wall,
                 unprofiled_wall_s=unprofiled_wall_s,
                 unprofiled_device_idle_share=(
@@ -1448,7 +1489,8 @@ def phase_serving_7b():
     """Llama-2-7B bf16 at full width and depth, built once, serves the
     same traffic through the mixed engine (then profiled), the split
     engine with bucketed prefill (profiled), the split engine with the
-    dense prefill, and both engines over int8 pools.  Each run's launches
+    dense prefill, and both engines over int8 pools (the split one
+    profiled: decode attention's int8 variant).  Each run's launches
     must be exact for its engine; the token matches against eager
     ``generate`` and against the bf16-pool engines are reported, not
     asserted (random bf16 logits tie)."""
@@ -1465,7 +1507,10 @@ def phase_serving_7b():
           % (param_count(cfg), param_count(cfg) * 2 / 1e9,
              time.perf_counter() - t0), flush=True)
     prompts = _prompts(cfg.vocab_size)
+    t0 = time.perf_counter()
     ref = eager_tokens(model, prompts)
+    print("7b: eager generate (the token reference) in %.1f s"
+          % (time.perf_counter() - t0), flush=True)
     runs, outs = {}, {}
     for name, kw in (("serve_7b", ENGINE_KW), ("serve_7b_split", SPLIT_KW),
                      ("serve_7b_dense", DENSE_KW),
@@ -1501,7 +1546,7 @@ def phase_serving_7b():
                 outs[name], outs["serve_7b"])[0]
         emit(stats)
         runs[name] = stats
-        if name in ("serve_7b", "serve_7b_split"):
+        if name in ("serve_7b", "serve_7b_split", "serve_7b_kv8_split"):
             runs[name]["profile"] = profile_serve(
                 name + "_bf16", model, prompts, stats["wall_s"], kw)
     del model
@@ -2142,14 +2187,32 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
     return out
 
 
+def _scale_rows_into(got, timer):
+    """Append :func:`decode_at_scale`'s rows to ``got``, timed by
+    ``timer`` (this module's ``time_ms`` and ``emit`` are swapped for the
+    run)."""
+    import torch
+    global time_ms, emit
+    saved = time_ms, emit
+    time_ms, emit = timer, got.append
+    try:
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        for quantized in (False, True):
+            decode_at_scale(gen, quantized)
+    finally:
+        time_ms, emit = saved
+
+
 def timing_of(tree: str) -> int:
     """``--timing-of DIR``: the kernels of the checkout at ``DIR`` (its
     ``paddle_tpu_torch`` and its ``chip_smoke.py``, e.g. an earlier commit
     unpacked with ``git archive``) timed by both methods, the device time
     of :func:`time_ms` ("queued") and the earlier timing ("paced",
-    ``queued=False``): its phases 2 and 5 run once with each, and one JSON line
-    per case gives every time of the case under both.  Run it for two
-    trees in one call to compare them on one yardstick."""
+    ``queued=False``): its phases 2 and 5 run once with each, and one JSON line per case gives every time of
+    the case under both.  A tree whose phase 2 lacks #7 at
+    ``DECODE_SCALE_CASES`` (an earlier commit) is timed there too, by
+    this script's :func:`decode_at_scale` through the tree's package.
+    Run it for two trees in one call to compare them on one yardstick."""
     import importlib.util
     import os
     tree = os.path.abspath(tree)
@@ -2171,6 +2234,8 @@ def timing_of(tree: str) -> int:
         mod.time_ms, mod.emit = fn, got.append
         mod.phase_kernels()
         mod.phase_flash_kernels()
+        if not any(r.get("case") == DECODE_SCALE_CASES[0][0] for r in got):
+            _scale_rows_into(got, fn)
         runs[method] = [r for r in got if "kernel" in r]
     for a, b in zip(runs["paced"], runs["queued"]):
         if (a["kernel"], a.get("case"), a.get("dtype")) != (

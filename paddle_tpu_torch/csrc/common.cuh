@@ -10,6 +10,18 @@
 
 namespace ptt {
 
+// The width the paged-attention kernels are built at for a head dim dr (a
+// multiple of 8 up to 128): the least of 32, 64, 96 and 128 that is at
+// least dr and of which dr is a whole number of 32nds, so that a lane's
+// D / 32 columns lie all below dr or all past it.  0 for other dr.
+__host__ __device__ constexpr int paged_width(int dr) {
+  return dr < 8 || dr > 128 || dr % 8 ? 0
+         : dr <= 32                   ? 32
+         : dr <= 64                   ? 64
+         : dr <= 96 && dr % 3 == 0    ? 96
+                                      : 128;
+}
+
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
 

@@ -1,8 +1,9 @@
-// Flash attention with fused neox rope on the CUDA cores (sm_90a): every
-// fp32 variant (forward, one-pass and two-kernel backward), and the bf16
-// variants at head dims 32 and 96.  bf16 at head dims 64 and 128 runs on
-// the tensor cores, in flash_attention_sm90.cu; this library has no bf16
-// instantiation there (its entries return cudaErrorInvalidValue).
+// Flash attention with fused neox rope on the CUDA cores (sm_90a): the
+// fp32 variants (forward, one-pass and two-kernel backward).  bf16 runs
+// on the tensor cores, in flash_attention_sm90.cu, at every head dim (the
+// wrapper pads it to 64 or 128); the kernels here are written for any
+// input type T but instantiated for float only, and the entries refuse
+// bf16 (cudaErrorInvalidValue).
 //
 // Replaces (paddle_tpu/ops/pallas_kernels.py):
 // - _flash_fwd_kernel (launched by _flash_attention_value):
@@ -14,8 +15,9 @@
 //   _flash_attention_bwd): flash_bwd_dq_kernel + flash_bwd_kv_kernel<false>
 // Head dims 32, 64, 96 and 128: every D whose half is a multiple of 16
 // (the 4x4 register tile below keeps D/16 columns a thread, and the rope
-// partner d +- D/2 must sit in the same thread).  The reference computes
-// every D <= 128; D 80 or 112 raise here.
+// partner d +- D/2 must sit in the same thread).  The wrapper pads every
+// other multiple of 8 up to 128 to the next of them, each half on its
+// own (ops/flash_attention.py::kernel_head_dim).
 //
 // What they compute.  q [B, Sq, H, D], k/v [B, Sk, H, D], out/dout like
 // q, lse [B, H, Sq] fp32 (natural log, -inf for a row that sees nothing);
@@ -76,8 +78,6 @@
 // here: on the tensor cores fp32 inputs would be TF32 (about three
 // decimal digits).
 #include <math.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -647,25 +647,22 @@ int with_rope(int rope, const Args& a) {
   return rope ? Op<T, D, true>::run(a) : Op<T, D, false>::run(a);
 }
 
-// head dim x rope -> one instantiation of Op for the input type T: fp32
-// at every head dim, bf16 at 32 and 96 only (64 and 128 are the tensor
-// cores')
-template <template <typename, int, bool> class Op, typename T>
+// head dim x rope -> one fp32 instantiation of Op
+template <template <typename, int, bool> class Op>
 int dispatch(int D, int rope, const Args& a) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  if (D == 32) return with_rope<Op, T, 32>(rope, a);
-  if (D == 96) return with_rope<Op, T, 96>(rope, a);
-  if constexpr (kF32) {
-    if (D == 64) return with_rope<Op, T, 64>(rope, a);
-    if (D == 128) return with_rope<Op, T, 128>(rope, a);
+  switch (D) {
+    case 32: return with_rope<Op, float, 32>(rope, a);
+    case 64: return with_rope<Op, float, 64>(rope, a);
+    case 96: return with_rope<Op, float, 96>(rope, a);
+    case 128: return with_rope<Op, float, 128>(rope, a);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Layouts: q/out [B, Sq, H, D], k/v [B, Sk, H, D], all contiguous in the
-// input type (dtype 0 = float32, 1 = bfloat16: head dims 32 and 96 only);
+// input type (dtype 0 = float32, the only one this library takes);
 // lse [B, H, Sq] float32; cos/sin [S, D] float32 (null without rope).
 // c = log2(e) / sqrt(D).  Returns the launches' cudaGetLastError()
 // (cudaErrorInvalidValue for a dtype or head dim this library lacks).
@@ -679,9 +676,8 @@ extern "C" int ptt_flash_fwd(const void* q, const void* k, const void* v,
   a.lse_out = lse;
   a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.causal = causal, a.c = c;
   a.st = (cudaStream_t)stream;
-  if (dtype == 0) return dispatch<FwdOp, float>(D, rope, a);
-  if (dtype == 1) return dispatch<FwdOp, __nv_bfloat16>(D, rope, a);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return dispatch<FwdOp>(D, rope, a);
 }
 
 // fused = 1: the one-pass backward, adding dq into dq_acc ([B, Sq, H, D]
@@ -704,11 +700,7 @@ extern "C" int ptt_flash_bwd(const void* q, const void* k, const void* v,
   a.dq_acc = dq_acc, a.dq_turn = dq_turn;
   a.B = B, a.H = H, a.Sq = Sq, a.Sk = Sk, a.causal = causal, a.c = c;
   a.scale = scale, a.st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return fused ? dispatch<FusedOp, float>(D, rope, a)
-                 : dispatch<TwoKernelOp, float>(D, rope, a);
-  if (dtype == 1)
-    return fused ? dispatch<FusedOp, __nv_bfloat16>(D, rope, a)
-                 : dispatch<TwoKernelOp, __nv_bfloat16>(D, rope, a);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  return fused ? dispatch<FusedOp>(D, rope, a)
+               : dispatch<TwoKernelOp>(D, rope, a);
 }

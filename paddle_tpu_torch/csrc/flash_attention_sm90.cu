@@ -9,8 +9,9 @@
 //   dq_finalize_kernel
 // - _flash_bwd_dq_kernel + _flash_bwd_kv_kernel without emit_dq (launched
 //   by _flash_attention_bwd): bwd_dq_tc_kernel + bwd_kv_tc_kernel<false>
-// The fp32 variants, and bf16 at head dims 32 and 96, run on the CUDA
-// cores in flash_attention.cu.
+// Built at head dims 64 and 128; the wrapper pads every other multiple
+// of 8 up to 128 to the next of them, each half of the head on its own.
+// The fp32 variants run on the CUDA cores in flash_attention.cu.
 //
 // What they compute: what flash_attention.cu's kernels compute, at the
 // same rounding points.  q/out/dout [B, Sq, H, D], k/v [B, Sk, H, D] bf16,

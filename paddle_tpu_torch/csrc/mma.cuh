@@ -1,5 +1,6 @@
 // PTX wrappers of the tensor-core kernels (flash_attention_sm90.cu,
-// ragged_paged_attention.cu): cp.async copies, ldmatrix, mma.sync
+// ragged_paged_attention.cu) and of paged_decode_attention.cu's copies:
+// cp.async copies, ldmatrix, mma.sync
 // (bf16 m16n8k16 and s8 m16n8k32) and bf16 packing.
 #pragma once
 
@@ -19,6 +20,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 8 bytes global -> shared (.ca: .cg takes 16 bytes only); zero-filled
+// when !valid
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
                : "memory");
 }
 

@@ -3,8 +3,17 @@
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py _ragged_paged_kernel
 // (launched by _ragged_paged_attention_pallas), both variants: fp32/bf16
-// pools and int8 pools with per-page, per-head fp32 scales.  Head dims
-// 32, 64, 96 and 128.
+// pools and int8 pools with per-page, per-head fp32 scales.  Any head
+// dim D <= 128 that is a multiple of 8: the kernels are built at 32, 64,
+// 96 and 128; at another D the wrapper pads q and the output to the width
+// ptt::paged_width gives, and the kernels read the pools' rows at their
+// real width dr.  Past dr the chunk tiles take zeros (a cp.async of 0
+// bytes), the CUDA-core kernel masks its loads, and a decode item's lane
+// reads its row's first columns instead: finite values that meet q's
+// zero columns in the scores and land in output columns the wrapper
+// drops.  int8 pools on the tensor cores need dr a multiple of 16
+// (16-byte rows); the wrapper routes other widths to the CUDA-core
+// kernel.
 //
 // What it computes.  The packed query batch q [T, H, D] holds S spans:
 // span s owns rows q_off[s] .. q_off[s] + q_len[s] - 1.  Row r of span s
@@ -123,8 +132,9 @@ __global__ void __launch_bounds__(kWarps * 32)
         const int* __restrict__ block_tables,
         const int* __restrict__ q_offsets, const int* __restrict__ q_lens,
         const int* __restrict__ kv_lens, T* __restrict__ out, int W, int H,
-        int Hkv, int bs, int page_stride, int slot_stride, int n_tiles,
-        int rows_per_tile, int tile_keys, float scale, float c_qk,
+        int Hkv, int bs, int page_stride, int slot_stride, int dr,
+        int n_tiles, int rows_per_tile, int tile_keys, float scale,
+        float c_qk,
         float c_pv) {
   constexpr int DPL = D / 32;  // output columns per lane
   extern __shared__ float smem[];
@@ -210,10 +220,11 @@ __global__ void __launch_bounds__(kWarps * 32)
       const int key = i / D, d = i % D;
       const int col = kt0 + key;
       float kv = 0.f, vv = 0.f;
-      if (key < tile_keys && col < key_end) {
+      if (key < tile_keys && col < key_end && d < dr) {
         const int page = bt[col / bs];
         const size_t at = (size_t)page * page_stride +
-                          (size_t)(col % bs) * slot_stride + (size_t)h * D + d;
+                          (size_t)(col % bs) * slot_stride + (size_t)h * dr +
+                          d;
         kv = ptt::to_f32(k_pool[at]);
         vv = ptt::to_f32(v_pool[at]);
       }
@@ -361,6 +372,7 @@ struct alignas((sizeof(P) * N) & -(sizeof(P) * N)) Vec {
   P v[N];
 };
 
+
 // ldmatrix x4 over a row-major shared tile (row stride ld bytes; every
 // row stride here is an odd number of 16-byte chunks, so the 8 rows of a
 // matrix hit 8 distinct bank groups).  ld_a: the A operand of 16 rows
@@ -395,14 +407,16 @@ struct TcArgs {
   int* counters;    // their arrivals [item][Hkv], zero between calls
   bf16* out;
   int W, H, Hkv, bs;
-  float scale, c_qk;
-  // the pools are contiguous [phys, bs, Hkv, D] (the wrapper checks):
-  // slot stride Hkv D, page stride bs Hkv D
-  __device__ int slot_stride(int D) const { return Hkv * D; }
+  int dr;       // the pools' head dim (the kernel's D, or less)
+  float scale;  // softmax scale; int8 pools: float32(scale / 127^2)
+  // the pools are contiguous [phys, bs, Hkv, dr] (the wrapper checks):
+  // slot stride Hkv dr, page stride bs Hkv dr
+  __device__ int slot_stride() const { return Hkv * dr; }
 };
 // The struct stays within 128 bytes: grown past them (two more pointers)
 // it slowed both item kinds markedly on the card with the same code, so
-// the strides are derived and the p.V fold is a constant.
+// the strides are derived, the p.V fold is a constant and one field holds
+// the score scale of either pool type.
 // float32(1 / 127^2), the p.V fold of the plain int8 version (the float
 // division is correctly rounded, as the double one rounded to float32)
 constexpr float kCpv = 1.f / (127.f * 127.f);
@@ -471,11 +485,16 @@ __device__ __forceinline__ void decode_item(const TcArgs& a, int s, int h,
     for (int i = 0; i < DPL; ++i) acc[j][i] = 0.f;
   }
 
+  // the lane's columns of a pool row, whose real width is dr: a lane whose
+  // columns lie past dr (ptt::paged_width never splits a lane's columns)
+  // reads the row's first ones instead, finite values that meet q's zero
+  // columns in the scores and land in output columns the wrapper drops
+  const int at = lane * DPL < a.dr ? lane * DPL : 0;
   for (int p = p_begin + warp; p < p_end; p += kTcWarps) {
     const int page = bt[p];
     const int nk = min(a.bs, kv_len - p * a.bs);  // >= 1 keys of this page
     const size_t row0 =
-        (size_t)page * a.bs * a.slot_stride(D) + (size_t)h * D + lane * DPL;
+        (size_t)page * a.bs * a.slot_stride() + (size_t)h * a.dr;
     float sk = 1.f, sv = 1.f;
     if constexpr (Q8) {
       sk = a.k_scale[(size_t)page * a.Hkv + h];
@@ -487,7 +506,7 @@ __device__ __forceinline__ void decode_item(const TcArgs& a, int s, int h,
 #pragma unroll 4
     for (int key = 0; key < nk; ++key) {
       const Vec<P, DPL> kr = *reinterpret_cast<const Vec<P, DPL>*>(
-          k_pool + row0 + (size_t)key * a.slot_stride(D));
+          k_pool + row0 + (size_t)key * a.slot_stride() + at);
 #pragma unroll
       for (int j = 0; j < GMAX; ++j) {
         if (j >= G) continue;
@@ -495,7 +514,7 @@ __device__ __forceinline__ void decode_item(const TcArgs& a, int s, int h,
 #pragma unroll
         for (int i = 0; i < DPL; ++i) d += qv[j][i] * ptt::to_f32(kr.v[i]);
         d = ptt::warp_sum(d);
-        if (Q8) d = d * (qs[j] * (sk * a.c_qk));
+        if (Q8) d = d * (qs[j] * (sk * a.scale));
         if (lane == key) my_s[j] = d;
       }
     }
@@ -528,7 +547,7 @@ __device__ __forceinline__ void decode_item(const TcArgs& a, int s, int h,
 #pragma unroll 4
     for (int key = 0; key < nk; ++key) {
       const Vec<P, DPL> vr = *reinterpret_cast<const Vec<P, DPL>*>(
-          v_pool + row0 + (size_t)key * a.slot_stride(D));
+          v_pool + row0 + (size_t)key * a.slot_stride() + at);
 #pragma unroll
       for (int j = 0; j < GMAX; ++j) {
         if (j >= G) continue;
@@ -681,10 +700,10 @@ __device__ __forceinline__ void chunk_item(const TcArgs& a, int s, int tile,
   auto kv_tile = [&](int stage, int kt) {
     for (int idx = tid; idx < kTcKeys * CH; idx += kTcThreads) {
       const int key = idx / CH, ch = idx % CH, col = kt * kTcKeys + key;
-      const bool ok = col < key_end;
-      const size_t at = ok ? (size_t)bt[col / bs] * bs * a.slot_stride(D) +
-                                 (size_t)(col % bs) * a.slot_stride(D) +
-                                 (size_t)h * D + ch * (16 / sizeof(P))
+      const bool ok = col < key_end && ch * (16 / (int)sizeof(P)) < a.dr;
+      const size_t at = ok ? (size_t)bt[col / bs] * bs * a.slot_stride() +
+                                 (size_t)(col % bs) * a.slot_stride() +
+                                 (size_t)h * a.dr + ch * (16 / sizeof(P))
                            : 0;
       cp_async16(Ks + (stage * kTcKeys + key) * LDR + ch * 16, k_pool + at,
                  ok);
@@ -749,10 +768,11 @@ __device__ __forceinline__ void chunk_item(const TcArgs& a, int s, int tile,
       for (int idx = tid; idx < kTcKeys * CH; idx += kTcThreads) {
         const int key = idx % kTcKeys, ch = idx / kTcKeys, col = k0 + key;
         uint4 raw = make_uint4(0, 0, 0, 0);
-        if (col < key_end)
+        if (col < key_end && ch * 16 < a.dr)
           raw = *reinterpret_cast<const uint4*>(
-              v_pool + (size_t)bt[col / bs] * bs * a.slot_stride(D) +
-              (size_t)(col % bs) * a.slot_stride(D) + (size_t)h * D + ch * 16);
+              v_pool + (size_t)bt[col / bs] * bs * a.slot_stride() +
+              (size_t)(col % bs) * a.slot_stride() + (size_t)h * a.dr +
+              ch * 16);
         const unsigned char* b8 = reinterpret_cast<const unsigned char*>(&raw);
 #pragma unroll
         for (int e = 0; e < 16; ++e) Vt[(ch * 16 + e) * kPcLd + key] = b8[e];
@@ -795,7 +815,7 @@ __device__ __forceinline__ void chunk_item(const TcArgs& a, int s, int tile,
 #pragma unroll
         for (int e = 0; e < 4; ++e)  // fold the exact integer score
           sc[j][e] = (float)si[j][e] *
-                     (qsr[e >> 1] * (Ksc[(8 * j + 2 * t) / bs] * a.c_qk));
+                     (qsr[e >> 1] * (Ksc[(8 * j + 2 * t) / bs] * a.scale));
     } else {
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
@@ -1029,7 +1049,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            const void* block_tables, const void* q_offsets,
            const void* q_lens, const void* kv_lens, void* out, int S, int W,
            int H, int Hkv, int bs, int page_stride, int slot_stride,
-           int span_q, float scale, float c_qk, float c_pv,
+           int dr, int span_q, float scale, float c_qk, float c_pv,
            cudaStream_t stream) {
   const int groups = H / Hkv;
   const int rows_per_tile = groups >= kQPerBlock ? 1 : kQPerBlock / groups;
@@ -1048,22 +1068,23 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
           (const float*)k_scale, (const float*)v_scale,
           (const int*)block_tables, (const int*)q_offsets,
           (const int*)q_lens, (const int*)kv_lens, (T*)out, W, H, Hkv, bs,
-          page_stride, slot_stride, n_tiles, rows_per_tile, tile_keys,
+          page_stride, slot_stride, dr, n_tiles, rows_per_tile, tile_keys,
           scale, c_qk, c_pv);
   return (int)cudaGetLastError();
 }
 
 #define PTT_RAGGED_ARGS                                                     \
   q, k_pool, v_pool, k_scale, v_scale, bt, q_off, q_len, kv_len, out, S, W, \
-      H, Hkv, bs, page_stride, slot_stride, span_q, scale, c_qk, c_pv, st
+      H, Hkv, bs, page_stride, slot_stride, dr, span_q, scale, c_qk, c_pv, \
+      st
 
 template <typename T, typename P, bool Q8>
 int dispatch_d(int D, const void* q, const void* k_pool, const void* v_pool,
                const void* k_scale, const void* v_scale, const void* bt,
                const void* q_off, const void* q_len, const void* kv_len,
                void* out, int S, int W, int H, int Hkv, int bs,
-               int page_stride, int slot_stride, int span_q, float scale,
-               float c_qk, float c_pv, cudaStream_t st) {
+               int page_stride, int slot_stride, int dr, int span_q,
+               float scale, float c_qk, float c_pv, cudaStream_t st) {
   switch (D) {
     case 32: return launch<T, P, 32, Q8>(PTT_RAGGED_ARGS);
     case 64: return launch<T, P, 64, Q8>(PTT_RAGGED_ARGS);
@@ -1077,35 +1098,40 @@ int dispatch_d(int D, const void* q, const void* k_pool, const void* v_pool,
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out share it; the pools too
 // unless quantized, when they are int8 with float32 scales [phys, Hkv]
-// and bs <= 64).  Strides are in elements.  With a work list (bf16 only:
-// n_items int32 items from ops/paged_attention.py::ragged_work, chunk
-// tiles of kTcRows query vectors and decode spans) the tensor-core kernel
-// runs (bf16 q needs one over bf16 pools), else the CUDA-core kernel (fp32
-// q; bf16 q over int8 pools whose block size is not a multiple of 8
-// dividing 64).  partials (n_items * H *
-// (D + 2) float32) and counters (n_items * Hkv int32, zero; left zero)
-// serve the split decode items.  Returns the launch's cudaGetLastError().
+// and bs <= 64).  dr: the pools' head dim, a multiple of 8 up to 128; q
+// and out are [T, H, D] at D = ptt::paged_width(dr) (the wrapper pads
+// them; q's columns past dr are 0).  Strides are in elements.  With
+// a work list (bf16 only: n_items int32 items from
+// ops/paged_attention.py::ragged_work, chunk tiles of kTcRows query
+// vectors and decode spans) the tensor-core kernel runs (bf16 q needs one
+// over bf16 pools), else the CUDA-core kernel (fp32 q; bf16 q over int8
+// pools whose block size is not a multiple of 8 dividing 64, or whose dr
+// is not a multiple of 16).  partials (n_items * H * (D + 2) float32) and
+// counters (n_items * Hkv int32, zero; left zero) serve the split decode
+// items.  Returns the launch's cudaGetLastError().
 extern "C" int ptt_ragged_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* bt,
     const void* q_off, const void* q_len, const void* kv_len,
     const void* work, void* partials, void* counters, void* out, int S,
-    int W, int H, int Hkv, int D,
+    int W, int H, int Hkv, int dr,
     int bs, int page_stride, int slot_stride, int span_q, int n_items,
     float scale, float c_qk, float c_pv, int dtype, int quantized,
     void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (bs < 1 || (quantized && bs > kTileKeys) || Hkv < 1 || H % Hkv)
+  if (bs < 1 || (quantized && bs > kTileKeys) || Hkv < 1 || H % Hkv ||
+      ptt::paged_width(dr) == 0)
     return (int)cudaErrorInvalidValue;
+  const int D = ptt::paged_width(dr);
   if (work != nullptr) {
     if (dtype != 1 || n_items < 1 ||
-        (quantized && (bs % 8 || kTcKeys % bs)))
+        (quantized && (bs % 8 || kTcKeys % bs || dr % 16)))
       return (int)cudaErrorInvalidValue;
     TcArgs a = {(const bf16*)q, k_pool, v_pool, (const float*)k_scale,
                 (const float*)v_scale, (const int*)bt, (const int*)q_off,
                 (const int*)q_len, (const int*)kv_len, (const int*)work,
                 (float*)partials, (int*)counters, (bf16*)out, W, H, Hkv,
-                bs, scale, c_qk};
+                bs, dr, quantized ? c_qk : scale};
     return quantized ? dispatch_tc<int8_t, true>(D, a, n_items, st)
                      : dispatch_tc<bf16, false>(D, a, n_items, st);
   }

@@ -150,7 +150,7 @@ class MixedStep:
         c0 = self.caches[0]
         work = None
         if self.device.type == "cuda" and ragged_tensor_cores(
-                cfg.torch_dtype, c0.quantized, c0.block_size):
+                cfg.torch_dtype, c0.quantized, c0.block_size, D):
             # the ragged kernel's work list, built here from the host
             # pack's span lengths and shipped in the pack's one copy
             spans = pack[4 * T:].reshape(S, W + self.row_extra)

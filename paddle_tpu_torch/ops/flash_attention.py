@@ -1,13 +1,17 @@
 """Flash attention with fused neox rope, forward and backward (counterpart
 of the flash section of ``paddle_tpu/ops/pallas_kernels.py``).
 
-Kernels, in two libraries: ``csrc/flash_attention_sm90.cu`` (bf16 at head
-dims 64 and 128 on the tensor cores: the forward on ``wgmma``, both
-backward forms on ``mma.sync`` tiles fed by ``ldmatrix``, behind a
-``cp.async`` ring) and ``csrc/flash_attention.cu`` (the CUDA cores: every
-fp32 variant, and bf16 at head dims 32 and 96).  The wrappers choose by
-dtype and head dim.  Head dims 32, 64, 96 and 128 have kernels; other
-head dims up to 128 raise on the card (the reference computes them).
+Kernels, in two libraries: ``csrc/flash_attention_sm90.cu`` (bf16, built
+at head dims 64 and 128, on the tensor cores: the forward on ``wgmma``,
+both backward forms on ``mma.sync`` tiles fed by ``ldmatrix``, behind a
+``cp.async`` ring) and ``csrc/flash_attention.cu`` (fp32, built at head
+dims 32, 64, 96 and 128, on the CUDA cores).  The wrappers choose by
+dtype.  Every other head dim up to 128 that is a multiple of 8 runs the
+kernels padded (:func:`kernel_head_dim`, :func:`_pad_halves`): bf16 at
+64 or 128, fp32 at the next of 32, 64, 96 and 128, with the true
+``1/sqrt(D)`` as the scale and the outputs cut back to D.  The zero
+columns change no score, and padding each half keeps the neox rope's
+pairs (column i with i + D/2).  Other head dims raise on the card.
 
 - ``flash_fwd`` replaces ``_flash_fwd_kernel`` (launched by
   ``_flash_attention_value``): online-softmax forward, optional neox rope
@@ -53,8 +57,8 @@ import torch
 from .. import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 96, 128)      # head dims with a kernel
-_TC_HEAD_DIMS = (64, 128)           # bf16 on the tensor cores
+_HEAD_DIMS = (32, 64, 96, 128)      # fp32 head dims with a kernel
+_TC_HEAD_DIMS = (64, 128)           # bf16 ones (the tensor cores)
 _LANES = 128
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
@@ -121,16 +125,18 @@ def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def _rounded_operands(q, k, rope: Rope):
+def _rounded_operands(q, k, rope: Rope, scale: Optional[float] = None):
     """``(qs, kr, qr, ks)`` in the compute dtype, each rounded to its
     input's dtype once: the exp2-space q (roped, times ``c =
     scale*log2e``), the roped k, the roped q, and the exp2-space k (roped,
     times c).  Exactly one score operand carries c: the forward and the
     two-kernel dq use ``qs . kr``; dk, dv and the fused dq use
     ``qr . ks`` (the reference's dk/dv kernel folds c into its resident k
-    tile)."""
+    tile).  ``scale`` defaults to ``1/sqrt(D)``."""
     acc = _acc_dtype(q.dtype)
-    c = (1.0 / math.sqrt(q.shape[-1])) * _LOG2E
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    c = scale * _LOG2E
     qf, kf = q.to(acc), k.to(acc)
     if rope is not None:
         qf, kf = _rope(qf, *rope), _rope(kf, *rope)
@@ -160,15 +166,17 @@ def _heads(t: torch.Tensor, b: int, h0: int, h1: int) -> torch.Tensor:
 
 
 def _flash_fwd_plain(q, k, v, causal: bool, rope: Rope = None,
-                     out_dtype: Optional[torch.dtype] = None):
+                     out_dtype: Optional[torch.dtype] = None,
+                     scale: Optional[float] = None):
     """Plain PyTorch version of the forward kernel: ``(out, lse)`` with
     out [B, Sq, H, D] in q's dtype (or ``out_dtype``, which skips the
     last rounding) and lse [B, H, Sq] (natural log, ``-inf`` for rows
-    that see nothing), full scores per head block."""
+    that see nothing), full scores per head block.  ``scale`` defaults to
+    ``1/sqrt(D)`` (a padded call passes the true head dim's)."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     acc = _acc_dtype(q.dtype)
-    qs, kr, _, _ = _rounded_operands(q, k, rope)
+    qs, kr, _, _ = _rounded_operands(q, k, rope, scale)
     vf = v.to(acc)
     vis = _visible(Sq, Sk, causal, q.device)
     out_dtype = out_dtype or q.dtype
@@ -199,7 +207,8 @@ def _p_ds(a, b, g_h, v_h, lse2, dlt, vis, ds_dtype):
 
 
 def _flash_bwd_plain(q, k, v, out, lse, g, causal: bool, rope: Rope = None,
-                     *, form: str, out_dtype: Optional[torch.dtype] = None):
+                     *, form: str, out_dtype: Optional[torch.dtype] = None,
+                     scale: Optional[float] = None):
     """Plain PyTorch version of the backward form ``form`` (``"fused"``
     or ``"two_kernel"``): ``(dq, dk, dv)`` in the input dtypes (or all in
     ``out_dtype``, which skips the last rounding).  p is recomputed from
@@ -212,15 +221,16 @@ def _flash_bwd_plain(q, k, v, out, lse, g, causal: bool, rope: Rope = None,
     ``dv = p^T dO`` with p rounded; the fused dq is ``ds ks / log2e``
     from the same scores, the two-kernel dq ``ds kr * scale`` from the
     scores ``qs . kr`` (c on the q operand).  ds is rounded to k's dtype
-    in each."""
+    in each.  ``scale`` as in :func:`_flash_fwd_plain`."""
     if form not in ("fused", "two_kernel"):
         raise ValueError("form must be 'fused' or 'two_kernel', got %r"
                          % (form,))
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     acc = _acc_dtype(q.dtype)
-    scale = 1.0 / math.sqrt(D)
-    qs, kr, qr, ks = _rounded_operands(q, k, rope)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qs, kr, qr, ks = _rounded_operands(q, k, rope, scale)
     vf, gf = v.to(acc), g.to(acc)
     delta = (gf * out.to(acc)).sum(dim=-1)                 # [B, Sq, H]
     vis = _visible(Sq, Sk, causal, q.device)
@@ -306,8 +316,8 @@ def _kernel_ok(q: torch.Tensor) -> bool:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 def _entries():
-    """The CUDA-core library's entries: the forward and the backward
-    (both forms), fp32 at every head dim, bf16 at 32 and 96."""
+    """The CUDA-core library's entries, fp32: the forward and the
+    backward (both forms)."""
     lib = _build.load("flash_attention")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = lib.ptt_flash_fwd, lib.ptt_flash_bwd
@@ -336,9 +346,51 @@ def _tc_entries():
     return fwd, bwd, fused
 
 
+def kernel_head_dim(D: int, dtype: torch.dtype) -> int:
+    """The head dim the kernels run a call of head dim ``D`` (a multiple
+    of 8 up to 128) at, which the wrapper pads it to: the next of 64 and
+    128 in bf16 (the tensor cores), of 32, 64, 96 and 128 in fp32.  Raises
+    ``ValueError`` naming ``D`` otherwise (the reference's kernels stop at
+    128 too)."""
+    if D % 8 or not 8 <= D <= 128:
+        raise ValueError("head_dim %d: the flash kernels take multiples of "
+                         "8 up to 128" % D)
+    widths = _TC_HEAD_DIMS if dtype == torch.bfloat16 else _HEAD_DIMS
+    return next(w for w in widths if w >= D)
+
+
+def _pad_halves(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` [..., D] -> [..., width], each half padded with zeros on its
+    own: ``[x1 | x2]`` -> ``[x1, 0 | x2, 0]``, so that the neox rope still
+    pairs column i with column i + width/2.  Rope tables pad the same way
+    (their padded columns multiply zeros)."""
+    half, pad = t.shape[-1] // 2, (width - t.shape[-1]) // 2
+    return torch.cat([torch.nn.functional.pad(t[..., :half], (0, pad)),
+                      torch.nn.functional.pad(t[..., half:], (0, pad))],
+                     dim=-1)
+
+
+def _unpad_halves(t: torch.Tensor, D: int) -> torch.Tensor:
+    """The inverse of :func:`_pad_halves`: [..., width] -> [..., D]."""
+    half, mid = D // 2, t.shape[-1] // 2
+    return torch.cat([t[..., :half], t[..., mid:mid + half]], dim=-1)
+
+
+def _padded(D: int, dtype, tensors, rope: Rope):
+    """``(width, tensors, rope)``: the call's operands at the kernels'
+    head dim (:func:`kernel_head_dim`), padded per half where it differs
+    from ``D``."""
+    width = kernel_head_dim(D, dtype)
+    if width == D:
+        return width, tensors, rope
+    return (width, [_pad_halves(t, width) for t in tensors],
+            None if rope is None else tuple(_pad_halves(t, width)
+                                            for t in rope))
+
+
 def _on_tensor_cores(q) -> bool:
-    """bf16 at head dims 64 and 128 runs ``flash_attention_sm90.cu``."""
-    return q.dtype == torch.bfloat16 and q.shape[-1] in _TC_HEAD_DIMS
+    """bf16 runs ``flash_attention_sm90.cu``, fp32 ``flash_attention.cu``."""
+    return q.dtype == torch.bfloat16
 
 
 def _check(what: str, q, k, v, rope: Rope, more=()):
@@ -351,9 +403,10 @@ def _check(what: str, q, k, v, rope: Rope, more=()):
         raise ValueError("%s: q %s, k %s, v %s must be [B, S, H, D] with "
                          "equal B, H, D" % (what, tuple(q.shape),
                                             tuple(k.shape), tuple(v.shape)))
-    if D not in _HEAD_DIMS:
-        raise ValueError("%s: no kernel for head_dim %d (kernels: %s)"
-                         % (what, D, _HEAD_DIMS))
+    try:
+        kernel_head_dim(D, q.dtype)
+    except ValueError as e:
+        raise ValueError("%s: %s" % (what, e)) from None
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError("%s: q/k/v must share one dtype of float32/"
@@ -392,12 +445,14 @@ def flash_fwd(q, k, v, causal: bool, rope: Rope = None):
     if q.device.type == "cpu":
         return _flash_fwd_plain(q, k, v, causal, rope)
     _check("flash_fwd", q, k, v, rope)
-    B, Sq, H, D = q.shape
+    D0 = q.shape[-1]
+    c = (1.0 / math.sqrt(D0)) * _LOG2E
+    D, (q, k, v), rope = _padded(D0, q.dtype, (q, k, v), rope)
+    B, Sq, H, _ = q.shape
     Sk = k.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     cos_p, sin_p = _rope_ptrs(rope)
-    c = (1.0 / math.sqrt(D)) * _LOG2E
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if _on_tensor_cores(q):
         fwd, _, _ = _tc_entries()
@@ -414,21 +469,34 @@ def flash_fwd(q, k, v, causal: bool, rope: Rope = None):
                    _DTYPE_CODE[q.dtype], stream)
     _build.check(code, "flash_fwd")
     flash_fwd.launches += 1
-    return out, lse
+    return (_unpad_halves(out, D0) if D != D0 else out), lse
 
 
 def _flash_bwd(what, fused, q, k, v, out, lse, g, causal, rope):
-    B, Sq, H, D = q.shape
-    Sk = k.shape[1]
+    B, Sq, H, D0 = q.shape
     _check(what, q, k, v, rope, more=[("out", out), ("g", g), ("lse", lse)])
     if out.shape != q.shape or g.shape != q.shape or out.dtype != q.dtype \
             or g.dtype != q.dtype:
         raise ValueError("%s: out/g must match q's shape and dtype" % what)
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32:
         raise ValueError("%s: lse must be [B, H, Sq] float32" % what)
+    c, scale = (1.0 / math.sqrt(D0)) * _LOG2E, 1.0 / math.sqrt(D0)
+    D, (q, k, v, out, g), rope = _padded(D0, q.dtype, (q, k, v, out, g),
+                                         rope)
+    grads = _flash_bwd_launch(fused, q, k, v, out, lse, g, causal, rope, c,
+                              scale, what)
+    if D == D0:
+        return grads
+    return tuple(_unpad_halves(t, D0) for t in grads)
+
+
+def _flash_bwd_launch(fused, q, k, v, out, lse, g, causal, rope, c, scale,
+                      what):
+    """Launch a backward form on checked operands at a kernel head dim."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     cos_p, sin_p = _rope_ptrs(rope)
-    c, scale = (1.0 / math.sqrt(D)) * _LOG2E, 1.0 / math.sqrt(D)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tc = _on_tensor_cores(q)
     dq_acc = dq_turn = None

@@ -20,10 +20,15 @@ Kernels (CUDA C++, built by ``_build.py``):
   its CUDA-core kernel;
 - ``csrc/paged_decode_attention.cu`` replaces ``_paged_decode_kernel``
   (launched by ``_paged_attention_pallas``): the split engine's decode
-  attention, one query per slot, for the same pool types.
+  attention, one query per slot, for the same pool types; each slot's
+  pages stream through shared memory by ``cp.async`` and may split over
+  several blocks (:func:`decode_splits`), merged in split order.
 
-Each source note gives its design: the pools are read in place, in their
-own dtype, and only the used pages of each sequence are read.  The int8
+Both take every head dim that is a multiple of 8 up to 128
+(:func:`kernel_head_dim`): they are built at 32, 64, 96 and 128 and read
+the pools' rows at their real width.  Each source note gives its design:
+the pools are read in place, in their own dtype, and only the used pages
+of each sequence are read.  The int8
 variants compute what the Pallas int8 path computes: each q row and each
 probability row (per page) quantized per row, both products on the codes
 with exact integer sums, the scales folded in afterwards.
@@ -48,7 +53,7 @@ from ..quantization.functional import (dequantize_symmetric,
 from .online_softmax import online_softmax_update
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 96, 128)
+_KERNEL_WIDTHS = (32, 64, 96, 128)   # the head dims the kernels are built at
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "int8": torch.int8}
 
@@ -485,6 +490,22 @@ def _ragged_attention_int8_plain(q, key_cache, value_cache, key_scale,
     return (out, flips) if flip_bound else out
 
 
+def kernel_head_dim(D: int) -> int:
+    """The width the paged kernels are built at for head dim ``D``
+    (``csrc/common.cuh::paged_width``): the least of 32, 64, 96 and 128
+    that is at least ``D`` and of which ``D`` is a whole number of 32nds,
+    so that a lane's columns lie all below ``D`` or all past it (D 80 is
+    built at 128).  The kernels read the pools' rows at their real width;
+    the columns past it change no score and no output column the wrapper
+    returns (nor, for int8 pools, any absmax or code).  Takes every
+    multiple of 8 up to 128, as the reference's kernels take every D <=
+    128; raises ``ValueError`` naming ``D`` otherwise."""
+    if D % 8 or not 8 <= D <= 128:
+        raise ValueError("head_dim %d: the paged kernels take multiples of 8 "
+                         "up to 128" % D)
+    return next(w for w in _KERNEL_WIDTHS if w >= D and D % (w // 32) == 0)
+
+
 def _check_paged_operands(name, q, key_cache, value_cache, key_scale,
                           value_scale, tables, max_groups: int):
     """Raise ``ValueError`` for what the attention kernels do not take:
@@ -502,9 +523,10 @@ def _check_paged_operands(name, q, key_cache, value_cache, key_scale,
         raise ValueError("%s: q %s vs pools %s / %s"
                          % (name, tuple(q.shape), tuple(key_cache.shape),
                             tuple(value_cache.shape)))
-    if D not in _HEAD_DIMS:
-        raise ValueError("%s: head_dim %d not in %s" % (name, D,
-                                                         _HEAD_DIMS))
+    try:
+        kernel_head_dim(D)
+    except ValueError as e:
+        raise ValueError("%s: %s" % (name, e)) from None
     quantized = key_scale is not None
     pool_ok = (key_cache.dtype == value_cache.dtype
                == (torch.int8 if quantized else q.dtype))
@@ -569,13 +591,15 @@ _DECODE_TARGET_BLOCKS = 264
 
 
 def ragged_tensor_cores(dtype: torch.dtype, quantized: bool,
-                        block_size: int) -> bool:
+                        block_size: int, head_dim: int) -> bool:
     """Whether :func:`ragged_paged_attention` runs the tensor-core kernel
     on the card for q of ``dtype``: bf16 q over bf16 pools, or over int8
     pools whose block size is a multiple of 8 dividing 64 (a page then
-    covers whole 8-key tiles of the s8 products)."""
+    covers whole 8-key tiles of the s8 products) and whose head dim is a
+    multiple of 16 (rows of whole 16-byte pieces)."""
     return dtype == torch.bfloat16 and (
-        not quantized or (block_size % 8 == 0 and 64 % block_size == 0))
+        not quantized or (block_size % 8 == 0 and 64 % block_size == 0
+                          and head_dim % 16 == 0))
 
 
 def ragged_work(q_lens, kv_lens, heads: int, kv_heads: int,
@@ -687,6 +711,7 @@ def ragged_paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
                       "q_offsets": (q_offsets, S), "q_lens": (q_lens, S),
                       "kv_lens": (kv_lens, S)}, 32)
     bs, Hkv = key_cache.shape[1], key_cache.shape[2]
+    Dk = kernel_head_dim(D)
     span_q = int(span_q) if span_q else T
     if S == 0 or span_q <= 0:
         raise ValueError("ragged_paged_attention: needs S > 0 spans and "
@@ -694,11 +719,15 @@ def ragged_paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
     if quantized and bs > 64:
         raise ValueError("ragged_paged_attention: the int8 kernel takes "
                          "block sizes up to 64; got %d" % bs)
+    if Dk != D:
+        # the kernels are built at Dk: q and the output padded with zero
+        # columns (the pools are read at their own width D)
+        q = torch.nn.functional.pad(q, (0, Dk - D))
     out = torch.zeros_like(q)
     c_qk, c_pv = _int8_folds(float(scale)) if quantized else (0.0, 0.0)
     partials = counters = None
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if ragged_tensor_cores(q.dtype, quantized, bs):
+    if ragged_tensor_cores(q.dtype, quantized, bs, D):
         if work is None:
             raise ValueError("ragged_paged_attention: the tensor-core "
                              "kernel needs work=ragged_work(q_lens, "
@@ -708,11 +737,12 @@ def ragged_paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
             raise ValueError("ragged_paged_attention: work must be a "
                              "contiguous 1-D int32 tensor on %s" % q.device)
         if work.numel() == 0:
-            return out
+            return out[..., :D].contiguous() if Dk != D else out
         # split decode items' partial softmax states, [item, Hkv, groups,
-        # D + 2] fp32, and their arrival counters [item, Hkv]
+        # Dk + 2] fp32, and their arrival counters [item, Hkv]
         partials, counters = _split_scratch(
-            q.device, stream, work.numel() * H * (D + 2), work.numel() * Hkv)
+            q.device, stream, work.numel() * H * (Dk + 2),
+            work.numel() * Hkv)
     else:
         work = None
     fn = _ragged_entry()
@@ -733,7 +763,7 @@ def ragged_paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
         ragged_paged_attention.int8_launches += 1
     else:
         ragged_paged_attention.launches += 1
-    return out
+    return out[..., :D].contiguous() if Dk != D else out
 
 
 ragged_paged_attention.launches = 0
@@ -768,13 +798,32 @@ def _decode_entry():
     fn = _build.load("paged_decode_attention").ptt_paged_decode_attention
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P] * 8 + [I] * 8 + [F, F, F, I, I, P]
+        fn.argtypes = [P] * 10 + [I] * 8 + [F, I, I, P]
         fn.restype = ctypes.c_int
     return fn
 
 
-DECODE_MAX_GROUPS = 8
-DECODE_MAX_BLOCK = 32
+DECODE_MAX_BLOCK = 128
+DECODE_HEAD_TILE = 8         # query heads of a group one block takes
+_SMS = 132                   # the H100's SMs
+
+
+def decode_splits(slots: int, kv_heads: int, groups: int, width: int):
+    """``(n_split, run)``: the decode kernel cuts each slot's block-table
+    width ``width`` into ``n_split`` runs of ``run`` pages, one block
+    each.  Chosen from the shapes alone (the host never reads the
+    lengths): no split while the (slot, kv head, head tile) blocks cover
+    the card's 132 SMs; otherwise as many splits as keep the blocks
+    within one wave of ~264 (two an SM: a split block costs a few
+    microseconds of start and merge, and a second wave costs more), each
+    run at least 8 pages, at most 64 runs."""
+    blocks = slots * kv_heads * -(-groups // DECODE_HEAD_TILE)
+    n = 1
+    if blocks < _SMS:
+        n = max(1, min(_DECODE_MAX_SPLITS, _DECODE_TARGET_BLOCKS // blocks,
+                       width // _DECODE_MIN_SPLIT_PAGES))
+    run = -(-width // n)
+    return -(-width // run), run
 
 
 def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
@@ -788,9 +837,12 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
     Returns [B, H, D] in q's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise (it takes query-head groups of 1, 2, 4 or 8 and block sizes up
-    to 32).  ``.launches`` counts the fp32/bf16-pool kernel,
-    ``.int8_launches`` the int8 one."""
+    raise (it takes any query-head group, head dims that are multiples of
+    8 up to 128 and block sizes up to 128).  Each slot's pages may be
+    split over several blocks (:func:`decode_splits`), whose states the
+    kernel merges in split order: two calls give the same bits.
+    ``.launches`` counts the fp32/bf16-pool kernel, ``.int8_launches``
+    the int8 one."""
     B, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
@@ -805,27 +857,37 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
     _check_paged_operands(
         "paged_attention", q, key_cache, value_cache, key_scale,
         value_scale, {"block_tables": (block_tables, None),
-                      "seq_lens": (seq_lens, B)}, DECODE_MAX_GROUPS)
+                      "seq_lens": (seq_lens, B)}, H)
     bs, Hkv = key_cache.shape[1], key_cache.shape[2]
     W = block_tables.shape[1]
     if block_tables.shape[0] != B or B == 0 or W == 0:
         raise ValueError("paged_attention: block_tables %s for %d slots"
                          % (tuple(block_tables.shape), B))
-    if H // Hkv not in (1, 2, 4, 8) or bs > DECODE_MAX_BLOCK:
-        raise ValueError("paged_attention: query-head groups of 1, 2, 4 or "
-                         "8 and block sizes up to %d; got %d and %d"
-                         % (DECODE_MAX_BLOCK, H // Hkv, bs))
+    if bs > DECODE_MAX_BLOCK:
+        raise ValueError("paged_attention: block size %d; the kernel takes "
+                         "block sizes up to %d" % (bs, DECODE_MAX_BLOCK))
+    n_split, run = decode_splits(B, Hkv, H // Hkv, W)
     out = torch.empty_like(q)
-    c_qk, c_pv = _int8_folds(float(scale)) if quantized else (0.0, 0.0)
-    fn = _decode_entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    partials = counters = None
+    if n_split > 1:
+        # the splits' merged states [blocks, split, 8, D + 2] and their
+        # arrival counts, the per-stream scratch #5's split items use
+        n_bh = B * Hkv * -(-(H // Hkv) // DECODE_HEAD_TILE)
+        partials, counters = _split_scratch(
+            q.device, stream,
+            n_bh * n_split * DECODE_HEAD_TILE * (kernel_head_dim(D) + 2),
+            n_bh)
+    fold = _int8_folds(float(scale))[0] if quantized else float(scale)
+    fn = _decode_entry()
     code = fn(q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
               key_scale.data_ptr() if quantized else None,
               value_scale.data_ptr() if quantized else None,
-              block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-              B, W, H, Hkv, D, bs, key_cache.stride(0), key_cache.stride(1),
-              float(scale), c_qk, c_pv, _DTYPE_CODE[q.dtype],
-              int(quantized), stream)
+              block_tables.data_ptr(), seq_lens.data_ptr(),
+              None if partials is None else partials.data_ptr(),
+              None if counters is None else counters.data_ptr(),
+              out.data_ptr(), B, W, H, Hkv, D, bs, n_split, run, fold,
+              _DTYPE_CODE[q.dtype], int(quantized), stream)
     _build.check(code, "paged_attention")
     if quantized:
         paged_attention.int8_launches += 1

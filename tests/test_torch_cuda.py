@@ -100,9 +100,16 @@ def _work(args, H, Hkv, bs):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    args = _pack([(2, 9)], 0, 4, 4, 2, 48, 4, torch.float32, cuda)
-    with pytest.raises(ValueError, match="head_dim"):
-        pa.ragged_paged_attention(*args, span_q=2)
+    for D in (44, 136):     # not a multiple of 8; past 128
+        args = _pack([(2, 9)], 0, 4, 4, 2, D, 4, torch.float32, cuda)
+        with pytest.raises(ValueError, match="head_dim %d" % D):
+            pa.ragged_paged_attention(*args, span_q=2)
+        with pytest.raises(ValueError, match="head_dim %d" % D):
+            pa.paged_attention(args[0], args[1], args[2], args[3], args[6])
+    q, kc, vc, bt, _, _, sl = _pack([(1, 300)], 0, 1, 4, 2, 32, 136,
+                                    torch.float32, cuda)
+    with pytest.raises(ValueError, match="block size 136"):
+        pa.paged_attention(q, kc, vc, bt, sl)
     q, kc, vc, bt, qo, ql, kl = _pack([(2, 9)], 0, 4, 4, 2, 32, 4,
                                       torch.float32, cuda)
     with pytest.raises(ValueError, match="dtype"):
@@ -141,16 +148,21 @@ def test_tiny_engine_on_card_matches_eager(cuda):
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (8, 2), (16, 2)],
-                         ids=["mha", "g2", "g4", "g8"])
-@pytest.mark.parametrize("D,bs", [(32, 4), (64, 5), (128, 16), (64, 32)])
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (6, 2), (8, 2), (28, 4),
+                                   (16, 2)],
+                         ids=["mha", "g2", "g3", "g4", "g7", "g8"])
+@pytest.mark.parametrize("D,bs", [(32, 4), (64, 5), (128, 16), (64, 32),
+                                  (64, 64), (64, 128), (80, 16),
+                                  (112, 16)])
 def test_paged_decode_kernel_matches_plain(cuda, quantized, dtype, heads, D,
                                            bs):
-    """Slots of many lengths (one past a page edge, one of a single key),
-    NaN pages (or NaN scales) behind every unused table entry, and two
-    masked slots (seq_len 1 over an all-sink row)."""
+    """Slots of many lengths (one past a page edge, one of a single key,
+    and at block sizes from 16 one at kv 4096), NaN pages (or NaN scales)
+    behind every unused table entry, and two masked slots (seq_len 1 over
+    an all-sink row); any group count, block sizes up to 128 and head
+    dims 80 and 112 (pools read at their width)."""
     H, Hkv = heads
-    lens = [7, 33, 1, 16, 70, 5]
+    lens = [7, 33, 1, 16, 70, 5] + ([4096] if bs >= 16 else [])
     gen = torch.Generator(cuda).manual_seed(1)
     q, kc, vc, bt, _, _, sl = _ragged_case(
         [(1, s) for s in lens], len(lens) + 2, H, Hkv, D, bs, dtype, gen,
@@ -351,6 +363,72 @@ def test_paged_decode_kernel_matches_plain_at_head_dim_96(cuda, quantized,
         assert (got.float() - want.float()).abs().le(tol).all()
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("heads", [(32, 8), (8, 1), (28, 4)],
+                         ids=["gqa32x8", "mqa8", "g7"])
+def test_paged_decode_split_path_is_bitwise_deterministic(cuda, quantized,
+                                                          heads):
+    """Shapes too small to fill the card split each slot's pages over
+    several blocks (``decode_splits``); the last block to arrive merges
+    the splits in split order, so two calls give the same bits, and the
+    result holds against the plain version."""
+    H, Hkv = heads
+    lens = [1024, 700, 1, 513]
+    assert pa.decode_splits(len(lens), Hkv, H // Hkv, 64)[0] > 1
+    gen = torch.Generator(cuda).manual_seed(3)
+    q, kc, vc, bt, _, _, sl = _ragged_case(
+        [(1, s) for s in lens], len(lens), H, Hkv, 128, 16, torch.bfloat16,
+        gen, poison=True)
+    scales = {}
+    if quantized:
+        kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
+        scales = dict(key_scale=ks, value_scale=vs)
+    outs = [pa.paged_attention(q, kc, vc, bt, sl, **scales)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    want = pa._paged_attention_plain(q, kc, vc, bt, sl, 1.0 / np.sqrt(128),
+                                     flip_bound=quantized, **scales)
+    if quantized:
+        want, flips = want
+        tol = int8_tolerance(want, flips, vmax)
+    else:
+        tol = ragged_tolerance(want)
+    assert (outs[0].float() - want.float()).abs().le(tol).all()
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [80, 112, 88])
+def test_ragged_kernels_match_plain_at_padded_head_dims(cuda, quantized,
+                                                        dtype, D):
+    """#5 at head dims without a kernel of their own: q and the output
+    padded to the next width, the pools read at their own (the tensor-core
+    kernel for bf16 q; int8 pools at D 88 take the CUDA-core kernel)."""
+    spans = [(1, 7), (70, 90), (3, 3), (1, 1), (9, 41), (2, 11)]
+    T = sum(ql for ql, _ in spans) + 5
+    q, kc, vc, bt, qo, ql, kl = _pack(spans, 2, T, 6, 2, D, 16, dtype,
+                                      cuda)
+    scales = {}
+    if quantized:
+        kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
+        scales = dict(key_scale=ks, value_scale=vs)
+    args = (q, kc, vc, bt, qo, ql, kl)
+    got = pa.ragged_paged_attention(*args, span_q=70,
+                                    work=_work(args, 6, 2, 16), **scales)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    if quantized:
+        want, flips = pa._ragged_attention_int8_plain(
+            q, kc, vc, ks, vs, bt, qo, ql, kl, 1.0 / np.sqrt(D),
+            flip_bound=True)
+        tol = int8_tolerance(want, flips, vmax)
+    else:
+        want = pa._ragged_attention_plain(*args, 1.0 / np.sqrt(D))
+        tol = ragged_tolerance(want)
+    assert (got.float() - want.float()).abs().le(tol).all()
+
+
 def _tiny_engine_tokens(model, dev, **kw):
     rng = np.random.RandomState(0)
     prompts = [rng.randint(1, 256, (n,)) for n in (3, 17, 40, 9)]
@@ -457,9 +535,21 @@ def test_flash_kernels_match_plain(cuda, dtype, D, shape):
 def test_flash_kernels_match_plain_at_head_dims_32_and_96(cuda, dtype, D,
                                                           shape):
     """Head dims 32 (``llama_tiny_config``'s) and 96 compute on the card,
-    as the reference computes every D <= 128: the CUDA-core kernels of
-    ``csrc/flash_attention.cu`` in both dtypes
-    (:func:`_check_flash_kernels`)."""
+    as the reference computes every D <= 128: fp32 on the CUDA-core
+    kernels of ``csrc/flash_attention.cu``, bf16 padded per half to 64 or
+    128 on the tensor cores (:func:`_check_flash_kernels`)."""
+    _check_flash_kernels(cuda, dtype, D, shape)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [80, 112])
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_kernels_match_plain_at_padded_head_dims(cuda, dtype, D,
+                                                       shape):
+    """Head dims 80 (Phi-2's) and 112 compute on the card: the wrappers
+    pad each half to the next width a kernel takes (bf16: 128, the tensor
+    cores; fp32: 96 or 128) and pass the true scale
+    (:func:`_check_flash_kernels`, against the plain versions at D)."""
     _check_flash_kernels(cuda, dtype, D, shape)
 
 
@@ -606,13 +696,13 @@ def test_repaired_fused_backward_matches_its_form(cuda, rope):
 
 
 def test_bf16_calls_cannot_reach_the_cuda_core_variants(cuda):
-    """At head dims 64 and 128 the CUDA-core library holds no bf16
-    forward and no bf16 backward of either form: its entries refuse them
-    (cudaErrorInvalidValue = 1), so a bf16 call there reaches only the
-    tensor-core kernels.  (bf16 at head dims 32 and 96 runs here.)"""
+    """The CUDA-core library holds no bf16 forward and no bf16 backward
+    of either form at any head dim: its entries refuse them
+    (cudaErrorInvalidValue = 1), so a bf16 call reaches only the
+    tensor-core kernels."""
     fwd, bwd = fa._entries()
     st = torch.cuda.current_stream().cuda_stream
-    for D in (64, 128):
+    for D in (32, 64, 96, 128):
         x = torch.zeros(1, 64, 2, D, device=cuda, dtype=torch.bfloat16)
         lse = torch.zeros(1, 2, 64, device=cuda)
         assert fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), None, None,
@@ -625,9 +715,10 @@ def test_bf16_calls_cannot_reach_the_cuda_core_variants(cuda):
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros(1, 64, 2, 80, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 80"):
-        fa.flash_fwd(x, x, x, True)
+    for D in (84, 136):     # not a multiple of 8; past 128
+        x = torch.zeros(1, 64, 2, D, device=cuda)
+        with pytest.raises(ValueError, match="head_dim %d" % D):
+            fa.flash_fwd(x, x, x, True)
     y = torch.zeros(1, 64, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_fwd(y.half(), y.half(), y.half(), True)

@@ -229,14 +229,15 @@ def test_ragged_work_list(heads):
 @pytest.mark.parametrize("bs", [4, 5, 8, 16, 32, 64])
 def test_ragged_tensor_core_routing(bs):
     """Which ragged kernel a call takes on the card: bf16 q runs the
-    tensor-core kernel over bf16 pools at any block size, over int8 pools
-    at block sizes that are multiples of 8 dividing 64; fp32 q the
-    CUDA-core kernel."""
-    assert pa.ragged_tensor_cores(torch.bfloat16, False, bs)
-    assert pa.ragged_tensor_cores(torch.bfloat16, True, bs) == (
-        bs in (8, 16, 32, 64))
-    assert not pa.ragged_tensor_cores(torch.float32, False, bs)
-    assert not pa.ragged_tensor_cores(torch.float32, True, bs)
+    tensor-core kernel over bf16 pools at any block size and head dim,
+    over int8 pools at block sizes that are multiples of 8 dividing 64 and
+    head dims that are multiples of 16; fp32 q the CUDA-core kernel."""
+    for D in (128, 80, 40):
+        assert pa.ragged_tensor_cores(torch.bfloat16, False, bs, D)
+        assert pa.ragged_tensor_cores(torch.bfloat16, True, bs, D) == (
+            bs in (8, 16, 32, 64) and D % 16 == 0)
+        assert not pa.ragged_tensor_cores(torch.float32, False, bs, D)
+        assert not pa.ragged_tensor_cores(torch.float32, True, bs, D)
 
 
 def test_write_ragged_kv_matches_reference_scatter():
