@@ -20,7 +20,12 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    and 16 and head dims 64, 80 and 112), paged decode attention (fp32/
    bf16 and int8, head dims 32 to 128 with 80 and 112, GQA 32/8 and
    28/4, block sizes 5 to 128, 8 slots at kv 1024 and 4096, 32 at 2048;
-   two calls bitwise equal), the RoPE + QKV epilogue; one JSON line per
+   two calls bitwise equal), #5 at the speculative verify shape (8 spans
+   of 3 tokens at kv 1024), each source's generic kernel at the shapes
+   the fast kernels do not take (``GENERIC_RAGGED``, ``GENERIC_DECODE``:
+   head dims 100 and 256 at GQA and MQA, 64 query heads over one kv
+   head, #5's int8 pools at block size 128, #7 at block size 256; bf16
+   and int8 pools), the RoPE + QKV epilogue; one JSON line per
    kernel and shape with
    the error, its tolerance, the kernel's and the plain version's times
    (CUDA events), the roofline bound and the library time (null: no
@@ -59,7 +64,17 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    spread of the runs and of their steps' host seconds.  The mixed and
    split runs (and the split run over int8 pools) are profiled once more
    under ``torch.profiler`` (device activity): device time by kernel
-   kind and the device's idle share.
+   kind and the device's idle share.  Then the sampling and speculative
+   engines on the same model and traffic (:func:`serve_sampled_and_spec`:
+   the mixed and split engines with ``sampling=True``, the mixed engine
+   with an 8-layer truncated draft and ``spec_k`` 2, greedy and sampled;
+   sampled requests at temperature 0.8, top-k 50, top-p 0.95, seed 1 + i,
+   every fourth greedy): exact launches of the target and the draft,
+   pools whole, each sampled engine's replay of the traffic identical;
+   the draft tokens proposed and accepted reported.  Last, the generic
+   kernels' serving path (:func:`serve_head_dim_256`): a 2-layer model at
+   head dim 256 through both engines and both pool types, with the
+   generic kernels' launches exact.
 4. Serving parity at full width and reduced depth: the same model with 2
    layers in fp32 and the same traffic; the mixed and split engines must
    match the eager ``generate`` (which runs no kernel) and each other at a
@@ -67,12 +82,18 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    first divergence, and each engine over int8 pools must match itself
    run through the plain int8 versions on the card at 0.98.  Its match
    against its fp32-pool run is reported (see :func:`phase_parity_2l`).
+   The greedy speculative engine (a 1-layer draft) must match the greedy
+   mixed engine, and it and the sampled mixed engine must each match
+   themselves run through the plain versions, at 0.98; a damped pair
+   (the target's second layer's ``o_proj`` and ``down_proj`` scaled by
+   0.1) must accept a full chain of ``spec_k`` drafts at least once.
    Then the first step's
    logits against the eager forward by depth and dtype: fp32 at all 32
    layers (held to 1e-3) and bf16 at 2 layers.
 5. The three flash kernels (forward, one-pass backward, two-kernel
    backward) against their plain versions over fp32/bf16, head dims 32,
-   64, 96 and 128 (80 and 112 padded per half by the wrappers), causal
+   64, 96 and 128 (36, 80, 100 and 112 padded per half by the wrappers),
+   causal
    or not, rope on and off, rectangular shapes,
    rows that see nothing and sequences of 1 and 65 tokens
    (``FLASH_CASES``), each within :func:`flash_tolerance` against the
@@ -406,14 +427,21 @@ def _int8_plain_faults(attend_fp, q, kc, vc, ks, vs):
 
 
 def check_ragged(case, spans, T, H, Hkv, D, bs, dtype_name, gen,
-                 span_q, poison=False, n_pad_spans=0, quantized=False):
+                 span_q, poison=False, n_pad_spans=0, quantized=False,
+                 generic=False):
     """The ragged kernel against its plain version on one pack (int8
     pools when ``quantized``, with the planted faults the tolerance must
-    reject); one JSON line with the error, tolerance, times and bound."""
+    reject); one JSON line with the error, tolerance, times and bound.
+    ``generic``: the shape must route to the generic kernel (and it is
+    named so in the line)."""
     import torch
     from paddle_tpu_torch.ops.paged_attention import (
         _ragged_attention_int8_plain, _ragged_attention_plain,
         ragged_paged_attention, ragged_work)
+    from paddle_tpu_torch.ops.paged_attention import ragged_generic
+    if ragged_generic(D, H // Hkv, quantized, bs) != generic:
+        raise AssertionError("ragged %s: the generic route is %s, want %s"
+                             % (case, not generic, generic))
     dtype = getattr(torch, dtype_name)
     q, kc, vc, bt, q_off, q_len, kv_len = _ragged_case(
         spans, T, H, Hkv, D, bs, dtype, gen, poison, n_pad_spans)
@@ -459,7 +487,8 @@ def check_ragged(case, spans, T, H, Hkv, D, bs, dtype_name, gen,
         tol = ragged_tolerance(want)
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
-    name = "ragged_paged_attention" + ("_int8" if quantized else "")
+    name = ("ragged_paged_attention" + ("_generic" if generic else "")
+            + ("_int8" if quantized else ""))
     if not (diff <= tol).all() or not torch.isfinite(got).all():
         raise AssertionError("%s %s %s: max_abs_err %g over tol (or "
                              "non-finite output)" % (name, case, dtype_name,
@@ -490,7 +519,7 @@ def _err_over_tol(diff, tol) -> float:
 
 
 def check_paged(case, seq_lens, n_masked, H, Hkv, D, bs, dtype_name, gen,
-                quantized=False):
+                quantized=False, generic=False):
     """The decode kernel against its plain version: one query per slot at
     ``seq_lens`` (distinct pages, every unused table entry aimed at a NaN
     page, or at NaN scales for int8), plus ``n_masked`` slots as the
@@ -498,11 +527,16 @@ def check_paged(case, seq_lens, n_masked, H, Hkv, D, bs, dtype_name, gen,
     the planted faults the tolerance must reject.  A second call must
     give the same bits (the kernel merges split states in split order).
     The plain version (host loops for int8 pools, up to seconds a call at
-    the widest shape) is timed over one call."""
+    the widest shape) is timed over one call.  ``generic``: the shape must
+    route to the generic kernel (named so in the line)."""
     import torch
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.ops.paged_attention import (_paged_attention_plain,
                                                       paged_attention)
+    if (hasattr(pa, "decode_generic")
+            and pa.decode_generic(D, bs) != generic):
+        raise AssertionError("paged %s: the generic route is %s, want %s"
+                             % (case, not generic, generic))
     dtype = getattr(torch, dtype_name)
     B = len(seq_lens) + n_masked
     q, kc, vc, bt, _, _, sl = _ragged_case(
@@ -544,7 +578,8 @@ def check_paged(case, seq_lens, n_masked, H, Hkv, D, bs, dtype_name, gen,
         tol = ragged_tolerance(want)
     diff = (got.float() - want.float()).abs()
     err = diff.max().item()
-    name = "paged_attention" + ("_int8" if quantized else "")
+    name = ("paged_attention" + ("_generic" if generic else "")
+            + ("_int8" if quantized else ""))
     if not (diff <= tol).all() or not torch.isfinite(got).all():
         raise AssertionError("%s %s %s: max_abs_err %g over tol (or "
                              "non-finite output)" % (name, case, dtype_name,
@@ -563,7 +598,8 @@ def check_paged(case, seq_lens, n_masked, H, Hkv, D, bs, dtype_name, gen,
                err_over_tol=_err_over_tol(diff, tol), bitwise_repeat=True,
                # (a tree from before the split design, timed by
                # timing_of, runs one block a slot)
-               splits=(pa.decode_splits(B, Hkv, H // Hkv, W)[0]
+               splits=(1 if generic else
+                       pa.decode_splits(B, Hkv, H // Hkv, W)[0]
                        if hasattr(pa, "decode_splits") else 1),
                kernel_ms=time_ms(kernel, 20),
                plain_ms=time_ms(plain, 1, warmup=1), bound_ms=b_ms,
@@ -764,6 +800,26 @@ def decode_at_scale(gen, quantized):
                         quantized) for case, lens in DECODE_SCALE_CASES]
 
 
+# the shapes the fast paged kernels do not take, computed by each source's
+# generic kernel: (case, H, Hkv, D, bs, pools) at the served traffic (#5:
+# 8 decode spans at kv 1024 + a 256-token chunk; #7: 8 slots at kv 1024).
+# "both" runs bf16 and int8 pools, "int8" only int8 (bf16 pools of block
+# size 128 take the tensor-core kernel).
+GENERIC_RAGGED = (("d100_gqa8x2", 8, 2, 100, 16, "both"),
+                  ("d256_gqa8x8", 8, 8, 256, 16, "both"),
+                  ("d256_mqa8x1", 8, 1, 256, 16, "both"),
+                  ("g64_64x1", 64, 1, 128, 16, "both"),
+                  ("int8_bs128", 32, 32, 128, 128, "int8"))
+GENERIC_DECODE = (("d100_gqa8x2", 8, 2, 100, 16),
+                  ("d256_gqa8x8", 8, 8, 256, 16),
+                  ("d256_mqa8x1", 8, 1, 256, 16),
+                  ("bs256", 32, 32, 128, 256))
+GENERIC_MAIN = "d100_gqa8x2"
+# the speculative verify step's ragged shape: 8 spans of spec_k + 1 = 3
+# tokens at kv 1024, padded to the budget 32 (8 slots x 3 -> 32)
+VERIFY_CASE = "7b_verify_8x3@1024"
+
+
 def phase_kernels():
     import torch
     gen = torch.Generator("cuda").manual_seed(SEED)
@@ -773,7 +829,9 @@ def phase_kernels():
     # the engine pads the token axis to its budget: 8 for an all-decode
     # step, 512 for 8 decodes + a 256-token chunk; span_q = min(chunk, T)
     rows = {"ragged": [], "rope": [], "ragged_int8": [], "decode": [],
-            "decode_int8": []}
+            "decode_int8": [], "ragged_generic": [],
+            "ragged_generic_int8": [], "decode_generic": [],
+            "decode_generic_int8": []}
     # odd small shapes: groups of 3, chunks starting mid-page, a
     # prefix-offset span, padding spans, and every unused table entry aimed
     # at a NaN page (the clamp must never read it); at block size 5 (the
@@ -846,6 +904,27 @@ def phase_kernels():
                 rows[key].append(check_paged(
                     "odd_poisoned_masked_D%d" % Dx, odd_lens, 3, heads[0],
                     heads[1], Dx, 5, dt, gen, quantized))
+    # the speculative verify step: 8 spans of 3 tokens (spec_k + 1) at kv
+    # 1024, the span window 3 (chunk tiles of the tensor-core kernel)
+    for quantized in (False, True):
+        key = "ragged_int8" if quantized else "ragged"
+        rows[key].append(check_ragged(
+            VERIFY_CASE, [(3, 1024)] * 8, 32, H, H, D, bs, "bfloat16", gen,
+            span_q=3, quantized=quantized))
+    # the generic kernels (shapes the fast ones do not take), bf16 q
+    for case, Hx, Hkvx, Dx, bsx, pools in GENERIC_RAGGED:
+        for quantized in ((True,) if pools == "int8" else (False, True)):
+            key = "ragged_generic" + ("_int8" if quantized else "")
+            rows[key].append(check_ragged(
+                case + "_mixed_8x1024+256", mixed, 512, Hx, Hkvx, Dx, bsx,
+                "bfloat16", gen, span_q=chunk, quantized=quantized,
+                generic=True))
+    for case, Hx, Hkvx, Dx, bsx in GENERIC_DECODE:
+        for quantized in (False, True):
+            key = "decode_generic" + ("_int8" if quantized else "")
+            rows[key].append(check_paged(
+                case + "_decode_8x1024", [1024] * 8, 0, Hx, Hkvx, Dx, bsx,
+                "bfloat16", gen, quantized, generic=True))
     for N in (8, 512):
         for amax in (False, True):
             rows["rope"].append(check_rope(
@@ -903,6 +982,12 @@ FLASH_CASES = (
     ("d80_rope", 2, 300, 300, 4, 80, "bfloat16", True, True, ALL_FLASH),
     ("d80_rope_fp32", 2, 300, 300, 4, 80, "float32", True, True, ALL_FLASH),
     ("d112_dead_rows", 1, 200, 100, 4, 112, "bfloat16", False, True,
+     ALL_FLASH),
+    ("d36_rope", 2, 300, 300, 4, 36, "bfloat16", True, True, ALL_FLASH),
+    ("d36_rope_fp32", 2, 300, 300, 4, 36, "float32", True, True, ALL_FLASH),
+    ("d100_dead_rows", 1, 200, 100, 4, 100, "bfloat16", False, True,
+     ALL_FLASH),
+    ("d100_full_rope_fp32", 1, 130, 130, 4, 100, "float32", True, False,
      ALL_FLASH),
     ("long_16k", 1, 16384, 16384, 32, 128, "bfloat16", True, True,
      ("flash_fwd", "flash_bwd_two_kernel")),
@@ -1181,6 +1266,16 @@ SERVING_COUNTERS = {
     "paged_attention": ("paged_attention", "paged_attention", "launches"),
     "paged_attention_int8": ("paged_attention", "paged_attention",
                              "int8_launches"),
+    "ragged_paged_attention_generic": ("paged_attention",
+                                       "ragged_paged_attention",
+                                       "generic_launches"),
+    "ragged_paged_attention_generic_int8": ("paged_attention",
+                                            "ragged_paged_attention",
+                                            "generic_int8_launches"),
+    "paged_attention_generic": ("paged_attention", "paged_attention",
+                                "generic_launches"),
+    "paged_attention_generic_int8": ("paged_attention", "paged_attention",
+                                     "generic_int8_launches"),
     "rope_qkv_epilogue": ("kernels", "rope_qkv_epilogue", "launches"),
     "rope_qkv_epilogue_amax": ("kernels", "rope_qkv_epilogue",
                                "amax_launches"),
@@ -1209,14 +1304,30 @@ def _launches():
 
 
 class _Calls:
-    """Counts the calls the engine makes to one of its steps."""
+    """Counts the calls the engine makes to one of its steps (``__call__``
+    or ``call_packed``).  For a speculative verifier it also counts the
+    spans that drafted the full ``spec_k`` tokens and those that accepted
+    them all (the bonus-token path)."""
 
     def __init__(self, step):
         self.step, self.n = step, 0
+        self.full_drafts = self.full_accepts = 0
 
     def __call__(self, *args):
         self.n += 1
         return self.step(*args)
+
+    def call_packed(self, pack, T, **kw):
+        self.n += 1
+        out = self.step.call_packed(pack, T, **kw)
+        K = getattr(self.step, "spec_k", 0)
+        if K:
+            S, W = self.step.max_spans, self.step.bt_width
+            n_draft = pack[4 * T:].reshape(S, -1)[:, W + 4]
+            full = n_draft == K
+            self.full_drafts += int(full.sum())
+            self.full_accepts += int((full & (out[1] == K)).sum())
+        return out
 
     def __getattr__(self, name):
         return getattr(self.step, name)
@@ -1240,20 +1351,43 @@ def _spread(xs):
                 sum=float(a.sum()), n=int(a.size))
 
 
-def serve(model, prompts, engine_kw=None):
+# the sampled requests' knobs; every fourth request stays greedy, so both
+# branches of the sampling epilogue share a step
+SAMPLED_KNOBS = dict(temperature=0.8, top_k=50, top_p=0.95)
+DRAFT_LAYERS = 8          # of Llama-2-7B's 32 (the reference's 5 of 20)
+SPEC_K = 2                # the reference engine's default
+
+
+def request_knobs(i: int, sampled: bool):
+    """Request ``i``'s sampling knobs: seed 1 + i, greedy when ``i % 4 ==
+    3`` or the run is not sampled."""
+    if not sampled or i % 4 == 3:
+        return {}
+    return dict(SAMPLED_KNOBS, seed=1 + i)
+
+
+def serve(model, prompts, engine_kw=None, draft=None, sampled=False):
     """Admit 4, step, admit 4, run to completion on an engine built with
-    ``engine_kw`` (default: the mixed engine).  Returns the engine, the
-    tokens per request and the run's statistics: the launch counts (reset
-    just before), engine steps (and the spread of their host seconds:
-    ``eng.step()`` returns once the step is queued, or once it has read
-    its tokens back), and for the split engine its decode steps and
-    prefill chunks."""
+    ``engine_kw`` (default: the mixed engine) and ``draft`` as its draft
+    model; ``sampled``: the requests carry :func:`request_knobs`.
+    Returns the engine, the tokens per request and the run's statistics:
+    the launch counts (reset just before), engine steps (and the spread of
+    their host seconds: ``eng.step()`` returns once the step is queued, or
+    once it has read its tokens back), the split engine's decode steps and
+    prefill chunks, the mixed engine's target launches and the draft's
+    launches, and for a speculative engine the draft tokens proposed and
+    accepted."""
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
-    eng = ContinuousBatchingEngine(model, **(engine_kw or ENGINE_KW))
+    eng = ContinuousBatchingEngine(model, draft_model=draft,
+                                   **(engine_kw or ENGINE_KW))
     eng.decode_step = _Calls(eng.decode_step)
     if eng.prefill_step is not None:
         eng.prefill_step = _Calls(eng.prefill_step)
+    if eng.mixed is not None:
+        eng.mixed = _Calls(eng.mixed)
+    if eng.draft_step is not None:
+        eng.draft_step = _Calls(eng.draft_step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
@@ -1264,9 +1398,11 @@ def serve(model, prompts, engine_kw=None):
         eng.step()
         step_s.append(time.perf_counter() - t)
     t0 = time.perf_counter()
-    rids = [eng.add_request(p, NEW_TOKENS) for p in prompts[:4]]
+    rids = [eng.add_request(p, NEW_TOKENS, **request_knobs(i, sampled))
+            for i, p in enumerate(prompts[:4])]
     step()
-    rids += [eng.add_request(p, NEW_TOKENS) for p in prompts[4:]]
+    rids += [eng.add_request(p, NEW_TOKENS, **request_knobs(i, sampled))
+             for i, p in enumerate(prompts[4:], 4)]
     while eng.has_work():
         step()
     torch.cuda.synchronize()
@@ -1281,6 +1417,10 @@ def serve(model, prompts, engine_kw=None):
         raise AssertionError("pool not whole after run_to_completion: %d "
                              "free of %d" % (len(cache._free),
                                              cache.num_blocks))
+    # the draft's pools share the target's page ids: their own free lists
+    # are never drawn from
+    if not all(len(c._free) == c.num_blocks for c in eng.draft_caches):
+        raise AssertionError("a draft pool's free list moved")
     V = model.config.vocab_size
     if not all(0 <= t < V for o in outs for t in o):
         raise AssertionError("a served token lies outside the vocabulary")
@@ -1302,7 +1442,25 @@ def serve(model, prompts, engine_kw=None):
                  launches=launches)
     if eng.mixed is not None:
         stats.update(token_budgets=list(eng.token_budgets),
-                     budgets_seen=sorted(eng.mixed.compile_counts))
+                     budgets_seen=sorted(eng.mixed.compile_counts),
+                     mixed_launches=eng.mixed.n)
+    from paddle_tpu_torch.ops.paged_attention import (decode_generic,
+                                                      ragged_generic)
+    cfg = model.config
+    stats.update(generic_ragged=eng.mixed is not None and ragged_generic(
+        eng.head_dim, cfg.num_attention_heads // cfg.num_key_value_heads,
+        cache.quantized, eng.block_size),
+        generic_decode=decode_generic(eng.head_dim, eng.block_size))
+    if eng.draft_step is not None:
+        stats.update(
+            draft_launches=eng.draft_step.n, spec_k=eng.spec_k,
+            draft_layers=eng.draft_model.config.num_hidden_layers,
+            draft_budgets_seen=sorted(eng.draft_step.compile_counts),
+            spec_proposed=eng.spec_proposed,
+            spec_accepted=eng.spec_accepted,
+            acceptance_rate=eng.spec_accepted / max(1, eng.spec_proposed),
+            full_chain_spans=eng.mixed.full_drafts,
+            full_chain_accepts=eng.mixed.full_accepts)
     if eng.prefill_step is not None:
         seen = sorted(eng.prefill_step.compile_counts)
         if len(seen) > len(eng.prefill_buckets):
@@ -1316,16 +1474,37 @@ def serve(model, prompts, engine_kw=None):
 def expected_launches(engine_kw, stats, layers):
     """The launches each serving kernel variant must show after one
     ``serve`` run: every layer of every step goes through its engine's
-    kernels once, and through no other serving kernel."""
+    kernels once, and through no other serving kernel (the generic
+    kernels never: the served shapes have fast ones).  The mixed engine
+    launches its target once a step, and a speculative one its draft
+    ``draft_launches`` times a run, each through the draft's layers (the
+    draft's pools are bf16: no int8 variant)."""
     int8 = engine_kw.get("kv_dtype") == "int8"
     want = dict.fromkeys(SERVING_COUNTERS, 0)
     rope = "rope_qkv_epilogue_amax" if int8 else "rope_qkv_epilogue"
     if engine_kw.get("mixed_step"):
+        if stats["mixed_launches"] != stats["steps"]:
+            raise AssertionError("the mixed engine launched its target %d "
+                                 "times in %d steps"
+                                 % (stats["mixed_launches"], stats["steps"]))
         attn = "ragged_paged_attention" + ("_int8" if int8 else "")
         want[attn] = want[rope] = layers * stats["steps"]
+        drafted = stats.get("draft_layers", 0) * stats.get(
+            "draft_launches", 0)
+        want["ragged_paged_attention"] += drafted
+        want["rope_qkv_epilogue"] += drafted
+        if stats["generic_ragged"]:
+            if drafted:
+                raise AssertionError("no speculative path runs the "
+                                     "generic kernel")
+            want[attn.replace("attention", "attention_generic")] = \
+                want[attn]
     else:
         want["paged_attention" + ("_int8" if int8 else "")] = \
             layers * stats["decode_steps"]
+        if stats["generic_decode"]:
+            want["paged_attention_generic" + ("_int8" if int8 else "")] = \
+                layers * stats["decode_steps"]
         # the dense prefill ropes inside the model's cache path
         want[rope] = layers * (stats["decode_steps"]
                                + stats["prefill_chunks"])
@@ -1460,7 +1639,8 @@ def first_step_logits(eng, model, prompt):
     req.block_ids = [cache.allocate_block()
                      for _ in range(cache.blocks_needed(len(prompt)))]
     pack, B = eng._fill_mixed_pack(eng.mixed, eng.token_budgets,
-                                   [(req, prompt.astype(np.int32), 0)])
+                                   [(req, prompt.astype(np.int32), 0, 0,
+                                     0, False)])
     got = eng.mixed.logits_packed(pack, B)[0]
     cache.free_sequence(req.block_ids)
     ids = torch.from_numpy(prompt)[None].to(model.device)
@@ -1549,8 +1729,113 @@ def phase_serving_7b():
         if name in ("serve_7b", "serve_7b_split", "serve_7b_kv8_split"):
             runs[name]["profile"] = profile_serve(
                 name + "_bf16", model, prompts, stats["wall_s"], kw)
+    runs.update(serve_sampled_and_spec(model, prompts, ref, outs))
     del model
     torch.cuda.empty_cache()
+    runs.update(serve_head_dim_256())
+    return runs
+
+
+# a model whose head dim the fast paged kernels do not take: Gemma-2B's
+# attention widths (hidden 2048, 8 query heads over 1 kv head, head dim
+# 256) in a Llama block at 2 layers, bf16
+D256_CFG = dict(hidden_size=2048, num_attention_heads=8,
+                num_key_value_heads=1, intermediate_size=5632,
+                num_hidden_layers=2, dtype="bfloat16")
+
+
+def serve_head_dim_256():
+    """The generic kernels' serving path: the phase-3 traffic through the
+    mixed and split engines, bf16 and int8 pools, of a 2-layer model at
+    head dim 256 (``D256_CFG``), where #5 and #7 route to their sources'
+    generic kernels.  Launches exact (the generic counts too), pools
+    whole; each engine against its run through the plain versions
+    (reported: bf16 logits tie)."""
+    import torch
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_7b_config)
+    cfg = llama_7b_config(**D256_CFG)
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    prompts = _prompts(cfg.vocab_size)
+    runs = {}
+    for name, kw in (("serve_d256_mixed", ENGINE_KW),
+                     ("serve_d256_split", SPLIT_KW),
+                     ("serve_d256_kv8_mixed", dict(ENGINE_KW,
+                                                   kv_dtype="int8")),
+                     ("serve_d256_kv8_split", dict(SPLIT_KW,
+                                                   kv_dtype="int8"))):
+        _, got, stats = serve(model, prompts, kw)
+        check_launches(name, kw, stats, cfg.num_hidden_layers)
+        if not (stats["generic_ragged"] if kw.get("mixed_step")
+                else stats["generic_decode"]):
+            raise AssertionError("%s: head dim 256 must take the generic "
+                                 "kernel" % name)
+        with swapped_attention():
+            _, plain, _ = serve(model, prompts, kw)
+        stats.update(phase=name + "_bf16", layers=cfg.num_hidden_layers,
+                     head_dim=256, engine={k: v for k, v in kw.items()
+                                           if k not in ENGINE_BASE},
+                     match_rate_vs_plain=_rates(got, plain)[0])
+        emit(stats)
+        runs[name] = stats
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
+def serve_sampled_and_spec(model, prompts, ref, outs):
+    """The sampling and speculative engines on phase 3's model and
+    traffic: the mixed and split engines with ``sampling=True`` (sampled
+    requests at ``SAMPLED_KNOBS`` with seed 1 + i, every fourth greedy),
+    and the mixed engine with an 8-layer truncated draft (``spec_k`` 2),
+    greedy and sampled.  Each run's launches must be exact (the target
+    once per layer per step, the draft once per draft layer per draft
+    launch, the split engine's decode kernel once per layer per decode
+    step), both engines' pools whole, and each sampled engine serves the
+    traffic twice with identical token streams.  Reported: walls,
+    tokens/s, host seconds, the draft tokens proposed and accepted, the
+    split engine's match against the mixed one (sampled), and the greedy
+    spec engine's against the greedy mixed one (random bf16 logits tie,
+    so neither is asserted)."""
+    from paddle_tpu_torch.models.llama import llama_truncated_draft
+    L = model.config.num_hidden_layers
+    draft = llama_truncated_draft(model, DRAFT_LAYERS)
+    runs = {}
+    for name, kw, spec, sampled in (
+            ("serve_7b_sampled", ENGINE_KW, False, True),
+            ("serve_7b_split_sampled", SPLIT_KW, False, True),
+            ("serve_7b_spec", dict(ENGINE_KW, spec_k=SPEC_K), True, False),
+            ("serve_7b_spec_sampled", dict(ENGINE_KW, spec_k=SPEC_K), True,
+             True)):
+        t1 = time.perf_counter()
+        kw = dict(kw, sampling=sampled)
+        dr = draft if spec else None
+        _, outs[name], stats = serve(model, prompts, kw, dr, sampled)
+        check_launches(name, kw, stats, L)
+        if sampled:
+            _, again, replay = serve(model, prompts, kw, dr, sampled)
+            check_launches(name + " replay", kw, replay, L)
+            if again != outs[name]:
+                raise AssertionError("%s: the replayed traffic sampled "
+                                     "other tokens" % name)
+            stats.update(replay_identical=True,
+                         replay_wall_s=replay["wall_s"],
+                         replay_tokens_per_s=replay["tokens_per_s"])
+        stats.update(phase=name + "_bf16", layers=L,
+                     engine={k: v for k, v in kw.items()
+                             if k not in ENGINE_BASE},
+                     phase_wall_s=time.perf_counter() - t1)
+        if not sampled:
+            stats["eager_match_rate"] = _rates(outs[name], ref)[0]
+            stats["match_rate_vs_mixed_engine"] = _rates(
+                outs[name], outs["serve_7b"])[0]
+        if name == "serve_7b_split_sampled":
+            stats["match_rate_vs_mixed_sampled"] = _rates(
+                outs[name], outs["serve_7b_sampled"])[0]
+        emit(stats)
+        runs[name] = stats
+    del draft
     return runs
 
 
@@ -1638,11 +1923,46 @@ def phase_parity_2l():
     for a, b in (("split", "mixed"), ("kv8_mixed", "kv8_mixed_plain"),
                  ("kv8_split", "kv8_split_plain")):
         gates["%s_vs_%s" % (a, b)] = _rates(outs[a], outs[b])[0]
+    # the sampled mixed engine and the speculative engines (a 1-layer
+    # draft), each against itself through the plain versions; greedy
+    # speculation against the greedy mixed engine
+    from paddle_tpu_torch.models.llama import llama_truncated_draft
+    draft = llama_truncated_draft(model, 1)
+    spec_kw = dict(ENGINE_KW, spec_k=SPEC_K)
+    for name, kw, dr, sampled in (
+            ("mixed_sampled", dict(ENGINE_KW, sampling=True), None, True),
+            ("spec", spec_kw, draft, False),
+            ("spec_sampled", dict(spec_kw, sampling=True), draft, True)):
+        for swap in (False, True):
+            key = name + ("_plain" if swap else "")
+            t0 = time.perf_counter()
+            if swap:
+                with swapped_attention():
+                    _, outs[key], stats = serve(model, prompts, kw, dr,
+                                                sampled)
+            else:
+                _, outs[key], stats = serve(model, prompts, kw, dr, sampled)
+                check_launches("parity " + key, kw, stats,
+                               cfg.num_hidden_layers)
+                row[key + "_launches"] = stats["launches"]
+            if dr is not None:
+                row[key + "_acceptance_rate"] = stats["acceptance_rate"]
+            row[key + "_wall_s"] = time.perf_counter() - t0
+    for a, b in (("spec", "mixed"), ("spec", "spec_plain"),
+                 ("mixed_sampled", "mixed_sampled_plain")):
+        gates["%s_vs_%s" % (a, b)] = _rates(outs[a], outs[b])[0]
+    row["spec_sampled_vs_spec_sampled_plain"] = _rates(
+        outs["spec_sampled"], outs["spec_sampled_plain"])[0]
     row.update(gates)
     for mode in ("mixed", "split"):
         row["kv8_%s_vs_fp32_%s" % (mode, mode)] = _rates(
             outs["kv8_" + mode], outs[mode])[0]
+    row["damped_pair"] = damped_pair_run(cfg, prompts)
     emit(row)
+    if not row["damped_pair"]["full_chain_accepts"] >= 1:
+        raise AssertionError("damped pair: no span accepted all %d drafts "
+                             "(the bonus-token path never ran): %s"
+                             % (SPEC_K, row["damped_pair"]))
     for gate, rate in gates.items():
         if not rate >= 0.98:
             raise AssertionError("fp32 2-layer %s token match %.4f < 0.98"
@@ -1650,6 +1970,31 @@ def phase_parity_2l():
     del model
     torch.cuda.empty_cache()
     return row
+
+
+def damped_pair_run(cfg, prompts):
+    """``tools/bench_serving.py::build_spec_pair``'s damped pair at these
+    widths: the target's layer 2 ``o_proj`` and ``down_proj`` scaled by
+    0.1, drafted by its 1-layer truncation, so that the draft tracks the
+    target as a trained pair's does; greedy speculation with exact
+    launches.  Returns the acceptance and the spans that drafted and
+    accepted the full ``spec_k`` tokens (the bonus-token path)."""
+    import torch
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_truncated_draft)
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    with torch.no_grad():
+        for layer in list(model.llama.layers)[1:]:
+            for lin in (layer.self_attn.o_proj, layer.mlp.down_proj):
+                lin.weight.mul_(0.1)
+    kw = dict(ENGINE_KW, spec_k=SPEC_K)
+    _, _, stats = serve(model, prompts, kw, llama_truncated_draft(model, 1))
+    check_launches("damped pair", kw, stats, cfg.num_hidden_layers)
+    return {k: stats[k] for k in ("spec_proposed", "spec_accepted",
+                                  "acceptance_rate", "full_chain_spans",
+                                  "full_chain_accepts", "steps",
+                                  "draft_launches", "wall_s")}
 
 
 def phase_logits_by_depth():
@@ -2152,11 +2497,45 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
                      ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                      library_ms=None)
-        if name.startswith("ragged"):   # the all-decode step, beside it
-            d = pick(rs, "7b_decode_8x1024")
+        if name.startswith("ragged"):
+            # the all-decode step and the speculative verify step, beside
+            # it, with the verify step's launches in the spec engines
+            d, v = pick(rs, "7b_decode_8x1024"), pick(rs, VERIFY_CASE)
             entry.update(decode_only_ms=d["kernel_ms"],
-                         decode_only_bound_ms=d["bound_ms"])
+                         decode_only_bound_ms=d["bound_ms"],
+                         verify_ms=v["kernel_ms"],
+                         verify_plain_ms=v["plain_ms"],
+                         verify_bound_ms=v["bound_ms"])
+        entry["launches_by_path"] = {
+            p: r["launches"][name] for p, r in serving.items()
+            if r["launches"].get(name)}
         out.append(entry)
+    # the generic kernels: the head-dim-256 serving path launches them
+    # (the 7B paths assert 0); timed at GENERIC_MAIN
+    for name, rs, case, src, path in (
+            ("ragged_paged_attention_generic", rows["ragged_generic"],
+             GENERIC_MAIN + "_mixed_8x1024+256", RAGGED_SOURCE,
+             "serve_d256_mixed"),
+            ("ragged_paged_attention_generic_int8",
+             rows["ragged_generic_int8"], GENERIC_MAIN + "_mixed_8x1024+256",
+             RAGGED_SOURCE, "serve_d256_kv8_mixed"),
+            ("paged_attention_generic", rows["decode_generic"],
+             GENERIC_MAIN + "_decode_8x1024", DECODE_SOURCE,
+             "serve_d256_split"),
+            ("paged_attention_generic_int8", rows["decode_generic_int8"],
+             GENERIC_MAIN + "_decode_8x1024", DECODE_SOURCE,
+             "serve_d256_kv8_split")):
+        r = pick(rs, case)
+        out.append(dict(
+            name=name, route="cuda", source=src,
+            replaces=RAGGED_REPLACES if src == RAGGED_SOURCE
+            else DECODE_REPLACES,
+            launches=serving[path]["launches"][name], path=path,
+            shape=case, max_abs_err=max(x["max_abs_err"] for x in rs),
+            ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=None,
+            cases={x["case"]: x["kernel_ms"] for x in rs}))
     # the layerwise step launches #4's round-first variant; #4's own
     # rounding point (no path launches it) is timed beside it
     rs = rows["rms_norm"]

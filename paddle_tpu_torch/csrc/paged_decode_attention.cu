@@ -7,7 +7,10 @@
 // D <= 128 that is a multiple of 8 (the kernel is built at a width of 32,
 // 64, 96 or 128, ptt::paged_width, and reads the pools' rows at their
 // real width, zero-filling the columns past it), any number of query
-// heads per kv head, block sizes 1 to 128.
+// heads per kv head, block sizes 1 to 128.  Every other shape (a head
+// dim not a multiple of 8 or over 128, a block size over 128) runs
+// paged_decode_kernel_generic, the generic kernel of paged_generic.cuh,
+// through its own entry.
 //
 // What it computes.  Slot b's query q[b] (H heads, grouped over Hkv kv
 // heads as [Hkv, groups], query head h*groups + j <-> kv head h) attends
@@ -76,6 +79,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "paged_generic.cuh"
 
 namespace {
 
@@ -689,6 +693,22 @@ int dispatch_d(int gmax, const DecodeArgs& a, int n_bh, cudaStream_t st) {
   }
 }
 
+
+// The generic kernel (paged_generic.cuh) over the slots: one warp per
+// query vector (slot b, query head), slot b a one-row span of seq_lens[b]
+// keys.
+template <typename T, typename P, bool Q8>
+__global__ void __launch_bounds__(ptt::kGenWarps * 32)
+    paged_decode_kernel_generic(const ptt::GenericArgs a) {
+  extern __shared__ float gen_smem[];
+  const int warp = threadIdx.x >> 5;
+  const long long v = (long long)blockIdx.x * ptt::kGenWarps + warp;
+  if (v >= (long long)a.T * a.H) return;
+  const int b = (int)(v / a.H), hq = (int)(v % a.H);
+  ptt::generic_attend<T, P, Q8>(a, gen_smem + warp * (2 * a.D + a.bs), b,
+                                hq, b, b, 1, a.kv_len[b]);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out share it; the pools too
@@ -727,4 +747,45 @@ extern "C" int ptt_paged_decode_attention(
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16, false>(gmax, a, n_bh, st);
   return dispatch_d<float, false>(gmax, a, n_bh, st);
+}
+
+// The generic kernel (paged_generic.cuh) for the shapes the kernel above
+// does not take: any head dim D >= 1, any block size, any group count.
+// q and out are [B, H, D] at the pools' own D; the pools contiguous.
+// scale is the softmax scale; c_qk and c_pv the int8 folds
+// (float32(scale / 127^2), float32(1 / 127^2)).  Returns the launch's
+// cudaGetLastError().
+extern "C" int ptt_paged_decode_attention_generic(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* bt,
+    const void* seq_lens, void* out, int B, int W, int H, int Hkv, int D,
+    int bs, float scale, float c_qk, float c_pv, int dtype, int quantized,
+    void* stream) {
+  if (B < 1 || W < 1 || Hkv < 1 || H % Hkv || D < 1 || bs < 1 ||
+      (dtype != 0 && dtype != 1) ||
+      (quantized && (k_scale == nullptr || v_scale == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const ptt::GenericArgs a = {
+      q, k_pool, v_pool, (const float*)k_scale, (const float*)v_scale,
+      (const int*)bt, nullptr, nullptr, (const int*)seq_lens, out, B, B, W,
+      H, Hkv, D, bs, (long long)bs * Hkv * D, (long long)Hkv * D, scale,
+      c_qk, c_pv};
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)B * H;
+  if (quantized)
+    return dtype == 1
+               ? ptt::launch_generic(
+                     paged_decode_kernel_generic<__nv_bfloat16, int8_t, true>,
+                     a, n, st)
+               : ptt::launch_generic(
+                     paged_decode_kernel_generic<float, int8_t, true>, a, n,
+                     st);
+  return dtype == 1
+             ? ptt::launch_generic(
+                   paged_decode_kernel_generic<__nv_bfloat16, __nv_bfloat16,
+                                               false>,
+                   a, n, st)
+             : ptt::launch_generic(paged_decode_kernel_generic<float, float,
+                                                               false>,
+                                   a, n, st);
 }

@@ -13,7 +13,10 @@
 // zero columns in the scores and land in output columns the wrapper
 // drops.  int8 pools on the tensor cores need dr a multiple of 16
 // (16-byte rows); the wrapper routes other widths to the CUDA-core
-// kernel.
+// kernel.  Every other shape (a head dim not a multiple of 8 or over
+// 128, more than 32 query heads a kv head, int8 pools of block size over
+// 64) runs ragged_paged_attention_generic_kernel, the generic kernel of
+// paged_generic.cuh, through its own entry.
 //
 // What it computes.  The packed query batch q [T, H, D] holds S spans:
 // span s owns rows q_off[s] .. q_off[s] + q_len[s] - 1.  Row r of span s
@@ -103,6 +106,7 @@
 
 #include "common.cuh"
 #include "mma.cuh"
+#include "paged_generic.cuh"
 
 namespace {
 
@@ -1094,6 +1098,28 @@ int dispatch_d(int D, const void* q, const void* k_pool, const void* v_pool,
   }
 }
 
+
+// The generic kernel (paged_generic.cuh) over the packed batch: one warp
+// per query vector (token, query head); a token that lies in no span
+// returns, its row left as the wrapper allocated it (0).
+template <typename T, typename P, bool Q8>
+__global__ void __launch_bounds__(ptt::kGenWarps * 32)
+    ragged_paged_attention_generic_kernel(const ptt::GenericArgs a) {
+  extern __shared__ float gen_smem[];
+  const int warp = threadIdx.x >> 5;
+  const long long v = (long long)blockIdx.x * ptt::kGenWarps + warp;
+  if (v >= (long long)a.T * a.H) return;
+  const int t = (int)(v / a.H), hq = (int)(v % a.H);
+  for (int s = 0; s < a.S; ++s) {
+    const int ql = a.q_len[s], qo = a.q_off[s];
+    if (ql > 0 && t >= qo && t < qo + ql) {
+      ptt::generic_attend<T, P, Q8>(a, gen_smem + warp * (2 * a.D + a.bs),
+                                    t, hq, s, qo, ql, a.kv_len[s]);
+      return;
+    }
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q and out share it; the pools too
@@ -1142,4 +1168,48 @@ extern "C" int ptt_ragged_paged_attention(
   if (dtype == 1 && quantized)
     return dispatch_d<__nv_bfloat16, int8_t, true>(D, PTT_RAGGED_ARGS);
   return (int)cudaErrorInvalidValue;
+}
+
+// The generic kernel (paged_generic.cuh) for the shapes the kernels above
+// do not take: any head dim D >= 1, block size, and group count (H a
+// multiple of Hkv); dtype as above (q, out and fp pools share it; int8
+// pools with float32 scales [phys, Hkv]).  q and out are [T, H, D] at the
+// pools' own D (no padding).  Strides in elements.  Returns the launch's
+// cudaGetLastError().
+extern "C" int ptt_ragged_paged_attention_generic(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* bt,
+    const void* q_off, const void* q_len, const void* kv_len, void* out,
+    int T, int S, int W, int H, int Hkv, int D, int bs, int page_stride,
+    int slot_stride, float scale, float c_qk, float c_pv, int dtype,
+    int quantized, void* stream) {
+  if (T < 1 || S < 1 || W < 1 || Hkv < 1 || H % Hkv || D < 1 || bs < 1 ||
+      (dtype != 0 && dtype != 1) ||
+      (quantized && (k_scale == nullptr || v_scale == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const ptt::GenericArgs a = {
+      q, k_pool, v_pool, (const float*)k_scale, (const float*)v_scale,
+      (const int*)bt, (const int*)q_off, (const int*)q_len,
+      (const int*)kv_len, out, T, S, W, H, Hkv, D, bs, page_stride,
+      slot_stride, scale, c_qk, c_pv};
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long n = (long long)T * H;
+  if (quantized)
+    return dtype == 1
+               ? ptt::launch_generic(
+                     ragged_paged_attention_generic_kernel<__nv_bfloat16,
+                                                           int8_t, true>,
+                     a, n, st)
+               : ptt::launch_generic(
+                     ragged_paged_attention_generic_kernel<float, int8_t,
+                                                           true>,
+                     a, n, st);
+  return dtype == 1
+             ? ptt::launch_generic(
+                   ragged_paged_attention_generic_kernel<
+                       __nv_bfloat16, __nv_bfloat16, false>,
+                   a, n, st)
+             : ptt::launch_generic(
+                   ragged_paged_attention_generic_kernel<float, float, false>,
+                   a, n, st);
 }

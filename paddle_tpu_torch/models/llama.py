@@ -21,7 +21,7 @@ loaded from the reference with ``testing.parity.load_paddle_tpu_weights``.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Tuple
 
 import torch
@@ -307,6 +307,29 @@ class LlamaPretrainingCriterion(nn.Module):
         V = logits.shape[-1]
         return PF.cross_entropy(logits.reshape(-1, V), shift.reshape(-1),
                                 ignore_index=self.ignore_index)
+
+
+@torch.no_grad()
+def llama_truncated_draft(model: LlamaForCausalLM,
+                          num_layers: int = 1) -> LlamaForCausalLM:
+    """Layer-truncated self-speculative draft (reference:
+    ``llama_truncated_draft``): the same config cut to the first
+    ``num_layers`` decoder layers, with the embedding, those layers, the
+    final norm and the LM head copied from the target into a new model on
+    the target's device and dtype (early-exit drafting: a cheap,
+    training-free draft whose acceptance the speculative engines
+    report)."""
+    cfg = model.config
+    if not 0 < num_layers < cfg.num_hidden_layers:
+        raise ValueError(
+            "draft must be a strict layer truncation: 0 < num_layers=%d < "
+            "%d" % (num_layers, cfg.num_hidden_layers))
+    draft = LlamaForCausalLM(replace(cfg, num_hidden_layers=num_layers),
+                             device=model.device)
+    src = model.state_dict()
+    draft.load_state_dict({k: src[k] for k in draft.state_dict()})
+    draft.eval()
+    return draft
 
 
 def llama_flops_per_token(config: LlamaConfig, seq_len: int) -> float:

@@ -6,12 +6,15 @@ at head dims 64 and 128, on the tensor cores: the forward on ``wgmma``,
 both backward forms on ``mma.sync`` tiles fed by ``ldmatrix``, behind a
 ``cp.async`` ring) and ``csrc/flash_attention.cu`` (fp32, built at head
 dims 32, 64, 96 and 128, on the CUDA cores).  The wrappers choose by
-dtype.  Every other head dim up to 128 that is a multiple of 8 runs the
-kernels padded (:func:`kernel_head_dim`, :func:`_pad_halves`): bf16 at
-64 or 128, fp32 at the next of 32, 64, 96 and 128, with the true
-``1/sqrt(D)`` as the scale and the outputs cut back to D.  The zero
-columns change no score, and padding each half keeps the neox rope's
-pairs (column i with i + D/2).  Other head dims raise on the card.
+dtype.  Every other head dim up to 128 runs the kernels padded
+(:func:`kernel_head_dim`, :func:`_pad_to`): bf16 at 64 or 128, fp32 at
+the next of 32, 64, 96 and 128, with the true ``1/sqrt(D)`` as the
+scale and the outputs cut back to D.  The zero columns change no score.
+An even D is padded per half, which keeps the neox rope's pairs (column
+i with i + D/2); an odd D has no such pairs, so it takes no rope (the
+reference's rope raises on it too) and is padded at its end.  Head dims
+over 128 take ``_chunked_sdpa`` at the public entries, as the
+reference's do; the kernel wrappers raise on them.
 
 - ``flash_fwd`` replaces ``_flash_fwd_kernel`` (launched by
   ``_flash_attention_value``): online-softmax forward, optional neox rope
@@ -347,23 +350,26 @@ def _tc_entries():
 
 
 def kernel_head_dim(D: int, dtype: torch.dtype) -> int:
-    """The head dim the kernels run a call of head dim ``D`` (a multiple
-    of 8 up to 128) at, which the wrapper pads it to: the next of 64 and
-    128 in bf16 (the tensor cores), of 32, 64, 96 and 128 in fp32.  Raises
-    ``ValueError`` naming ``D`` otherwise (the reference's kernels stop at
-    128 too)."""
-    if D % 8 or not 8 <= D <= 128:
-        raise ValueError("head_dim %d: the flash kernels take multiples of "
-                         "8 up to 128" % D)
+    """The head dim the kernels run a call of head dim ``D`` at, which
+    the wrapper pads it to: for every ``D`` up to 128, the next of 64 and
+    128 in bf16 (the tensor cores), of 32, 64, 96 and 128 in fp32.  0 for
+    ``D`` over 128: no kernel, the public entries take ``_chunked_sdpa``
+    there (the reference's kernels stop at 128 too).  Raises
+    ``ValueError`` naming ``D`` below 1."""
+    if D < 1:
+        raise ValueError("head_dim %d: the flash kernels need a head dim "
+                         ">= 1" % D)
+    if D > 128:
+        return 0
     widths = _TC_HEAD_DIMS if dtype == torch.bfloat16 else _HEAD_DIMS
     return next(w for w in widths if w >= D)
 
 
 def _pad_halves(t: torch.Tensor, width: int) -> torch.Tensor:
-    """``t`` [..., D] -> [..., width], each half padded with zeros on its
-    own: ``[x1 | x2]`` -> ``[x1, 0 | x2, 0]``, so that the neox rope still
-    pairs column i with column i + width/2.  Rope tables pad the same way
-    (their padded columns multiply zeros)."""
+    """``t`` [..., D] (D even) -> [..., width], each half padded with
+    zeros on its own: ``[x1 | x2]`` -> ``[x1, 0 | x2, 0]``, so that the
+    neox rope still pairs column i with column i + width/2.  Rope tables
+    pad the same way (their padded columns multiply zeros)."""
     half, pad = t.shape[-1] // 2, (width - t.shape[-1]) // 2
     return torch.cat([torch.nn.functional.pad(t[..., :half], (0, pad)),
                       torch.nn.functional.pad(t[..., half:], (0, pad))],
@@ -376,16 +382,40 @@ def _unpad_halves(t: torch.Tensor, D: int) -> torch.Tensor:
     return torch.cat([t[..., :half], t[..., mid:mid + half]], dim=-1)
 
 
+def _pad_to(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` [..., D] at the kernels' ``width``: per half for an even D
+    (:func:`_pad_halves`), at the end for an odd D (which takes no
+    rope)."""
+    D = t.shape[-1]
+    if D % 2:
+        return torch.nn.functional.pad(t, (0, width - D))
+    return _pad_halves(t, width)
+
+
+def _unpad(t: torch.Tensor, D: int) -> torch.Tensor:
+    """The inverse of :func:`_pad_to`: [..., width] -> [..., D]."""
+    return t[..., :D].contiguous() if D % 2 else _unpad_halves(t, D)
+
+
 def _padded(D: int, dtype, tensors, rope: Rope):
     """``(width, tensors, rope)``: the call's operands at the kernels'
-    head dim (:func:`kernel_head_dim`), padded per half where it differs
-    from ``D``."""
+    head dim (:func:`kernel_head_dim`), padded (:func:`_pad_to`) where it
+    differs from ``D``."""
     width = kernel_head_dim(D, dtype)
     if width == D:
         return width, tensors, rope
-    return (width, [_pad_halves(t, width) for t in tensors],
-            None if rope is None else tuple(_pad_halves(t, width)
+    return (width, [_pad_to(t, width) for t in tensors],
+            None if rope is None else tuple(_pad_to(t, width)
                                             for t in rope))
+
+
+def _check_rope_dim(what: str, D: int) -> None:
+    """The neox rope pairs column i with i + D/2: an odd head dim has no
+    rope (the reference's raises on it as well)."""
+    if D % 2:
+        raise ValueError("%s: head_dim %d is odd; the neox rope pairs "
+                         "column i with i + D/2 and needs an even head dim"
+                         % (what, D))
 
 
 def _on_tensor_cores(q) -> bool:
@@ -404,9 +434,13 @@ def _check(what: str, q, k, v, rope: Rope, more=()):
                          "equal B, H, D" % (what, tuple(q.shape),
                                             tuple(k.shape), tuple(v.shape)))
     try:
-        kernel_head_dim(D, q.dtype)
+        width = kernel_head_dim(D, q.dtype)
     except ValueError as e:
         raise ValueError("%s: %s" % (what, e)) from None
+    if not width:
+        raise ValueError("%s: head_dim %d: the flash kernels take head dims "
+                         "up to 128 (the public entries take _chunked_sdpa "
+                         "beyond)" % (what, D))
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError("%s: q/k/v must share one dtype of float32/"
@@ -416,6 +450,7 @@ def _check(what: str, q, k, v, rope: Rope, more=()):
         raise ValueError("%s: empty sequence axis" % what)
     tensors = [("q", q), ("k", k), ("v", v)] + list(more)
     if rope is not None:
+        _check_rope_dim(what, D)
         if Sq != Sk:
             raise ValueError("%s: in-kernel rope requires Sq == Sk" % what)
         for name, t in zip(("cos", "sin"), rope):
@@ -469,7 +504,7 @@ def flash_fwd(q, k, v, causal: bool, rope: Rope = None):
                    _DTYPE_CODE[q.dtype], stream)
     _build.check(code, "flash_fwd")
     flash_fwd.launches += 1
-    return (_unpad_halves(out, D0) if D != D0 else out), lse
+    return (_unpad(out, D0) if D != D0 else out), lse
 
 
 def _flash_bwd(what, fused, q, k, v, out, lse, g, causal, rope):
@@ -487,7 +522,7 @@ def _flash_bwd(what, fused, q, k, v, out, lse, g, causal, rope):
                               scale, what)
     if D == D0:
         return grads
-    return tuple(_unpad_halves(t, D0) for t in grads)
+    return tuple(_unpad(t, D0) for t in grads)
 
 
 def _flash_bwd_launch(fused, q, k, v, out, lse, g, causal, rope, c, scale,
@@ -639,6 +674,7 @@ def flash_attention_rope(query, key, value, rotary_base: float = 10000.0,
     a graph-level rope, as the reference does; on the card every other
     shape launches the kernels or raises."""
     S, D = query.shape[1], query.shape[3]
+    _check_rope_dim("flash_attention_rope", D)
     if key.shape[1] != S:
         raise ValueError("flash_attention_rope: in-kernel rope requires "
                          "Sq == Sk; got %d and %d" % (S, key.shape[1]))
@@ -648,7 +684,9 @@ def flash_attention_rope(query, key, value, rotary_base: float = 10000.0,
 
 def flash_rope_sdpa(q, k, v, cos, sin, causal: bool = True) -> torch.Tensor:
     """:func:`flash_attention_rope` with the rope tables given (reference:
-    ``_flash_rope_sdpa``), for callers that build them once per step."""
+    ``_flash_rope_sdpa``), for callers that build them once per step.  An
+    odd head dim raises on every device (no neox pairs)."""
+    _check_rope_dim("flash_rope_sdpa", q.shape[-1])
     if not _kernel_ok(q):
         return _chunked_sdpa(_rope_cast(q, cos, sin), _rope_cast(k, cos, sin),
                              v, causal)

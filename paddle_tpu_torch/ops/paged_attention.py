@@ -24,11 +24,16 @@ Kernels (CUDA C++, built by ``_build.py``):
   pages stream through shared memory by ``cp.async`` and may split over
   several blocks (:func:`decode_splits`), merged in split order.
 
-Both take every head dim that is a multiple of 8 up to 128
-(:func:`kernel_head_dim`): they are built at 32, 64, 96 and 128 and read
-the pools' rows at their real width.  Each source note gives its design:
-the pools are read in place, in their own dtype, and only the used pages
-of each sequence are read.  The int8
+Their fast kernels take every head dim that is a multiple of 8 up to
+128 (:func:`kernel_head_dim`): they are built at 32, 64, 96 and 128 and
+read the pools' rows at their real width.  Each source also holds a
+generic CUDA-core kernel (``csrc/paged_generic.cuh``) for the shapes the
+fast ones do not take: any other head dim, more than 32 query heads a kv
+head (#5), int8 pools of block size over 64 (#5) and block sizes over 128
+(#7).  The wrappers choose by shape alone (:func:`ragged_generic`,
+:func:`decode_generic`); both count in the same launch counters.  Each
+source note gives its design: the pools are read in place, in their own
+dtype, and only the used pages of each sequence are read.  The int8
 variants compute what the Pallas int8 path computes: each q row and each
 probability row (per page) quantized per row, both products on the codes
 with exact integer sums, the scales folded in afterwards.
@@ -143,6 +148,17 @@ class PagedKVCache:
 
     def blocks_needed(self, seq_len: int) -> int:
         return -(-seq_len // self.block_size)
+
+    def trim_blocks(self, block_ids, n_tokens: int):
+        """Speculative-decode rollback (reference: ``trim_blocks``):
+        release the tail pages past what ``n_tokens`` needs (pages grown
+        for draft positions the verifier rejected) through the refcounted
+        release path, and return the kept prefix."""
+        keep = self.blocks_needed(max(int(n_tokens), 1))
+        if keep >= len(block_ids):
+            return list(block_ids)
+        self.free_sequence(block_ids[keep:])
+        return list(block_ids[:keep])
 
 
 def write_ragged_kv(k_new: torch.Tensor, v_new: torch.Tensor,
@@ -418,11 +434,11 @@ def _ragged_attention_int8_plain(q, key_cache, value_cache, key_scale,
     codes folded with the q row's, the page's k and the softmax scales;
     the online-softmax update with the page's probability rows quantized
     per row, p.V on the codes folded with the p row's and the page's v
-    scales.  Products of int8 codes summed over D <= 128 (or over a page
-    of keys) stay below 127^2 * 128 < 2^24, so an fp32 matmul of the codes
-    is exact: it stands in for the int32 product (TF32 must be off on the
-    card).  Rows outside every span are 0.  Loops over spans and pages on
-    the host.
+    scales.  Products of int8 codes summed over D (or over a page of
+    keys) stay below 127^2 * 1040 < 2^24 while both are at most 1040, so
+    an fp32 matmul of the codes is exact: it stands in for the int32
+    product (TF32 must be off on the card).  Rows outside every span are
+    0.  Loops over spans and pages on the host.
 
     ``flip_bound=True`` returns ``(out, flips)``, ``flips`` [T, H, D] fp32:
     per output element, how far the probability codes within
@@ -491,42 +507,60 @@ def _ragged_attention_int8_plain(q, key_cache, value_cache, key_scale,
 
 
 def kernel_head_dim(D: int) -> int:
-    """The width the paged kernels are built at for head dim ``D``
+    """The width the fast paged kernels are built at for head dim ``D``
     (``csrc/common.cuh::paged_width``): the least of 32, 64, 96 and 128
     that is at least ``D`` and of which ``D`` is a whole number of 32nds,
     so that a lane's columns lie all below ``D`` or all past it (D 80 is
     built at 128).  The kernels read the pools' rows at their real width;
     the columns past it change no score and no output column the wrapper
-    returns (nor, for int8 pools, any absmax or code).  Takes every
-    multiple of 8 up to 128, as the reference's kernels take every D <=
-    128; raises ``ValueError`` naming ``D`` otherwise."""
-    if D % 8 or not 8 <= D <= 128:
-        raise ValueError("head_dim %d: the paged kernels take multiples of 8 "
-                         "up to 128" % D)
+    returns (nor, for int8 pools, any absmax or code).  0 for every other
+    ``D >= 1`` (not a multiple of 8, or over 128): the generic kernel
+    takes it at its own width, as the reference's kernels take any head
+    dim.  Raises ``ValueError`` naming ``D`` below 1."""
+    if D < 1:
+        raise ValueError("head_dim %d: the paged kernels need a head dim "
+                         ">= 1" % D)
+    if D % 8 or D > 128:
+        return 0
     return next(w for w in _KERNEL_WIDTHS if w >= D and D % (w // 32) == 0)
 
 
+def ragged_generic(head_dim: int, groups: int, quantized: bool,
+                   block_size: int) -> bool:
+    """Whether :func:`ragged_paged_attention` runs the generic kernel on
+    the card: a head dim without a fast width (:func:`kernel_head_dim`),
+    more than 32 query heads a kv head, or int8 pools of block size over
+    64 (the CUDA-core kernel's tiles hold 32 query vectors and whole
+    pages of at most 64 keys)."""
+    return (kernel_head_dim(head_dim) == 0 or groups > 32
+            or (quantized and block_size > 64))
+
+
+def _check_head_dim(name: str, D: int) -> None:
+    """Raise ``ValueError`` naming ``D`` for a head dim no kernel (and no
+    plain version) takes: below 1."""
+    try:
+        kernel_head_dim(D)
+    except ValueError as e:
+        raise ValueError("%s: %s" % (name, e)) from None
+
+
 def _check_paged_operands(name, q, key_cache, value_cache, key_scale,
-                          value_scale, tables, max_groups: int):
+                          value_scale, tables):
     """Raise ``ValueError`` for what the attention kernels do not take:
-    shapes, head dims, dtypes, int32 tables, devices, contiguity.
+    shapes, dtypes, int32 tables, devices, contiguity.
     ``tables`` maps names to the int32 operands and their wanted leading
     size (or None)."""
     D = q.shape[-1]
     H = q.shape[-2]
     phys, bs, Hkv, Dk = key_cache.shape
-    if Hkv <= 0 or H % Hkv or H // Hkv > max_groups:
-        raise ValueError("%s: %d query heads must group over %d kv heads, "
-                         "at most %d per group" % (name, H, Hkv,
-                                                   max_groups))
+    if Hkv <= 0 or H % Hkv:
+        raise ValueError("%s: %d query heads must group over %d kv heads"
+                         % (name, H, Hkv))
     if Dk != D or value_cache.shape != key_cache.shape:
         raise ValueError("%s: q %s vs pools %s / %s"
                          % (name, tuple(q.shape), tuple(key_cache.shape),
                             tuple(value_cache.shape)))
-    try:
-        kernel_head_dim(D)
-    except ValueError as e:
-        raise ValueError("%s: %s" % (name, e)) from None
     quantized = key_scale is not None
     pool_ok = (key_cache.dtype == value_cache.dtype
                == (torch.int8 if quantized else q.dtype))
@@ -576,6 +610,16 @@ def _ragged_entry():
     return fn
 
 
+def _ragged_generic_entry():
+    fn = _build.load(
+        "ragged_paged_attention").ptt_ragged_paged_attention_generic
+    if fn.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [P] * 10 + [I] * 9 + [F, F, F, I, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 # the tensor-core ragged kernel's work items (csrc/ragged_paged_attention.cu)
 RAGGED_TILE_Q = 128          # query vectors (rows x groups) per chunk item
 RAGGED_DECODE = 0x8000       # an item's low half: a decode item ...
@@ -591,12 +635,16 @@ _DECODE_TARGET_BLOCKS = 264
 
 
 def ragged_tensor_cores(dtype: torch.dtype, quantized: bool,
-                        block_size: int, head_dim: int) -> bool:
+                        block_size: int, head_dim: int,
+                        groups: int = 1) -> bool:
     """Whether :func:`ragged_paged_attention` runs the tensor-core kernel
     on the card for q of ``dtype``: bf16 q over bf16 pools, or over int8
     pools whose block size is a multiple of 8 dividing 64 (a page then
     covers whole 8-key tiles of the s8 products) and whose head dim is a
-    multiple of 16 (rows of whole 16-byte pieces)."""
+    multiple of 16 (rows of whole 16-byte pieces); never for a shape the
+    generic kernel takes (:func:`ragged_generic`)."""
+    if ragged_generic(head_dim, groups, quantized, block_size):
+        return False
     return dtype == torch.bfloat16 and (
         not quantized or (block_size % 8 == 0 and 64 % block_size == 0
                           and head_dim % 16 == 0))
@@ -668,6 +716,19 @@ def _split_scratch(device, stream: int, n_partials: int, n_counters: int):
     return bufs
 
 
+def _count(wrapper, quantized: bool, generic: bool = False) -> None:
+    """One launch of ``wrapper``'s kernel: ``.int8_launches`` for int8
+    pools, ``.launches`` otherwise (fast or generic kernel alike); a
+    generic kernel's launch is also counted apart, in
+    ``.generic_int8_launches`` or ``.generic_launches``."""
+    if quantized:
+        wrapper.int8_launches += 1
+        wrapper.generic_int8_launches += int(generic)
+    else:
+        wrapper.launches += 1
+        wrapper.generic_launches += int(generic)
+
+
 def ragged_paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
                            value_cache: torch.Tensor,
                            block_tables: torch.Tensor,
@@ -686,10 +747,12 @@ def ragged_paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
     call never waits for the device) and unused otherwise.  Returns
     [T, H, D] in q's dtype; rows outside every span are 0.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.  ``.launches`` counts the fp32/bf16-pool kernel,
-    ``.int8_launches`` the int8 one."""
+    CPU tensors take the plain version; CUDA tensors launch a kernel or
+    raise: the generic kernel for the shapes :func:`ragged_generic` names,
+    else the tensor-core or the CUDA-core kernel.  ``.launches`` counts
+    the fp32/bf16-pool kernels, ``.int8_launches`` the int8 ones."""
     T, H, D = q.shape
+    _check_head_dim("ragged_paged_attention", D)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     quantized = key_scale is not None
@@ -709,25 +772,36 @@ def ragged_paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
         "ragged_paged_attention", q, key_cache, value_cache, key_scale,
         value_scale, {"block_tables": (block_tables, None),
                       "q_offsets": (q_offsets, S), "q_lens": (q_lens, S),
-                      "kv_lens": (kv_lens, S)}, 32)
+                      "kv_lens": (kv_lens, S)})
     bs, Hkv = key_cache.shape[1], key_cache.shape[2]
-    Dk = kernel_head_dim(D)
     span_q = int(span_q) if span_q else T
     if S == 0 or span_q <= 0:
         raise ValueError("ragged_paged_attention: needs S > 0 spans and "
                          "span_q > 0")
-    if quantized and bs > 64:
-        raise ValueError("ragged_paged_attention: the int8 kernel takes "
-                         "block sizes up to 64; got %d" % bs)
+    c_qk, c_pv = _int8_folds(float(scale)) if quantized else (0.0, 0.0)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if ragged_generic(D, H // Hkv, quantized, bs):
+        out = torch.zeros_like(q)
+        code = _ragged_generic_entry()(
+            q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+            key_scale.data_ptr() if quantized else None,
+            value_scale.data_ptr() if quantized else None,
+            block_tables.data_ptr(), q_offsets.data_ptr(),
+            q_lens.data_ptr(), kv_lens.data_ptr(), out.data_ptr(), T, S, W,
+            H, Hkv, D, bs, key_cache.stride(0), key_cache.stride(1),
+            float(scale), c_qk, c_pv, _DTYPE_CODE[q.dtype], int(quantized),
+            stream)
+        _build.check(code, "ragged_paged_attention (generic)")
+        _count(ragged_paged_attention, quantized, generic=True)
+        return out
+    Dk = kernel_head_dim(D)
     if Dk != D:
         # the kernels are built at Dk: q and the output padded with zero
         # columns (the pools are read at their own width D)
         q = torch.nn.functional.pad(q, (0, Dk - D))
     out = torch.zeros_like(q)
-    c_qk, c_pv = _int8_folds(float(scale)) if quantized else (0.0, 0.0)
     partials = counters = None
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    if ragged_tensor_cores(q.dtype, quantized, bs, D):
+    if ragged_tensor_cores(q.dtype, quantized, bs, D, H // Hkv):
         if work is None:
             raise ValueError("ragged_paged_attention: the tensor-core "
                              "kernel needs work=ragged_work(q_lens, "
@@ -759,15 +833,14 @@ def ragged_paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
               0 if work is None else work.numel(), float(scale), c_qk, c_pv,
               _DTYPE_CODE[q.dtype], int(quantized), stream)
     _build.check(code, "ragged_paged_attention")
-    if quantized:
-        ragged_paged_attention.int8_launches += 1
-    else:
-        ragged_paged_attention.launches += 1
+    _count(ragged_paged_attention, quantized)
     return out[..., :D].contiguous() if Dk != D else out
 
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.int8_launches = 0
+ragged_paged_attention.generic_launches = 0
+ragged_paged_attention.generic_int8_launches = 0
 
 
 def _paged_attention_plain(q, key_cache, value_cache, block_tables,
@@ -803,8 +876,26 @@ def _decode_entry():
     return fn
 
 
+def _decode_generic_entry():
+    fn = _build.load(
+        "paged_decode_attention").ptt_paged_decode_attention_generic
+    if fn.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [P] * 8 + [I] * 6 + [F, F, F, I, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 DECODE_MAX_BLOCK = 128
 DECODE_HEAD_TILE = 8         # query heads of a group one block takes
+
+
+def decode_generic(head_dim: int, block_size: int) -> bool:
+    """Whether :func:`paged_attention` runs the generic kernel on the
+    card: a head dim without a fast width (:func:`kernel_head_dim`) or a
+    block size over ``DECODE_MAX_BLOCK`` (the fast kernel's stages)."""
+    return (kernel_head_dim(head_dim) == 0
+            or block_size > DECODE_MAX_BLOCK)
 _SMS = 132                   # the H100's SMs
 
 
@@ -836,14 +927,17 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
     its own).  ``key_scale``/``value_scale`` select the int8 variant.
     Returns [B, H, D] in q's dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise (it takes any query-head group, head dims that are multiples of
-    8 up to 128 and block sizes up to 128).  Each slot's pages may be
-    split over several blocks (:func:`decode_splits`), whose states the
-    kernel merges in split order: two calls give the same bits.
+    CPU tensors take the plain version; CUDA tensors launch a kernel or
+    raise.  The fast kernel takes any query-head group, head dims that
+    are multiples of 8 up to 128 and block sizes up to 128; every other
+    shape runs the generic kernel (:func:`decode_generic`).  The fast
+    kernel may split each slot's pages over several blocks
+    (:func:`decode_splits`), whose states it merges in split order: two
+    calls give the same bits, as they do from the generic kernel.
     ``.launches`` counts the fp32/bf16-pool kernel, ``.int8_launches``
     the int8 one."""
     B, H, D = q.shape
+    _check_head_dim("paged_attention", D)
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     quantized = key_scale is not None
@@ -857,18 +951,28 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
     _check_paged_operands(
         "paged_attention", q, key_cache, value_cache, key_scale,
         value_scale, {"block_tables": (block_tables, None),
-                      "seq_lens": (seq_lens, B)}, H)
+                      "seq_lens": (seq_lens, B)})
     bs, Hkv = key_cache.shape[1], key_cache.shape[2]
     W = block_tables.shape[1]
     if block_tables.shape[0] != B or B == 0 or W == 0:
         raise ValueError("paged_attention: block_tables %s for %d slots"
                          % (tuple(block_tables.shape), B))
-    if bs > DECODE_MAX_BLOCK:
-        raise ValueError("paged_attention: block size %d; the kernel takes "
-                         "block sizes up to %d" % (bs, DECODE_MAX_BLOCK))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if decode_generic(D, bs):
+        out = torch.empty_like(q)
+        c_qk, c_pv = _int8_folds(float(scale)) if quantized else (0.0, 0.0)
+        code = _decode_generic_entry()(
+            q.data_ptr(), key_cache.data_ptr(), value_cache.data_ptr(),
+            key_scale.data_ptr() if quantized else None,
+            value_scale.data_ptr() if quantized else None,
+            block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), B,
+            W, H, Hkv, D, bs, float(scale), c_qk, c_pv,
+            _DTYPE_CODE[q.dtype], int(quantized), stream)
+        _build.check(code, "paged_attention (generic)")
+        _count(paged_attention, quantized, generic=True)
+        return out
     n_split, run = decode_splits(B, Hkv, H // Hkv, W)
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     partials = counters = None
     if n_split > 1:
         # the splits' merged states [blocks, split, 8, D + 2] and their
@@ -889,12 +993,11 @@ def paged_attention(q: torch.Tensor, key_cache: torch.Tensor,
               out.data_ptr(), B, W, H, Hkv, D, bs, n_split, run, fold,
               _DTYPE_CODE[q.dtype], int(quantized), stream)
     _build.check(code, "paged_attention")
-    if quantized:
-        paged_attention.int8_launches += 1
-    else:
-        paged_attention.launches += 1
+    _count(paged_attention, quantized)
     return out
 
 
 paged_attention.launches = 0
 paged_attention.int8_launches = 0
+paged_attention.generic_launches = 0
+paged_attention.generic_int8_launches = 0

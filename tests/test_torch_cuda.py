@@ -24,7 +24,8 @@ from paddle_tpu_torch.jit.layerwise import LlamaLayerwiseTrainStep
 from paddle_tpu_torch.jit.train_step import TrainStep
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            LlamaPretrainingCriterion,
-                                           llama_tiny_config)
+                                           llama_tiny_config,
+                                           llama_truncated_draft)
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import kernels as pk
 from paddle_tpu_torch.ops import rms_norm as rn
@@ -99,25 +100,128 @@ def _work(args, H, Hkv, bs):
                                            Hkv, bs)).to(q_lens.device)
 
 
+def _hold_paged(cuda, kind, quantized, dtype, H, Hkv, D, bs, lens, seed=1):
+    """One paged kernel call against its plain version: ``kind`` "ragged"
+    (spans ``lens`` of (q_len, kv_len), padding spans, rows outside them
+    0) or "decode" (one query per slot at kv ``lens``, masked slots), NaN
+    pages (or scales) behind every unused table entry, int8 pools with
+    the per-element tolerance that must reject a kernel that skips each
+    last page; one launch counted."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    if kind == "ragged":
+        T = sum(ql for ql, _ in lens) + 5
+        q, kc, vc, bt, qo, ql, kl = _ragged_case(
+            lens, T, H, Hkv, D, bs, dtype, gen, poison=True, n_pad_spans=2)
+    else:
+        q, kc, vc, bt, qo, ql, kl = _ragged_case(
+            [(1, s) for s in lens], len(lens) + 2, H, Hkv, D, bs, dtype, gen,
+            poison=True, n_pad_spans=2)
+    scales = {}
+    if quantized:
+        kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
+        scales = dict(key_scale=ks, value_scale=vs)
+    scale = 1.0 / np.sqrt(D)
+
+    def kernel(kv=kl):
+        if kind == "ragged":
+            return pa.ragged_paged_attention(
+                q, kc, vc, bt, qo, ql, kv, span_q=int(ql.max()),
+                work=_work((q, kc, vc, bt, qo, ql, kv), H, Hkv, bs),
+                **scales)
+        return pa.paged_attention(q, kc, vc, bt, kv, **scales)
+
+    def plain(kv=kl):
+        if kind == "ragged" and quantized:
+            return pa._ragged_attention_int8_plain(
+                q, kc, vc, ks, vs, bt, qo, ql, kv, scale, flip_bound=True)
+        if kind == "ragged":
+            return pa._ragged_attention_plain(q, kc, vc, bt, qo, ql, kv,
+                                              scale)
+        return pa._paged_attention_plain(q, kc, vc, bt, kv, scale,
+                                         flip_bound=quantized, **scales)
+    wrapper = (pa.ragged_paged_attention if kind == "ragged"
+               else pa.paged_attention)
+    counter = "int8_launches" if quantized else "launches"
+    before = getattr(wrapper, counter)
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    assert getattr(wrapper, counter) == before + 1
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    if quantized:
+        want, flips = want
+        tol = int8_tolerance(want, flips, vmax)
+    else:
+        tol = ragged_tolerance(want)
+    assert (got.float() - want.float()).abs().le(tol).all()
+    if kind == "ragged":
+        assert (got[sum(ql for ql, _ in lens):] == 0).all()
+    if quantized:   # the limit rejects a kernel that skips each last page
+        floor = ql if kind == "ragged" else kl.clamp(max=1)
+        cut = kernel(cut_lengths(kl, floor, bs, True))
+        assert not (cut.float() - want.float()).abs().le(tol).all()
+
+
+# the shapes the fast paged kernels do not take, which the generic kernel
+# of each source computes: (H, Hkv, D, bs)
+GENERIC_PAGED = {"d100": (8, 2, 100, 16), "d256_gqa": (8, 8, 256, 16),
+                 "d256_mqa": (8, 1, 256, 16), "d44": (4, 2, 44, 4),
+                 "d136": (4, 2, 136, 4), "groups64": (64, 1, 64, 16),
+                 "bs128": (8, 2, 64, 128), "bs256": (8, 2, 128, 256)}
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(GENERIC_PAGED))
+@pytest.mark.parametrize("kind", ["ragged", "decode"])
+def test_generic_paged_kernels_match_plain(cuda, kind, shape, dtype,
+                                           quantized):
+    """#5 and #7 at head dims 100, 256, 44 and 136, 64 query heads over one
+    kv head, and block sizes 128 and 256: each wrapper routes the shape to
+    its source's generic kernel, which matches the plain version within
+    the fast kernels' tolerances (int8 pools per element)."""
+    H, Hkv, D, bs = GENERIC_PAGED[shape]
+    if kind == "ragged":
+        lens = [(1, 7), (40, 60), (3, 3), (1, 1), (9, 41), (2, 300)]
+        assert pa.ragged_generic(D, H // Hkv, quantized, bs) == (
+            shape not in ("bs128", "bs256") or quantized)
+    else:
+        lens = [7, 33, 1, 16, 70, 300]
+        assert pa.decode_generic(D, bs) == (shape not in ("groups64",
+                                                          "bs128"))
+    _hold_paged(cuda, kind, quantized, dtype, H, Hkv, D, bs, lens)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """Head dims 44 and 136 and #7 at block size 136, which raised before
+    the generic kernels, now compute and match the plain versions; what
+    no kernel takes still raises: a head dim of 0, q and pools of other
+    dtypes or head dims, int64 tables, non-contiguous operands."""
     for D in (44, 136):     # not a multiple of 8; past 128
-        args = _pack([(2, 9)], 0, 4, 4, 2, D, 4, torch.float32, cuda)
-        with pytest.raises(ValueError, match="head_dim %d" % D):
-            pa.ragged_paged_attention(*args, span_q=2)
-        with pytest.raises(ValueError, match="head_dim %d" % D):
-            pa.paged_attention(args[0], args[1], args[2], args[3], args[6])
-    q, kc, vc, bt, _, _, sl = _pack([(1, 300)], 0, 1, 4, 2, 32, 136,
-                                    torch.float32, cuda)
-    with pytest.raises(ValueError, match="block size 136"):
-        pa.paged_attention(q, kc, vc, bt, sl)
+        _hold_paged(cuda, "ragged", False, torch.float32, 4, 2, D, 4,
+                    [(2, 9)])
+        _hold_paged(cuda, "decode", False, torch.float32, 4, 2, D, 4, [9])
+    _hold_paged(cuda, "decode", False, torch.float32, 4, 2, 32, 136, [300])
     q, kc, vc, bt, qo, ql, kl = _pack([(2, 9)], 0, 4, 4, 2, 32, 4,
                                       torch.float32, cuda)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        pa.ragged_paged_attention(q[..., :0], kc[..., :0], vc[..., :0], bt,
+                                  qo, ql, kl, span_q=2)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        pa.paged_attention(q[:1, :, :0], kc[..., :0], vc[..., :0], bt[:1],
+                           kl[:1])
+    with pytest.raises(ValueError, match="pools"):
+        pa.paged_attention(q[:1], kc[..., :16], vc[..., :16], bt[:1],
+                           kl[:1])
     with pytest.raises(ValueError, match="dtype"):
         pa.ragged_paged_attention(q.to(torch.bfloat16), kc, vc, bt, qo, ql,
                                   kl, span_q=2)
     with pytest.raises(ValueError, match="int32"):
         pa.ragged_paged_attention(q, kc, vc, bt.long(), qo, ql, kl,
                                   span_q=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_attention(q[:1].transpose(1, 2).contiguous().transpose(
+            1, 2), kc, vc, bt[:1], kl[:1])
     x = torch.zeros(3, 2, 8, device=cuda)
     cs = torch.zeros(3, 8, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
@@ -474,6 +578,51 @@ def test_tiny_engines_on_card_match_cpu(cuda, mode):
         assert same / sum(len(w) for w in want) >= 0.9
 
 
+@pytest.mark.parametrize("mode", [
+    dict(mixed_step=True, prefill_chunk_size=16, sampling=True),
+    dict(prefill_buckets="auto", prefill_chunk_size=16, sampling=True),
+    dict(mixed_step=True, prefill_chunk_size=16, draft=True),
+    dict(mixed_step=True, prefill_chunk_size=16, sampling=True, draft=True)],
+    ids=["mixed_sampled", "split_sampled", "spec", "spec_sampled"])
+def test_tiny_sampling_engines_on_card_match_cpu(cuda, mode):
+    """The sampling and speculative engines on the card (the kernels, the
+    sampler's integer ops and draws on the device) against the same
+    engines on the CPU (plain versions), same weights, fp32: the same
+    tokens, so the card draws the reference's random streams too; every
+    fourth request greedy."""
+    cfg = llama_tiny_config(num_hidden_layers=2, hidden_size=128,
+                            num_attention_heads=4, num_key_value_heads=2,
+                            vocab_size=256, intermediate_size=256)
+    mode = dict(mode)
+    draft = mode.pop("draft", False)
+    knobs = [dict(temperature=0.8, top_k=50, top_p=0.95, seed=1 + i)
+             if mode.get("sampling") and i % 4 != 3 else {}
+             for i in range(4)]
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 256, (n,)) for n in (3, 17, 40, 9)]
+    outs = []
+    for dev in ("cpu", cuda):
+        model = LlamaForCausalLM(cfg, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(0))
+        if dev != "cpu":
+            model.load_state_dict(cpu_state)
+        cpu_state = model.state_dict()
+        kw = dict(mode, draft_model=llama_truncated_draft(model, 1)
+                  if draft else None)
+        eng = ContinuousBatchingEngine(model, max_batch_size=3,
+                                       num_blocks=64, block_size=8,
+                                       device=dev, **kw)
+        r = [eng.add_request(p, 6, **k)
+             for p, k in zip(prompts[:2], knobs[:2])]
+        eng.step()
+        r += [eng.add_request(p, 6, **k)
+              for p, k in zip(prompts[2:], knobs[2:])]
+        eng.run_to_completion()
+        assert len(eng.caches[0]._free) == 64
+        outs.append([eng.result(x) for x in r])
+    assert outs[1] == outs[0]
+
+
 # (causal, rope, Sq, Sk): square, longer key axis, rows that see nothing
 # (Sq > Sk), and lengths off the kernels' 64-row tiles
 FLASH_SHAPES = {"causal_rope": (True, True, 130, 130),
@@ -715,10 +864,19 @@ def test_bf16_calls_cannot_reach_the_cuda_core_variants(cuda):
 
 
 def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    for D in (84, 136):     # not a multiple of 8; past 128
-        x = torch.zeros(1, 64, 2, D, device=cuda)
-        with pytest.raises(ValueError, match="head_dim %d" % D):
-            fa.flash_fwd(x, x, x, True)
+    """D 84, which raised before, now computes padded per half and
+    matches the plain versions; an odd D computes without rope, padded at
+    its end.  What no kernel takes still raises: D over 128 in the kernel
+    wrappers (the public entries take ``_chunked_sdpa`` there), an odd D
+    with rope, fp16, Sq != Sk with rope, non-contiguous operands."""
+    _check_flash_kernels(cuda, "float32", 84, "causal_rope")
+    _check_flash_kernels(cuda, "bfloat16", 35, "causal")
+    x = torch.zeros(1, 64, 2, 136, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 136"):
+        fa.flash_fwd(x, x, x, True)
+    x = torch.zeros(1, 64, 2, 35, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 35 is odd"):
+        fa.flash_attention_rope(x, x, x)
     y = torch.zeros(1, 64, 2, 64, device=cuda)
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_fwd(y.half(), y.half(), y.half(), True)
@@ -729,6 +887,17 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_fwd(y.transpose(1, 2).contiguous().transpose(1, 2), y, y,
                      True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [36, 100])
+@pytest.mark.parametrize("shape", sorted(FLASH_SHAPES))
+def test_flash_kernels_match_plain_at_any_head_dim(cuda, dtype, D, shape):
+    """Head dims that are not a multiple of 8 compute on the card: the
+    wrappers pad each half (bf16 to 64 or 128, fp32 to the next of 32,
+    64, 96 and 128) and pass the true scale (:func:`_check_flash_kernels`,
+    against the plain versions at D)."""
+    _check_flash_kernels(cuda, dtype, D, shape)
 
 
 def test_flash_attention_rope_launches_at_any_length(cuda):

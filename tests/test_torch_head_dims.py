@@ -32,6 +32,8 @@ t = torch.from_numpy
 # fp32, same algorithm, other summation order: rounding only
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
 HEAD_DIMS = (80, 112)
+# flash head dims padded per half on the card: multiples of 8 and not
+FLASH_HEAD_DIMS = HEAD_DIMS + (36, 100)
 
 
 def _to_ref(x):
@@ -56,9 +58,11 @@ def _interpreted(fn, *args, **kw):
 # flash (#1-#3): the padded form against the reference's Pallas kernels
 # ---------------------------------------------------------------------------
 def test_kernel_head_dims_pad_to_the_kernel_widths():
-    """bf16 pads every D to the tensor cores' 64 or 128, fp32 to the
-    next of 32, 64, 96, 128 (a width with a kernel stays); the rest raise
-    naming D."""
+    """bf16 pads every D up to 128 to the tensor cores' 64 or 128, fp32 to
+    the next of 32, 64, 96, 128 (a width with a kernel stays); past 128
+    the flash width is 0 (the entries take ``_chunked_sdpa``).  The paged
+    kernels' fast width for the multiples of 8 up to 128, 0 (the generic
+    kernel) for every other D; a head dim of 0 raises naming it."""
     assert [fa.kernel_head_dim(D, torch.bfloat16)
             for D in (8, 32, 40, 64, 80, 96, 112, 128)] \
         == [64, 64, 64, 64, 128, 128, 128, 128]
@@ -67,11 +71,50 @@ def test_kernel_head_dims_pad_to_the_kernel_widths():
         == [32, 32, 64, 96, 96, 128, 128]
     assert [pa.kernel_head_dim(D) for D in (8, 40, 72, 80, 88, 112, 128)] \
         == [32, 64, 96, 128, 128, 128, 128]
-    for D in (84, 136, 4):
+    assert [fa.kernel_head_dim(D, torch.float32) for D in (84, 136, 4)] \
+        == [96, 0, 32]
+    assert [fa.kernel_head_dim(D, torch.bfloat16) for D in (84, 136, 4)] \
+        == [128, 0, 64]
+    assert [pa.kernel_head_dim(D) for D in (84, 136, 4)] == [0, 0, 0]
+    assert [pa.decode_generic(D, 16) for D in (84, 136, 4, 80)] \
+        == [True, True, True, False]
+    assert [pa.ragged_generic(D, 1, False, 16) for D in (84, 136, 4, 80)] \
+        == [True, True, True, False]
+    for D in (0,):
         with pytest.raises(ValueError, match="head_dim %d" % D):
             fa.kernel_head_dim(D, torch.float32)
         with pytest.raises(ValueError, match="head_dim %d" % D):
             pa.kernel_head_dim(D)
+
+
+def test_generic_routes_by_shape():
+    """The generic paged kernels take what the fast ones do not: #5 with
+    more than 32 query heads a kv head or int8 pools of block size over
+    64, #7 with block sizes over 128; the tensor-core routing never
+    claims such a shape."""
+    assert pa.ragged_generic(64, 64, False, 16)
+    assert not pa.ragged_generic(64, 32, False, 16)
+    assert pa.ragged_generic(64, 1, True, 128)
+    assert not pa.ragged_generic(64, 1, False, 128)
+    assert not pa.ragged_generic(64, 1, True, 64)
+    assert pa.decode_generic(64, 256) and not pa.decode_generic(64, 128)
+    assert not pa.ragged_tensor_cores(torch.bfloat16, False, 16, 64, 64)
+    assert not pa.ragged_tensor_cores(torch.bfloat16, False, 16, 100)
+    assert pa.ragged_tensor_cores(torch.bfloat16, False, 16, 64, 32)
+
+
+def test_odd_head_dims_pad_at_the_end_and_take_no_rope():
+    """An odd D has no neox pairs: it pads at its end (the zero columns
+    change no score) and the rope entries raise on it, as the reference's
+    rope does."""
+    x = t(np.arange(2 * 35, dtype=np.float32).reshape(2, 35))
+    padded = fa._pad_to(x, 64)
+    assert padded.shape == (2, 64)
+    assert torch.equal(padded[:, :35], x) and not padded[:, 35:].any()
+    assert torch.equal(fa._unpad(padded, 35), x)
+    y = t(np.ones((1, 8, 2, 35), np.float32))
+    with pytest.raises(ValueError, match="head_dim 35 is odd"):
+        fa.flash_attention_rope(y, y, y)
 
 
 def test_pad_halves_keeps_the_rope_pairs():
@@ -100,13 +143,14 @@ def _flash_inputs(D, rope, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32_width", "bf16_width"])
 @pytest.mark.parametrize("rope", [True, False], ids=["rope", "no_rope"])
-@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("D", FLASH_HEAD_DIMS)
 def test_padded_flash_matches_pallas_interpret(D, rope, dtype):
     """The forward and both backward forms run as the card runs them at
     D 80 and 112 (operands padded per half to the width the wrapper takes
     for ``dtype``, the true scale, outputs cut back; here in fp32 through
     the plain versions) against the reference's Pallas flash kernels at
-    the true D (interpret mode, causal): within fp32 rounding."""
+    the true D (interpret mode, causal): within fp32 rounding.  D 36 and
+    100, not multiples of 8, pad the same way."""
     q, k, v, g, tables = _flash_inputs(D, rope, seed=D)
     rope_j = None if tables is None else tuple(map(jnp.asarray, tables))
     out_r, lse_r = _interpreted(
@@ -352,3 +396,65 @@ def test_split_merge_matches_unsplit_plain(quantized, runs):
     assert (got - want).abs().le(int8_tolerance(want, flips, vmax)).all()
     if runs == (0,):
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the generic paged kernels' shapes: the plain versions against the
+# reference at the true D (no padding: the generic kernel reads q, the
+# pools and the output at their own width)
+# ---------------------------------------------------------------------------
+GENERIC_SHAPES = {"d100": (8, 2, 100, 8), "d256_gqa": (8, 8, 256, 8),
+                  "d256_mqa": (8, 1, 256, 8), "groups64": (64, 1, 32, 8),
+                  "bs128": (4, 2, 64, 128)}
+
+
+@pytest.mark.parametrize("shape", sorted(GENERIC_SHAPES))
+def test_generic_shapes_plain_match_reference(shape):
+    """#5's and #7's plain versions at head dims 100 and 256, 64 query
+    heads over one kv head and block size 128 against the reference's
+    XLA paths (fp32: 1e-5), and their int8 variants against the
+    reference's dequantizing path within ``KERNEL_INT8_REL_TOL`` of the
+    largest value: the shapes the generic kernels compute on the card."""
+    H, Hkv, D, bs = GENERIC_SHAPES[shape]
+    scale = 1.0 / math.sqrt(D)
+    q, kc, vc, bt, q_off, q_len, kv = _pack([7, 29, 3, 41, 150], H, Hkv, D,
+                                            bs=bs, seed=D + H,
+                                            q_lens=[1, 13, 3, 9, 1])
+    tabs = tuple(t(x) for x in (bt, q_off, q_len, kv))
+    want = ref_pa.ragged_paged_attention(
+        q, jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(bt), q_off, q_len,
+        kv, use_pallas=False)
+    got = pa.ragged_paged_attention(t(q), t(kc), t(vc), *tabs, scale=scale,
+                                    span_q=13)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    (kc8, vc8), (ks, vs), vmax = _quantized(kc, vc)
+    got8 = pa.ragged_paged_attention(t(q), kc8, vc8, *tabs, scale=scale,
+                                     span_q=13, key_scale=ks,
+                                     value_scale=vs)
+    want8 = ref_pa.ragged_paged_attention(
+        q, jnp.asarray(kc8.numpy()), jnp.asarray(vc8.numpy()),
+        jnp.asarray(bt), q_off, q_len, kv, use_pallas=False,
+        key_scale=jnp.asarray(ks.numpy()),
+        value_scale=jnp.asarray(vs.numpy()))
+    assert np.abs(got8.numpy() - np.asarray(want8)).max() \
+        <= pa.KERNEL_INT8_REL_TOL * vmax
+    # #7: one query per slot
+    qd, kc, vc, bt, _, _, sl = _pack([5, 19, 1, 33, 140], H, Hkv, D, bs=bs,
+                                     seed=D + H + 1)
+    want = ref_pa.paged_attention(jnp.asarray(qd), jnp.asarray(kc),
+                                  jnp.asarray(vc), jnp.asarray(bt),
+                                  jnp.asarray(sl), use_pallas=False)
+    got = pa.paged_attention(t(qd), t(kc), t(vc), t(bt), t(sl), scale=scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    (kc8, vc8), (ks, vs), vmax = _quantized(kc, vc)
+    got8 = pa.paged_attention(t(qd), kc8, vc8, t(bt), t(sl), scale=scale,
+                              key_scale=ks, value_scale=vs)
+    want8 = ref_pa.paged_attention(
+        jnp.asarray(qd), jnp.asarray(kc8.numpy()), jnp.asarray(vc8.numpy()),
+        jnp.asarray(bt), jnp.asarray(sl), use_pallas=False,
+        key_scale=jnp.asarray(ks.numpy()),
+        value_scale=jnp.asarray(vs.numpy()))
+    assert np.abs(got8.numpy() - np.asarray(want8)).max() \
+        <= pa.KERNEL_INT8_REL_TOL * vmax

@@ -20,7 +20,8 @@ from paddle_tpu_torch.jit.layerwise import LlamaLayerwiseTrainStep
 from paddle_tpu_torch.jit.train_step import TrainStep
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            LlamaPretrainingCriterion,
-                                           llama_tiny_config)
+                                           llama_tiny_config,
+                                           llama_truncated_draft)
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import rope_qkv_epilogue
 from paddle_tpu_torch.ops.paged_attention import (paged_attention,
@@ -91,8 +92,8 @@ def test_importing_the_port_loads_no_jax():
     assert res.stdout.strip() == "clean"
 
 
-def _tiny(device="cpu"):
-    cfg = llama_tiny_config(num_hidden_layers=1, hidden_size=32,
+def _tiny(device="cpu", layers=1):
+    cfg = llama_tiny_config(num_hidden_layers=layers, hidden_size=32,
                             num_attention_heads=2, num_key_value_heads=1,
                             vocab_size=64, intermediate_size=64)
     return LlamaForCausalLM(cfg, device=device,
@@ -124,17 +125,29 @@ LAUNCH_COUNTERS = ((rope_qkv_epilogue, "launches"),
 
 @pytest.mark.parametrize("mode", [
     dict(), dict(prefill_buckets="auto", kv_dtype="int8"),
-    dict(mixed_step=True), dict(mixed_step=True, kv_dtype="int8")],
-    ids=["split", "split_int8", "mixed", "mixed_int8"])
+    dict(mixed_step=True), dict(mixed_step=True, kv_dtype="int8"),
+    dict(mixed_step=True, sampling=True),
+    dict(prefill_buckets="auto", sampling=True),
+    dict(mixed_step=True, draft=True),
+    dict(mixed_step=True, sampling=True, draft=True)],
+    ids=["split", "split_int8", "mixed", "mixed_int8", "mixed_sampled",
+         "split_sampled", "spec", "spec_sampled"])
 def test_launch_counters_stay_zero_on_cpu(mode):
     """The whole CPU engine path goes through the wrappers and never
     launches a kernel (card tests in the same process may have counted
-    launches before, so the counts must only stay where they were)."""
+    launches before, so the counts must only stay where they were):
+    greedy, sampled and speculative (the draft's launches too)."""
     before = [getattr(f, a) for f, a in LAUNCH_COUNTERS]
-    eng = ContinuousBatchingEngine(_tiny(), max_batch_size=2, num_blocks=8,
+    mode = dict(mode)
+    model = _tiny(layers=2 if mode.get("draft") else 1)
+    if mode.pop("draft", False):
+        mode["draft_model"] = llama_truncated_draft(model, 1)
+    eng = ContinuousBatchingEngine(model, max_batch_size=2, num_blocks=8,
                                    block_size=4, prefill_chunk_size=4,
                                    device="cpu", **mode)
-    eng.add_request(np.arange(1, 7), 3)
+    knobs = (dict(temperature=0.8, top_k=5, top_p=0.9, seed=1)
+             if mode.get("sampling") else {})
+    eng.add_request(np.arange(1, 7), 3, **knobs)
     eng.run_to_completion()
     assert eng.finished[0].output_ids
     assert [getattr(f, a) for f, a in LAUNCH_COUNTERS] == before
@@ -147,8 +160,6 @@ UNPORTED_ENGINE = {
     "kv_dtype=bfloat16 under fp32": dict(kv_dtype="bfloat16"),
     "weight_quant": dict(weight_quant="int8"),
     "quant_collectives": dict(quant_collectives=True),
-    "sampling": dict(sampling=True),
-    "draft_model": dict(draft_model=object()),
     "tracer": dict(tracer=True),
     "role": dict(role="prefill"),
     "host_tier_bytes": dict(host_tier_bytes=1 << 20),
@@ -164,13 +175,11 @@ def test_unported_engine_options_raise(option):
                                  **UNPORTED_ENGINE[option])
 
 
-@pytest.mark.parametrize("knobs", [dict(temperature=0.7), dict(top_k=5),
-                                   dict(top_p=0.9), dict(seed=3),
-                                   dict(n=2)],
-                         ids=["temperature", "top_k", "top_p", "seed", "n"])
+@pytest.mark.parametrize("knobs", [dict(n=2)], ids=["n"])
 def test_unported_request_options_raise(knobs):
     eng = ContinuousBatchingEngine(_tiny(), max_batch_size=2, num_blocks=8,
-                                   block_size=4, device="cpu")
+                                   block_size=4, device="cpu",
+                                   sampling=True, mixed_step=True)
     with pytest.raises(NotImplementedError, match="not ported"):
         eng.add_request(np.arange(1, 4), 2, **knobs)
     assert not eng.waiting

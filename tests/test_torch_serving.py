@@ -176,14 +176,14 @@ def test_engine_slot_reuse_and_eos(tiny_pair):
 
 def _span_fill(eng, Req, block_ids, spans_spec):
     """Span tuples for ``_fill_mixed_pack`` from (tokens, start, page)
-    specs, shaped for the given engine's request class."""
+    specs, with the given engine's request class: ``(req, tokens, start,
+    n_draft, seed_xor, masked)`` in both engines."""
     out = []
     for i, (toks, start) in enumerate(spans_spec):
         r = Req(req_id=i, prompt_ids=np.zeros(1, np.int64))
         r.block_ids = list(block_ids[i])
         toks = np.asarray(toks, np.int32)
-        out.append((r, toks, start) if Req is GenerationRequest
-                   else (r, toks, start, 0, 0, False))
+        out.append((r, toks, start, 0, 0, False))
     return out
 
 
