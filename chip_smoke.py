@@ -71,7 +71,21 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    sampled requests at temperature 0.8, top-k 50, top-p 0.95, seed 1 + i,
    every fourth greedy): exact launches of the target and the draft,
    pools whole, each sampled engine's replay of the traffic identical;
-   the draft tokens proposed and accepted reported.  Last, the generic
+   the draft tokens proposed and accepted reported, and one sampling
+   draw's device operations counted.  Then the prefix cache
+   (:func:`serve_prefix`): chat turns under one 768-token system prompt
+   (request 0 alone, then fifteen at once) through the mixed prefix
+   engine, the same engine without the cache, the split prefix engine and
+   the int8-pool prefix engine: launches exact, pools whole (every cached
+   page held once, by the table), the system prompt's pages bitwise
+   unwritten after they were published, every later turn a 768-token hit,
+   768 + the suffixes prefilled (16 x 768 + the suffixes without the
+   cache), and the warm TTFT strictly below a cold one of the same length;
+   four sampled generations of one prompt sharing its prefill (hits of
+   511, served twice, identical); and two tenants' waves through a small
+   pool with a 1 GiB host tier against a resident pool (spills, restores
+   and their batched copies as predicted, streams byte-identical, steps
+   equal).  Last, the generic
    kernels' serving path (:func:`serve_head_dim_256`): a 2-layer model at
    head dim 256 through both engines and both pool types, with the
    generic kernels' launches exact.
@@ -86,7 +100,14 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    mixed engine, and it and the sampled mixed engine must each match
    themselves run through the plain versions, at 0.98; a damped pair
    (the target's second layer's ``o_proj`` and ``down_proj`` scaled by
-   0.1) must accept a full chain of ``spec_k`` drafts at least once.
+   0.1) must accept a full chain of ``spec_k`` drafts at least once.  The
+   mixed and split prefix engines and the host tier must match the same
+   engine without the cache, the mixed, split and int8-pool prefix
+   engines themselves run through the plain versions, and each of four
+   sampled generations a solo request with its seed, at 0.98; the
+   int8-pool prefix engine against its cold twin is reported, with how
+   the twin's own int8 pages of the system prompt differ from the
+   published ones (:func:`prefix_parity`).
    Then the first step's
    logits against the eager forward by depth and dtype: fp32 at all 32
    layers (held to 1e-3) and bf16 at 2 layers.
@@ -139,11 +160,17 @@ times the kernels of the checkout at ``DIR`` by both timing methods
 (:func:`timing_of`), to hold two commits' kernel times on one
 yardstick.
 
+    python3 chip_smoke.py --profile-prefix
+
+profiles the 7B chat traffic with and without the prefix cache
+(:func:`profile_prefix`): the device time the cache saves.
+
 The script imports nothing of JAX and nothing of ``paddle_tpu``.  Without
 a CUDA card it exits nonzero before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -1366,17 +1393,47 @@ def request_knobs(i: int, sampled: bool):
     return dict(SAMPLED_KNOBS, seed=1 + i)
 
 
-def serve(model, prompts, engine_kw=None, draft=None, sampled=False):
-    """Admit 4, step, admit 4, run to completion on an engine built with
-    ``engine_kw`` (default: the mixed engine) and ``draft`` as its draft
-    model; ``sampled``: the requests carry :func:`request_knobs`.
-    Returns the engine, the tokens per request and the run's statistics:
-    the launch counts (reset just before), engine steps (and the spread of
-    their host seconds: ``eng.step()`` returns once the step is queued, or
-    once it has read its tokens back), the split engine's decode steps and
-    prefill chunks, the mixed engine's target launches and the draft's
-    launches, and for a speculative engine the draft tokens proposed and
-    accepted."""
+def admit_4_4(prompts, sampled=False):
+    """The phase-3 traffic: admit 4, step, admit 4, run to completion;
+    ``sampled``: the requests carry :func:`request_knobs`.  Returns the
+    traffic function :func:`serve` runs (``traffic(eng, step) ->
+    req_ids``)."""
+    def traffic(eng, step):
+        rids = [eng.add_request(p, NEW_TOKENS, **request_knobs(i, sampled))
+                for i, p in enumerate(prompts[:4])]
+        step()
+        rids += [eng.add_request(p, NEW_TOKENS, **request_knobs(i, sampled))
+                 for i, p in enumerate(prompts[4:], 4)]
+        while eng.has_work():
+            step()
+        return rids
+    return traffic
+
+
+def pool_whole(eng) -> bool:
+    """Every page free, or (with the prefix cache) held exactly once, by
+    the cache's table."""
+    cache = eng.caches[0]
+    cached = (eng.prefix_cache.cached_blocks()
+              if eng.prefix_cache is not None else set())
+    return (all(cache.refcount(b) == 1 for b in cached)
+            and sorted(cache._free + list(cached) + [cache.sink])
+            == list(range(cache.num_blocks + 1)))
+
+
+def serve(model, prompts, engine_kw=None, draft=None, sampled=False,
+          traffic=None):
+    """Run ``traffic`` (default: :func:`admit_4_4` over ``prompts``) on an
+    engine built with ``engine_kw`` (default: the mixed engine) and
+    ``draft`` as its draft model.  Returns the engine, the tokens per
+    request and the run's statistics: the launch counts (reset just
+    before), engine steps (and the spread of their host seconds:
+    ``eng.step()`` returns once the step is queued, or once it has read its
+    tokens back), the split engine's decode steps and prefill chunks, the
+    prompt tokens the engine prefilled, the mixed engine's target launches
+    and the draft's launches, for a speculative engine the draft tokens
+    proposed and accepted, and with the prefix cache its counters and
+    each request's hit tokens."""
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
     eng = ContinuousBatchingEngine(model, draft_model=draft,
@@ -1397,26 +1454,21 @@ def serve(model, prompts, engine_kw=None, draft=None, sampled=False):
         t = time.perf_counter()
         eng.step()
         step_s.append(time.perf_counter() - t)
+    traffic = traffic or admit_4_4(prompts, sampled)
     t0 = time.perf_counter()
-    rids = [eng.add_request(p, NEW_TOKENS, **request_knobs(i, sampled))
-            for i, p in enumerate(prompts[:4])]
-    step()
-    rids += [eng.add_request(p, NEW_TOKENS, **request_knobs(i, sampled))
-             for i, p in enumerate(prompts[4:], 4)]
-    while eng.has_work():
-        step()
+    rids = traffic(eng, step)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = len(step_s)
     launches = _launches()
     outs = [eng.result(r) for r in rids]
     cache = eng.caches[0]
-    whole = sorted(cache._free + [cache.sink]) == list(
-        range(cache.num_blocks + 1))
-    if not whole:
-        raise AssertionError("pool not whole after run_to_completion: %d "
-                             "free of %d" % (len(cache._free),
-                                             cache.num_blocks))
+    if not pool_whole(eng):
+        raise AssertionError("pool not whole after the run: %d free, %d "
+                             "cached, of %d" % (
+                                 len(cache._free),
+                                 len(eng.prefix_cache or ()),
+                                 cache.num_blocks))
     # the draft's pools share the target's page ids: their own free lists
     # are never drawn from
     if not all(len(c._free) == c.num_blocks for c in eng.draft_caches):
@@ -1428,14 +1480,16 @@ def serve(model, prompts, engine_kw=None, draft=None, sampled=False):
         raise AssertionError("a request ended early: %s"
                              % [len(o) for o in outs])
     gen_tok = sum(len(o) for o in outs)
+    prompt_tok = int(sum(len(eng.finished[r].prompt_ids) for r in rids))
     stats = dict(steps=steps, decode_steps=eng.decode_step.n,
                  prefill_chunks=(eng.prefill_step.n
                                  if eng.prefill_step is not None else 0),
-                 prompt_tokens=int(sum(map(len, prompts))),
+                 prompt_tokens=prompt_tok,
+                 prefilled_tokens=eng.prefill_tokens,
                  generated_tokens=gen_tok, wall_s=wall,
                  tokens_per_s=gen_tok / wall,
                  prompt_and_generated_tokens_per_s=(
-                     gen_tok + sum(map(len, prompts))) / wall,
+                     gen_tok + prompt_tok) / wall,
                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
                  kv_pool_bytes=sum(c.pool_bytes() for c in eng.caches),
                  step_host_s=_spread(step_s),
@@ -1461,6 +1515,14 @@ def serve(model, prompts, engine_kw=None, draft=None, sampled=False):
             acceptance_rate=eng.spec_accepted / max(1, eng.spec_proposed),
             full_chain_spans=eng.mixed.full_drafts,
             full_chain_accepts=eng.mixed.full_accepts)
+    pc = eng.prefix_cache
+    if pc is not None:
+        stats.update(prefix_cache={a: getattr(pc, a) for a in (
+            "hits", "misses", "hit_tokens", "evictions", "skipped_pinned",
+            "spills", "host_hits", "restores")},
+            cached_pages=len(pc),
+            prefix_hit_tokens=[eng.finished[r].prefix_hit_tokens
+                               for r in rids])
     if eng.prefill_step is not None:
         seen = sorted(eng.prefill_step.compile_counts)
         if len(seen) > len(eng.prefill_buckets):
@@ -1592,11 +1654,12 @@ def profile_device(fn, unprofiled_wall_s):
 
 
 def profile_serve(name, model, prompts, unprofiled_wall_s,
-                  engine_kw=None):
+                  engine_kw=None, traffic=None):
     """The same traffic once more under ``torch.profiler`` (see
     :func:`profile_device`)."""
     row = dict(phase="profile_" + name, **profile_device(
-        lambda: serve(model, prompts, engine_kw), unprofiled_wall_s))
+        lambda: serve(model, prompts, engine_kw, traffic=traffic),
+        unprofiled_wall_s))
     emit(row)
     return row
 
@@ -1730,6 +1793,10 @@ def phase_serving_7b():
             runs[name]["profile"] = profile_serve(
                 name + "_bf16", model, prompts, stats["wall_s"], kw)
     runs.update(serve_sampled_and_spec(model, prompts, ref, outs))
+    t1 = time.perf_counter()
+    runs.update(serve_prefix(model))
+    print("7b: the prefix-cache runs in %.1f s" % (time.perf_counter() - t1),
+          flush=True)
     del model
     torch.cuda.empty_cache()
     runs.update(serve_head_dim_256())
@@ -1784,6 +1851,40 @@ def serve_head_dim_256():
     return runs
 
 
+def sampling_draw_launches(S: int = 8, V: int = 32000):
+    """What one sampling draw costs the host: the device operations one
+    ``sample_logits`` call over [S, V] fp32 logits at ``SAMPLED_KNOBS``
+    issues (kernels, and copies or sets), counted from
+    ``torch.profiler``'s device events after a warm-up draw."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops.sampling import sample_logits
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(SEED)
+    args = (torch.randn(S, V, generator=gen, device=dev),
+            torch.full((S,), SAMPLED_KNOBS["temperature"], device=dev),
+            torch.full((S,), SAMPLED_KNOBS["top_k"], dtype=torch.int32,
+                       device=dev),
+            torch.full((S,), SAMPLED_KNOBS["top_p"], device=dev),
+            torch.arange(1, S + 1, dtype=torch.int32, device=dev),
+            torch.full((S,), 1024, dtype=torch.int32, device=dev))
+    sample_logits(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sample_logits(*args)
+        torch.cuda.synchronize()
+    counts = {"kernels": 0, "copies": 0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            key = e.key.lower()
+            kind = ("copies" if "memcpy" in key or "memset" in key
+                    else "kernels")
+            counts[kind] += e.count
+    return dict(draw_kernel_launches=counts["kernels"],
+                draw_copies=counts["copies"], draw_shape=[S, V])
+
+
 def serve_sampled_and_spec(model, prompts, ref, outs):
     """The sampling and speculative engines on phase 3's model and
     traffic: the mixed and split engines with ``sampling=True`` (sampled
@@ -1833,10 +1934,407 @@ def serve_sampled_and_spec(model, prompts, ref, outs):
         if name == "serve_7b_split_sampled":
             stats["match_rate_vs_mixed_sampled"] = _rates(
                 outs[name], outs["serve_7b_sampled"])[0]
+        if name == "serve_7b_sampled":
+            stats.update(sampling_draw_launches())
         emit(stats)
         runs[name] = stats
     del draft
     return runs
+
+
+# ---- the prefix cache: chat turns under one system prompt -----------------
+SYSTEM_LEN = 768            # a deployment's system prompt: 48 pages of 16
+# sixteen user turns, spread evenly over 32..256 tokens (mean 144)
+SUFFIX_LENS = tuple(int(n) for n in np.round(np.linspace(32, 256, 16)))
+N_PROMPT_LEN = 512          # the n = 4 run's prompt: 32 full pages
+N_SAMPLES = 4
+TTFT_SUFFIX = 256
+PREFIX_KW = dict(ENGINE_KW, enable_prefix_cache=True)
+SPLIT_PREFIX_KW = dict(SPLIT_KW, enable_prefix_cache=True)
+KV8_PREFIX_KW = dict(PREFIX_KW, kv_dtype="int8")
+N4_KW = dict(PREFIX_KW, sampling=True)
+PARITY_TURNS = 8            # phase 4: turn 0 alone, then seven at once
+# serve_7b_host_tier: tenants A and B, whole waves A, B, A, B of 8 turns
+# (A's turns take the even-indexed suffix lengths, B's the odd).  Wave 1
+# misses (its turns prefill together) and leaves A's 48 pages + 65 full
+# suffix pages in the table; wave 2 (B, all misses) needs 8 x 48 + 95 =
+# 479 pages against 512 - 113 = 399 free: its first six turns fit, the
+# seventh evicts 14 pages and the eighth 66, least recently used first
+# (A's 48, then 32 of wave 1's suffix pages): 80 pages spilled in 2
+# batched copies, 640 MiB of the 1 GiB tier at 7B bf16.  Wave 3 restores
+# A's 48 pages in one copy (359 pages are free then) and every turn hits
+# 768 tokens; wave 4 finds B on the card.  Whole waves free 359 pages at
+# their end whatever the pool size, so no pool that admits wave 1 whole
+# can make waves 3 or 4 evict.
+HOST_TIER_BYTES = 1 << 30
+HOST_TIER_BLOCKS = 512
+HOST_TIER_KW = dict(PREFIX_KW, num_blocks=HOST_TIER_BLOCKS,
+                    host_tier_bytes=HOST_TIER_BYTES)
+HOST_TIER_WANT = dict(spills=80, spill_copies=2, restores=48,
+                      restore_copies=1, host_hits=48, evictions=80)
+
+
+def chat_prompts(vocab: int, seed: int = SEED + 1):
+    """The system prompt and its sixteen chat turns (seeded token ids)."""
+    rng = np.random.RandomState(seed)
+    system = rng.randint(1, vocab, (SYSTEM_LEN,)).astype(np.int64)
+    return system, [np.concatenate([system, rng.randint(1, vocab, (n,))])
+                    for n in SUFFIX_LENS]
+
+
+class SharedPages:
+    """A clone of request ``watch``'s system-prompt pages in every pool
+    (K, V and an int8 pool's scale rows), taken as soon as its prefill
+    has written them (request 0's: when it publishes them), and the check
+    that they were never written since."""
+
+    def __init__(self, watch: int = 0):
+        self.watch = watch
+        self.blocks = self.pages = None
+
+    def take(self, eng, block_ids):
+        import torch
+        self.blocks = torch.tensor(block_ids, dtype=torch.long,
+                                   device=eng.device)
+        self.pages = [t.index_select(0, self.blocks)
+                      for t in self._pools(eng)]
+
+    @staticmethod
+    def _pools(eng):
+        out = []
+        for c in eng.caches:
+            out += [c.key_cache, c.value_cache]
+            if c.quantized:
+                out += [c.key_scale, c.value_scale]
+        return out
+
+    def unwritten(self, eng) -> bool:
+        import torch
+        return all(torch.equal(t.index_select(0, self.blocks), p)
+                   for t, p in zip(self._pools(eng), self.pages))
+
+    def differ(self, other) -> dict:
+        """Where two clones of the same prompt's int8 pages differ: the
+        codes that differ (of all), the largest code difference, the scale
+        entries that differ (of all) and those of ``other`` above this
+        clone's (a recycled page keeps its running-max scale, as in the
+        reference, so a prompt written on recycled pages can quantize
+        coarser than on fresh ones)."""
+        codes = [(a, b) for a, b in zip(self.pages, other.pages)
+                 if not a.dtype.is_floating_point]
+        scales = [(a, b) for a, b in zip(self.pages, other.pages)
+                  if a.dtype.is_floating_point]
+        return dict(
+            codes_differing=sum(int((a != b).sum()) for a, b in codes),
+            codes=sum(a.numel() for a, _ in codes),
+            max_code_diff=max(int((a.int() - b.int()).abs().max())
+                              for a, b in codes),
+            scales_differing=sum(int((a != b).sum()) for a, b in scales),
+            scales_above=sum(int((b > a).sum()) for a, b in scales),
+            scales=sum(a.numel() for a, _ in scales))
+
+
+def chat_turns(prompts, shared=None, alone: int = 1):
+    """The first ``alone`` requests to completion (request 0: the earlier
+    traffic that warmed the cache), then the others at once; ``shared``
+    (a :class:`SharedPages`) clones its request's system-prompt pages as
+    soon as that request's prefill has written them."""
+    pages = SYSTEM_LEN // ENGINE_BASE["block_size"]
+
+    def traffic(eng, step):
+        reqs = []
+
+        def run():
+            while eng.has_work():
+                step()
+                r = reqs[shared.watch] if shared is not None and len(
+                    reqs) > shared.watch else None
+                if r is not None and shared.blocks is None \
+                        and r.state not in ("waiting", "prefilling"):
+                    shared.take(eng, r.block_ids[:pages])
+        rids = []
+        for batch in (prompts[:alone], prompts[alone:]):
+            for p in batch:
+                rids.append(eng.add_request(p, NEW_TOKENS))
+                reqs.append(eng.waiting[-1])
+            run()
+        return rids
+    return traffic
+
+
+def n_samples(prompt):
+    """One prompt, ``N_SAMPLES`` sampled generations sharing its
+    prefill."""
+    def traffic(eng, step):
+        rids = eng.add_request(prompt, NEW_TOKENS, n=N_SAMPLES, seed=1,
+                               **SAMPLED_KNOBS)
+        while eng.has_work():
+            step()
+        return rids
+    return traffic
+
+
+def tenant_waves(vocab: int, seed: int = SEED + 2):
+    """``serve_7b_host_tier``'s traffic: tenants A and B (768-token system
+    prompts), waves A, B, A, B of eight turns, each wave added at once and
+    run to completion before the next; fresh turns every wave."""
+    rng = np.random.RandomState(seed)
+    systems = [rng.randint(1, vocab, (SYSTEM_LEN,)).astype(np.int64)
+               for _ in range(2)]
+    waves = [[np.concatenate([systems[w % 2], rng.randint(1, vocab, (n,))])
+              for n in SUFFIX_LENS[w % 2::2]] for w in range(4)]
+
+    def traffic(eng, step):
+        rids = []
+        for wave in waves:
+            rids += [eng.add_request(p, NEW_TOKENS) for p in wave]
+            step()
+            if eng.waiting:
+                raise AssertionError("a wave of %d turns was not admitted "
+                                     "whole" % len(wave))
+            while eng.has_work():
+                step()
+        return rids
+    return traffic
+
+
+def first_token_s(eng, prompt) -> float:
+    """Seconds from ``add_request`` to the request's first token on the
+    host, the device synchronized before and after, the engine idle; then
+    the request runs to completion."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.add_request(prompt, NEW_TOKENS)
+    req = eng.waiting[-1]
+    while not req.output_ids:
+        eng.step()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    eng.run_to_completion()
+    return dt
+
+
+def time_to_first_token(model, system, vocab, pairs=3):
+    """The reference's TTFT gate (``tools/bench_serving.py``): in an idle
+    prefix engine warmed with the system prompt, a request of the system
+    prompt + 256 tokens against a cold request of the same length under a
+    fresh system prompt, ``pairs`` times, each warm one strictly below its
+    cold twin."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    rng = np.random.RandomState(SEED + 3)
+    eng = ContinuousBatchingEngine(model, **PREFIX_KW)
+    eng.add_request(np.concatenate([system, rng.randint(1, vocab, (32,))]),
+                    NEW_TOKENS)
+    eng.run_to_completion()
+    warm, cold = [], []
+    for _ in range(pairs):
+        turn = rng.randint(1, vocab, (TTFT_SUFFIX,))
+        warm.append(first_token_s(eng, np.concatenate([system, turn])))
+        fresh = rng.randint(1, vocab, (SYSTEM_LEN + TTFT_SUFFIX,))
+        cold.append(first_token_s(eng, fresh))
+    if not all(w < c for w, c in zip(warm, cold)):
+        raise AssertionError("warm TTFT %s not strictly below cold %s"
+                             % (warm, cold))
+    return dict(ttft_warm_s=warm, ttft_cold_s=cold,
+                ttft_prompt_tokens=SYSTEM_LEN + TTFT_SUFFIX)
+
+
+def check_prefix_run(name, stats, cold, n=len(SUFFIX_LENS)):
+    """The counts of the chat traffic's first ``n`` turns: each turn after
+    the first hit the 768-token system prompt, and the engine prefilled
+    768 + the suffixes with the cache (n x 768 + the suffixes without)."""
+    want_prefill = (n if cold else 1) * SYSTEM_LEN + sum(SUFFIX_LENS[:n])
+    if stats["prefilled_tokens"] != want_prefill:
+        raise AssertionError("%s prefilled %d prompt tokens, want %d"
+                             % (name, stats["prefilled_tokens"],
+                                want_prefill))
+    if cold:
+        return
+    hits = stats["prefix_hit_tokens"]
+    if hits != [0] + [SYSTEM_LEN] * (n - 1):
+        raise AssertionError("%s prefix hit tokens %s" % (name, hits))
+
+
+def serve_prefix(model):
+    """The prefix cache on phase 3's model: the chat traffic (a 768-token
+    system prompt, request 0 alone, then fifteen turns at once) through
+    the mixed prefix engine (with the TTFT gate), the same engine without
+    the cache (the yardstick), the split prefix engine and the int8-pool
+    prefix engine; four sampled generations of one 512-token prompt,
+    served twice; and the host tier against a resident pool on two
+    tenants' waves.  Launches exact, pools whole (every cached page held
+    once, by the table), the system prompt's pages bitwise unwritten, hit
+    and prefilled tokens as :func:`check_prefix_run` states, the host
+    tier's spills, restores and copies as ``HOST_TIER_WANT`` predicts and
+    its streams and steps equal the resident pool's."""
+    import torch
+    cfg = model.config
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    system, prompts = chat_prompts(V)
+    outs, rows = {}, {}
+    for name, kw in (("serve_7b_prefix_cold", ENGINE_KW),
+                     ("serve_7b_prefix", PREFIX_KW),
+                     ("serve_7b_split_prefix", SPLIT_PREFIX_KW),
+                     ("serve_7b_kv8_prefix", KV8_PREFIX_KW)):
+        t1 = time.perf_counter()
+        cold = not kw.get("enable_prefix_cache")
+        shared = None if cold else SharedPages()
+        eng, outs[name], stats = serve(model, None, kw,
+                                       traffic=chat_turns(prompts, shared))
+        check_launches(name, kw, stats, L)
+        check_prefix_run(name, stats, cold)
+        if shared is not None:
+            # the 48 pages x 32 layers x K and V: 384 MiB at 7B bf16
+            stats["shared_pages_unwritten"] = shared.unwritten(eng)
+            if not stats["shared_pages_unwritten"]:
+                raise AssertionError("%s wrote a shared page" % name)
+            stats["shared_bytes_checked"] = sum(
+                p.numel() * p.element_size() for p in shared.pages)
+        del eng, shared
+        if name == "serve_7b_prefix":
+            stats.update(time_to_first_token(model, system, V))
+        stats.update(phase=name + "_bf16", layers=L,
+                     engine={k: v for k, v in kw.items()
+                             if k not in ENGINE_BASE},
+                     phase_wall_s=time.perf_counter() - t1)
+        if not cold:
+            stats["match_rate_vs_cold"] = _rates(
+                outs[name], outs["serve_7b_prefix_cold"])[0]
+        rows[name] = stats
+    rows["serve_7b_prefix"]["wall_vs_cold"] = (
+        rows["serve_7b_prefix"]["wall_s"]
+        / rows["serve_7b_prefix_cold"]["wall_s"])
+    for stats in rows.values():
+        emit(stats)
+    prompt = np.random.RandomState(SEED + 4).randint(1, V, (N_PROMPT_LEN,))
+    t1 = time.perf_counter()
+    streams = []
+    for _ in range(2):
+        _, got, stats = serve(model, None, N4_KW, traffic=n_samples(prompt))
+        check_launches("serve_7b_n4", N4_KW, stats, L)
+        streams.append(got)
+    if streams[0] != streams[1]:
+        raise AssertionError("serve_7b_n4: the second run sampled other "
+                             "tokens")
+    if len({tuple(o) for o in streams[0]}) < 2:
+        raise AssertionError("serve_7b_n4: the %d generations are all equal"
+                             % N_SAMPLES)
+    if stats["prefix_hit_tokens"] != [0] + [N_PROMPT_LEN - 1] * (
+            N_SAMPLES - 1):
+        raise AssertionError("serve_7b_n4 hit tokens %s"
+                             % stats["prefix_hit_tokens"])
+    stats.update(phase="serve_7b_n4_bf16", layers=L, replay_identical=True,
+                 distinct_streams=len({tuple(o) for o in streams[0]}),
+                 engine={k: v for k, v in N4_KW.items()
+                         if k not in ENGINE_BASE},
+                 phase_wall_s=time.perf_counter() - t1)
+    emit(stats)
+    rows["serve_7b_n4"] = stats
+    rows.update(serve_host_tier(model)[0])
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def timed_page_moves(log: list):
+    """While open, every ``PrefixPageCache._spill`` (the batched extract
+    and its split into one-page entries) and every ``_restore_chain``
+    that restored pages (their concatenation and the batched inject)
+    appends ``(kind, pages, host seconds)`` to ``log``, the device
+    synchronized around each call.  The engine's own calls are timed, in
+    the run that makes them."""
+    import torch
+    from paddle_tpu_torch.inference.prefix_cache import PrefixPageCache
+    spill, restore = PrefixPageCache._spill, PrefixPageCache._restore_chain
+
+    def timed_spill(self, victims):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        spill(self, victims)
+        torch.cuda.synchronize()
+        log.append(("spill", len(victims), time.perf_counter() - t))
+
+    def timed_restore(self, prompt_ids, start, n_full):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = restore(self, prompt_ids, start, n_full)
+        torch.cuda.synchronize()
+        if out:
+            log.append(("restore", len(out), time.perf_counter() - t))
+        return out
+    PrefixPageCache._spill = timed_spill
+    PrefixPageCache._restore_chain = timed_restore
+    try:
+        yield log
+    finally:
+        PrefixPageCache._spill, PrefixPageCache._restore_chain = (
+            spill, restore)
+
+
+def serve_host_tier(model, label="bf16"):
+    """``serve_7b_host_tier`` and ``serve_7b_host_tier_resident``: two
+    tenants' waves (:func:`tenant_waves`) through a ``HOST_TIER_BLOCKS``
+    pool with a 1 GiB host tier, and through a 640-page pool with nothing
+    evicted.  Spills, restores, host hits and the host copies read from
+    ``MIGRATION_TRANSFERS`` (one per batched spill or restore: one dtype)
+    as ``HOST_TIER_WANT`` predicts, every turn of the
+    waves after the first two on a 768-token hit, the token streams
+    byte-identical and the step counts equal.  Returns the rows (phase
+    names end in ``label``) and the streams."""
+    from paddle_tpu_torch.jit.serving_step import migration_transfers
+    L = model.config.num_hidden_layers
+    traffic = tenant_waves(model.config.vocab_size)
+    rows, outs = {}, {}
+    for name, k in (("serve_7b_host_tier", HOST_TIER_KW),
+                    ("serve_7b_host_tier_resident", PREFIX_KW)):
+        t1 = time.perf_counter()
+        t0 = migration_transfers()
+        moves = []
+        with timed_page_moves(moves):
+            eng, outs[name], stats = serve(model, None, k, traffic=traffic)
+        t = migration_transfers()
+        check_launches(name, k, stats, L)
+        if moves:
+            stats["page_moves"] = {
+                kind: dict(pages=[n for kd, n, _ in moves if kd == kind],
+                           s=[dt for kd, _, dt in moves if kd == kind])
+                for kind in ("spill", "restore")}
+        stats.update(d2h=t["d2h"] - t0["d2h"], h2d=t["h2d"] - t0["h2d"],
+                     phase=name + "_" + label, layers=L,
+                     host_tier_entries=len(eng.host_tier or ()),
+                     engine={a: v for a, v in k.items()
+                             if a not in ENGINE_BASE or a == "num_blocks"},
+                     phase_wall_s=time.perf_counter() - t1)
+        del eng
+        rows[name] = stats
+    tier, res = rows["serve_7b_host_tier"], rows["serve_7b_host_tier_resident"]
+    # one host copy per dtype (bf16 or fp32 pools: one) per batched spill
+    # or restore
+    got = dict(tier["prefix_cache"], spill_copies=tier["d2h"],
+               restore_copies=tier["h2d"])
+    want = HOST_TIER_WANT
+    if {a: got[a] for a in want} != want:
+        raise AssertionError("serve_7b_host_tier moved %s, predicted %s"
+                             % ({a: got[a] for a in want}, want))
+    if res["prefix_cache"]["evictions"] or res["d2h"] or res["h2d"]:
+        raise AssertionError("the resident pool evicted: %s"
+                             % res["prefix_cache"])
+    hits = tier["prefix_hit_tokens"]
+    if hits[16:] != [SYSTEM_LEN] * 16 or hits != res["prefix_hit_tokens"]:
+        raise AssertionError("host tier hit tokens %s, resident %s"
+                             % (hits, res["prefix_hit_tokens"]))
+    if outs["serve_7b_host_tier"] != outs["serve_7b_host_tier_resident"]:
+        raise AssertionError("the host tier's streams differ from the "
+                             "resident pool's")
+    if tier["steps"] != res["steps"]:
+        raise AssertionError("host tier %d steps, resident %d"
+                             % (tier["steps"], res["steps"]))
+    tier.update(streams_identical_to_resident=True,
+                steps_equal_to_resident=True)
+    for stats in rows.values():
+        emit(stats)
+    return rows, outs
 
 
 def swapped_attention():
@@ -1957,6 +2455,9 @@ def phase_parity_2l():
     for mode in ("mixed", "split"):
         row["kv8_%s_vs_fp32_%s" % (mode, mode)] = _rates(
             outs["kv8_" + mode], outs[mode])[0]
+    prefix_gates, prefix_reported = prefix_parity(model)
+    gates.update(prefix_gates)
+    row.update(prefix_gates, **prefix_reported)
     row["damped_pair"] = damped_pair_run(cfg, prompts)
     emit(row)
     if not row["damped_pair"]["full_chain_accepts"] >= 1:
@@ -1970,6 +2471,169 @@ def phase_parity_2l():
     del model
     torch.cuda.empty_cache()
     return row
+
+
+def prefix_parity(model):
+    """The prefix engines at 2 layers fp32 (token matches, each >= 0.98
+    in the caller): the mixed and split prefix engines against the same
+    engine without the cache on the chat traffic's first
+    ``PARITY_TURNS`` turns, the mixed, split and
+    int8-pool prefix engines each against itself through the plain
+    attention versions; the host tier
+    against the mixed engine without the cache on the tenants' waves (its
+    spills, restores and copies, and its equality with the resident
+    pool, asserted by :func:`serve_host_tier`); generation ``i`` of the
+    ``n = 4`` run against a solo request with seed ``1 + i``; the
+    int8-pool prefix engine against its cold twin where their pages'
+    write histories are equal: each turn in an engine of its own, cold
+    and behind its publisher (:func:`kv8_history_twins`).  Returns those
+    gates, and what is reported: the int8-pool prefix engine on the chat
+    traffic against its cold twin (whose turn 1 writes the system prompt
+    on request 0's recycled pages) and against the cold twins on fresh
+    pages (per turn too), with how the system prompt's int8 pages each
+    twin writes for itself differ from the published ones."""
+    V = model.config.vocab_size
+    # the system prompt and its first PARITY_TURNS turns (the plain
+    # attention versions loop over pages on the host)
+    prompts = chat_prompts(V)[1][:PARITY_TURNS]
+    outs, gates, reported = {}, {}, {}
+    for name, kw, cold_kw in (
+            ("prefix", PREFIX_KW, ENGINE_KW),
+            ("split_prefix", SPLIT_PREFIX_KW, SPLIT_KW),
+            ("kv8_prefix", KV8_PREFIX_KW, dict(ENGINE_KW, kv_dtype="int8"))):
+        # the int8 pages of the system prompt: as published (request 0 of
+        # the prefix engine) and as request 1 of the cold engine writes its
+        # own copy, in a step packed with other requests' spans
+        shared = {name: SharedPages(0), name + "_cold": SharedPages(1)}
+        for key, k, swap in ((name, kw, False), (name + "_cold", cold_kw,
+                                                 False),
+                             (name + "_plain", kw, True)):
+            traffic = chat_turns(prompts, shared.get(key))
+            if swap:
+                with swapped_attention():
+                    _, outs[key], st = serve(model, None, k,
+                                             traffic=traffic)
+            else:
+                _, outs[key], st = serve(model, None, k, traffic=traffic)
+                check_launches("parity " + key, k, st,
+                               model.config.num_hidden_layers)
+            check_prefix_run("parity " + key, st, key.endswith("_cold"),
+                             PARITY_TURNS)
+        gates[name + "_vs_" + name + "_plain"] = _rates(
+            outs[name], outs[name + "_plain"])[0]
+        vs_cold = _rates(outs[name], outs[name + "_cold"])[0]
+        if kw.get("kv_dtype") == "int8":
+            # reported: the cold twin writes the system prompt on recycled
+            # pages, whose running-max scales outlive their last sequence
+            # (the reference's rule), so its codes are coarser and random
+            # 7B-width greedy tokens move
+            reported[name + "_vs_" + name + "_cold"] = vs_cold
+            reported["kv8_system_pages_published_vs_cold"] = shared[
+                name].differ(shared[name + "_cold"])
+            tw = kv8_history_twins(model, prompts, kw, cold_kw,
+                                   shared[name])
+            solo = tw["solo"]["tokens"]
+            gates[name + "_behind_publisher_vs_cold_solo"] = _rates(
+                tw["behind"], solo[1:])[0]
+            for how in ("solo", "at_once"):
+                reported[name + "_vs_cold_" + how] = _rates(
+                    outs[name], tw[how]["tokens"])
+                reported["kv8_system_pages_published_vs_" + how] = tw[
+                    how]["pages"]
+        else:
+            gates[name + "_vs_" + name + "_cold"] = vs_cold
+    _, tier = serve_host_tier(model, "parity_2layer_fp32")
+    _, cold, _ = serve(model, None, ENGINE_KW, traffic=tenant_waves(V))
+    gates["host_tier_vs_cold"] = _rates(tier["serve_7b_host_tier"], cold)[0]
+    prompt = np.random.RandomState(SEED + 4).randint(1, V, (N_PROMPT_LEN,))
+    _, children, _ = serve(model, None, N4_KW, traffic=n_samples(prompt))
+    solo = []
+    for i in range(N_SAMPLES):
+        def one(eng, step, seed=1 + i):
+            rid = eng.add_request(prompt, NEW_TOKENS, seed=seed,
+                                  **SAMPLED_KNOBS)
+            while eng.has_work():
+                step()
+            return [rid]
+        solo += serve(model, None, N4_KW, traffic=one)[1]
+    gates["n4_children_vs_solo"] = _rates(children, solo)[0]
+    return gates, reported
+
+
+def behind_publisher(prompts, k: int):
+    """Request 0 (generating ``2 * NEW_TOKENS``, so that it outlives turn
+    ``k``) and turn ``k`` added as soon as request 0 has published the
+    system prompt: every page turn ``k`` writes is fresh, and its suffix
+    is one chunk beside request 0's decode token.  Returns turn ``k``'s
+    id only."""
+    def traffic(eng, step):
+        eng.add_request(prompts[0], 2 * NEW_TOKENS)
+        publisher = eng.waiting[-1]
+        while publisher.state in ("waiting", "prefilling"):
+            step()
+        rid = eng.add_request(prompts[k], NEW_TOKENS)
+        while eng.has_work():
+            step()
+        return [rid]
+    return traffic
+
+
+def kv8_history_twins(model, prompts, kw, cold_kw, published):
+    """Int8 codes follow each page's write history (the reference's
+    rules: a recycled page keeps its running-max scale; a write that
+    raises a page's scale rescales the codes already there), so the
+    int8-pool prefix engine and its cold twins write their turns' pages
+    differently.  Cold twins with no page recycled: ``solo``, every turn
+    in an engine of its own (its system prompt prefilled alone, in the
+    chunks request 0 published it in); ``at_once``, request 0 in an engine
+    of its own and the other turns at once in a second (their chunks
+    packed, and cut mid-page, under the step's token budget).
+    ``behind``: turn ``k`` in a prefix engine of its own
+    (:func:`behind_publisher`), whose pages then have the histories of
+    ``solo``'s turn ``k``.  Launches, prefilled and hit tokens checked;
+    ``solo``'s system-prompt pages must equal ``published`` (a
+    :class:`SharedPages`) bitwise.  Returns the tokens of each (``behind``:
+    turns 1..) and how the system-prompt pages each cold twin's turns
+    wrote differ from the published ones: each turn's in ``solo``, turn
+    1's in ``at_once``, summed."""
+    L = model.config.num_hidden_layers
+
+    def run(batch, alone):
+        shared = SharedPages(0)
+        _, toks, st = serve(model, None, cold_kw,
+                            traffic=chat_turns(batch, shared, alone))
+        check_launches("parity kv8 cold twin", cold_kw, st, L)
+        return toks, st["prefilled_tokens"], published.differ(shared)
+    out = {}
+    for how, groups in (("solo", [[p] for p in prompts]),
+                        ("at_once", [prompts[:1], prompts[1:]])):
+        runs = [run(g, 1 if len(g) == 1 else 0) for g in groups]
+        check_prefix_run("parity kv8 %s cold twin" % how,
+                         dict(prefilled_tokens=sum(r[1] for r in runs)),
+                         True, len(prompts))
+        pages = [r[2] for r in runs[1:]]
+        out[how] = dict(tokens=[t for r in runs for t in r[0]], pages={
+            k: (max if k == "max_code_diff" else sum)(d[k] for d in pages)
+            for k in pages[0]})
+    p = out["solo"]["pages"]
+    if p["codes_differing"] or p["scales_differing"]:
+        raise AssertionError("kv8 turns prefilled alone on fresh pages "
+                             "wrote other system-prompt pages than the "
+                             "published ones: %s" % p)
+    out["behind"] = []
+    for k in range(1, len(prompts)):
+        _, toks, st = serve(model, None, kw,
+                            traffic=behind_publisher(prompts, k))
+        check_launches("parity kv8 behind publisher", kw, st, L)
+        want = len(prompts[0]) + len(prompts[k]) - SYSTEM_LEN
+        if st["prefix_hit_tokens"] != [SYSTEM_LEN] or \
+                st["prefilled_tokens"] != want:
+            raise AssertionError("kv8 turn %d behind its publisher: hit %s, "
+                                 "prefilled %d (want %d)"
+                                 % (k, st["prefix_hit_tokens"],
+                                    st["prefilled_tokens"], want))
+        out["behind"] += toks
+    return out
 
 
 def damped_pair_run(cfg, prompts):
@@ -2582,6 +3246,30 @@ def _scale_rows_into(got, timer):
         time_ms, emit = saved
 
 
+def profile_prefix() -> int:
+    """``--profile-prefix``: the device time the prefix cache saves on
+    the chat traffic (:func:`chat_turns`), which the host-bound wall
+    need not show.  The 7B bf16 model serves it with and without the
+    cache, each once for its wall (launches exact) and once under
+    ``torch.profiler`` (device busy seconds by kind, idle share)."""
+    import torch
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_7b_config)
+    phase_device()
+    phase_build()
+    cfg = llama_7b_config(dtype="bfloat16")
+    model = LlamaForCausalLM(
+        cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+    _, prompts = chat_prompts(cfg.vocab_size)
+    for name, kw in (("serve_7b_prefix_cold", ENGINE_KW),
+                     ("serve_7b_prefix", PREFIX_KW)):
+        _, _, stats = serve(model, None, kw, traffic=chat_turns(prompts))
+        check_launches(name, kw, stats, cfg.num_hidden_layers)
+        profile_serve(name + "_bf16", model, None, stats["wall_s"], kw,
+                      chat_turns(prompts))
+    return 0
+
+
 def timing_of(tree: str) -> int:
     """``--timing-of DIR``: the kernels of the checkout at ``DIR`` (its
     ``paddle_tpu_torch`` and its ``chip_smoke.py``, e.g. an earlier commit
@@ -2637,6 +3325,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--timing-of"]:
         return timing_of(sys.argv[2])
+    if sys.argv[1:2] == ["--profile-prefix"]:
+        return profile_prefix()
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
     t_start = time.perf_counter()
 

@@ -39,10 +39,23 @@ to non-speculative greedy; sampled: rejection resampling, exact in
 distribution).  ``spec_proposed`` / ``spec_accepted`` count the draft
 tokens.
 
+``enable_prefix_cache=True`` (a compiled prefill path) shares prompt
+prefixes through refcounted pages (``inference/prefix_cache.py``): a
+request whose prompt starts with full pages an earlier prefill published
+shares them into its block table and prefills only its suffix; a hit that
+covers the whole prompt re-runs the last position on a private copy of
+the last shared page (copy-on-write), so shared pages are never written.
+Pages are allocated through the cache, which evicts unreferenced table
+pages under pressure, and with ``host_tier_bytes`` spills them to a
+host-RAM tier in one batched copy and restores them on a later hit.
+``add_request(n=...)`` queues ``n`` generations of one prompt (seeds
+``seed + i``) that share its one prefill: the children admit as
+whole-prompt hits once the first generation's prefill has published the
+pages.  ``prefill_tokens`` counts the prompt tokens the steps prefilled.
+
 Ported: single device.  Every option of the reference engine that this
-port leaves out (``n > 1`` generations, weight quantization and quantized
-collectives, tensor/context/expert parallelism, the prefix cache and its
-host tier, tracing and metrics, engine roles, explicit token budgets, a
+port leaves out (weight quantization and quantized collectives,
+tensor/context/expert parallelism, tracing and metrics, engine roles, a
 pool dtype other than the model's or int8) raises ``NotImplementedError``
 naming the feature when it is asked for; none is silently ignored.
 """
@@ -57,9 +70,10 @@ import torch
 
 from ..core.device import DeviceLike, resolve_device
 from ..jit.serving_step import (DecodeStep, MixedStep, PrefillStep,
-                                prefill_scatter)
+                                copy_block, prefill_scatter)
 from ..ops.paged_attention import PagedKVCache
 from ..ops.sampling import DRAFT_SEED_XOR
+from .prefix_cache import HostPageTier, PrefixPageCache
 
 
 @dataclass
@@ -80,13 +94,20 @@ class GenerationRequest:
     seq_len: int = 0
     block_ids: List[int] = field(default_factory=list)
     # chunked-prefill progress: prompt tokens already in cache pages
+    # (starts at the prefix-cache hit length)
     prefill_pos: int = 0
+    # prompt tokens served from shared prefix pages instead of recompute
+    prefix_hit_tokens: int = 0
     # stochastic sampling: temperature <= 0 is exact greedy; seed feeds
     # the per-position counter-based generator
     temperature: float = 0.0
     top_k: int = 0
     top_p: float = 0.0
     seed: int = 0
+    # n > 1 generations: a child admits only after its parent's prefill
+    # published the shared prefix pages
+    parent_req: Optional["GenerationRequest"] = field(default=None,
+                                                     repr=False)
     # speculative decoding: positions [0, draft_len) hold draft-model KV
     # for the accepted token sequence
     draft_len: int = 0
@@ -98,8 +119,8 @@ def _unported(options: Dict[str, bool]) -> None:
             raise NotImplementedError(
                 "%s is not ported to paddle_tpu_torch yet (the port serves "
                 "on one device through the split or mixed engine, greedy or "
-                "sampled, with model-dtype or int8 pools and an optional "
-                "draft model)" % name)
+                "sampled, with model-dtype or int8 pools, an optional "
+                "draft model and the prefix cache)" % name)
 
 
 class ContinuousBatchingEngine:
@@ -119,8 +140,10 @@ class ContinuousBatchingEngine:
     ``prefill_chunk_size`` bounds one chunk (default: the top bucket).
     ``token_budgets`` (mixed engine) is the reference's ``"auto"``
     geometric set, from the slot count (times ``spec_k + 1`` with a
-    draft) up past that + chunk; an explicit tuple is not ported yet.
-    ``sampling`` and ``draft_model``/``spec_k``: see the module notes.
+    draft) up past that + chunk, or a tuple of totals (its top must hold
+    an all-decode pack).  ``sampling``, ``draft_model``/``spec_k``,
+    ``enable_prefix_cache`` and ``host_tier_bytes`` (the cache's host
+    spill tier, in bytes): see the module notes.
 
     ``device=None`` is the CUDA card (raises without one); the model must
     live on the same device.
@@ -146,8 +169,6 @@ class ContinuousBatchingEngine:
                 "the model dtype), 'float32', 'bfloat16' or 'int8'; got "
                 "%r" % (kv_dtype,))
         _unported({
-            "the prefix cache (enable_prefix_cache)":
-                bool(enable_prefix_cache),
             "multi-device serving (mesh/sharding)":
                 mesh is not None or sharding is not None,
             "a KV pool dtype other than the model's (kv_dtype)":
@@ -158,9 +179,6 @@ class ContinuousBatchingEngine:
             "request tracing and metrics (tracer)":
                 tracer not in (None, False),
             "engine roles (role)": role != "mixed",
-            "the host page tier (host_tier_bytes)": bool(host_tier_bytes),
-            "explicit token budgets (token_budgets other than 'auto')":
-                token_budgets != "auto",
         })
         # sampling / speculative validation, the reference's errors
         self.sampling = bool(sampling)
@@ -237,6 +255,8 @@ class ContinuousBatchingEngine:
         # accepted (plain counters; the tracer is not ported)
         self.spec_proposed = 0
         self.spec_accepted = 0
+        # prompt tokens the steps prefilled (a prefix hit skips its own)
+        self.prefill_tokens = 0
         self.decode_step = DecodeStep(model, self.caches,
                                       sampling=self.sampling)
 
@@ -271,8 +291,17 @@ class ContinuousBatchingEngine:
                     or self._auto_buckets(self.max_seq_len)[-1])
             # a speculative all-decode pack is slots x (k+1) verify
             # tokens, not slots x 1: the budget base is sized to it
-            budgets = self._auto_budgets_mixed(
-                max_batch_size * (self.spec_k + 1), self.chunk_size)
+            base_spans = max_batch_size * (self.spec_k + 1)
+            if token_budgets == "auto":
+                budgets = self._auto_budgets_mixed(base_spans,
+                                                   self.chunk_size)
+            else:
+                budgets = tuple(sorted({int(b) for b in token_budgets}))
+                if not budgets or budgets[-1] < base_spans:
+                    raise ValueError(
+                        "top token budget %r < %d (max_batch_size x "
+                        "(spec_k+1)): an all-decode step would not fit"
+                        % (token_budgets, base_spans))
             self.token_budgets = budgets
             self.mixed = MixedStep(
                 model, self.caches, self.bt_width, max_spans=max_batch_size,
@@ -322,6 +351,33 @@ class ContinuousBatchingEngine:
                     (max_batch_size, cfg.vocab_size), dtype=torch.float32,
                     device=self.device)
 
+        # ---- prefix cache and its host-RAM spill tier ----------------------
+        if host_tier_bytes and not enable_prefix_cache:
+            raise ValueError(
+                "host_tier_bytes is the prefix cache's spill tier: pass "
+                "enable_prefix_cache=True (there is nothing to spill "
+                "without a prefix table)")
+        if host_tier_bytes and draft_model is not None:
+            raise ValueError(
+                "a speculative engine cannot spill/restore prefix pages: a "
+                "restored page carries only target-model KV, and the draft "
+                "pool (addressed by the same page ids) cannot be "
+                "reconstructed from it — drop host_tier_bytes or drop "
+                "draft_model")
+        self.host_tier = None
+        self.prefix_cache = None
+        if enable_prefix_cache:
+            if not buckets and self.mixed is None:
+                raise ValueError(
+                    "enable_prefix_cache requires bucketed prefill "
+                    "(prefill_buckets='auto'/tuple) or mixed_step=True: "
+                    "suffix-only prefill needs an offset-carrying step")
+            if host_tier_bytes:
+                self.host_tier = HostPageTier(int(host_tier_bytes))
+            self.prefix_cache = PrefixPageCache(
+                self.caches[0], block_size, all_caches=self.caches,
+                host_tier=self.host_tier)
+
     @staticmethod
     def _auto_buckets(max_seq_len: int):
         """Geometric 32/64/.../top, top = pow2 ceil of max_seq_len capped
@@ -356,11 +412,14 @@ class ContinuousBatchingEngine:
     def add_request(self, prompt_ids, max_new_tokens: int = 16,
                     eos_token_id: Optional[int] = None,
                     temperature: float = 0.0, top_k: int = 0,
-                    top_p: float = 0.0, seed: int = 0, n: int = 1) -> int:
+                    top_p: float = 0.0, seed: int = 0, n: int = 1):
         """Queue one prompt; returns its req_id.  ``temperature`` /
         ``top_k`` / ``top_p`` / ``seed`` select stochastic sampling (the
         engine must be built with ``sampling=True``; temperature 0 is
-        greedy)."""
+        greedy).  ``n > 1`` (an engine with the prefix cache) queues ``n``
+        generations of the prompt that share its one prefill, generation
+        ``i`` sampling with ``seed + i``, and returns the list of their
+        req_ids."""
         if (temperature or top_k or top_p or seed) and not self.sampling:
             raise ValueError(
                 "per-request sampling parameters need a sampling engine: "
@@ -368,8 +427,11 @@ class ContinuousBatchingEngine:
                 "the greedy engine's steps have no sampling epilogue")
         if n < 1:
             raise ValueError("add_request n must be >= 1, got %r" % n)
-        _unported({"n > 1 generations per prompt (n; it needs the prefix "
-                   "cache)": n != 1})
+        if n > 1 and self.prefix_cache is None:
+            raise ValueError(
+                "add_request(n=%d) shares one prefilled prefix across "
+                "generations via the prefix-page cache: construct the "
+                "engine with enable_prefix_cache=True" % n)
         prompt = np.asarray(prompt_ids, np.int64).reshape(-1)
         if len(prompt) == 0 or max_new_tokens < 1:
             raise ValueError("add_request needs a non-empty prompt and "
@@ -388,15 +450,20 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 "request needs %d pages but the pool only has %d; raise "
                 "num_blocks" % (min_need, cache.num_blocks))
-        req = GenerationRequest(req_id=self._next_id, prompt_ids=prompt,
-                                max_new_tokens=int(max_new_tokens),
-                                eos_token_id=eos_token_id,
-                                temperature=float(temperature),
-                                top_k=int(top_k), top_p=float(top_p),
-                                seed=int(seed))
-        self._next_id += 1
-        self.waiting.append(req)
-        return req.req_id
+        ids = []
+        parent = None
+        for i in range(n):
+            req = GenerationRequest(
+                req_id=self._next_id, prompt_ids=prompt,
+                max_new_tokens=int(max_new_tokens),
+                eos_token_id=eos_token_id, temperature=float(temperature),
+                top_k=int(top_k), top_p=float(top_p), seed=int(seed) + i,
+                parent_req=parent)
+            parent = parent or req
+            self._next_id += 1
+            self.waiting.append(req)
+            ids.append(req.req_id)
+        return ids[0] if n == 1 else ids
 
     def has_work(self) -> bool:
         return bool(self.waiting) or any(s is not None for s in self.slots)
@@ -430,6 +497,25 @@ class ContinuousBatchingEngine:
         return self.finished[req_id].output_ids
 
     # ---- page allocation -----------------------------------------------
+    def _try_alloc(self) -> Optional[int]:
+        """Pop a free page, evicting an unreferenced prefix-cache page
+        under pressure (only table entries no live request holds go);
+        None when neither can supply one."""
+        c = self.caches[0]
+        if not c._free and self.prefix_cache is not None:
+            self.prefix_cache.evict(1)
+        if not c._free:
+            return None
+        return c.allocate_block()
+
+    def _alloc_block(self) -> int:
+        blk = self._try_alloc()
+        if blk is None:
+            raise RuntimeError(
+                "PagedKVCache out of blocks (%d in pool) and nothing "
+                "evictable" % self.caches[0].num_blocks)
+        return blk
+
     def _row_for(self, req: GenerationRequest) -> np.ndarray:
         row = np.full((1, self.bt_width), self._sink, np.int32)
         row[0, :len(req.block_ids)] = req.block_ids
@@ -437,8 +523,8 @@ class ContinuousBatchingEngine:
 
     def _grow_pages(self) -> List[int]:
         """Lazy mode, before the step: every running slot must own a page
-        for the position it writes (seq_len).  A slot the pool cannot
-        serve is the victim: finished early with ``truncated=True``, its
+        for the position it writes (seq_len).  A slot neither the pool nor
+        prefix-cache eviction can serve is the victim: finished early with ``truncated=True``, its
         pages back in the pool, the batch decoding on."""
         truncated = []
         cache = self.caches[0]
@@ -446,8 +532,10 @@ class ContinuousBatchingEngine:
             if r is None or r.state != "running":
                 continue
             need = cache.blocks_needed(r.seq_len + 1)
-            while len(r.block_ids) < need and cache._free:
-                blk = cache.allocate_block()
+            while len(r.block_ids) < need:
+                blk = self._try_alloc()
+                if blk is None:
+                    break
                 self._bt[i, len(r.block_ids)] = blk
                 r.block_ids.append(blk)
             if len(r.block_ids) < need:
@@ -466,18 +554,71 @@ class ContinuousBatchingEngine:
             self.waiting.pop(0)
 
     def _try_admit(self, req: GenerationRequest, slot: int) -> bool:
-        """Reserve the request's pages (prompt + budget, or prompt + 1 in
-        lazy mode) and start (or finish) its prefill.  Returns False, with
-        no side effects, when the pool cannot cover it yet."""
+        """Match the prompt against the prefix cache, reserve the
+        request's pages (prompt + budget, or prompt + 1 in lazy mode) and
+        start (or finish) its suffix prefill.  Returns False, with no side
+        effects (a host-tier restore inside ``match`` aside, as in the
+        reference), when the pool cannot cover it yet."""
+        if (req.parent_req is not None
+                and req.parent_req.state in ("waiting", "prefilling")):
+            # an n > 1 child waits for its parent's prefill to publish the
+            # shared pages, then admits as a whole-prompt hit
+            return False
         cache = self.caches[0]
+        pc = self.prefix_cache
         L = len(req.prompt_ids)
+        matched: List[int] = []
+        hit_len = 0
+        cow = False
+        if pc is not None:
+            matched = pc.match(req.prompt_ids)
+            hit_len = len(matched) * self.block_size
+            if matched and hit_len >= L:
+                # whole-prompt hit: the last position re-runs to sample the
+                # first token, and its write lands in the last shared page,
+                # which therefore gets a private copy
+                hit_len = L - 1
+                cow = True
         need = cache.blocks_needed(
             L + (1 if self.lazy_alloc else req.max_new_tokens))
-        if need > len(cache._free):
+        new_needed = need - len(matched) + (1 if cow else 0)
+        available = len(cache._free)
+        if pc is not None:
+            available += pc.evictable_count(exclude=set(matched))
+        if new_needed > available:
             return False
-        req.block_ids = [cache.allocate_block() for _ in range(need)]
-        req.prefill_pos = 0
-        req.draft_len = 0
+
+        if pc is not None:
+            if matched:
+                pc.hits += 1
+                pc.hit_tokens += hit_len
+            else:
+                pc.misses += 1
+        cache.share_blocks(matched)
+        req.block_ids = list(matched)
+        # evict the whole deficit up front, in ONE evict() call (one
+        # batched spill); only after share_blocks, so the matched pages
+        # hold a second reference and are never the victims
+        short = new_needed - len(cache._free)
+        if short > 0 and pc is not None:
+            pc.evict(short)
+        if cow:
+            src = req.block_ids[-1]
+            dst = self._alloc_block()
+            copy_block(self.caches, src, dst)
+            if self.draft_caches:
+                # the draft pools share the page ids: their copy of the
+                # shared page moves with the target's
+                copy_block(self.draft_caches, src, dst)
+            cache.free_sequence([src])      # drop this request's share
+            req.block_ids[-1] = dst
+        while len(req.block_ids) < need:
+            req.block_ids.append(self._alloc_block())
+        req.prefill_pos = hit_len
+        req.prefix_hit_tokens = hit_len
+        # a prefix hit fills the draft pools too (the publisher's chunks
+        # mirrored there); the suffix chunks mirror from prefill_pos on
+        req.draft_len = hit_len
         req.slot = slot
         req.state = "prefilling"
         self.slots[slot] = req
@@ -487,7 +628,7 @@ class ContinuousBatchingEngine:
             pass            # chunks ride the mixed step packed this step()
         elif self.prefill_step is None:
             self._prefill_dense(req)
-        elif L <= self.chunk_size:
+        elif L - hit_len <= self.chunk_size:
             self._prefill_chunk(req)    # fits one bucket: at admission
         # else: one chunk per step(), interleaved with decode
         return True
@@ -503,6 +644,7 @@ class ContinuousBatchingEngine:
         prefill_scatter(self.caches, kv, row)
         first = int(torch.argmax(logits[0, -1].to(torch.float32)))
         req.prefill_pos = len(req.prompt_ids)
+        self.prefill_tokens += len(req.prompt_ids)
         self._complete_prefill(req, first, row)
 
     def _bucket_for(self, size: int) -> int:
@@ -539,6 +681,7 @@ class ContinuousBatchingEngine:
             toks, start, size, row,
             self._samp_row(req) if self.sampling else None)
         req.prefill_pos += size
+        self.prefill_tokens += size
         if req.prefill_pos >= L:
             self._complete_prefill(req, first, row)
 
@@ -548,6 +691,9 @@ class ContinuousBatchingEngine:
         req.seq_len = len(req.prompt_ids)
         req.draft_len = req.seq_len     # the draft pool mirrored the prompt
         req.state = "running"
+        if self.prefix_cache is not None:
+            # publish the prompt's full pages for later admissions
+            self.prefix_cache.register(req.prompt_ids, req.block_ids)
         self._append_token(req, first)
         if self.slots[slot] is req:     # still running after its budget
             self._tokens[slot] = first
@@ -716,6 +862,7 @@ class ContinuousBatchingEngine:
                     self._tokens[r.slot] = tok
             else:
                 r.prefill_pos += size
+                self.prefill_tokens += size
                 if r.prefill_pos >= len(r.prompt_ids):
                     # final chunk: tok is the sampled first token
                     # (earlier chunks' samples are discarded)
@@ -744,8 +891,10 @@ class ContinuousBatchingEngine:
             k = keff.get(r.slot, 0)
             while k > 0:
                 need = c.blocks_needed(r.seq_len + 1 + k)
-                while len(r.block_ids) < need and c._free:
-                    blk = c.allocate_block()
+                while len(r.block_ids) < need:
+                    blk = self._try_alloc()
+                    if blk is None:
+                        break
                     self._bt[r.slot, len(r.block_ids)] = blk
                     r.block_ids.append(blk)
                 if len(r.block_ids) >= need:
@@ -852,6 +1001,7 @@ class ContinuousBatchingEngine:
         for si, (r, toks, start, nd, _x, _m) in enumerate(v_spans):
             if r.state == "prefilling":
                 r.prefill_pos += len(toks)
+                self.prefill_tokens += len(toks)
                 if r.prefill_pos >= len(r.prompt_ids):
                     self._complete_prefill(r, int(nxt[si]),
                                            self._row_for(r))

@@ -1,7 +1,11 @@
 """The serving steps (counterpart of ``paddle_tpu/jit/serving_step.py``):
 the fused mixed prefill+decode ``MixedStep``, and the split engine's
 ``DecodeStep`` (every slot one token), bucketed ``PrefillStep`` (one
-padded prompt chunk) and ``prefill_scatter`` (the dense prefill's write).
+padded prompt chunk) and ``prefill_scatter`` (the dense prefill's write);
+and the page moves of the prefix cache: ``copy_block`` (copy-on-write of
+a shared page) and ``extract_blocks`` / ``inject_blocks`` (pages to and
+from a host :class:`~paddle_tpu_torch.ops.paged_attention.KVPageBuffer`,
+the host tier's spill and restore).
 
 Single device, over fp32/bf16 pools or int8 pools (quantize on write,
 the int8 attention kernels on read).  Greedy by default; ``sampling=True``
@@ -26,7 +30,8 @@ import numpy as np
 import torch
 
 from ..ops.kernels import rope_qkv_epilogue, rope_tables_for_positions
-from ..ops.paged_attention import (chunk_prefill_attention, paged_attention,
+from ..ops.paged_attention import (KVPageBuffer, chunk_prefill_attention,
+                                   paged_attention,
                                    ragged_paged_attention,
                                    ragged_tensor_cores, ragged_work,
                                    write_chunk_kv,
@@ -94,6 +99,122 @@ def prefill_scatter(caches: List, kv, block_table_row) -> None:
     for cache, (k, v) in zip(caches, kv):
         write_prefill_kv(k, v, cache.key_cache, cache.value_cache, bt,
                          start)
+
+
+# ---------------------------------------------------------------------------
+# page moves: copy-on-write, and pages to and from host RAM
+# ---------------------------------------------------------------------------
+def _page_pools(caches):
+    """Every pool a page lives in, per dtype: the K then V pools of all
+    layers, and an int8 pool's K then V scale tables."""
+    pools = ([c.key_cache for c in caches]
+             + [c.value_cache for c in caches])
+    scales = ([c.key_scale for c in caches]
+              + [c.value_scale for c in caches]
+              if caches[0].quantized else [])
+    return pools, scales
+
+
+@torch.no_grad()
+def copy_block(caches, src: int, dst: int) -> None:
+    """Copy physical page ``src`` to ``dst`` IN PLACE in every layer's K
+    and V pools (reference: ``copy_block``, the copy-on-write of a shared
+    prefix page); an int8 pool's ``key_scale``/``value_scale`` rows travel
+    with the page, so the copy dequantizes exactly as its source."""
+    pools, scales = _page_pools(caches)
+    for t in pools + scales:
+        t[dst].copy_(t[src])
+
+
+# host payload copies of the page moves (reference: MIGRATION_TRANSFERS):
+# an extract adds one device-to-host copy per dtype (codes; + scales for
+# int8 pools), an inject one host-to-device copy per dtype, whatever the
+# page count
+MIGRATION_TRANSFERS = {"d2h": 0, "h2d": 0}
+
+
+def migration_transfers() -> dict:
+    """Snapshot of the ``{d2h, h2d}`` host payload-copy counts."""
+    return dict(MIGRATION_TRANSFERS)
+
+
+def _to_wire(t: torch.Tensor) -> np.ndarray:
+    """One device-to-host copy of ``t``; bf16 as its 16-bit patterns."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).cpu().numpy().view(np.uint16)
+    return t.cpu().numpy()
+
+
+def _from_wire(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """One host-to-device copy of the wire array ``a`` as ``dtype``."""
+    a = np.ascontiguousarray(a)
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(a.view(np.int16)).to(device).view(dtype)
+    return torch.from_numpy(a).to(device)
+
+
+@torch.no_grad()
+def extract_blocks(caches, block_ids, n_tokens: int) -> KVPageBuffer:
+    """Serialize physical pages ``block_ids`` of every layer's pools into
+    one host :class:`KVPageBuffer` (reference: ``extract_blocks``): the
+    pages are gathered on the device into one stacked buffer per dtype,
+    which crosses to the host in ONE copy per dtype (int8 codes plus their
+    scale rows).  The pools are only read."""
+    ids = [int(b) for b in block_ids]
+    if not ids:
+        raise ValueError("extract_blocks needs at least one page")
+    c0 = caches[0]
+    pools, scales = _page_pools(caches)
+    idx = torch.tensor(ids, dtype=torch.long).to(c0.key_cache.device)
+    codes = _to_wire(torch.stack([t.index_select(0, idx) for t in pools]))
+    MIGRATION_TRANSFERS["d2h"] += 1
+    sc = None
+    if scales:
+        sc = _to_wire(torch.stack([t.index_select(0, idx) for t in scales]))
+        MIGRATION_TRANSFERS["d2h"] += 1
+    return KVPageBuffer(
+        codes=codes, scales=sc, n_pages=len(ids), n_tokens=int(n_tokens),
+        block_size=c0.block_size, num_kv_heads=c0.num_kv_heads,
+        head_dim=c0.head_dim, num_layers=len(caches),
+        kv_dtype=c0.kv_dtype)
+
+
+@torch.no_grad()
+def inject_blocks(caches, buf: KVPageBuffer, dest_blocks) -> None:
+    """Scatter a :class:`KVPageBuffer`'s pages into ``dest_blocks`` of
+    every layer's pools IN PLACE (reference: ``inject_blocks``): the
+    buffer crosses to the device in ONE copy per dtype, then one indexed
+    write per pool.  ``dest_blocks`` come from the target pool's
+    refcounted ``allocate_block`` (the caller owns the references).  A
+    buffer of another geometry or ``kv_dtype`` raises ``ValueError``
+    before anything is written."""
+    c0 = caches[0]
+    here = (len(caches),) + c0.page_geometry()
+    want = buf.geometry()
+    if here != want:
+        raise ValueError(
+            "inject_blocks: pool geometry mismatch — buffer was extracted "
+            "from (layers, block_size, kv_heads, head_dim, kv_dtype)=%r but "
+            "the target pool is %r; KV pages only migrate between engines "
+            "with identical pool geometry (including kv_dtype — int8 codes "
+            "are meaningless in an fp pool and vice versa)" % (want, here))
+    if len(dest_blocks) != buf.n_pages:
+        raise ValueError(
+            "inject_blocks: buffer holds %d page(s) but %d destination "
+            "block(s) were allocated" % (buf.n_pages, len(dest_blocks)))
+    pools, scales = _page_pools(caches)
+    dev = c0.key_cache.device
+    idx = torch.tensor([int(b) for b in dest_blocks],
+                       dtype=torch.long).to(dev)
+    codes = _from_wire(buf.codes, c0.key_cache.dtype, dev)
+    MIGRATION_TRANSFERS["h2d"] += 1
+    for i, t in enumerate(pools):
+        t.index_copy_(0, idx, codes[i])
+    if scales:
+        sc = _from_wire(buf.scales, torch.float32, dev)
+        MIGRATION_TRANSFERS["h2d"] += 1
+        for i, t in enumerate(scales):
+            t.index_copy_(0, idx, sc[i])
 
 
 class MixedStep:

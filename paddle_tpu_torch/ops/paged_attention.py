@@ -46,6 +46,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
@@ -70,6 +71,42 @@ _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 KERNEL_INT8_REL_TOL = 0.02
 
 
+@dataclass
+class KVPageBuffer:
+    """Physical KV pages serialized to host RAM (reference:
+    ``KVPageBuffer``): the unit the prefix cache's host tier spills and
+    restores, and page migration between engines moves.
+
+    Wire format: ``codes`` is one contiguous host array ``[2L, n_pages,
+    block_size, num_kv_heads, head_dim]`` in the pool dtype, rows
+    ``0..L-1`` the K pages of layers ``0..L-1`` and rows ``L..2L-1`` the
+    V pages; bf16 pages are held as their 16-bit patterns (``uint16``:
+    numpy has no bfloat16).  An int8 pool adds its per-page, per-head
+    fp32 absmax rows ``scales [2L, n_pages, num_kv_heads]`` in the same
+    order, so an injected page dequantizes exactly as its source.  The
+    header pins the pool geometry (:meth:`geometry`); ``n_tokens`` is how
+    many tokens of KV the pages cover."""
+    codes: np.ndarray
+    scales: Optional[np.ndarray]
+    n_pages: int
+    n_tokens: int
+    block_size: int
+    num_kv_heads: int
+    head_dim: int
+    num_layers: int
+    kv_dtype: str
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.codes.nbytes
+                   + (self.scales.nbytes if self.scales is not None
+                      else 0))
+
+    def geometry(self) -> tuple:
+        return (self.num_layers, self.block_size, self.num_kv_heads,
+                self.head_dim, self.kv_dtype)
+
+
 class PagedKVCache:
     """One layer's K/V page pools plus the host free list and refcounts
     (reference: ``PagedKVCache``).
@@ -77,8 +114,11 @@ class PagedKVCache:
     ``sink_block=True`` adds one extra physical page, never in the free
     list, exposed as ``.sink``: the steps route the writes of padding
     tokens and masked slots there, so occupancy changes never corrupt
-    live pages.  Pages are refcounted; ``free_sequence`` is the single
-    release path.
+    live pages.  Pages are refcounted: ``allocate_block`` hands out a
+    page with one reference, ``share_blocks`` adds one (the prefix cache:
+    several block tables, and the cache's own table, address one physical
+    page), and ``free_sequence`` is the single release path, which
+    recycles a page only when its last reference goes.
 
     ``kv_dtype="int8"`` stores int8 codes plus per-page, per-head fp32
     absmax scales ``key_scale``/``value_scale`` [phys, Hkv], zero until
@@ -97,6 +137,7 @@ class PagedKVCache:
         if kv_dtype is not None:
             dtype = _KV_DTYPES[kv_dtype]
         self.quantized = dtype == torch.int8
+        self.kv_dtype = str(dtype).replace("torch.", "")
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.num_kv_heads = num_kv_heads
@@ -122,6 +163,12 @@ class PagedKVCache:
             arrs += [self.key_scale, self.value_scale]
         return sum(a.numel() * a.element_size() for a in arrs)
 
+    def page_geometry(self) -> tuple:
+        """``(block_size, num_kv_heads, head_dim, kv_dtype)``: the
+        per-layer part of a :class:`KVPageBuffer`'s header."""
+        return (self.block_size, self.num_kv_heads, self.head_dim,
+                self.kv_dtype)
+
     def allocate_block(self) -> int:
         if not self._free:
             raise RuntimeError(
@@ -130,6 +177,18 @@ class PagedKVCache:
         b = self._free.pop()
         self._ref[b] = 1
         return b
+
+    def share_blocks(self, block_ids):
+        """Add one reference to each page (prefix sharing); the sink and
+        negative ids are skipped, an unallocated page raises."""
+        for b in block_ids:
+            b = int(b)
+            if b < 0 or b == self.sink:
+                continue
+            if b not in self._ref:
+                raise RuntimeError(
+                    "share_blocks(%d): page is not allocated" % b)
+            self._ref[b] += 1
 
     def refcount(self, block_id: int) -> int:
         return self._ref.get(int(block_id), 0)

@@ -100,13 +100,16 @@ def _work(args, H, Hkv, bs):
                                            Hkv, bs)).to(q_lens.device)
 
 
-def _hold_paged(cuda, kind, quantized, dtype, H, Hkv, D, bs, lens, seed=1):
+def _hold_paged(cuda, kind, quantized, dtype, H, Hkv, D, bs, lens, seed=1,
+                shared=0):
     """One paged kernel call against its plain version: ``kind`` "ragged"
     (spans ``lens`` of (q_len, kv_len), padding spans, rows outside them
     0) or "decode" (one query per slot at kv ``lens``, masked slots), NaN
     pages (or scales) behind every unused table entry, int8 pools with
     the per-element tolerance that must reject a kernel that skips each
-    last page; one launch counted."""
+    last page; one launch counted.  ``shared``: every span's first
+    ``shared`` table entries name span 0's pages (the prefix cache's
+    shared pages: one physical page in several block tables)."""
     gen = torch.Generator(cuda).manual_seed(seed)
     if kind == "ragged":
         T = sum(ql for ql, _ in lens) + 5
@@ -116,6 +119,10 @@ def _hold_paged(cuda, kind, quantized, dtype, H, Hkv, D, bs, lens, seed=1):
         q, kc, vc, bt, qo, ql, kl = _ragged_case(
             [(1, s) for s in lens], len(lens) + 2, H, Hkv, D, bs, dtype, gen,
             poison=True, n_pad_spans=2)
+    if shared:
+        n = len(lens)
+        assert all(k >= shared * bs for k in kl[:n].tolist())
+        bt[1:n, :shared] = bt[0, :shared]
     scales = {}
     if quantized:
         kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
@@ -160,6 +167,136 @@ def _hold_paged(cuda, kind, quantized, dtype, H, Hkv, D, bs, lens, seed=1):
         floor = ql if kind == "ragged" else kl.clamp(max=1)
         cut = kernel(cut_lengths(kl, floor, bs, True))
         assert not (cut.float() - want.float()).abs().le(tol).all()
+
+
+# the prefix cache's traffic at the kernels (block size 16, two shared
+# pages): ragged spans of a decode, a suffix chunk at a page-aligned
+# offset, a whole-prompt hit's one-token span and another decode; decode
+# slots at several lengths over the same two pages
+SHARED_RAGGED = [(1, 97), (48, 80), (1, 64), (1, 40)]
+SHARED_DECODE = [97, 80, 64, 40, 33]
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["ragged", "decode"])
+def test_paged_kernels_over_shared_pages_match_plain(cuda, kind, dtype,
+                                                     quantized):
+    """#5 and #7 over block tables that repeat the same physical pages in
+    every slot, as the prefix cache builds them, against their plain
+    versions within the usual tolerances (GQA 8/2, head dim 128)."""
+    lens = SHARED_RAGGED if kind == "ragged" else SHARED_DECODE
+    _hold_paged(cuda, kind, quantized, dtype, 8, 2, 128, 16, lens,
+                shared=2)
+
+
+def _seeded_pools(dev, kv_dtype, layers=3, nb=8, bs=4, hkv=2, d=8):
+    """Seeded pools on ``dev``, the same values on every device."""
+    rng = np.random.RandomState(7)
+    caches = [pa.PagedKVCache(nb, bs, hkv, d, sink_block=True, device=dev,
+                              kv_dtype=kv_dtype) for _ in range(layers)]
+    for c in caches:
+        names = ["key_cache", "value_cache"] + (
+            ["key_scale", "value_scale"] if c.quantized else [])
+        for name in names:
+            t = getattr(c, name)
+            a = (rng.rand(*t.shape) + 0.1 if name.endswith("scale")
+                 else rng.randint(-127, 128, t.shape) if c.quantized
+                 else rng.randn(*t.shape))
+            t.copy_(torch.from_numpy(np.asarray(a, np.float32)).to(t.dtype))
+    return caches
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8"])
+def test_page_moves_on_card_match_cpu_bitwise(cuda, kv_dtype):
+    """``copy_block``, ``extract_blocks`` and ``inject_blocks`` on card
+    pools give the CPU's pools and buffers bit for bit, with one host copy
+    per dtype each way."""
+    from paddle_tpu_torch.jit import serving_step as ss
+    pools = {dev: _seeded_pools(dev, kv_dtype) for dev in ("cpu", cuda)}
+    bufs = {}
+    for dev, caches in pools.items():
+        ss.copy_block(caches, 2, 5)
+        t0 = ss.migration_transfers()
+        bufs[dev] = ss.extract_blocks(caches, [6, 1, 5], n_tokens=10)
+        ss.inject_blocks(caches, bufs[dev], [0, 4, 7])
+        t1 = ss.migration_transfers()
+        per_dtype = 2 if kv_dtype == "int8" else 1
+        assert t1["d2h"] - t0["d2h"] == t1["h2d"] - t0["h2d"] == per_dtype
+    a, b = bufs["cpu"], bufs[cuda]
+    assert np.array_equal(a.codes, b.codes) and a.geometry() == b.geometry()
+    assert (a.scales is None and b.scales is None) or np.array_equal(
+        a.scales, b.scales)
+    for c, g in zip(pools["cpu"], pools[cuda]):
+        for name in ("key_cache", "value_cache", "key_scale", "value_scale"):
+            if getattr(c, name) is not None:
+                assert torch.equal(getattr(c, name), getattr(g, name).cpu())
+
+
+@pytest.mark.parametrize("mode", [
+    dict(mixed_step=True, prefill_chunk_size=16),
+    dict(prefill_buckets="auto", prefill_chunk_size=16),
+    dict(mixed_step=True, prefill_chunk_size=16, kv_dtype="int8"),
+    dict(mixed_step=True, prefill_chunk_size=16, sampling=True, n=3),
+    dict(mixed_step=True, prefill_chunk_size=16, host_tier_bytes=1 << 20)],
+    ids=["mixed", "split", "mixed_kv8", "mixed_n3", "host_tier"])
+def test_tiny_prefix_engines_on_card_match_cpu(cuda, mode):
+    """The prefix engines on the card against the same engines on the CPU,
+    same weights, fp32: a 24-token system prompt shared by three turns
+    admitted together, then a whole-prompt hit (copy-on-write), or ``n =
+    3`` sampled generations of it; with a host tier, a 10-page pool
+    serves two system prompts' turns in turn and spills and restores.
+    Tokens, hit tokens and page counts equal (int8: tokens at least
+    0.9)."""
+    cfg = llama_tiny_config(num_hidden_layers=2, hidden_size=128,
+                            num_attention_heads=4, num_key_value_heads=2,
+                            vocab_size=256, intermediate_size=256)
+    mode = dict(mode, enable_prefix_cache=True)
+    n = mode.pop("n", 1)
+    tier = bool(mode.get("host_tier_bytes"))
+    rng = np.random.RandomState(0)
+    system, other = rng.randint(1, 256, (2, 24))
+    firsts = [system, other, system, other] if tier else [system] * 4
+    prompts = [np.concatenate([f, rng.randint(1, 256, (k,))])
+               for f, k in zip(firsts, (5, 17, 9, 30))] + [system]
+    knobs = dict(temperature=0.8, top_k=50, top_p=0.95, seed=1) \
+        if mode.get("sampling") else {}
+    outs, state = [], []
+    for dev in ("cpu", cuda):
+        model = LlamaForCausalLM(cfg, device=dev,
+                                 generator=torch.Generator(dev).manual_seed(0))
+        if dev != "cpu":
+            model.load_state_dict(cpu_state)
+        cpu_state = model.state_dict()
+        kw = dict(max_batch_size=3, num_blocks=64, block_size=8)
+        kw.update(dict(num_blocks=10, max_seq_len=64) if tier else {})
+        eng = ContinuousBatchingEngine(model, device=dev, **kw, **mode)
+        r = [eng.add_request(prompts[0], 6, **knobs)]
+        eng.run_to_completion()
+        for p in prompts[1:]:
+            got = eng.add_request(p, 6, n=n if p is system else 1, **knobs)
+            r += got if isinstance(got, list) else [got]
+            if tier:
+                eng.run_to_completion()
+        eng.run_to_completion()
+        pc = eng.prefix_cache
+        c0 = eng.caches[0]
+        assert len(c0._free) + len(pc) == c0.num_blocks
+        outs.append([eng.result(x) for x in r])
+        state.append(([eng.finished[x].prefix_hit_tokens for x in r],
+                      pc.hits, pc.spills, pc.restores, sorted(c0._free)))
+    assert state[1] == state[0]
+    if tier:
+        assert state[0][0] == [0, 0, 24, 24, 16]
+        assert state[0][2] > 0 and state[0][3] > 0
+    else:
+        assert state[0][0][:4] == [0, 24, 24, 24]
+        assert state[0][0][4:] == [23] * n
+    if "kv_dtype" not in mode:
+        assert outs[1] == outs[0]
+    else:
+        same = sum(a == b for g, w in zip(*outs) for a, b in zip(g, w))
+        assert same / sum(len(w) for w in outs[0]) >= 0.9
 
 
 # the shapes the fast paged kernels do not take, which the generic kernel

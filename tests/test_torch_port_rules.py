@@ -66,7 +66,8 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                    "jit/train_step.py", "models/llama.py",
                    "nn/functional.py", "quantization/functional.py",
                    "ops/online_softmax.py", "jit/serving_step.py",
-                   "jit/layerwise.py", "ops/rms_norm.py"):
+                   "jit/layerwise.py", "ops/rms_norm.py",
+                   "inference/prefix_cache.py"):
         assert os.path.join("paddle_tpu_torch", module) in scanned
 
 
@@ -129,14 +130,19 @@ LAUNCH_COUNTERS = ((rope_qkv_epilogue, "launches"),
     dict(mixed_step=True, sampling=True),
     dict(prefill_buckets="auto", sampling=True),
     dict(mixed_step=True, draft=True),
-    dict(mixed_step=True, sampling=True, draft=True)],
+    dict(mixed_step=True, sampling=True, draft=True),
+    dict(mixed_step=True, enable_prefix_cache=True, host_tier_bytes=1 << 20),
+    dict(prefill_buckets="auto", enable_prefix_cache=True,
+         kv_dtype="int8")],
     ids=["split", "split_int8", "mixed", "mixed_int8", "mixed_sampled",
-         "split_sampled", "spec", "spec_sampled"])
+         "split_sampled", "spec", "spec_sampled", "mixed_prefix_host_tier",
+         "split_prefix_int8"])
 def test_launch_counters_stay_zero_on_cpu(mode):
     """The whole CPU engine path goes through the wrappers and never
     launches a kernel (card tests in the same process may have counted
     launches before, so the counts must only stay where they were):
-    greedy, sampled and speculative (the draft's launches too)."""
+    greedy, sampled and speculative (the draft's launches too), and with
+    the prefix cache (a second request hits the first one's pages)."""
     before = [getattr(f, a) for f, a in LAUNCH_COUNTERS]
     mode = dict(mode)
     model = _tiny(layers=2 if mode.get("draft") else 1)
@@ -150,11 +156,14 @@ def test_launch_counters_stay_zero_on_cpu(mode):
     eng.add_request(np.arange(1, 7), 3, **knobs)
     eng.run_to_completion()
     assert eng.finished[0].output_ids
+    if mode.get("enable_prefix_cache"):
+        eng.add_request(np.arange(1, 10), 2, **knobs)
+        eng.run_to_completion()
+        assert eng.finished[1].prefix_hit_tokens == 4
     assert [getattr(f, a) for f, a in LAUNCH_COUNTERS] == before
 
 
 UNPORTED_ENGINE = {
-    "enable_prefix_cache": dict(enable_prefix_cache=True),
     "mesh": dict(mesh=object()),
     "sharding": dict(sharding=object()),
     "kv_dtype=bfloat16 under fp32": dict(kv_dtype="bfloat16"),
@@ -162,8 +171,6 @@ UNPORTED_ENGINE = {
     "quant_collectives": dict(quant_collectives=True),
     "tracer": dict(tracer=True),
     "role": dict(role="prefill"),
-    "host_tier_bytes": dict(host_tier_bytes=1 << 20),
-    "token_budgets": dict(token_budgets=(4, 8)),
 }
 
 
@@ -173,16 +180,6 @@ def test_unported_engine_options_raise(option):
         ContinuousBatchingEngine(_tiny(), max_batch_size=2, num_blocks=8,
                                  block_size=4, device="cpu",
                                  **UNPORTED_ENGINE[option])
-
-
-@pytest.mark.parametrize("knobs", [dict(n=2)], ids=["n"])
-def test_unported_request_options_raise(knobs):
-    eng = ContinuousBatchingEngine(_tiny(), max_batch_size=2, num_blocks=8,
-                                   block_size=4, device="cpu",
-                                   sampling=True, mixed_step=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        eng.add_request(np.arange(1, 4), 2, **knobs)
-    assert not eng.waiting
 
 
 FLASH_COUNTERS = (fa.flash_fwd, fa.flash_bwd_fused, fa.flash_bwd_two_kernel)
