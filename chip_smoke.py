@@ -43,8 +43,12 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    (rounded before the weight, as the reference's layerwise norm) at the
    7B shape, which the layerwise step runs; in bf16 it is held bitwise to
    its plain version except near a bf16 rounding midpoint, a rule that
-   must reject #4's own rounding point.  Times are device time
-   (:func:`time_ms`).
+   must reject #4's own rounding point.  Then the weight dequant
+   (``dequant_int8``, :func:`check_dequant`) bitwise against its plain
+   version at a 7B decoder layer's seven projections in one launch, at the
+   7B LM head and at ``[37, 100]``, in bf16 and fp32, with a planted wrong
+   scale that the check must reject; timed against its bound and the
+   three-op torch expression.  Times are device time (:func:`time_ms`).
 3. The serving slice at full width: a random-weight Llama-2-7B (bf16),
    built once, serves 8 requests with prompts of 64..1024 tokens, 32 new
    tokens each, admitted 4 + 4 so that prefill chunks ride with running
@@ -85,7 +89,19 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    511, served twice, identical); and two tenants' waves through a small
    pool with a 1 GiB host tier against a resident pool (spills, restores
    and their batched copies as predicted, streams byte-identical, steps
-   equal).  Last, the generic
+   equal).  Before the prefix cache, int8 weights (:func:`serve_w8`): the
+   mixed and split engines with ``weight_quant="int8"`` (launches exact,
+   ``dequant_int8`` (L + 1) times a target step, pools whole), each
+   against its dequantized twin (the same engine without
+   ``weight_quant`` on a copy of the model holding the dequantized
+   weights) at >= 0.98; then the disaggregated router
+   (:func:`serve_disagg`): one ``ServingRouter`` over a ``role="prefill"``
+   mixed engine and a ``role="decode"`` split engine sharing the model,
+   every request prefilled on the first and decoded on the second after a
+   page migration, the decode engine prefilling nothing, one
+   device-to-host and one host-to-device copy a migration, the bytes moved
+   the pages moved times 8 MiB, launches exact on both engines, every
+   span chain valid and both pools whole.  Last, the generic
    kernels' serving path (:func:`serve_head_dim_256`): a 2-layer model at
    head dim 256 through both engines and both pool types, with the
    generic kernels' launches exact.
@@ -107,7 +123,12 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    sampled generations a solo request with its seed, at 0.98; the
    int8-pool prefix engine against its cold twin is reported, with how
    the twin's own int8 pages of the system prompt differ from the
-   published ones (:func:`prefix_parity`).
+   published ones (:func:`prefix_parity`).  The w8 mixed and split engines
+   must match their dequantized fp32 twins and themselves run through the
+   plain versions of the dequant and the attention, requests moved
+   mid-decode to a second engine (:func:`migrated_midway`, fp32 and int8
+   pools) the uninterrupted run, and the disaggregated router's streams
+   the mixed engine's, each at 0.98.
    Then the first step's
    logits against the eager forward by depth and dtype: fp32 at all 32
    layers (held to 1e-3) and bf16 at 2 layers.
@@ -194,6 +215,10 @@ ROPE_REPLACES = "paddle_tpu/ops/pallas_kernels.py:1779"
 DECODE_REPLACES = "paddle_tpu/ops/paged_attention.py:936"
 RMS_SOURCE = "paddle_tpu_torch/csrc/rms_norm.cu"
 RMS_REPLACES = "paddle_tpu/ops/pallas_kernels.py:1078"
+# the weight dequant replaces no Pallas kernel: the reference's compiled
+# steps trace this expression and XLA fuses it into the matmuls
+DEQUANT_SOURCE = "paddle_tpu_torch/csrc/dequant_int8.cu"
+DEQUANT_REPLACES = "paddle_tpu/quantization/functional.py:189"
 NO_LIBRARY = ("no single PyTorch call computes it: %s")
 
 # served traffic (phases 3 and 4)
@@ -204,6 +229,14 @@ ENGINE_BASE = dict(max_batch_size=8, block_size=16, num_blocks=640,
 ENGINE_KW = dict(ENGINE_BASE, mixed_step=True)           # the mixed engine
 SPLIT_KW = dict(ENGINE_BASE, mixed_step=False, prefill_buckets="auto")
 DENSE_KW = dict(ENGINE_BASE, mixed_step=False, prefill_buckets=None)
+# int8 weights (per-channel PTQ, dequantized on use)
+W8_KW = dict(ENGINE_KW, weight_quant="int8")
+SPLIT_W8_KW = dict(SPLIT_KW, weight_quant="int8")
+# disaggregated serving: a mixed prefill engine and a split decode engine
+# behind one router, sharing the model
+DISAGG_PREFILL_KW = dict(ENGINE_KW, num_blocks=320, role="prefill")
+DISAGG_DECODE_KW = dict(SPLIT_KW, max_batch_size=8, num_blocks=640,
+                        role="decode")
 
 
 def emit(obj) -> None:
@@ -846,6 +879,78 @@ GENERIC_MAIN = "d100_gqa8x2"
 # tokens at kv 1024, padded to the budget 32 (8 slots x 3 -> 32)
 VERIFY_CASE = "7b_verify_8x3@1024"
 
+# the weight dequant's cases: a Llama-2-7B decoder layer's seven
+# projections (one launch), the LM head, and a width off the 16-element
+# vector
+DEQUANT_CASES = (("7b_layer", [(4096, 4096)] * 4 + [(11008, 4096)] * 2
+                  + [(4096, 11008)]),
+                 ("7b_lm_head", [(32000, 4096)]),
+                 ("odd_37x100", [(37, 100)]))
+DEQUANT_MAIN = "7b_layer"
+
+
+def check_dequant(case, segments, dtype_name, gen):
+    """``dequant_int8`` against its plain version at ``segments``: bitwise,
+    and the same check must reject the kernel run with one row's scale
+    planted 1% off.  Timed (device time) beside the plain version, the
+    three-op torch expression (``library_ms``: cast, multiply, cast; no
+    single call computes it) and the bound: each code read once, each
+    output written once, the scales read once, at 3.35 TB/s."""
+    import torch
+    from paddle_tpu_torch.ops import dequant as dq
+    dt = getattr(torch, dtype_name)
+    n = sum(r * c for r, c in segments)
+    rows = sum(r for r, _ in segments)
+    codes = torch.randint(-127, 128, (n,), generator=gen, device="cuda",
+                          dtype=torch.int8)
+    scales = torch.rand(rows, generator=gen, device="cuda") * 0.05
+    got = torch.empty(n, dtype=dt, device="cuda")
+    want = torch.empty_like(got)
+    dq._dequant_int8_plain(codes, scales, segments, want)
+    before = dq.dequant_int8.launches
+    dq.dequant_int8(codes, scales, segments, got)
+    torch.cuda.synchronize()
+    if dq.dequant_int8.launches != before + 1:
+        raise AssertionError("dequant_int8 %s: the wrapper did not count "
+                             "its launch" % case)
+    bad = scales.clone()
+    bad[rows // 2] *= 1.01
+    planted = dq.dequant_int8(codes, bad, segments, torch.empty_like(got))
+    torch.cuda.synchronize()
+    bitwise = torch.equal(got, want)
+    rejected = not torch.equal(planted, want)
+    sdiv = scales / torch.full_like(scales, 127.0)
+
+    def library():
+        e = r = 0
+        for rr, cc in segments:
+            (codes[e:e + rr * cc].view(rr, cc).float()
+             * sdiv[r:r + rr, None]).to(dt)
+            e += rr * cc
+            r += rr
+    iters = 5 if n > 1 << 20 else 50
+    # the multiplies run in fp32 on the CUDA cores, whatever the output
+    bound, by = bound_ms(n * (1 + got.element_size()) + 4 * rows, n,
+                         "float32")
+    row = dict(kernel="dequant_int8", case=case, dtype=dtype_name,
+               segments=segments, elements=n,
+               max_abs_err=(got.float() - want.float()).abs().max().item(),
+               bitwise=bitwise, planted_fault_rejected=rejected,
+               kernel_ms=time_ms(lambda: dq.dequant_int8(
+                   codes, scales, segments, got), iters),
+               plain_ms=time_ms(lambda: dq._dequant_int8_plain(
+                   codes, scales, segments, want), iters),
+               library_ms=time_ms(library, iters),
+               library="the three-op torch expression (cast, multiply, "
+                       "cast); no single call computes it",
+               bound_ms=bound, bound_by=by)
+    emit(row)
+    if not bitwise or not rejected:
+        raise AssertionError("dequant_int8 %s %s: bitwise %s, planted fault "
+                             "rejected %s" % (case, dtype_name, bitwise,
+                                              rejected))
+    return row
+
 
 def phase_kernels():
     import torch
@@ -957,6 +1062,9 @@ def phase_kernels():
             rows["rope"].append(check_rope(
                 "7b_T%d%s" % (N, "_amax" if amax else ""), N, H, H, D,
                 amax, gen))
+    rows["dequant"] = [check_dequant(case, segs, dt, gen)
+                       for case, segs in DEQUANT_CASES
+                       for dt in ("bfloat16", "float32")]
     rows["rms_norm"] = [check_rms_norm(case, n, d, dt, gen)
                         for case, n, d in RMS_CASES
                         for dt in ("bfloat16", "float32")]
@@ -1306,6 +1414,7 @@ SERVING_COUNTERS = {
     "rope_qkv_epilogue": ("kernels", "rope_qkv_epilogue", "launches"),
     "rope_qkv_epilogue_amax": ("kernels", "rope_qkv_epilogue",
                                "amax_launches"),
+    "dequant_int8": ("dequant", "dequant_int8", "launches"),
 }
 
 
@@ -1544,6 +1653,11 @@ def expected_launches(engine_kw, stats, layers):
     int8 = engine_kw.get("kv_dtype") == "int8"
     want = dict.fromkeys(SERVING_COUNTERS, 0)
     rope = "rope_qkv_epilogue_amax" if int8 else "rope_qkv_epilogue"
+    if engine_kw.get("weight_quant") == "int8":
+        # one dequant a layer and one for the LM head, each target step
+        target = (stats["mixed_launches"] if engine_kw.get("mixed_step")
+                  else stats["decode_steps"] + stats["prefill_chunks"])
+        want["dequant_int8"] = (layers + 1) * target
     if engine_kw.get("mixed_step"):
         if stats["mixed_launches"] != stats["steps"]:
             raise AssertionError("the mixed engine launched its target %d "
@@ -1794,6 +1908,14 @@ def phase_serving_7b():
                 name + "_bf16", model, prompts, stats["wall_s"], kw)
     runs.update(serve_sampled_and_spec(model, prompts, ref, outs))
     t1 = time.perf_counter()
+    runs.update(serve_w8(model, prompts, ref, outs,
+                         dict(prefix="serve_7b", mixed="serve_7b",
+                              split="serve_7b_split"), L))
+    runs["serve_7b_disagg"], outs["serve_7b_disagg"] = serve_disagg(
+        model, prompts, {"mixed_engine": outs["serve_7b"], "eager": ref})
+    print("7b: the int8-weight and disaggregated runs in %.1f s"
+          % (time.perf_counter() - t1), flush=True)
+    t1 = time.perf_counter()
     runs.update(serve_prefix(model))
     print("7b: the prefix-cache runs in %.1f s" % (time.perf_counter() - t1),
           flush=True)
@@ -1940,6 +2062,239 @@ def serve_sampled_and_spec(model, prompts, ref, outs):
         runs[name] = stats
     del draft
     return runs
+
+
+# ---- int8 weights and the disaggregated router ------------------------------
+def dequantized_twin(model, eng):
+    """A copy of ``model`` whose projection weights and LM head are
+    ``eng``'s int8 tree dequantized (by the engine's own kernel): the fp
+    engine that must give the w8 engine's tokens."""
+    import copy
+    import torch
+    from paddle_tpu_torch.ops.dequant import LAYER_PROJECTIONS
+    twin = copy.deepcopy(model)
+    w8 = eng.weight_qtree
+    with torch.no_grad():
+        for i, layer in enumerate(twin.llama.layers):
+            ws = w8.layer(i)
+            for mod, name in LAYER_PROJECTIONS:
+                getattr(getattr(layer, mod), name).weight.copy_(ws[name])
+        head = w8.lm_head()
+        if head is not None:
+            twin.lm_head.weight.copy_(head)
+    return twin
+
+
+def serve_w8(model, prompts, ref, outs, runs_bf16, layers):
+    """The int8-weight engines on ``model`` and the phase-3 traffic:
+    ``serve_<...>_w8`` (the mixed engine) and ``serve_<...>_split_w8``
+    (bucketed split), each with exact launches (the bf16 twins' kernels,
+    plus ``dequant_int8`` (L + 1) times a target step) and a whole pool,
+    then its dequantized twin (:func:`dequantized_twin`, the same engine
+    without ``weight_quant``) over the same traffic, which must give its
+    tokens at >= 0.98.  Reported: the match against the bf16 engine
+    (``runs_bf16`` names the run per engine; random weights, so low),
+    against eager ``generate`` (``ref``), tokens/s, host seconds a step,
+    ``weight_quant_bytes`` and peak memory (the model keeps its own
+    weights, so the int8 tree comes on top).  Returns the rows; the
+    streams land in ``outs``."""
+    import torch
+    prefix = runs_bf16["prefix"]
+    runs = {}
+    for suffix, kw, bf16 in (("w8", W8_KW, runs_bf16["mixed"]),
+                             ("split_w8", SPLIT_W8_KW, runs_bf16["split"])):
+        name = "%s_%s" % (prefix, suffix)
+        t1 = time.perf_counter()
+        eng, outs[name], stats = serve(model, prompts, kw)
+        check_launches(name, kw, stats, layers)
+        twin = dequantized_twin(model, eng)
+        stats.update(weight_quant_bytes=eng.weight_quant_bytes,
+                     model_bytes=sum(p.numel() * p.element_size()
+                                     for p in model.parameters()))
+        del eng
+        twin_kw = {k: v for k, v in kw.items() if k != "weight_quant"}
+        twin_eng, twin_out, twin_stats = serve(twin, prompts, twin_kw)
+        check_launches(name + " twin", twin_kw, twin_stats, layers)
+        del twin_eng, twin
+        torch.cuda.empty_cache()
+        stats.update(phase=name, layers=layers,
+                     engine={k: v for k, v in kw.items()
+                             if k not in ENGINE_BASE},
+                     match_rate_vs_dequantized_twin=_rates(outs[name],
+                                                           twin_out)[0],
+                     twin_wall_s=twin_stats["wall_s"],
+                     phase_wall_s=time.perf_counter() - t1)
+        if ref is not None:
+            stats["eager_match_rate"] = _rates(outs[name], ref)[0]
+        if bf16 in outs:
+            stats["match_rate_vs_fp_engine"] = _rates(outs[name],
+                                                      outs[bf16])[0]
+        emit(stats)
+        if not stats["match_rate_vs_dequantized_twin"] >= 0.98:
+            raise AssertionError(
+                "%s: token match %.4f against its dequantized twin < 0.98"
+                % (name, stats["match_rate_vs_dequantized_twin"]))
+        runs[name] = stats
+    return runs
+
+
+@contextlib.contextmanager
+def timed_migrations(log: list):
+    """While open, every engine's ``extract_request`` that produced a
+    buffer and every ``inject_request`` appends ``(kind, pages, bytes,
+    host seconds)`` to ``log``, the device synchronized around each
+    call: the engine's own page moves, timed in the run that makes
+    them."""
+    import torch
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    cls = ContinuousBatchingEngine
+    extract, inject = cls.extract_request, cls.inject_request
+
+    def timed_extract(self, req_id):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = extract(self, req_id)
+        torch.cuda.synchronize()
+        if out[2] is not None:
+            log.append(("extract", out[2].n_pages, out[2].nbytes,
+                        time.perf_counter() - t))
+        return out
+
+    def timed_inject(self, prompt_ids, buffer, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rid = inject(self, prompt_ids, buffer, *args, **kw)
+        torch.cuda.synchronize()
+        log.append(("inject", buffer.n_pages, buffer.nbytes,
+                    time.perf_counter() - t))
+        return rid
+    cls.extract_request, cls.inject_request = timed_extract, timed_inject
+    try:
+        yield log
+    finally:
+        cls.extract_request, cls.inject_request = extract, inject
+
+
+def serve_disagg(model, prompts, against, name="serve_7b_disagg"):
+    """One ``ServingRouter`` over a ``role="prefill"`` mixed engine
+    (``DISAGG_PREFILL_KW``) and a ``role="decode"`` split engine
+    (``DISAGG_DECODE_KW``) that share ``model``, serving the phase-3
+    traffic (admit 4, a router step, admit 4, run to completion).  Gates:
+    every request starts on the prefill engine and finishes on the decode
+    engine after one migration at least; the decode engine prefills 0
+    prompt tokens; each migration is one device-to-host and one
+    host-to-device copy (``MIGRATION_TRANSFERS``: bf16 or fp32 pools, one
+    dtype); the bytes moved each way are the pages moved times the bytes
+    of one page over all layers; #5's launches are L x the prefill
+    engine's steps, #7's L x the decode engine's decode steps, #6's the
+    sum; every request's span chain validates; both pools whole.
+    Reported: wall, tokens/s, the router's TTFT/TPOT digests, the page
+    moves' seconds, and the token match against each stream list of
+    ``against`` (name -> streams).  Returns the row and the streams."""
+    import torch
+    from paddle_tpu_torch.inference.router import ServingRouter
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.jit.serving_step import migration_transfers
+    from paddle_tpu_torch.observability.request_trace import (
+        validate_span_chain)
+    L = model.config.num_hidden_layers
+    pe = ContinuousBatchingEngine(model, **DISAGG_PREFILL_KW)
+    de = ContinuousBatchingEngine(model, **DISAGG_DECODE_KW)
+    pe.mixed = _Calls(pe.mixed)
+    de.decode_step = _Calls(de.decode_step)
+    de.prefill_step = _Calls(de.prefill_step)
+    router = ServingRouter([pe, de])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = migration_transfers()
+    moves = []
+    steps = 0
+    start = time.perf_counter()
+    with timed_migrations(moves):
+        rids = [router.submit(p, NEW_TOKENS) for p in prompts[:4]]
+        router.step()
+        steps += 1
+        rids += [router.submit(p, NEW_TOKENS) for p in prompts[4:]]
+        while router.has_work():
+            router.step()
+            steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    t1 = migration_transfers()
+    launches = _launches()
+    recs = [router.finished[r] for r in rids]
+    outs = [rr.output_ids for rr in recs]
+    migrations = sum(rr.migrations for rr in recs)
+    extracts = [m for m in moves if m[0] == "extract"]
+    injects = [m for m in moves if m[0] == "inject"]
+    geo = pe.caches[0]
+    page_bytes = (2 * L * geo.block_size * geo.num_kv_heads * geo.head_dim
+                  * geo.key_cache.element_size())
+    pages = sum(m[1] for m in extracts)
+    want = dict.fromkeys(SERVING_COUNTERS, 0)
+    want["ragged_paged_attention"] = L * pe.mixed.n
+    want["paged_attention"] = L * de.decode_step.n
+    want["rope_qkv_epilogue"] = L * (pe.mixed.n + de.decode_step.n
+                                     + de.prefill_step.n)
+    chains = [validate_span_chain(router.tracer.events(r)) for r in rids]
+    row = dict(
+        phase=name, layers=L, requests=len(rids), router_steps=steps,
+        prefill_engine={k: v for k, v in DISAGG_PREFILL_KW.items()
+                        if k not in ENGINE_BASE or k == "num_blocks"},
+        decode_engine={k: v for k, v in DISAGG_DECODE_KW.items()
+                       if k not in ENGINE_BASE or k == "num_blocks"},
+        engines_visited=[rr.engines_visited() for rr in recs],
+        migrations=migrations, d2h=t1["d2h"] - t0["d2h"],
+        h2d=t1["h2d"] - t0["h2d"], pages_moved=pages,
+        page_bytes=page_bytes,
+        bytes_out=sum(m[2] for m in extracts),
+        bytes_in=sum(m[2] for m in injects),
+        extract_s=_spread([m[3] for m in extracts]) if extracts else None,
+        inject_s=_spread([m[3] for m in injects]) if injects else None,
+        prefill_engine_steps=pe.mixed.n,
+        decode_engine_decode_steps=de.decode_step.n,
+        decode_engine_prefill_chunks=de.prefill_step.n,
+        decode_engine_prefilled_tokens=de.prefill_tokens,
+        prefill_engine_prefilled_tokens=pe.prefill_tokens,
+        generated_tokens=sum(len(o) for o in outs), wall_s=wall,
+        tokens_per_s=sum(len(o) for o in outs) / wall,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        slo=router.slo_snapshot(), launches=launches,
+        span_chains_valid=all(ok for ok, _ in chains),
+        **{"match_rate_vs_" + k: _rates(outs, v)[0]
+           for k, v in against.items()})
+    bad = []
+    ids = (pe.engine_id, de.engine_id)
+    if not all(rr.engines_visited()[0] == ids[0]
+               and rr.engines_visited()[-1] == ids[1]
+               and rr.migrations >= 1 for rr in recs):
+        bad.append("a request did not go prefill -> decode: %s"
+                   % row["engines_visited"])
+    if de.prefill_tokens:
+        bad.append("the decode engine prefilled %d tokens"
+                   % de.prefill_tokens)
+    if (row["d2h"], row["h2d"]) != (migrations, migrations) \
+            or len(extracts) != migrations or len(injects) != migrations:
+        bad.append("%d migrations made %d d2h / %d h2d copies, %d extracts "
+                   "and %d injects" % (migrations, row["d2h"], row["h2d"],
+                                       len(extracts), len(injects)))
+    if not row["bytes_out"] == row["bytes_in"] == pages * page_bytes:
+        bad.append("bytes out %d, in %d, want %d pages x %d"
+                   % (row["bytes_out"], row["bytes_in"], pages, page_bytes))
+    if launches != want:
+        bad.append("launches %s, want %s" % (launches, want))
+    if not row["span_chains_valid"]:
+        bad.append("span chains: %s" % [why for ok, why in chains if not ok])
+    for eng in (pe, de):
+        if not pool_whole(eng):
+            bad.append("engine %d's pool is not whole" % eng.engine_id)
+    if not all(len(o) == NEW_TOKENS for o in outs):
+        bad.append("a request ended early: %s" % [len(o) for o in outs])
+    emit(row)
+    if bad:
+        raise AssertionError("%s: %s" % (name, "; ".join(bad)))
+    return row, outs
 
 
 # ---- the prefix cache: chat turns under one system prompt -----------------
@@ -2369,6 +2724,54 @@ def swapped_attention():
     return swapped()
 
 
+@contextlib.contextmanager
+def swapped_dequant():
+    """A context in which the int8 weight tree dequantizes through the
+    kernel's plain version on the card (the wrapper's count untouched)."""
+    from paddle_tpu_torch.ops import dequant as dq
+    orig = dq.dequant_int8
+    dq.dequant_int8 = (lambda codes, scales, segments, out:
+                       dq._dequant_int8_plain(codes, scales, segments, out))
+    try:
+        yield
+    finally:
+        dq.dequant_int8 = orig
+
+
+def migrated_midway(model, prompts, kw, at_step=8):
+    """The phase-3 traffic on one engine (built with ``kw``) for
+    ``at_step`` steps after the second admission, then every running
+    request extracted (``extract_request``) and injected into a second
+    engine (``inject_request``), both run to completion.  Returns each
+    request's whole stream (the tokens made before the move, then those
+    made after it) and the number of requests moved; both pools must be
+    whole."""
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    a = ContinuousBatchingEngine(model, **kw)
+    b = ContinuousBatchingEngine(model, **kw)
+    rids = [a.add_request(p, NEW_TOKENS) for p in prompts[:4]]
+    a.step()
+    rids += [a.add_request(p, NEW_TOKENS) for p in prompts[4:]]
+    for _ in range(at_step):
+        a.step()
+    moved = {}
+    for r in [r for r in a.slots if r is not None and r.state == "running"]:
+        p, gen, buf = a.extract_request(r.req_id)
+        resume = np.concatenate([p, np.asarray(gen, np.int64)])
+        moved[r.req_id] = (gen, b.inject_request(
+            resume, buf, max_new_tokens=NEW_TOKENS - len(gen)))
+    a.run_to_completion()
+    b.run_to_completion()
+    if not (pool_whole(a) and pool_whole(b)) or b.prefill_tokens:
+        raise AssertionError("migrated_midway: pools whole %s %s, target "
+                             "prefilled %d tokens" % (pool_whole(a),
+                                                     pool_whole(b),
+                                                     b.prefill_tokens))
+    outs = [moved[r][0] + b.result(moved[r][1]) if r in moved
+            else a.result(r) for r in rids]
+    return outs, len(moved)
+
+
 def phase_parity_2l():
     """Llama-2-7B widths at 2 layers in fp32 (mean per-request token
     matches up to the first divergence):
@@ -2451,6 +2854,35 @@ def phase_parity_2l():
         gates["%s_vs_%s" % (a, b)] = _rates(outs[a], outs[b])[0]
     row["spec_sampled_vs_spec_sampled_plain"] = _rates(
         outs["spec_sampled"], outs["spec_sampled_plain"])[0]
+    # int8 weights: each w8 engine against its dequantized fp32 twin
+    # (serve_w8 gates it) and against itself through the plain versions
+    # of the dequant and the attention
+    L2 = cfg.num_hidden_layers
+    w8 = serve_w8(model, prompts, ref, outs,
+                  dict(prefix="parity_2l", mixed="mixed", split="split"), L2)
+    for name, kw in (("parity_2l_w8", W8_KW),
+                     ("parity_2l_split_w8", SPLIT_W8_KW)):
+        with swapped_attention(), swapped_dequant():
+            _, plain, _ = serve(model, prompts, kw)
+        gates[name + "_vs_dequantized_twin"] = \
+            w8[name]["match_rate_vs_dequantized_twin"]
+        gates[name + "_vs_plain"] = _rates(outs[name], plain)[0]
+        row[name + "_vs_fp32_engine"] = w8[name]["match_rate_vs_fp_engine"]
+    # a request moved mid-decode to a second engine against the
+    # uninterrupted run, fp32 and int8 pools
+    for name, kw, base in (("migrated", ENGINE_KW, "mixed"),
+                           ("kv8_migrated", dict(ENGINE_KW, **kv8),
+                            "kv8_mixed")):
+        got, moved = migrated_midway(model, prompts, kw)
+        row[name + "_requests_moved"] = moved
+        if not moved:
+            raise AssertionError("%s: no request was running to move"
+                                 % name)
+        gates["%s_vs_%s" % (name, base)] = _rates(got, outs[base])[0]
+    # the disaggregated router against one mixed engine
+    drow, _ = serve_disagg(model, prompts, {"mixed": outs["mixed"]},
+                           name="parity_2l_disagg")
+    gates["disagg_vs_mixed"] = drow["match_rate_vs_mixed"]
     row.update(gates)
     for mode in ("mixed", "split"):
         row["kv8_%s_vs_fp32_%s" % (mode, mode)] = _rates(
@@ -3200,6 +3632,22 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None,
             cases={x["case"]: x["kernel_ms"] for x in rs}))
+    # the weight dequant: the w8 serving path launches it (L + 1 a step)
+    rs = rows["dequant"]
+    r = pick(rs, DEQUANT_MAIN)
+    path = "serve_7b_w8"
+    out.append(dict(
+        name="dequant_int8", route="cuda", source=DEQUANT_SOURCE,
+        replaces=DEQUANT_REPLACES,
+        launches=serving[path]["launches"]["dequant_int8"], path=path,
+        max_abs_err=max(x["max_abs_err"] for x in rs),
+        ms=r["kernel_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=r["library_ms"],
+        library=r["library"],
+        lm_head_ms=pick(rs, "7b_lm_head")["kernel_ms"],
+        launches_by_path={p: x["launches"]["dequant_int8"]
+                          for p, x in serving.items()
+                          if x.get("launches", {}).get("dequant_int8")}))
     # the layerwise step launches #4's round-first variant; #4's own
     # rounding point (no path launches it) is timed beside it
     rs = rows["rms_norm"]

@@ -112,8 +112,8 @@ class PrefixPageCache:
         self.host_tier = host_tier
         self.table: "OrderedDict[bytes, int]" = OrderedDict()
         self._registered: Set[int] = set()   # block ids the table refs
-        # host-side stats: the record of the cache's work (the port has
-        # no metrics registry)
+        # host-side stats: the record of the cache's work (the engine
+        # publishes their increments into its metrics)
         self.hits = 0
         self.misses = 0
         self.hit_tokens = 0

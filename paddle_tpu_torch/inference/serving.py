@@ -53,16 +53,42 @@ host-RAM tier in one batched copy and restores them on a later hit.
 whole-prompt hits once the first generation's prefill has published the
 pages.  ``prefill_tokens`` counts the prompt tokens the steps prefilled.
 
-Ported: single device.  Every option of the reference engine that this
-port leaves out (weight quantization and quantized collectives,
-tensor/context/expert parallelism, tracing and metrics, engine roles, a
-pool dtype other than the model's or int8) raises ``NotImplementedError``
-naming the feature when it is asked for; none is silently ignored.
+``weight_quant="int8"`` (a compiled prefill path) quantizes the
+projection weights once at construction, per output channel
+(``quantization.functional.quantize_param_tree``), into an
+:class:`~paddle_tpu_torch.ops.dequant.Int8Weights` tree; the target's
+steps dequantize each layer's weights on use into one reused scratch
+(``ops/dequant.py``, one launch a layer and one for the LM head).  The
+model's own parameters are untouched, so an eager ``generate`` or another
+engine on the same model still sees the fp weights; a draft model stays
+fp, as in the reference.  ``weight_quant_bytes`` counts codes and scales.
+
+The admission-plane surface (the reference's): ``tracer=`` (default on,
+``False`` the no-op stub) records each request's typed phase spans
+(admit with the prefix hit, prefill chunks, sampled decode steps, first
+token, preempt, finish) and the engine records the ``serving_*`` metric
+families into the port's registry (``observability``); ``counters`` and
+:meth:`health_payload` give an admission plane the engine's load;
+:meth:`preempt_request` pulls a request out through the refcounted
+release path; :meth:`extract_request` / :meth:`inject_request` move a
+running request's KV pages to another engine as one host
+``KVPageBuffer`` (the reference's wire format, so buffers travel between
+the two packages' engines) and resume it there with zero re-prefill;
+``role="prefill"|"decode"|"mixed"`` labels the engine for the router's
+disaggregated dispatch (``inference/router.py``).
+
+Ported: single device.  What still raises ``NotImplementedError``
+naming the feature (none is silently ignored): tensor/context/expert
+parallelism (``mesh``/``sharding``), quantized collectives
+(``quant_collectives``), a pool dtype other than the model's or int8,
+and :meth:`efficiency_stats` (the capacity plane).
 """
 from __future__ import annotations
 
+import itertools
+import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -70,10 +96,18 @@ import torch
 
 from ..core.device import DeviceLike, resolve_device
 from ..jit.serving_step import (DecodeStep, MixedStep, PrefillStep,
-                                copy_block, prefill_scatter)
+                                copy_block, extract_blocks, inject_blocks,
+                                prefill_scatter)
+from ..observability import default_registry
+from ..observability.request_trace import resolve_tracer
+from ..ops.dequant import Int8Weights
 from ..ops.paged_attention import PagedKVCache
 from ..ops.sampling import DRAFT_SEED_XOR
 from .prefix_cache import HostPageTier, PrefixPageCache
+
+# process-wide engine-id sequence: a multi-engine router needs a stable
+# identity per engine for health gauges and the /healthz payload
+_ENGINE_IDS = itertools.count()
 
 
 @dataclass
@@ -111,16 +145,29 @@ class GenerationRequest:
     # speculative decoding: positions [0, draft_len) hold draft-model KV
     # for the accepted token sequence
     draft_len: int = 0
+    # perf_counter marks: submit -> first token = TTFT, first token ->
+    # done over n - 1 tokens = TPOT
+    t_submit: float = 0.0
+    t_first_token: float = 0.0
+    t_done: float = 0.0
+
+
+_PORT_SCOPE = ("the port serves on one device through the split or mixed "
+               "engine, greedy or sampled, with model-dtype or int8 pools, "
+               "int8 weights, an optional draft model and the prefix cache")
 
 
 def _unported(options: Dict[str, bool]) -> None:
     for name, asked in options.items():
         if asked:
             raise NotImplementedError(
-                "%s is not ported to paddle_tpu_torch yet (the port serves "
-                "on one device through the split or mixed engine, greedy or "
-                "sampled, with model-dtype or int8 pools, an optional "
-                "draft model and the prefix cache)" % name)
+                "%s is not ported to paddle_tpu_torch yet (%s)"
+                % (name, _PORT_SCOPE))
+
+
+class _UnportedAndInvalid(NotImplementedError, ValueError):
+    """An option that is not ported and that the reference also rejects
+    with a ``ValueError`` for this configuration."""
 
 
 class ContinuousBatchingEngine:
@@ -145,6 +192,9 @@ class ContinuousBatchingEngine:
     ``enable_prefix_cache`` and ``host_tier_bytes`` (the cache's host
     spill tier, in bytes): see the module notes.
 
+    ``weight_quant`` (``None`` or ``"int8"``), ``tracer``, ``role`` and
+    ``engine_id``: see the module notes.
+
     ``device=None`` is the CUDA card (raises without one); the model must
     live on the same device.
     """
@@ -159,26 +209,47 @@ class ContinuousBatchingEngine:
                  mesh=None, sharding=None, kv_dtype: Optional[str] = None,
                  weight_quant: Optional[str] = None,
                  quant_collectives: bool = False, sampling: bool = False,
-                 draft_model=None, spec_k: int = 2, tracer=None,
+                 draft_model=None, spec_k: int = 2,
+                 engine_id: Optional[int] = None, tracer=None,
                  role: str = "mixed",
                  host_tier_bytes: int = 0, device: DeviceLike = None):
         cfg = model.config
+        # a router sends fresh prompts to "prefill" engines and migrates
+        # their finished pages to "decode" engines; "mixed" takes anything
+        if role not in ("prefill", "decode", "mixed"):
+            raise ValueError(
+                "ContinuousBatchingEngine role must be 'prefill', "
+                "'decode' or 'mixed'; got %r" % (role,))
+        self.role = role
+        self.engine_id = int(next(_ENGINE_IDS) if engine_id is None
+                             else engine_id)
         if kv_dtype not in (None, "float32", "bfloat16", "int8"):
             raise ValueError(
                 "ContinuousBatchingEngine kv_dtype must be None (follow "
                 "the model dtype), 'float32', 'bfloat16' or 'int8'; got "
                 "%r" % (kv_dtype,))
+        if weight_quant not in (None, "int8"):
+            raise ValueError(
+                "ContinuousBatchingEngine weight_quant must be None or "
+                "'int8'; got %r" % (weight_quant,))
+        if (kv_dtype == "int8" or weight_quant == "int8") \
+                and not mixed_step and not prefill_buckets:
+            raise ValueError(
+                "quantized serving (kv_dtype='int8' / weight_quant="
+                "'int8') needs a compiled prefill path: pass "
+                "mixed_step=True or prefill_buckets='auto' — the dense "
+                "prefill runs the model in fp and writes unquantized K/V")
+        if quant_collectives and mesh is None and sharding is None:
+            raise _UnportedAndInvalid(
+                "quantized collectives (quant_collectives) are not ported "
+                "to paddle_tpu_torch yet, and they quantize the tensor-"
+                "parallel logits all-gather: a single-chip engine has no "
+                "collectives — drop the flag")
         _unported({
             "multi-device serving (mesh/sharding)":
                 mesh is not None or sharding is not None,
             "a KV pool dtype other than the model's (kv_dtype)":
                 kv_dtype not in (None, "int8", cfg.dtype),
-            "weight quantization (weight_quant)": weight_quant is not None,
-            "quantized collectives (quant_collectives)":
-                bool(quant_collectives),
-            "request tracing and metrics (tracer)":
-                tracer not in (None, False),
-            "engine roles (role)": role != "mixed",
         })
         # sampling / speculative validation, the reference's errors
         self.sampling = bool(sampling)
@@ -206,12 +277,6 @@ class ContinuousBatchingEngine:
                     % (draft_model.config.vocab_size, cfg.vocab_size))
         self.draft_model = draft_model
         self.spec_k = int(spec_k) if draft_model is not None else 0
-        if kv_dtype == "int8" and not mixed_step and not prefill_buckets:
-            raise ValueError(
-                "quantized serving (kv_dtype='int8') needs a compiled "
-                "prefill path: pass mixed_step=True or prefill_buckets="
-                "'auto' — the dense prefill runs the model in fp and "
-                "writes unquantized K/V")
         self.device = resolve_device(device)
         for what, m in (("model", model), ("draft model", draft_model)):
             if m is not None and m.device != self.device:
@@ -232,6 +297,12 @@ class ContinuousBatchingEngine:
         if max_seq_len is None:
             max_seq_len = max(block_size,
                               num_blocks * block_size // max_batch_size)
+        # per-channel absmax PTQ, once: the target's steps dequantize this
+        # tree on use (the draft stays fp, as in the reference)
+        self.weight_qtree = (Int8Weights(model) if weight_quant == "int8"
+                             else None)
+        self.weight_quant_bytes = (self.weight_qtree.nbytes
+                                   if self.weight_qtree is not None else 0)
         self.max_seq_len = max_seq_len
         self.bt_width = -(-max_seq_len // block_size)
         self._sink = self.caches[0].sink
@@ -258,7 +329,8 @@ class ContinuousBatchingEngine:
         # prompt tokens the steps prefilled (a prefix hit skips its own)
         self.prefill_tokens = 0
         self.decode_step = DecodeStep(model, self.caches,
-                                      sampling=self.sampling)
+                                      sampling=self.sampling,
+                                      weights=self.weight_qtree)
 
         # ---- bucketed / chunked prefill (split engine) -------------------
         if prefill_buckets == "auto":
@@ -279,7 +351,8 @@ class ContinuousBatchingEngine:
                     % (self.chunk_size, buckets[-1]))
             self.prefill_step = PrefillStep(model, self.caches,
                                             self.bt_width,
-                                            sampling=self.sampling)
+                                            sampling=self.sampling,
+                                            weights=self.weight_qtree)
 
         # ---- fused mixed prefill+decode step -------------------------------
         self.token_budgets = None
@@ -309,7 +382,8 @@ class ContinuousBatchingEngine:
                 # window covers it as well as a chunk
                 span_q=min(max(self.chunk_size, self.spec_k + 1),
                            budgets[-1]),
-                sampling=self.sampling, spec_k=self.spec_k)
+                sampling=self.sampling, spec_k=self.spec_k,
+                weights=self.weight_qtree)
             # padding tokens spread over the sink page's slots
             self._dest_pad = (np.arange(budgets[-1], dtype=np.int32)
                               % block_size)
@@ -377,6 +451,178 @@ class ContinuousBatchingEngine:
             self.prefix_cache = PrefixPageCache(
                 self.caches[0], block_size, all_caches=self.caches,
                 host_tier=self.host_tier)
+        # the prefix cache's stat counters as last published into the
+        # metrics (_sync_prefix_stats publishes each increment once)
+        self._pc_published: Dict[str, int] = {}
+        self._init_observability(tracer)
+
+    def _init_observability(self, tracer):
+        """The request tracer (default on; decode spans sampled every
+        ``trace_decode_every`` steps a request), the ``serving_*`` metric
+        families in the port's registry, and the engine's own cumulative
+        ``counters``.  The tensor/context/expert-parallel, quantized
+        collective and MoE families are not registered: those features
+        are not ported."""
+        self.tracer = resolve_tracer(tracer)
+        self.trace_decode_every = 8
+        r = default_registry()
+        self._m_queue = r.gauge(
+            "serving_queue_depth", "requests waiting for a free slot")
+        self._m_occupancy = r.gauge(
+            "serving_slot_occupancy_ratio",
+            "running slots / max_batch_size")
+        self._m_kv_util = r.gauge(
+            "serving_kv_page_utilization_ratio",
+            "allocated KV pages / pool size")
+        self._m_prefill = r.histogram(
+            "serving_prefill_duration_seconds",
+            "prompt prefill (bucketed compiled chunk, or the legacy "
+            "dense forward + fused cache scatter)")
+        self._m_decode = r.histogram(
+            "serving_decode_step_duration_seconds",
+            "one fused batched decode step (all slots)")
+        self._m_ttft = r.histogram(
+            "serving_ttft_seconds", "admission wait + prefill to first "
+            "token (time-to-first-token)")
+        self._m_tpot = r.histogram(
+            "serving_tpot_seconds",
+            "mean per-token decode latency after the first token",
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 0.5, 1.0))
+        self._m_requests = r.counter(
+            "serving_requests_total", "finished generation requests",
+            labels=("outcome",))
+        self._m_tokens = r.counter(
+            "serving_tokens_total", "tokens generated")
+        self._m_truncated = r.counter(
+            "serving_truncated_victims_total",
+            "requests finished early because the KV pool ran dry "
+            "(lazy_alloc victim contract)")
+        self._m_prefill_compiles = r.counter(
+            "serving_prefill_compiles_total",
+            "bucketed PrefillStep traces (bounded by the bucket count)")
+        self._m_prefix_lookups = r.counter(
+            "serving_prefix_cache_lookups_total",
+            "prompt admissions checked against the prefix table",
+            labels=("outcome",))
+        self._m_prefix_hit_tokens = r.counter(
+            "serving_prefix_cache_hit_tokens_total",
+            "prompt tokens served from shared prefix pages instead of "
+            "recompute")
+        self._m_prefix_evictions = r.counter(
+            "serving_prefix_cache_evictions_total",
+            "prefix table entries visited by eviction under pool "
+            "pressure, by outcome (reclaimed = page returned to the "
+            "free list, spilled first when a host tier is attached; "
+            "skipped_pinned = a live request still holds the page, so "
+            "the entry was passed over — sustained skips explain "
+            "cache-pressure stalls)", labels=("outcome",))
+        self._m_evict_reclaimed = \
+            self._m_prefix_evictions.labels(outcome="reclaimed")
+        self._m_evict_skipped = \
+            self._m_prefix_evictions.labels(outcome="skipped_pinned")
+        self._m_migrations = r.counter(
+            "serving_page_migrations_total",
+            "KV page-set migrations through this engine, by direction "
+            "(out = extract_request serialized a sequence's pages to "
+            "host; in = inject_request scattered a migrated buffer "
+            "into this pool)", labels=("direction",))
+        self._m_migrations_out = \
+            self._m_migrations.labels(direction="out")
+        self._m_migrations_in = self._m_migrations.labels(direction="in")
+        self._m_migrated_bytes = r.counter(
+            "serving_migrated_bytes_total",
+            "payload bytes moved across the host link by page "
+            "migration (each migration counts its buffer once on "
+            "extract — device-to-host — and once on inject — "
+            "host-to-device)")
+        self._m_host_spills = r.counter(
+            "serving_host_tier_spills_total",
+            "evicted prefix pages serialized into the host-RAM spill "
+            "tier instead of dying")
+        self._m_host_hits = r.counter(
+            "serving_host_tier_hits_total",
+            "prefix lookups whose chain continued into the host tier "
+            "(spilled pages found for the prompt)")
+        self._m_host_restores = r.counter(
+            "serving_host_tier_restores_total",
+            "spilled pages injected back into the device pool and "
+            "re-registered under their digest keys")
+        self._m_chunk_queue = r.gauge(
+            "serving_prefill_chunk_queue_depth",
+            "prefill chunks still pending across admitted requests")
+        self._m_mixed_compiles = r.counter(
+            "serving_mixed_step_compiles_total",
+            "fused MixedStep traces (bounded by the token-budget-set "
+            "size)")
+        self._m_mixed_span_tokens = r.counter(
+            "serving_mixed_span_tokens_total",
+            "tokens advanced by the fused mixed step, by span kind",
+            labels=("kind",))
+        # the labeled children resolved once: the mixed step pays them
+        # every engine round
+        self._m_mixed_tok_decode = \
+            self._m_mixed_span_tokens.labels(kind="decode")
+        self._m_mixed_tok_prefill = \
+            self._m_mixed_span_tokens.labels(kind="prefill")
+        # a single-device engine: degree 1 on every parallel axis
+        r.gauge("serving_tp_degree",
+                "tensor-parallel degree of the most recently constructed "
+                "engine in this process (1 = single chip)").set(1)
+        mesh_shape = r.gauge(
+            "serving_mesh_shape",
+            "serving mesh degree per axis for the most recently "
+            "constructed engine (fsdp = weight-storage sharding, tp = "
+            "tensor parallel, dp = replica) — 1 means the axis is "
+            "absent", labels=("axis",))
+        for axis in ("fsdp", "tp", "dp", "cp", "ep"):
+            mesh_shape.labels(axis=axis).set(1)
+        r.gauge("serving_cp_degree",
+                "context-parallel degree of the most recently constructed "
+                "engine (cp stripes every KV pool's slot dim — per-chip "
+                "pool HBM is 1/cp; 1 = pools not striped)").set(1)
+        r.gauge("serving_ep_degree",
+                "expert-parallel degree of the most recently constructed "
+                "engine (ep shards every MoE expert bank's E dim — "
+                "per-chip expert HBM is 1/ep; 1 = expert banks "
+                "replicated)").set(1)
+        r.gauge("serving_kv_quant_dtype",
+                "KV-cache element width in bits of the most recently "
+                "constructed engine (8 = int8 quantized pools, 16/32 = "
+                "fp)").set(self.caches[0].key_cache.element_size() * 8)
+        r.counter(
+            "serving_quant_token_mismatch_total",
+            "greedy tokens that diverged from the fp32 reference "
+            "engine on a paired run (published by the quantization "
+            "bench/tests via record_token_mismatches — the tolerance "
+            "gate's numerator)")
+        r.gauge("serving_sampling_mode",
+                "1 = the stochastic sampling epilogue is compiled into "
+                "this process's most recently constructed engine, 0 = "
+                "greedy-only").set(1 if self.sampling else 0)
+        self._m_spec_proposed = r.counter(
+            "serving_spec_proposed_tokens_total",
+            "draft tokens proposed to the speculative verifier")
+        self._m_spec_accepted = r.counter(
+            "serving_spec_accepted_tokens_total",
+            "proposed draft tokens the target verifier accepted "
+            "(acceptance rate = accepted / proposed)")
+        self._m_draft_step = r.histogram(
+            "serving_spec_draft_step_duration_seconds",
+            "one fused draft-model launch (catch-up + proposal or "
+            "chunk mirror; first launch of a budget excluded)",
+            buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                     0.25, 0.5, 1.0))
+        # the first run of each step shape never lands in a latency
+        # histogram (bucketed prefill: per bucket through the step's
+        # compile counts; the dense prefill: per prompt length)
+        self._prefill_warm_lens = set()
+        self._decode_warm = False
+        # per-ENGINE cumulative host counters (the process-wide metrics
+        # aggregate over every engine in the process)
+        self.counters: Dict[str, int] = {
+            "tokens_generated": 0, "requests_received": 0,
+            "requests_admitted": 0, "preempts": 0}
 
     @staticmethod
     def _auto_buckets(max_seq_len: int):
@@ -461,8 +707,11 @@ class ContinuousBatchingEngine:
                 parent_req=parent)
             parent = parent or req
             self._next_id += 1
+            req.t_submit = time.perf_counter()
             self.waiting.append(req)
             ids.append(req.req_id)
+        self.counters["requests_received"] += n
+        self._m_queue.set(len(self.waiting))
         return ids[0] if n == 1 else ids
 
     def has_work(self) -> bool:
@@ -486,7 +735,17 @@ class ContinuousBatchingEngine:
         finally:
             self._finished_this_step = None
         seen = set(done)
-        return done + [rid for rid in fts if rid not in seen]
+        done += [rid for rid in fts if rid not in seen]
+        self._m_queue.set(len(self.waiting))
+        self._m_occupancy.set(sum(s is not None for s in self.slots)
+                              / max(1, self.max_batch_size))
+        cache = self.caches[0]
+        self._m_kv_util.set(1.0 - len(cache._free)
+                            / max(1, cache.num_blocks))
+        if self.chunk_size is not None:
+            self._m_chunk_queue.set(self._pending_chunks())
+        self._sync_prefix_stats()
+        return done
 
     def run_to_completion(self) -> Dict[int, List[int]]:
         while self.has_work():
@@ -496,6 +755,250 @@ class ContinuousBatchingEngine:
     def result(self, req_id: int) -> List[int]:
         return self.finished[req_id].output_ids
 
+    def preempt_request(self, req_id: int) -> Tuple[np.ndarray, List[int]]:
+        """Pull a waiting or running request out of the engine and return
+        ``(prompt_ids, generated_ids)`` so an admission plane can re-admit
+        it elsewhere with its generated tokens re-prefixed onto the prompt
+        (not the lazy-alloc victim path, which ends a request early).
+
+        A running slot is released through the refcounted
+        ``free_sequence`` path, the only release path: pages shared with
+        the prefix table or another request survive, copy-on-write copies
+        return to the pool, and an int8 pool's per-page scales stay with
+        their pages.  The request is not finished: no outcome counter
+        fires and nothing lands in ``finished``.  Raises ``KeyError`` when
+        ``req_id`` is neither waiting nor on a slot."""
+        for i, r in enumerate(self.waiting):
+            if r.req_id == req_id:
+                self.waiting.pop(i)
+                self._m_queue.set(len(self.waiting))
+                r.state = "preempted"
+                self.counters["preempts"] += 1
+                self.tracer.event(req_id, "preempt", from_state="waiting",
+                                  tokens=len(r.output_ids))
+                return r.prompt_ids, list(r.output_ids)
+        for r in self.slots:
+            if r is None or r.req_id != req_id:
+                continue
+            self._release_slot(r)
+            r.slot = -1
+            r.state = "preempted"
+            self.counters["preempts"] += 1
+            self.tracer.event(req_id, "preempt", from_state="running",
+                              tokens=len(r.output_ids))
+            return r.prompt_ids, list(r.output_ids)
+        raise KeyError(
+            "preempt_request(%r): request is neither waiting nor "
+            "running on this engine" % (req_id,))
+
+    # ---- KV page migration ----------------------------------------------
+    def migration_geometry(self):
+        """The pool geometry ``(layers, block_size, kv_heads, head_dim,
+        kv_dtype)`` that page buffers extracted from or injected into this
+        engine must match, or None when the engine cannot migrate pages
+        (a speculative engine's draft KV cannot travel)."""
+        if self.draft_step is not None:
+            return None
+        return (len(self.caches),) + self.caches[0].page_geometry()
+
+    def extract_request(self, req_id: int):
+        """:meth:`preempt_request` plus page extraction: the request's KV
+        pages are serialized to one host ``KVPageBuffer`` (one batched
+        device-to-host copy per dtype) before the refcounted release, so
+        an admission plane can resume it on another engine with zero
+        re-prefill (:meth:`inject_request`).  Returns ``(prompt_ids,
+        generated_ids, buffer)``; ``buffer`` is None when the request
+        holds no resumable KV (waiting, or mid-prefill) or the engine
+        cannot extract (speculative)."""
+        buf = None
+        if self.migration_geometry() is not None:
+            for r in self.slots:
+                if (r is not None and r.req_id == req_id
+                        and r.state == "running" and r.seq_len > 0):
+                    n_cov = self.caches[0].blocks_needed(r.seq_len)
+                    buf = extract_blocks(self.caches, r.block_ids[:n_cov],
+                                         n_tokens=r.seq_len)
+                    break
+        prompt, gen = self.preempt_request(req_id)
+        if buf is not None:
+            self._m_migrations_out.inc()
+            self._m_migrated_bytes.inc(buf.nbytes)
+        return prompt, gen, buf
+
+    def inject_request(self, prompt_ids, buffer, max_new_tokens: int = 16,
+                       eos_token_id: Optional[int] = None,
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 0.0, seed: int = 0) -> int:
+        """Admit a migrated request straight into a decode slot: the
+        buffer's pages scatter into freshly allocated pool pages (one
+        host-to-device copy per dtype), the request starts ``running``
+        with its last prompt token pending, and the next step advances it
+        as a plain decode span — zero re-prefill.  The covered full pages
+        re-register under the prefix cache's digest chain, so a later
+        same-prefix admission hits.
+
+        ``prompt_ids`` is the resume prompt (the original prompt plus
+        every token generated so far); ``buffer.n_tokens`` must equal
+        ``len(prompt_ids) - 1``.  The buffer carries KV, not sampling
+        state: a sampled request re-passes its knobs here (the per-position
+        generator keys on the seed and the token position, so it resumes
+        the same stream).
+
+        Raises ``ValueError`` for a request this engine can never hold
+        (geometry or kv_dtype mismatch, block-table width) and
+        ``RuntimeError`` for transient capacity (no free slot, too few
+        pages), both before any side effect."""
+        if buffer is None:
+            raise ValueError(
+                "inject_request needs a KVPageBuffer — use add_request "
+                "for a fresh (un-migrated) prompt")
+        if self.draft_step is not None:
+            raise ValueError(
+                "a speculative engine cannot accept migrated pages: "
+                "the buffer carries only target-model KV and the draft "
+                "pool (addressed by the same page ids) cannot be "
+                "reconstructed from it")
+        here = (len(self.caches),) + self.caches[0].page_geometry()
+        if here != buffer.geometry():
+            raise ValueError(
+                "inject_request: pool geometry mismatch — buffer was "
+                "extracted from (layers, block_size, kv_heads, "
+                "head_dim, kv_dtype)=%r but this engine's pools are "
+                "%r; KV pages only migrate between engines with "
+                "identical pool geometry (including kv_dtype)"
+                % (buffer.geometry(), here))
+        if int(max_new_tokens) < 1:
+            raise ValueError(
+                "inject_request max_new_tokens must be >= 1; a "
+                "migrated request with no remaining budget should "
+                "complete at the router, not resume")
+        if (temperature or top_k or top_p or seed) and not self.sampling:
+            raise ValueError(
+                "per-request sampling parameters need a sampling engine: "
+                "construct ContinuousBatchingEngine(sampling=True, ...) — "
+                "the greedy engine's steps have no sampling epilogue")
+        prompt = np.asarray(prompt_ids, np.int64).reshape(-1)
+        L = len(prompt)
+        if buffer.n_tokens != L - 1:
+            raise ValueError(
+                "inject_request: buffer covers %d token(s) of KV but "
+                "the resume prompt has %d — a migrated request resumes "
+                "with exactly its last token pending (n_tokens == "
+                "len(prompt_ids) - 1)" % (buffer.n_tokens, L))
+        cache = self.caches[0]
+        n_cov = cache.blocks_needed(buffer.n_tokens)
+        if buffer.n_pages != n_cov:
+            raise ValueError(
+                "inject_request: buffer holds %d page(s) but %d cover "
+                "its %d token(s) at block_size=%d"
+                % (buffer.n_pages, n_cov, buffer.n_tokens,
+                   self.block_size))
+        total_need = cache.blocks_needed(
+            L + (1 if self.lazy_alloc else int(max_new_tokens)))
+        if total_need > self.bt_width:
+            raise ValueError(
+                "request needs %d pages but the engine's block-table "
+                "width is %d (max_seq_len=%d); raise max_seq_len"
+                % (total_need, self.bt_width, self.max_seq_len))
+        slot = next((i for i, r in enumerate(self.slots) if r is None),
+                    None)
+        if slot is None:
+            raise RuntimeError(
+                "inject_request: no free slot — inject only into "
+                "engines with slot capacity (migrated requests do not "
+                "queue; their pages would pin pool pages while waiting)")
+        available = len(cache._free)
+        if self.prefix_cache is not None:
+            available += self.prefix_cache.evictable_count()
+        if total_need > available:
+            raise RuntimeError(
+                "inject_request: pool cannot cover %d page(s) "
+                "(%d free + %d evictable)"
+                % (total_need, len(cache._free),
+                   available - len(cache._free)))
+
+        # ---- commit: one batched spill for the whole deficit ----------
+        short = total_need - len(cache._free)
+        if short > 0 and self.prefix_cache is not None:
+            self.prefix_cache.evict(short)
+            self._sync_prefix_stats()
+        req = GenerationRequest(
+            req_id=self._next_id, prompt_ids=prompt,
+            max_new_tokens=int(max_new_tokens), eos_token_id=eos_token_id,
+            temperature=float(temperature), top_k=int(top_k),
+            top_p=float(top_p), seed=int(seed))
+        self._next_id += 1
+        req.t_submit = time.perf_counter()
+        req.block_ids = [self._alloc_block() for _ in range(total_need)]
+        inject_blocks(self.caches, buffer, req.block_ids[:n_cov])
+        req.slot = slot
+        req.state = "running"
+        req.seq_len = buffer.n_tokens
+        req.prefill_pos = L
+        self.slots[slot] = req
+        self._tokens[slot] = int(prompt[-1])
+        self._seq_lens[slot] = req.seq_len
+        self._bt[slot] = self._row_for(req)[0]
+        if self.sampling:
+            self._samp[slot] = self._samp_row(req)
+        if self.prefix_cache is not None:
+            # the covered FULL pages only: pages past n_tokens hold no KV
+            full = (buffer.n_tokens // self.block_size) * self.block_size
+            if full:
+                self.prefix_cache.register(prompt[:full], req.block_ids)
+        self._m_migrations_in.inc()
+        self._m_migrated_bytes.inc(buffer.nbytes)
+        self.counters["requests_received"] += 1
+        self.counters["requests_admitted"] += 1
+        self.tracer.event(req.req_id, "admit", slot=slot,
+                          prefix_hit_tokens=0, prompt_tokens=L,
+                          enqueue_ts=req.t_submit, migrated=True)
+        return req.req_id
+
+    def health_payload(self) -> Dict:
+        """Load and health snapshot for admission planes: occupancy,
+        pages, the chunk queue, evictable prefix pages, the host tier's
+        footprint, the int8 weight tree's bytes and this engine's
+        cumulative ``counters`` — the body ``/healthz`` serves with this
+        engine installed as the process's health provider
+        (``observability.set_health_provider(engine.health_payload)``)."""
+        pc = self.prefix_cache
+        cache = self.caches[0]
+        payload = {
+            "engine_id": self.engine_id,
+            "role": self.role,
+            "occupancy": sum(s is not None for s in self.slots),
+            "slots": self.max_batch_size,
+            "waiting": len(self.waiting),
+            "free_pages": len(cache._free),
+            "total_pages": cache.num_blocks,
+            "chunk_queue_depth": (self._pending_chunks()
+                                  if self.chunk_size is not None else 0),
+            "evictable_pages": (pc.evictable_count()
+                                if pc is not None else 0),
+            "host_tier_bytes": (self.host_tier.bytes
+                                if self.host_tier is not None else 0),
+            "host_tier_entries": (len(self.host_tier)
+                                  if self.host_tier is not None else 0),
+            "weight_quant_bytes": self.weight_quant_bytes,
+        }
+        payload["counters"] = {
+            **self.counters,
+            "prefix_lookups": (pc.hits + pc.misses) if pc is not None
+            else 0,
+            "prefix_hits": pc.hits if pc is not None else 0,
+            "host_tier_spills": pc.spills if pc is not None else 0,
+            "host_tier_restores": pc.restores if pc is not None else 0,
+        }
+        return payload
+
+    def efficiency_stats(self, compute: bool = False):
+        """The serving step's efficiency numbers belong to the capacity
+        plane, which is not ported."""
+        raise NotImplementedError(
+            "efficiency_stats (the capacity & efficiency plane) is not "
+            "ported to paddle_tpu_torch yet (%s)" % _PORT_SCOPE)
+
     # ---- page allocation -----------------------------------------------
     def _try_alloc(self) -> Optional[int]:
         """Pop a free page, evicting an unreferenced prefix-cache page
@@ -504,9 +1007,31 @@ class ContinuousBatchingEngine:
         c = self.caches[0]
         if not c._free and self.prefix_cache is not None:
             self.prefix_cache.evict(1)
+            self._sync_prefix_stats()
         if not c._free:
             return None
         return c.allocate_block()
+
+    def _sync_prefix_stats(self):
+        """Publish the prefix cache's host-side stat counters (evictions
+        by outcome, host-tier spills, hits and restores) into the
+        metrics, diffed against the last published snapshot so each
+        increment lands once."""
+        pc = self.prefix_cache
+        if pc is None:
+            return
+        pub = self._pc_published
+        for attr, metric in (
+                ("evictions", self._m_evict_reclaimed),
+                ("skipped_pinned", self._m_evict_skipped),
+                ("spills", self._m_host_spills),
+                ("host_hits", self._m_host_hits),
+                ("restores", self._m_host_restores)):
+            cur = getattr(pc, attr)
+            delta = cur - pub.get(attr, 0)
+            if delta:
+                metric.inc(delta)
+                pub[attr] = cur
 
     def _alloc_block(self) -> int:
         blk = self._try_alloc()
@@ -540,6 +1065,7 @@ class ContinuousBatchingEngine:
                 r.block_ids.append(blk)
             if len(r.block_ids) < need:
                 r.truncated = True
+                self._m_truncated.inc()
                 self._finish(r)
                 truncated.append(r.req_id)
         return truncated
@@ -589,9 +1115,13 @@ class ContinuousBatchingEngine:
             return False
 
         if pc is not None:
+            # literal label values: the metric lint pins label domains
+            self._m_prefix_lookups.labels(
+                outcome="hit" if matched else "miss").inc()
             if matched:
                 pc.hits += 1
                 pc.hit_tokens += hit_len
+                self._m_prefix_hit_tokens.inc(hit_len)
             else:
                 pc.misses += 1
         cache.share_blocks(matched)
@@ -602,6 +1132,7 @@ class ContinuousBatchingEngine:
         short = new_needed - len(cache._free)
         if short > 0 and pc is not None:
             pc.evict(short)
+            self._sync_prefix_stats()
         if cow:
             src = req.block_ids[-1]
             dst = self._alloc_block()
@@ -622,6 +1153,10 @@ class ContinuousBatchingEngine:
         req.slot = slot
         req.state = "prefilling"
         self.slots[slot] = req
+        self.counters["requests_admitted"] += 1
+        self.tracer.event(req.req_id, "admit", slot=slot,
+                          prefix_hit_tokens=hit_len, prompt_tokens=L,
+                          enqueue_ts=req.t_submit)
         if self.sampling:
             self._samp[slot] = self._samp_row(req)
         if self.mixed is not None:
@@ -637,13 +1172,20 @@ class ContinuousBatchingEngine:
         """The whole prompt through the model's cache path once, its
         per-layer K/V written with ``prefill_scatter``, the first token
         the argmax of the last position."""
+        t0 = time.perf_counter()
+        L = len(req.prompt_ids)
         ids = torch.from_numpy(req.prompt_ids[None, :]).to(self.device)
         logits, kv = self.model(
             ids, [(None, None)] * self.cfg.num_hidden_layers)
         row = self._row_for(req)
         prefill_scatter(self.caches, kv, row)
         first = int(torch.argmax(logits[0, -1].to(torch.float32)))
-        req.prefill_pos = len(req.prompt_ids)
+        t1 = time.perf_counter()
+        if L in self._prefill_warm_lens:
+            self._m_prefill.observe(t1 - t0)
+        self._prefill_warm_lens.add(L)
+        self.tracer.span(req.req_id, "prefill_dense", t0, t1, tokens=L)
+        req.prefill_pos = L
         self.prefill_tokens += len(req.prompt_ids)
         self._complete_prefill(req, first, row)
 
@@ -677,9 +1219,20 @@ class ContinuousBatchingEngine:
         toks = np.zeros((1, self._bucket_for(size)), np.int32)
         toks[0, :size] = req.prompt_ids[start:start + size]
         row = self._row_for(req)
+        t0 = time.perf_counter()
+        pre = self.prefill_step.total_compiles
         first = self.prefill_step(
             toks, start, size, row,
             self._samp_row(req) if self.sampling else None)
+        traced = self.prefill_step.total_compiles - pre
+        t1 = time.perf_counter()
+        if traced:
+            # the first chunk of a bucket width stays out of the histogram
+            self._m_prefill_compiles.inc(traced)
+        else:
+            self._m_prefill.observe(t1 - t0)
+        self.tracer.span(req.req_id, "prefill_chunk", t0, t1, offset=start,
+                         tokens=size, warm=not traced)
         req.prefill_pos += size
         self.prefill_tokens += size
         if req.prefill_pos >= L:
@@ -708,8 +1261,19 @@ class ContinuousBatchingEngine:
         if not any(r is not None and r.state == "running"
                    for r in self.slots):
             return done
+        t0 = time.perf_counter()
         nxt = self.decode_step(self._tokens, self._seq_lens, self._bt,
                                self._samp if self.sampling else None)
+        t1 = time.perf_counter()
+        if self._decode_warm:
+            self._m_decode.observe(t1 - t0)
+        self._decode_warm = True
+        if self.tracer.enabled:
+            for r in self.slots:
+                if r is not None and r.state == "running":
+                    self.tracer.sample_span(
+                        r.req_id, "decode_step", t0, t1,
+                        every=self.trace_decode_every)
         for i, r in enumerate(list(self.slots)):
             if r is None or r.state != "running":
                 continue
@@ -851,7 +1415,37 @@ class ContinuousBatchingEngine:
                 for r, kind, size, start in spans]
         pack, B = self._fill_mixed_pack(self.mixed, self.token_budgets,
                                         fill)
+        t0 = time.perf_counter()
+        pre = self.mixed.total_compiles
         nxt = self.mixed.call_packed(pack, B)
+        traced = self.mixed.total_compiles - pre
+        t1 = time.perf_counter()
+        n_dec = sum(1 for _, kind, _, _ in spans if kind == "decode")
+        n_pre = sum(size for _, kind, size, _ in spans if kind != "decode")
+        if n_dec:
+            self._m_mixed_tok_decode.inc(n_dec)
+        if n_pre:
+            self._m_mixed_tok_prefill.inc(n_pre)
+        if traced:
+            # the first step at a budget stays out of the histograms
+            self._m_mixed_compiles.inc(traced)
+        else:
+            # the fused step is both rounds: its duration goes to the
+            # histograms of whatever the pack advanced
+            if n_dec:
+                self._m_decode.observe(t1 - t0)
+            if n_pre:
+                self._m_prefill.observe(t1 - t0)
+        if self.tracer.enabled:
+            for r, kind, size, start in spans:
+                if kind == "decode":
+                    self.tracer.sample_span(
+                        r.req_id, "decode_step", t0, t1,
+                        every=self.trace_decode_every)
+                else:
+                    self.tracer.span(r.req_id, "prefill_chunk", t0, t1,
+                                     offset=start, tokens=size,
+                                     warm=not traced)
         for si, (r, kind, size, start) in enumerate(spans):
             tok = int(nxt[si])
             if kind == "decode":
@@ -936,6 +1530,8 @@ class ContinuousBatchingEngine:
                                   DRAFT_SEED_XOR, False))
             if not spans:
                 break
+            t0 = time.perf_counter()
+            pre = self.draft_step.total_compiles
             pack, B = self._fill_mixed_pack(self.draft_step,
                                             self.draft_budgets, spans)
             out = self.draft_step.call_packed(pack, B)
@@ -944,6 +1540,8 @@ class ContinuousBatchingEngine:
                 q_list.append(probs)
             else:
                 toks_np = out
+            if self.draft_step.total_compiles == pre:
+                self._m_draft_step.observe(time.perf_counter() - t0)
             for si, (r, _k) in enumerate(run_spans):
                 drafts[r.slot].append(int(toks_np[si]))
             if not run_spans:
@@ -996,8 +1594,31 @@ class ContinuousBatchingEngine:
         if self.sampling:
             q_list += [self._zero_q] * (self.spec_k - len(q_list))
             q_probs = tuple(q_list)
+        t0 = time.perf_counter()
+        pre = self.mixed.total_compiles
         nxt, n_acc = self.mixed.call_packed(pack, B, q_probs=q_probs)
-
+        traced = self.mixed.total_compiles - pre
+        t1 = time.perf_counter()
+        n_pre = sum(size for _, size, _ in chunk_spans)
+        if traced:
+            self._m_mixed_compiles.inc(traced)
+        else:
+            if run_spans:
+                self._m_decode.observe(t1 - t0)
+            if n_pre:
+                self._m_prefill.observe(t1 - t0)
+        if n_pre:
+            self._m_mixed_tok_prefill.inc(n_pre)
+        if self.tracer.enabled:
+            for r, _k in run_spans:
+                self.tracer.sample_span(
+                    r.req_id, "decode_step", t0, t1,
+                    every=self.trace_decode_every, speculative=True)
+            for r, size, start in chunk_spans:
+                self.tracer.span(r.req_id, "prefill_chunk", t0, t1,
+                                 offset=start, tokens=size,
+                                 warm=not traced)
+        emitted = 0
         for si, (r, toks, start, nd, _x, _m) in enumerate(v_spans):
             if r.state == "prefilling":
                 r.prefill_pos += len(toks)
@@ -1012,6 +1633,8 @@ class ContinuousBatchingEngine:
             k_eff = nd
             self.spec_proposed += k_eff
             self.spec_accepted += na
+            self._m_spec_proposed.inc(k_eff)
+            self._m_spec_accepted.inc(na)
             # the draft pool's correct prefix, marked before seq_len moves:
             # the slot's live launches fed cur@seq_len and d1..d_{k_eff-1},
             # and it ends at the last accepted fed position — the next
@@ -1021,6 +1644,7 @@ class ContinuousBatchingEngine:
             for t in drafts[r.slot][:na] + [int(nxt[si])]:
                 r.seq_len += 1
                 self._seq_lens[r.slot] += 1
+                emitted += 1
                 self._append_token(r, t)
                 if r.state == "done":
                     done.append(r.req_id)
@@ -1034,10 +1658,21 @@ class ContinuousBatchingEngine:
                     keep = len(c.trim_blocks(r.block_ids, r.seq_len + 1))
                     del r.block_ids[keep:]
                     self._bt[r.slot, keep:] = self._sink
+        if emitted:
+            self._m_mixed_tok_decode.inc(emitted)
         return done
 
     def _append_token(self, req: GenerationRequest, token: int):
         req.output_ids.append(token)
+        self.counters["tokens_generated"] += 1
+        if len(req.output_ids) == 1:
+            req.t_first_token = time.perf_counter()
+            ttft = (req.t_first_token - req.t_submit if req.t_submit
+                    else 0.0)
+            if req.t_submit:
+                self._m_ttft.observe(ttft)
+            self.tracer.event(req.req_id, "first_token",
+                              ts=req.t_first_token, ttft=ttft)
         hit_eos = (req.eos_token_id is not None
                    and token == req.eos_token_id)
         if len(req.output_ids) >= req.max_new_tokens or hit_eos:
@@ -1056,9 +1691,28 @@ class ContinuousBatchingEngine:
         self.caches[0].free_sequence(req.block_ids)
         req.block_ids = []
 
+    def _pending_chunks(self) -> int:
+        n = 0
+        for r in self.slots:
+            if r is not None and r.state == "prefilling":
+                rem = len(r.prompt_ids) - r.prefill_pos
+                n += -(-rem // self.chunk_size)
+        return n
+
     def _finish(self, req: GenerationRequest):
         req.state = "done"
         if self._finished_this_step is not None:
             self._finished_this_step.append(req.req_id)
+        n_tok = len(req.output_ids)
+        outcome = "truncated" if req.truncated else "completed"
+        self._m_requests.labels(
+            outcome="truncated" if req.truncated else "completed").inc()
+        self._m_tokens.inc(n_tok)
+        req.t_done = time.perf_counter()
+        if n_tok > 1 and req.t_first_token:
+            self._m_tpot.observe(
+                (req.t_done - req.t_first_token) / (n_tok - 1))
+        self.tracer.event(req.req_id, "finish", ts=req.t_done, tokens=n_tok,
+                          outcome=outcome)
         self._release_slot(req)
         self.finished[req.req_id] = req

@@ -15,7 +15,11 @@ buffer, temperature and top-p bitcast into their int32 lanes; each draw
 keyed by the global position of the token it samples), and
 ``MixedStep(spec_k=K)`` verifies speculative spans of K + 1 tokens while
 ``MixedStep(return_probs=True)`` is the sampled draft that returns its
-filtered distributions.  The steps run eagerly (no CUDA graphs yet); the
+filtered distributions.  ``weights=`` (an :class:`~paddle_tpu_torch.ops.
+dequant.Int8Weights`, the engine's ``weight_quant="int8"`` tree) makes a
+step take every layer's projections and the LM head from the int8 tree,
+dequantized on use one layer at a time (``ops/dequant.py``).  The steps
+run eagerly (no CUDA graphs yet); the
 reference's compiled modules have no counterpart, but ``compile_counts``
 still records each distinct token budget or bucket width once
 (``compile_count`` the decode step's one slot count), so the reference's
@@ -28,7 +32,9 @@ from typing import List
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from ..nn import functional as PF
 from ..ops.kernels import rope_qkv_epilogue, rope_tables_for_positions
 from ..ops.paged_attention import (KVPageBuffer, chunk_prefill_attention,
                                    paged_attention,
@@ -60,25 +66,46 @@ def _need_sink(caches, step: str) -> int:
     return sink
 
 
-def _attend_layer(layer, x, cos, sin, cache, write, attend):
+def _attend_layer(layer, x, cos, sin, cache, write, attend, w=None):
     """One decoder layer of a serving step over ``x`` [N, h]: RMSNorm, the
     q/k/v projections, the fused RoPE + QKV epilogue kernel (with the
     per-token absmax of k and v for an int8 pool), the in-place K/V write
     ``write(k, v, k_amax, v_amax)`` into ``cache``, the attention
     ``attend(q)`` -> [N, H, D], o_proj and the residual, then the MLP
-    block."""
+    block.  ``w``: the layer's projection weights by name, dequantized
+    from the int8 tree (the model's own weights when None; biases always
+    the model's)."""
     N = x.shape[0]
-    at = layer.self_attn
+    at, mlp = layer.self_attn, layer.mlp
+
+    def proj(mod, name, h):
+        lin = getattr(mod, name)
+        return lin(h) if w is None else F.linear(h, w[name], lin.bias)
     H, Hkv, D = at.num_heads, at.num_kv_heads, at.head_dim
     h = layer.input_layernorm(x)
-    q = at.q_proj(h).view(N, H, D)
-    k = at.k_proj(h).view(N, Hkv, D)
-    v = at.v_proj(h).view(N, Hkv, D)
+    q = proj(at, "q_proj", h).view(N, H, D)
+    k = proj(at, "k_proj", h).view(N, Hkv, D)
+    v = proj(at, "v_proj", h).view(N, Hkv, D)
     q, k, k_amax, v_amax = rope_qkv_epilogue(q, k, v, cos, sin,
                                              with_amax=cache.quantized)
     write(k, v, k_amax, v_amax)
-    x = x + at.o_proj(attend(q).reshape(N, H * D))
-    return x + layer.mlp(layer.post_attention_layernorm(x))
+    x = x + proj(at, "o_proj", attend(q).reshape(N, H * D))
+    h = layer.post_attention_layernorm(x)
+    return x + proj(mlp, "down_proj", PF.swiglu(proj(mlp, "gate_proj", h),
+                                                proj(mlp, "up_proj", h)))
+
+
+def _layer_weights(weights, i: int):
+    """Layer ``i``'s projections from the int8 tree (one dequant launch),
+    or None for a step over the model's own weights."""
+    return None if weights is None else weights.layer(i)
+
+
+def _lm_logits(model, weights, h):
+    """The LM head over ``h``: the int8 tree's dequantized head (one
+    launch) when it holds one, else the model's."""
+    head = None if weights is None else weights.lm_head()
+    return model.lm_logits(h) if head is None else F.linear(h, head)
 
 
 def prefill_scatter(caches: List, kv, block_table_row) -> None:
@@ -255,8 +282,9 @@ class MixedStep:
 
     def __init__(self, model, caches: List, bt_width: int, max_spans: int,
                  span_q: int, sampling: bool = False, spec_k: int = 0,
-                 return_probs: bool = False):
+                 return_probs: bool = False, weights=None):
         self.model = model
+        self.weights = weights
         self.caches = caches
         self.cfg = model.config
         self.bt_width = bt_width
@@ -350,7 +378,7 @@ class MixedStep:
         x = llama.embed_tokens(tokens)                         # [T, h]
         # rope tables built ONCE per step: positions are layer-invariant
         cos, sin = rope_tables_for_positions(tok_tab[1], D, cfg.rope_theta)
-        for layer, cache in zip(llama.layers, self.caches):
+        for i, (layer, cache) in enumerate(zip(llama.layers, self.caches)):
             def write(k, v, ka, va, c=cache):
                 if c.quantized:
                     write_ragged_kv_q8(k, v, c.key_cache, c.value_cache,
@@ -365,8 +393,12 @@ class MixedStep:
                     q, c.key_cache, c.value_cache, bt, q_offsets, q_lens,
                     kv_lens, scale, span_q=span_q, key_scale=c.key_scale,
                     value_scale=c.value_scale, work=work)
-            x = _attend_layer(layer, x, cos, sin, cache, write, attend)
+            x = _attend_layer(layer, x, cos, sin, cache, write, attend,
+                              _layer_weights(self.weights, i))
         return llama.norm(x), tok_tab, span_tab
+
+    def _lm(self, h):
+        return _lm_logits(self.model, self.weights, h)
 
     def logits_packed(self, pack: np.ndarray, T: int) -> torch.Tensor:
         """Run one packed step and return the fp32 logits of each span's
@@ -375,7 +407,7 @@ class MixedStep:
         x, _, span_tab = self._forward(pack, T)
         rows = span_tab[:, self.bt_width + 3].long()
         with torch.no_grad():
-            return self.model.lm_logits(x[rows]).to(torch.float32)
+            return self._lm(x[rows]).to(torch.float32)
 
     @torch.no_grad()
     def call_packed(self, pack: np.ndarray, T: int, q_probs=None):
@@ -407,7 +439,7 @@ class MixedStep:
                                  last[:, None])
             rows = torch.cat([vrow, span_tab[:, W + 3].long()[:, None]],
                              dim=1).reshape(-1).clamp(0, T - 1)
-            lv3 = self.model.lm_logits(x[rows]).to(torch.float32).view(
+            lv3 = self._lm(x[rows]).to(torch.float32).view(
                 S, K + 2, -1)
             didx = torch.clamp(q_offsets[:, None] + 1 + ar[None, :K], 0,
                                T - 1)
@@ -428,8 +460,7 @@ class MixedStep:
             nxt = torch.where(n_draft > 0, e_v, e_p)
             out = torch.stack([nxt, n_acc]).cpu().numpy()
             return out[0], out[1]
-        lv = self.model.lm_logits(x[span_tab[:, W + 3].long()]).to(
-            torch.float32)
+        lv = self._lm(x[span_tab[:, W + 3].long()]).to(torch.float32)
         if not self.sampling:
             return greedy_sample(lv).cpu().numpy()
         # counter = kv_len, the sampled token's global position: the same
@@ -459,8 +490,9 @@ class PrefillStep:
     """
 
     def __init__(self, model, caches: List, bt_width: int,
-                 sampling: bool = False):
+                 sampling: bool = False, weights=None):
         self.model = model
+        self.weights = weights
         self.caches = caches
         self.cfg = model.config
         self.bt_width = bt_width
@@ -501,7 +533,7 @@ class PrefillStep:
         pos = start + torch.arange(C, dtype=torch.int32, device=dev)
         cos, sin = rope_tables_for_positions(pos, D, cfg.rope_theta)
         x = llama.embed_tokens(ids)                            # [C, h]
-        for layer, cache in zip(llama.layers, self.caches):
+        for i, (layer, cache) in enumerate(zip(llama.layers, self.caches)):
             def write(k, v, ka, va, c=cache):
                 if c.quantized:
                     write_chunk_kv_q8(k[None], v[None], c.key_cache,
@@ -517,9 +549,10 @@ class PrefillStep:
                 return chunk_prefill_attention(
                     q[None], c.key_cache, c.value_cache, row, start, scale,
                     c.key_scale, c.value_scale)[0]
-            x = _attend_layer(layer, x, cos, sin, cache, write, attend)
+            x = _attend_layer(layer, x, cos, sin, cache, write, attend,
+                              _layer_weights(self.weights, i))
         last = llama.norm(x[n_valid - 1:n_valid])
-        logits = self.model.lm_logits(last)
+        logits = _lm_logits(self.model, self.weights, last)
         if not self.sampling:
             return int(greedy_sample(logits)[0])
         # first-token sample: counter = start + n_valid, the sampled
@@ -548,8 +581,10 @@ class DecodeStep:
     count per engine).
     """
 
-    def __init__(self, model, caches: List, sampling: bool = False):
+    def __init__(self, model, caches: List, sampling: bool = False,
+                 weights=None):
         self.model = model
+        self.weights = weights
         self.caches = caches
         self.cfg = model.config
         self.sampling = bool(sampling)
@@ -588,7 +623,7 @@ class DecodeStep:
         seen = lens + 1                                       # int32
         cos, sin = rope_tables_for_positions(lens, D, cfg.rope_theta)
         x = llama.embed_tokens(tok)                            # [S, h]
-        for layer, cache in zip(llama.layers, self.caches):
+        for i, (layer, cache) in enumerate(zip(llama.layers, self.caches)):
             def write(k, v, ka, va, c=cache):
                 if c.quantized:
                     write_decode_kv_q8(k, v, c.key_cache, c.value_cache,
@@ -602,8 +637,9 @@ class DecodeStep:
                 return paged_attention(q, c.key_cache, c.value_cache, bt_d,
                                        seen, scale, c.key_scale,
                                        c.value_scale)
-            x = _attend_layer(layer, x, cos, sin, cache, write, attend)
-        logits = self.model.lm_logits(llama.norm(x))
+            x = _attend_layer(layer, x, cos, sin, cache, write, attend,
+                              _layer_weights(self.weights, i))
+        logits = _lm_logits(self.model, self.weights, llama.norm(x))
         if not self.sampling:
             return greedy_sample(logits).cpu().numpy()
         knobs = _samp_knobs(dev_pack[2 * S + S * W:].view(S, 4))

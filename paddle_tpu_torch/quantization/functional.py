@@ -1,4 +1,4 @@
-"""Symmetric-absmax quantization primitives (counterpart of the KV half of
+"""Symmetric-absmax quantization primitives (counterpart of
 ``paddle_tpu/quantization/functional.py``).
 
 One clamp convention everywhere: symmetric around zero with
@@ -13,17 +13,43 @@ The int8 KV pools (``ops.paged_attention``) quantize on write with
 :func:`quantize_symmetric`, and the int8 attention kernels quantize each
 query row and each probability row with :func:`quantize_rows_symmetric`
 and fold the scales into their integer products with
-:func:`fold_int8_scores`.  Weight PTQ (``quantize_param_tree``) is not
-ported yet.
+:func:`fold_int8_scores`.  The serving engine's weight PTQ
+(``weight_quant="int8"``) quantizes the projection weights once with
+:func:`quantize_param_tree` (per output channel), and the steps
+dequantize them on use (``ops/dequant.py``, the expression of
+:func:`dequantize_param_tree`).
+
+Layout: the port's ``Linear`` weight is torch's ``[out, in]`` where the
+reference's is ``[in, out]``, so the per-output-channel absmax runs over
+dim 1 here and over axis 0 there; codes and scales are bitwise the
+reference's, transposed.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
 
 __all__ = ["symmetric_bound", "absmax_scale", "quantize_symmetric",
            "dequantize_symmetric", "quantize_rows_symmetric",
-           "fold_int8_scores"]
+           "fold_int8_scores", "WEIGHT_SCALE_SUFFIX", "is_weight_scale_key",
+           "ptq_quantizable", "quantize_param_tree", "dequantize_weight",
+           "dequantize_param_tree"]
+
+# the serving PTQ tree stores each quantized weight's per-channel absmax
+# next to it under this suffixed key ("<param>::scale")
+WEIGHT_SCALE_SUFFIX = "::scale"
+
+# weight families eligible for serving PTQ: the 2-D projection matmuls.
+# Embeddings stay fp (a lookup, and a tied lm_head samples from the fp
+# table); norms and biases are 1-D.
+_PTQ_FAMILIES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                 "up_proj", "down_proj", "lm_head")
+
+# 3-D batched MoE expert banks: the reference quantizes them per expert
+# and output channel; the port has no MoE model yet
+_PTQ_EXPERT_FAMILIES = ("w_gate", "w_up", "w_down")
 
 
 def symmetric_bound(bits: int = 8) -> int:
@@ -80,3 +106,75 @@ def fold_int8_scores(acc: torch.Tensor, q_scale, k_scale,
     mult = torch.as_tensor(q_scale, dtype=torch.float32,
                            device=acc.device) * (k * c)
     return acc.to(torch.float32) * mult
+
+
+# ---------------------------------------------------------------------------
+# serving PTQ: per-output-channel int8 weight tree
+# ---------------------------------------------------------------------------
+def is_weight_scale_key(key: str) -> bool:
+    return key.endswith(WEIGHT_SCALE_SUFFIX)
+
+
+def ptq_quantizable(key: str, value) -> bool:
+    """2-D projection weights (``_PTQ_FAMILIES``) and 3-D batched expert
+    banks (``_PTQ_EXPERT_FAMILIES``)."""
+    if is_weight_scale_key(key):
+        return False
+    ndim = getattr(value, "ndim", 0)
+    if key.endswith("weight") and ndim == 2:
+        return any(f in key for f in _PTQ_FAMILIES)
+    if ndim == 3:
+        return any(key.endswith(f) for f in _PTQ_EXPERT_FAMILIES)
+    return False
+
+
+def quantize_param_tree(values: Dict[str, torch.Tensor],
+                        bits: int = 8) -> Dict[str, torch.Tensor]:
+    """Per-output-channel absmax PTQ over a serving state dict.
+
+    Linear weights are ``[out, in]``: each output channel (row) gets its
+    own absmax scale (a dim-1 reduction -> an ``[out]`` fp32 vector
+    stored at ``key + WEIGHT_SCALE_SUFFIX``), and the weight itself is
+    replaced by its int8 codes.  Everything else passes through as it is.
+    A 3-D expert bank raises ``NotImplementedError``."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in values.items():
+        if not ptq_quantizable(k, v):
+            out[k] = v
+            continue
+        if v.ndim == 3:
+            raise NotImplementedError(
+                "weight PTQ of 3-D MoE expert banks (%s) is not ported to "
+                "paddle_tpu_torch yet: the port serves no MoE model" % k)
+        scale = absmax_scale(v, dim=1, keepdim=True)          # [out, 1]
+        out[k] = quantize_symmetric(v, scale, bits).to(torch.int8)
+        out[k + WEIGHT_SCALE_SUFFIX] = scale[:, 0]            # [out]
+    return out
+
+
+def dequantize_weight(q: torch.Tensor, scale: torch.Tensor, dtype,
+                      bits: int = 8) -> torch.Tensor:
+    """One weight's dequant: ``q.float() * (scale / bnt)`` per output
+    channel (row) in fp32, then the cast to ``dtype``.  The division is
+    elementwise between tensors, so it rounds correctly on every device
+    (CUDA would turn a division by a Python scalar into a multiplication
+    by its reciprocal), as the reference's expression does."""
+    s = scale.to(torch.float32)
+    s = s / torch.full_like(s, float(symmetric_bound(bits)))
+    return (q.to(torch.float32) * s[:, None]).to(dtype)
+
+
+def dequantize_param_tree(params: Dict[str, torch.Tensor], dtype,
+                          bits: int = 8) -> Dict[str, torch.Tensor]:
+    """The dequant-on-use expression over a whole PTQ tree: int8 weights
+    times their scale vectors back to ``dtype``
+    (:func:`dequantize_weight`), scale keys dropped, everything else
+    passed through.  The engine never materializes this tree: its steps
+    dequantize one layer at a time (``ops/dequant.py``)."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in params.items():
+        if is_weight_scale_key(k):
+            continue
+        s = params.get(k + WEIGHT_SCALE_SUFFIX)
+        out[k] = v if s is None else dequantize_weight(v, s, dtype, bits)
+    return out

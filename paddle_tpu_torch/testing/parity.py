@@ -4,8 +4,10 @@ The reference (``paddle_tpu``) names its Llama parameters as the port
 does (``llama.layers.0.self_attn.q_proj.weight``, ...), but stores every
 ``Linear`` weight as ``[in, out]`` where the port stores torch's
 ``[out, in]``.  The layerwise step's stacked buffers have one layout in
-both packages.  The state arrives as plain numpy arrays, so this module
-imports nothing of the reference.
+both packages.  The serving engine's int8 weight tree (weight PTQ) keeps
+the reference's keys, int8 codes transposed like the weights they
+replace, and ``::scale`` vectors as they are.  The state arrives as plain
+numpy arrays, so this module imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -34,6 +36,33 @@ def state_from_paddle_tpu(np_state: Dict[str, np.ndarray]
                                  "shape %s" % (name, a.shape))
             a = a.T
         out[name] = torch.tensor(np.ascontiguousarray(a))   # a copy
+    return out
+
+
+def ptq_tree_from_paddle_tpu(np_tree: Dict[str, np.ndarray]
+                             ) -> Dict[str, torch.Tensor]:
+    """Map a reference PTQ tree (``quantize_param_tree`` of the
+    reference's state, as numpy: int8 codes ``[in, out]`` under the
+    weight's key and an ``[out]`` fp32 vector under ``key + "::scale"``;
+    everything else fp) onto the port's tree: codes transposed to ``[out,
+    in]``, scales copied, the fp entries mapped as
+    :func:`state_from_paddle_tpu` maps them."""
+    from ..quantization.functional import (WEIGHT_SCALE_SUFFIX,
+                                           is_weight_scale_key)
+    out = {}
+    fp = {}
+    for name, arr in np_tree.items():
+        a = np.asarray(arr)
+        if is_weight_scale_key(name):
+            out[name] = torch.tensor(np.ascontiguousarray(a))
+        elif name + WEIGHT_SCALE_SUFFIX in np_tree:
+            if a.dtype != np.int8 or a.ndim != 2:
+                raise ValueError("%s: expected 2-D int8 codes, got %s %s"
+                                 % (name, a.dtype, a.shape))
+            out[name] = torch.tensor(np.ascontiguousarray(a.T))
+        else:
+            fp[name] = a
+    out.update(state_from_paddle_tpu(fp))
     return out
 
 

@@ -1193,3 +1193,62 @@ def test_tiny_layerwise_step_on_card_matches_cpu(cuda):
     assert (fa.flash_fwd.launches, rn.rms_norm_tpu.launches) == (
         before[0] + 3 * 2 * L, before[1] + 3 * (4 * L + 1))
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("segments", [[(37, 100)], [(64, 128), (16, 128),
+                                                    (48, 352), (5, 16)]],
+                         ids=["odd", "layer"])
+def test_dequant_int8_kernel_bitwise(cuda, dtype, segments):
+    """The weight dequant kernel equals its plain version bit for bit, at
+    a width off the 16-element vector and over a layer-like segment list,
+    one launch counted; a planted wrong scale must not."""
+    from paddle_tpu_torch.ops import dequant as dq
+    g = torch.Generator(cuda).manual_seed(0)
+    n = sum(r * c for r, c in segments)
+    rows = sum(r for r, _ in segments)
+    codes = torch.randint(-127, 128, (n,), generator=g,
+                          device=cuda).to(torch.int8)
+    scales = torch.rand(rows, generator=g, device=cuda) * 2
+    before = dq.dequant_int8.launches
+    got = dq.dequant_int8(codes, scales, segments,
+                          torch.empty(n, dtype=dtype, device=cuda))
+    assert dq.dequant_int8.launches == before + 1
+    want = dq._dequant_int8_plain(codes, scales, segments,
+                                  torch.empty(n, dtype=dtype, device=cuda))
+    assert torch.equal(got, want)
+    bad = scales.clone()
+    bad[rows // 2] *= 1.01
+    wrong = dq._dequant_int8_plain(codes, bad, segments,
+                                   torch.empty(n, dtype=dtype, device=cuda))
+    assert not torch.equal(got, wrong)
+
+
+def test_w8_engine_on_card_launches_and_matches_cpu(cuda):
+    """A tiny fp32 w8 mixed engine on the card: (layers + 1) dequant
+    launches a step, tokens equal the same engine on the CPU."""
+    from paddle_tpu_torch.ops import dequant as dq
+    cfg = llama_tiny_config(num_hidden_layers=2, hidden_size=128,
+                            num_attention_heads=4, num_key_value_heads=2,
+                            vocab_size=256, intermediate_size=256)
+    cpu_model = LlamaForCausalLM(cfg, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+    model = LlamaForCausalLM(cfg, device=cuda)
+    model.load_state_dict(cpu_model.state_dict())
+    prompts = [np.arange(1, 12), np.arange(40, 45)]
+    outs = []
+    for dev, m in (("cpu", cpu_model), (cuda, model)):
+        eng = ContinuousBatchingEngine(m, max_batch_size=2, num_blocks=32,
+                                       block_size=16, mixed_step=True,
+                                       weight_quant="int8", device=dev)
+        steps = 0
+        before = dq.dequant_int8.launches
+        rids = [eng.add_request(p, 6) for p in prompts]
+        while eng.has_work():
+            eng.step()
+            steps += 1
+        outs.append([eng.result(r) for r in rids])
+        if dev == cuda:
+            assert dq.dequant_int8.launches - before == \
+                (cfg.num_hidden_layers + 1) * steps
+    assert outs[0] == outs[1]

@@ -18,6 +18,7 @@ import paddle_tpu_torch
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.jit.layerwise import LlamaLayerwiseTrainStep
 from paddle_tpu_torch.jit.train_step import TrainStep
+from paddle_tpu_torch.ops.dequant import dequant_int8
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            LlamaPretrainingCriterion,
                                            llama_tiny_config,
@@ -67,7 +68,12 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                    "nn/functional.py", "quantization/functional.py",
                    "ops/online_softmax.py", "jit/serving_step.py",
                    "jit/layerwise.py", "ops/rms_norm.py",
-                   "inference/prefix_cache.py"):
+                   "inference/prefix_cache.py", "inference/router.py",
+                   "inference/fleet.py", "ops/dequant.py",
+                   "observability/__init__.py", "observability/metrics.py",
+                   "observability/exporters.py",
+                   "observability/request_trace.py",
+                   "observability/trace_merge.py"):
         assert os.path.join("paddle_tpu_torch", module) in scanned
 
 
@@ -86,6 +92,9 @@ def test_importing_the_port_loads_no_jax():
         "assert not bad, bad\n"
         "assert 'paddle_tpu_torch.inference.serving' in sys.modules\n"
         "assert 'paddle_tpu_torch.jit.train_step' in sys.modules\n"
+        "assert 'paddle_tpu_torch.inference.router' in sys.modules\n"
+        "assert 'paddle_tpu_torch.observability.request_trace' in "
+        "sys.modules\n"
         "print('clean')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -121,7 +130,8 @@ LAUNCH_COUNTERS = ((rope_qkv_epilogue, "launches"),
                    (ragged_paged_attention, "launches"),
                    (ragged_paged_attention, "int8_launches"),
                    (paged_attention, "launches"),
-                   (paged_attention, "int8_launches"))
+                   (paged_attention, "int8_launches"),
+                   (dequant_int8, "launches"))
 
 
 @pytest.mark.parametrize("mode", [
@@ -133,10 +143,13 @@ LAUNCH_COUNTERS = ((rope_qkv_epilogue, "launches"),
     dict(mixed_step=True, sampling=True, draft=True),
     dict(mixed_step=True, enable_prefix_cache=True, host_tier_bytes=1 << 20),
     dict(prefill_buckets="auto", enable_prefix_cache=True,
-         kv_dtype="int8")],
+         kv_dtype="int8"),
+    dict(mixed_step=True, weight_quant="int8"),
+    dict(prefill_buckets="auto", weight_quant="int8", kv_dtype="int8"),
+    dict(mixed_step=True, weight_quant="int8", draft=True)],
     ids=["split", "split_int8", "mixed", "mixed_int8", "mixed_sampled",
          "split_sampled", "spec", "spec_sampled", "mixed_prefix_host_tier",
-         "split_prefix_int8"])
+         "split_prefix_int8", "mixed_w8", "split_w8_int8", "spec_w8"])
 def test_launch_counters_stay_zero_on_cpu(mode):
     """The whole CPU engine path goes through the wrappers and never
     launches a kernel (card tests in the same process may have counted
@@ -167,10 +180,7 @@ UNPORTED_ENGINE = {
     "mesh": dict(mesh=object()),
     "sharding": dict(sharding=object()),
     "kv_dtype=bfloat16 under fp32": dict(kv_dtype="bfloat16"),
-    "weight_quant": dict(weight_quant="int8"),
     "quant_collectives": dict(quant_collectives=True),
-    "tracer": dict(tracer=True),
-    "role": dict(role="prefill"),
 }
 
 
@@ -227,9 +237,15 @@ def test_layerwise_path_on_cpu_launches_no_kernel():
     assert [f.launches for f in counters] == before
 
 
-CUDA_SOURCES = ("flash_attention", "flash_attention_sm90",
-                "paged_decode_attention", "ragged_paged_attention", "rms_norm",
-                "rope_qkv")
+# kernel source -> the reference file it names as what it replaces (the
+# Pallas kernels' modules; the weight dequant replaces an XLA-fused
+# expression, not a Pallas kernel)
+CUDA_SOURCES = {"flash_attention": "paddle_tpu/ops/",
+                "flash_attention_sm90": "paddle_tpu/ops/",
+                "paged_decode_attention": "paddle_tpu/ops/",
+                "ragged_paged_attention": "paddle_tpu/ops/",
+                "rms_norm": "paddle_tpu/ops/", "rope_qkv": "paddle_tpu/ops/",
+                "dequant_int8": "paddle_tpu/quantization/functional.py"}
 
 
 def test_cuda_source_list_is_complete():
@@ -237,16 +253,17 @@ def test_cuda_source_list_is_complete():
     assert tuple(_build.kernel_names()) == tuple(sorted(CUDA_SOURCES))
 
 
-@pytest.mark.parametrize("name", CUDA_SOURCES)
+@pytest.mark.parametrize("name", sorted(CUDA_SOURCES))
 def test_cuda_source_states_what_it_replaces_and_its_bound(name):
-    """Each kernel source names the TPU kernel it replaces (a function of
-    ``paddle_tpu``), states what bounds it on the card, includes no
-    PyTorch header (the plain C interface that builds in seconds), and
-    exports only entries that a module of the port binds."""
+    """Each kernel source names what of ``paddle_tpu`` it replaces (a
+    Pallas kernel, or for the weight dequant the XLA-fused expression),
+    states what bounds it on the card, includes no PyTorch header (the
+    plain C interface that builds in seconds), and exports only entries
+    that a module of the port binds."""
     with open(os.path.join(PKG, "csrc", name + ".cu")) as f:
         text = f.read()
     head = text[:text.index("#include")]
-    assert "Replaces" in head and "paddle_tpu/ops/" in head
+    assert "Replaces" in head and CUDA_SOURCES[name] in head
     assert "Bound on the card" in head
     includes = [line for line in text.splitlines()
                 if line.startswith("#include")]
