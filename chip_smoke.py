@@ -101,10 +101,31 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    page migration, the decode engine prefilling nothing, one
    device-to-host and one host-to-device copy a migration, the bytes moved
    the pages moved times 8 MiB, launches exact on both engines, every
-   span chain valid and both pools whole.  Last, the generic
-   kernels' serving path (:func:`serve_head_dim_256`): a 2-layer model at
-   head dim 256 through both engines and both pool types, with the
-   generic kernels' launches exact.
+   span chain valid and both pools whole.  The mixed engine's
+   ``efficiency_stats(compute=True)`` gives the serving-step MFU at its
+   tokens/s against 989 TFLOP/s, which must lie in (0, 1].  Then the
+   elastic drill (:func:`serve_elastic`): three mixed engines of 320
+   pages on the model, two behind a ``capacity=`` router and one the
+   standby of an ``ElasticController``: an overload wave, idle steps, a
+   forced drain; the controller must actuate a scale_up and a scale_down,
+   the drain's fates all ``"migrated"``, no prompt token prefilled
+   twice, every request at its budget, pools whole, launches exact.
+   Then the multi-process fleet (:func:`serve_fleet`): the same prefill
+   and decode engines in two ``EngineProcess`` servers (``python -m
+   paddle_tpu_torch.inference.engine_server``, each building the 7B
+   model from ``SEED``) behind one ``ServingRouter(capacity=True)`` of
+   remote clients (``RemoteEngineClient``): streams byte-identical to
+   the in-process disaggregated run's, every request prefill -> decode,
+   0 tokens prefilled on the decode process, one frame each way a migration
+   carrying its pages (bytes = pages x 8 MiB), each server's launches
+   exact by its exit record, span chains valid, both pools whole; the
+   RPC latency digests, migration seconds over the socket, spawn + warm
+   seconds, peak memory per process and the capacity plan reported; the
+   traffic once more under ``torch.profiler`` in this process, whose
+   chrome trace merged with the request spans must validate.  Last, the
+   generic kernels' serving path (:func:`serve_head_dim_256`): a 2-layer
+   model at head dim 256 through both engines and both pool types, with
+   the generic kernels' launches exact.
 4. Serving parity at full width and reduced depth: the same model with 2
    layers in fp32 and the same traffic; the mixed and split engines must
    match the eager ``generate`` (which runs no kernel) and each other at a
@@ -128,7 +149,15 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    plain versions of the dequant and the attention, requests moved
    mid-decode to a second engine (:func:`migrated_midway`, fp32 and int8
    pools) the uninterrupted run, and the disaggregated router's streams
-   the mixed engine's, each at 0.98.
+   the mixed engine's, each at 0.98.  The fleet drills
+   (:func:`fleet_drills_2l`) on two server processes of this model and a
+   third whose RPC plane hangs: a router over the processes byte-identical
+   to the same router over in-process engines, a cross-socket
+   ``extract_request`` -> ``inject_request`` continuation, the hung
+   server drained by its deadline with no request dropped, and kill -9 of
+   one process mid-decode: no request dropped, every one at its budget,
+   ``engine_lost`` counted, the survivor's pool whole, the untouched
+   streams at 0.98.
    Then the first step's
    logits against the eager forward by depth and dtype: fp32 at all 32
    layers (held to 1e-3) and bf16 at 2 layers.
@@ -193,6 +222,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import math
 import subprocess
@@ -1391,52 +1421,22 @@ def _prompts(vocab: int):
 
 
 # every launch counter of the serving kernels, by the name the final line
-# gives the kernel variant: (module, wrapper, attribute)
-SERVING_COUNTERS = {
-    "ragged_paged_attention": ("paged_attention", "ragged_paged_attention",
-                               "launches"),
-    "ragged_paged_attention_int8": ("paged_attention",
-                                    "ragged_paged_attention",
-                                    "int8_launches"),
-    "paged_attention": ("paged_attention", "paged_attention", "launches"),
-    "paged_attention_int8": ("paged_attention", "paged_attention",
-                             "int8_launches"),
-    "ragged_paged_attention_generic": ("paged_attention",
-                                       "ragged_paged_attention",
-                                       "generic_launches"),
-    "ragged_paged_attention_generic_int8": ("paged_attention",
-                                            "ragged_paged_attention",
-                                            "generic_int8_launches"),
-    "paged_attention_generic": ("paged_attention", "paged_attention",
-                                "generic_launches"),
-    "paged_attention_generic_int8": ("paged_attention", "paged_attention",
-                                     "generic_int8_launches"),
-    "rope_qkv_epilogue": ("kernels", "rope_qkv_epilogue", "launches"),
-    "rope_qkv_epilogue_amax": ("kernels", "rope_qkv_epilogue",
-                               "amax_launches"),
-    "dequant_int8": ("dequant", "dequant_int8", "launches"),
-}
-
-
-def _counter(name):
-    import importlib
-    mod, fn, attr = SERVING_COUNTERS[name]
-    return getattr(importlib.import_module("paddle_tpu_torch.ops." + mod),
-                   fn), attr
+# gives the kernel variant: the engine server's table, whose exit record
+# reports the same names
+def _no_launches():
+    """Every serving kernel variant's name, each with a count of 0."""
+    from paddle_tpu_torch.inference.engine_server import LAUNCH_COUNTERS
+    return dict.fromkeys(LAUNCH_COUNTERS, 0)
 
 
 def _reset_launches():
-    for name in SERVING_COUNTERS:
-        fn, attr = _counter(name)
-        setattr(fn, attr, 0)
+    from paddle_tpu_torch.inference.engine_server import reset_launch_counts
+    reset_launch_counts()
 
 
 def _launches():
-    out = {}
-    for name in SERVING_COUNTERS:
-        fn, attr = _counter(name)
-        out[name] = getattr(fn, attr)
-    return out
+    from paddle_tpu_torch.inference.engine_server import launch_counts
+    return launch_counts()
 
 
 class _Calls:
@@ -1651,7 +1651,7 @@ def expected_launches(engine_kw, stats, layers):
     ``draft_launches`` times a run, each through the draft's layers (the
     draft's pools are bf16: no int8 variant)."""
     int8 = engine_kw.get("kv_dtype") == "int8"
-    want = dict.fromkeys(SERVING_COUNTERS, 0)
+    want = _no_launches()
     rope = "rope_qkv_epilogue_amax" if int8 else "rope_qkv_epilogue"
     if engine_kw.get("weight_quant") == "int8":
         # one dequant a layer and one for the LM head, each target step
@@ -1828,6 +1828,25 @@ def first_step_logits(eng, model, prompt):
                 first_step_logit_std=want.std().item())
 
 
+def serving_efficiency(eng, stats):
+    """The engine's ``efficiency_stats(compute=True)`` (one analytic count
+    of its steady-state launch) and the serving-step MFU it gives at the
+    run's generated tokens/s against the bf16 dense peak: tokens/s x
+    flops/token / 989 TFLOP/s, which must lie in (0, 1]."""
+    eff = eng.efficiency_stats(compute=True)
+    if eff is None:
+        raise AssertionError("efficiency_stats gave no block: is "
+                             "PADDLE_TPU_MFU_COST_ANALYSIS set to 0?")
+    eff = dict(eff, tokens_per_s=stats["tokens_per_s"])
+    eff["peak_flops"] = PEAK_FLOPS["bfloat16"]
+    eff["serving_step_mfu"] = (stats["tokens_per_s"] * eff["flops_per_token"]
+                               / PEAK_FLOPS["bfloat16"])
+    if not 0 < eff["serving_step_mfu"] <= 1:
+        raise AssertionError("serving-step MFU %r outside (0, 1]: %s"
+                             % (eff["serving_step_mfu"], eff))
+    return eff
+
+
 def eager_tokens(model, prompts):
     import torch
     outs = []
@@ -1880,6 +1899,7 @@ def phase_serving_7b():
         if name == "serve_7b":
             stats.update(first_step_logits(eng, model, prompts[0]))
             stats.update(_repeat_serve(name, model, prompts, kw, L, stats))
+            stats["efficiency"] = serving_efficiency(eng, stats)
         del eng
         stats.update(phase=name + "_bf16", layers=L,
                      engine={k: v for k, v in kw.items()
@@ -1919,6 +1939,19 @@ def phase_serving_7b():
     runs.update(serve_prefix(model))
     print("7b: the prefix-cache runs in %.1f s" % (time.perf_counter() - t1),
           flush=True)
+    t1 = time.perf_counter()
+    runs["serve_7b_elastic"] = serve_elastic(model, prompts, outs["serve_7b"])
+    print("7b: the elastic drill in %.1f s" % (time.perf_counter() - t1),
+          flush=True)
+    # the fleet's servers build their own 7B models: free this process's
+    # engines' pools first (the model stays)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    runs["serve_7b_fleet"], outs["serve_7b_fleet"] = serve_fleet(
+        cfg, prompts, outs["serve_7b_disagg"], runs["serve_7b_disagg"])
+    print("7b: the multi-process fleet in %.1f s"
+          % (time.perf_counter() - t1), flush=True)
     del model
     torch.cuda.empty_cache()
     runs.update(serve_head_dim_256())
@@ -2232,7 +2265,7 @@ def serve_disagg(model, prompts, against, name="serve_7b_disagg"):
     page_bytes = (2 * L * geo.block_size * geo.num_kv_heads * geo.head_dim
                   * geo.key_cache.element_size())
     pages = sum(m[1] for m in extracts)
-    want = dict.fromkeys(SERVING_COUNTERS, 0)
+    want = _no_launches()
     want["ragged_paged_attention"] = L * pe.mixed.n
     want["paged_attention"] = L * de.decode_step.n
     want["rope_qkv_epilogue"] = L * (pe.mixed.n + de.decode_step.n
@@ -2296,6 +2329,665 @@ def serve_disagg(model, prompts, against, name="serve_7b_disagg"):
         raise AssertionError("%s: %s" % (name, "; ".join(bad)))
     return row, outs
 
+
+# ---- the multi-process fleet: engines in server processes -----------------
+# RPC deadlines of a 7B fleet: a step is tens of milliseconds, a
+# migration's frame 8 MiB a page; these only bound a lost server
+FLEET_TIMEOUTS = dict(hello=120.0, add_request=120.0, step=300.0,
+                      preempt_request=120.0, extract_request=300.0,
+                      inject_request=300.0, health_payload=60.0, ping=10.0,
+                      shutdown=30.0)
+FLEET_WARM = {"prompt_len": 64, "budget": 4}
+FLEET_STARTUP_S = 600.0
+
+
+def server_config(engine_kw, engine_id, dtype="bfloat16", layers=None,
+                  **extra):
+    """The engine-server config (``inference/engine_server.py``) of an
+    engine built with ``engine_kw`` over the phase's model: Llama-2-7B
+    widths from ``SEED`` in ``dtype``, cut to ``layers``, warmed before
+    it publishes its port."""
+    kw = dict(engine_kw)
+    cfg = {"model": "7b", "dtype": dtype, "seed": SEED,
+           "engine_id": engine_id, "warm": FLEET_WARM,
+           "slots": kw.pop("max_batch_size"),
+           "num_blocks": kw.pop("num_blocks"),
+           "block_size": kw.pop("block_size"),
+           "chunk": kw.pop("prefill_chunk_size", None),
+           "mixed_step": kw.pop("mixed_step", False),
+           "enable_prefix_cache": kw.pop("enable_prefix_cache", False)}
+    for key in ("max_seq_len", "prefill_buckets", "role", "kv_dtype"):
+        if key in kw:
+            cfg[key] = kw.pop(key)
+    if kw:
+        raise ValueError("no engine-server key for %s" % sorted(kw))
+    if layers is not None:
+        cfg["layers"] = layers
+    cfg.update(extra)
+    return cfg
+
+
+def spawn_fleet(configs):
+    """Start one ``EngineProcess`` a config, all at once (each child is a
+    fresh ``python -m paddle_tpu_torch.inference.engine_server``, started
+    with ``subprocess``: this process has touched CUDA, so nothing here
+    forks it), and wait until every one has warmed and published its
+    port.  Returns the processes and each one's spawn + warm seconds;
+    if one fails, every one is killed."""
+    import threading
+    from paddle_tpu_torch.inference.fleet import EngineProcess
+    procs = [EngineProcess(c, startup_timeout=FLEET_STARTUP_S)
+             for c in configs]
+    secs, errors = [0.0] * len(procs), []
+
+    def start(i):
+        t = time.perf_counter()
+        try:
+            procs[i].spawn()
+        except BaseException as e:                    # noqa: BLE001
+            errors.append(e)
+        secs[i] = time.perf_counter() - t
+    threads = [threading.Thread(target=start, args=(i,))
+               for i in range(len(procs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        for p in procs:
+            p.kill()
+        raise errors[0]
+    return procs, secs
+
+
+def fleet_client(proc, **timeouts):
+    """A ``RemoteEngineClient`` of ``proc`` reading a fresh health payload
+    on every probe, as the router reads an in-process engine."""
+    from paddle_tpu_torch.inference.fleet import (RemoteEngineClient,
+                                                  RetryPolicy)
+    return RemoteEngineClient(
+        proc.address, timeouts=dict(FLEET_TIMEOUTS, **timeouts),
+        retry=RetryPolicy(max_attempts=2, base_delay=0.05, max_delay=0.5),
+        health_cache_s=0.0)
+
+
+def stop_fleet(procs, clients):
+    """Shut every server down through its ``shutdown`` RPC and return
+    its exit record (``{"engine_server": {...}}``, the last line of its
+    log: launch counts, step launches, prefilled tokens, peak memory)."""
+    from paddle_tpu_torch.inference.fleet import EngineRPCError
+    records = []
+    for p, c in zip(procs, clients):
+        try:
+            c.shutdown_server()
+            rc = p.wait(timeout=120.0)
+        except EngineRPCError as e:
+            rc = e
+        with open(p.log_path) as f:
+            lines = f.read().strip().splitlines()
+        if rc != 0 or not lines:
+            raise AssertionError("engine server %s: %r; its log ends %s"
+                                 % (p.address, rc, lines[-20:]))
+        records.append(json.loads(lines[-1])["engine_server"])
+    return records
+
+
+@contextlib.contextmanager
+def wire_log(log: list):
+    """While open, every PTF1 frame this process sends or receives with
+    KV blobs appends ``(direction, blob count, blob bytes)`` to ``log``."""
+    from paddle_tpu_torch.inference import fleet
+    send, recv = fleet.send_frame, fleet.recv_frame
+
+    def logged_send(sock, obj, blobs=(), deadline=None):
+        if blobs:
+            log.append(("out", len(blobs), sum(len(b) for b in blobs)))
+        return send(sock, obj, blobs, deadline)
+
+    def logged_recv(sock, deadline=None):
+        obj, blobs = recv(sock, deadline)
+        if blobs:
+            log.append(("in", len(blobs), sum(len(b) for b in blobs)))
+        return obj, blobs
+    fleet.send_frame, fleet.recv_frame = logged_send, logged_recv
+    try:
+        yield log
+    finally:
+        fleet.send_frame, fleet.recv_frame = send, recv
+
+
+def timed_remote_migrations(clients, log: list):
+    """Every ``extract_request`` that returned pages and every
+    ``inject_request`` of ``clients`` appends ``(kind, pages, bytes, host
+    seconds)`` to ``log``: the RPC, the server's page move and the
+    frame's bytes on the socket."""
+    for c in clients:
+        def extract(req_id, _f=c.extract_request):
+            t = time.perf_counter()
+            out = _f(req_id)
+            if out[2] is not None:
+                log.append(("extract", out[2].n_pages, out[2].nbytes,
+                            time.perf_counter() - t))
+            return out
+
+        def inject(prompt_ids, buffer, *args, _f=c.inject_request, **kw):
+            t = time.perf_counter()
+            rid = _f(prompt_ids, buffer, *args, **kw)
+            log.append(("inject", buffer.n_pages, buffer.nbytes,
+                        time.perf_counter() - t))
+            return rid
+        c.extract_request, c.inject_request = extract, inject
+
+
+def serve_router(router, prompts, step=None):
+    """The phase-3 traffic through ``router``: admit 4, a router step,
+    admit the rest, run to completion (``NEW_TOKENS`` each).  Returns the
+    rids and the router steps taken."""
+    budget = NEW_TOKENS
+    step = step or router.step
+    rids = [router.submit(p, budget) for p in prompts[:4]]
+    step()
+    n = 1
+    rids += [router.submit(p, budget) for p in prompts[4:]]
+    while router.has_work():
+        step()
+        n += 1
+    return rids, n
+
+
+def rpc_digests(before=None):
+    """The ``router_rpc_latency_seconds`` histogram of this process by
+    method: calls, mean seconds and the p50/p95/p99 bucket estimates
+    (``before``: an earlier result, whose calls are subtracted)."""
+    from paddle_tpu_torch.observability import default_registry
+    h = default_registry().get("router_rpc_latency_seconds")
+    out = {}
+    for ch in (h.children() if h is not None else []):
+        n, s = ch.count, ch.sum
+        b = (before or {}).get(ch.labels["method"])
+        if b is not None:
+            n, s = n - b["calls"], s - b["sum_s"]
+        out[ch.labels["method"]] = dict(
+            calls=n, sum_s=s, mean_s=s / n if n else None,
+            **{"p%d_s" % q: ch.quantile(q / 100) for q in (50, 95, 99)})
+    return out
+
+
+def fleet_want_launches(rec, layers):
+    """The launches one server's exit record must show: its mixed step
+    ``layers`` x launches of ragged attention and of the epilogue; its
+    split engine ``layers`` x decode steps of decode attention and
+    ``layers`` x (decode steps + prefill chunks) of the epilogue;
+    nothing else."""
+    steps = rec["steps"]
+    want = _no_launches()
+    want["ragged_paged_attention"] = layers * steps.get("mixed", 0)
+    want["paged_attention"] = layers * steps.get("decode", 0)
+    want["rope_qkv_epilogue"] = layers * (steps.get("mixed", 0)
+                                          + steps.get("decode", 0)
+                                          + steps.get("prefill", 0))
+    return want
+
+
+# where the fleet phase writes the router process's profiler trace and the
+# merged trace (git-ignored)
+FLEET_TRACE_DIR = "build/fleet_trace"
+
+
+def validate_merged_trace(path):
+    """The merged chrome trace parses, every complete span has a
+    numeric start >= 0 and a duration >= 0, and it holds the profiler's
+    events and the router's request lanes.  Returns the counts."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("ph") == "X"]
+    bad = [e for e in spans
+           if not (isinstance(e.get("ts"), (int, float)) and e["ts"] >= 0
+                   and isinstance(e.get("dur"), (int, float))
+                   and e["dur"] >= 0)]
+    profiler = [e for e in events if e.get("ph") != "M"
+                and e.get("pid", 0) >= 1_000_000]
+    lanes = [e for e in events if e.get("ph") == "M"
+             and e.get("name") == "thread_name"
+             and str(e.get("args", {}).get("name", "")).startswith("req ")]
+    if bad or not profiler or not lanes or not spans:
+        raise AssertionError(
+            "merged trace %s: %d spans (%d malformed), %d profiler events,"
+            " %d request lanes" % (path, len(spans), len(bad),
+                                   len(profiler), len(lanes)))
+    return dict(events=len(events), spans=len(spans),
+                profiler_events=len(profiler), request_lanes=len(lanes))
+
+
+def serve_fleet(cfg, prompts, against, disagg, name="serve_7b_fleet"):
+    """The cross-process counterpart of :func:`serve_disagg`: two
+    ``EngineProcess`` servers of Llama-2-7B bf16 (``SEED``), a
+    ``role="prefill"`` mixed engine (``DISAGG_PREFILL_KW``) and a
+    ``role="decode"`` split engine (``DISAGG_DECODE_KW``), each warmed
+    before it publishes its port, behind one ``ServingRouter(capacity=
+    True)`` of remote clients (``RemoteEngineClient``) in this process,
+    serving the phase-3 traffic.
+
+    Gates: the streams equal ``against`` (the in-process disaggregated
+    run's, same model, keyword arguments and router order); every request
+    goes prefill -> decode; the decode process prefilled 0 tokens; each
+    migration is one frame each way carrying the request's pages, the
+    bytes each way the pages moved times 8 MiB; each server's launches
+    exact for its engine (its exit record: #5 and #6 on the prefill
+    process, #7 and #6 on the decode process, nothing else); every span
+    chain valid; both pools whole.  Reported: wall and tokens/s beside
+    ``disagg`` (the in-process row), the ``router_rpc_*`` latency
+    digests, each migration's seconds over the socket beside the
+    in-process page moves, each process's spawn + warm seconds and peak
+    memory, and the capacity plan.  Then the same traffic once more
+    under ``torch.profiler`` (this router process's host activity, a
+    ``record_function`` range per router step), its chrome trace merged
+    with the request spans (``observability.fleet_trace``); the merged
+    file must validate (:func:`validate_merged_trace`).  ``cfg`` is the
+    model's config (the servers build it from ``SEED``).  Returns the row
+    and the streams."""
+    from paddle_tpu_torch.inference.router import ServingRouter
+    from paddle_tpu_torch.observability.request_trace import (
+        fleet_trace, validate_span_chain)
+    L = cfg.num_hidden_layers
+    ids = (1910, 1911)
+    procs, spawn_s = spawn_fleet([
+        server_config(DISAGG_PREFILL_KW, ids[0]),
+        server_config(DISAGG_DECODE_KW, ids[1])])
+    try:
+        clients = [fleet_client(p) for p in procs]
+        router = ServingRouter(clients, capacity=True)
+        moves, frames = [], []
+        timed_remote_migrations(clients, moves)
+        rpc0 = rpc_digests()
+        start = time.perf_counter()
+        with wire_log(frames):
+            rids, steps = serve_router(router, prompts)
+        wall = time.perf_counter() - start
+        rpc = rpc_digests(rpc0)
+        recs = [router.finished[r] for r in rids]
+        outs = [rr.output_ids for rr in recs]
+        chains = [validate_span_chain(router.tracer.events(r))
+                  for r in rids]
+        health = [c.health_payload() for c in clients]
+        plan = router.capacity_plan()
+        # the profiled run: the same traffic, this process's host
+        # activity with one range per router step
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        def traced_step():
+            with record_function("router.step"):
+                router.step()
+        import os
+        os.makedirs(FLEET_TRACE_DIR, exist_ok=True)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            rids2, _ = serve_router(router, prompts, step=traced_step)
+        prof.export_chrome_trace(os.path.join(FLEET_TRACE_DIR,
+                                              "router.pt.trace.json"))
+        trace = fleet_trace(FLEET_TRACE_DIR + ".json", router,
+                            device_trace_dir=FLEET_TRACE_DIR)
+        trace.update(validate_merged_trace(trace["path"]))
+        outs2 = [router.finished[r].output_ids for r in rids2]
+        migrations2 = sum(router.finished[r].migrations for r in rids2)
+        exits = stop_fleet(procs, clients)
+    finally:
+        for p in procs:
+            p.kill()
+    extracts = [m for m in moves if m[0] == "extract"]
+    injects = [m for m in moves if m[0] == "inject"]
+    migrations = sum(rr.migrations for rr in recs)
+    import torch
+    head_dim = cfg.hidden_size // cfg.num_attention_heads
+    page_bytes = (2 * L * DISAGG_PREFILL_KW["block_size"]
+                  * cfg.num_key_value_heads * head_dim
+                  * torch.empty((), dtype=cfg.torch_dtype).element_size())
+    pages = sum(m[1] for m in extracts[:migrations])
+    frames_in = [f for f in frames if f[0] == "in"]
+    frames_out = [f for f in frames if f[0] == "out"]
+    launches = {k: sum(e["launches"][k] for e in exits)
+                for k in _no_launches()}
+    row = dict(
+        phase=name, layers=L, requests=len(rids), router_steps=steps,
+        engines_visited=[rr.engines_visited() for rr in recs],
+        migrations=migrations, pages_moved=pages, page_bytes=page_bytes,
+        wire_frames_in=len(frames_in), wire_frames_out=len(frames_out),
+        wire_bytes_in=sum(f[2] for f in frames_in),
+        wire_bytes_out=sum(f[2] for f in frames_out),
+        migration_s_socket=_spread([e[3] + i[3] for e, i in zip(
+            extracts[:migrations], injects[:migrations])]),
+        extract_s_socket=_spread([m[3] for m in extracts[:migrations]]),
+        inject_s_socket=_spread([m[3] for m in injects[:migrations]]),
+        extract_s_in_process=disagg.get("extract_s"),
+        inject_s_in_process=disagg.get("inject_s"),
+        generated_tokens=sum(len(o) for o in outs), wall_s=wall,
+        tokens_per_s=sum(len(o) for o in outs) / wall,
+        in_process_wall_s=disagg["wall_s"],
+        in_process_tokens_per_s=disagg["tokens_per_s"],
+        rpc_latency=rpc, slo=router.slo_snapshot(),
+        spawn_and_warm_s=spawn_s, servers=exits, launches=launches,
+        capacity_plan=plan, pools=[{k: h[k] for k in (
+            "engine_id", "free_pages", "total_pages")} for h in health],
+        span_chains_valid=all(ok for ok, _ in chains),
+        match_rate_vs_in_process=_rates(outs, against)[0],
+        profiled_run_match_rate=_rates(outs2, against)[0],
+        merged_trace=trace)
+    bad = []
+    if outs != against or outs2 != against:
+        bad.append("streams differ from the in-process disaggregated "
+                   "run's: %s, profiled run %s" % (
+                       [_match_rate(o, a) for o, a in zip(outs, against)],
+                       [_match_rate(o, a) for o, a in zip(outs2, against)]))
+    if not all(rr.engines_visited()[0] == ids[0]
+               and rr.engines_visited()[-1] == ids[1]
+               and rr.migrations >= 1 for rr in recs):
+        bad.append("a request did not go prefill -> decode: %s"
+                   % row["engines_visited"])
+    pre, dec = exits
+    if dec["prefill_tokens"] or dec["steps"].get("prefill"):
+        bad.append("the decode process prefilled %d tokens in %d chunks"
+                   % (dec["prefill_tokens"], dec["steps"].get("prefill")))
+    # the wire log covers the first run: one frame each way a migration
+    if not (len(frames_in) == len(frames_out) == migrations
+            and len(extracts) == len(injects) == migrations + migrations2
+            and all(f[1] == 1 for f in frames)):
+        bad.append("%d migrations made %d frames in, %d out (%d extracts, "
+                   "%d injects over both runs)" % (
+                       migrations, len(frames_in), len(frames_out),
+                       len(extracts), len(injects)))
+    if not (row["wire_bytes_in"] == row["wire_bytes_out"]
+            == pages * page_bytes):
+        bad.append("wire bytes in %d, out %d, want %d pages x %d"
+                   % (row["wire_bytes_in"], row["wire_bytes_out"], pages,
+                      page_bytes))
+    for rec in exits:
+        want = fleet_want_launches(rec, L)
+        if rec["launches"] != want:
+            bad.append("engine %d launches %s, want %s"
+                       % (rec["engine_id"], rec["launches"], want))
+    if not pre["steps"].get("mixed") or not dec["steps"].get("decode"):
+        bad.append("a server did not step: %s" % [e["steps"]
+                                                   for e in exits])
+    if not row["span_chains_valid"]:
+        bad.append("span chains: %s" % [why for ok, why in chains if not ok])
+    for h in health:
+        if h["free_pages"] != h["total_pages"]:
+            bad.append("engine %d's pool is not whole: %d of %d free"
+                       % (h["engine_id"], h["free_pages"],
+                          h["total_pages"]))
+    emit(row)
+    if bad:
+        raise AssertionError("%s: %s" % (name, "; ".join(bad)))
+    return row, outs
+
+
+ELASTIC_KW = dict(ENGINE_KW, num_blocks=320)
+
+
+def serve_elastic(model, prompts, against, name="serve_7b_elastic"):
+    """The elastic drill (``tools/bench_elastic.py``'s
+    ``bench_elastic_drill`` shape) in process on ``model``: three mixed
+    engines (``ELASTIC_KW``: 320 pages each) warmed, two behind a
+    ``ServingRouter`` with ``CapacityConfig(min_dwell=2, halflife_s=0.05,
+    sample_every=1)``, the third the standby of an ``ElasticController(
+    min_engines=1, max_engines=3, cooldown_steps=4)`` stepped after every
+    router step.  An overload wave (the phase-3 prompts twice: 16
+    requests on 16 slots) runs to completion; idle steps follow until the
+    controller acts on the planner's scale_down; then 4 more requests are
+    brought mid-decode and a scale_down is forced.  Gates: the controller
+    actuated at least one scale_up and one planner scale_down; the forced
+    drain's fates all ``"migrated"`` (none re-prefilled) and no prompt
+    token prefilled twice (the engines' prefilled tokens are the prompts'
+    once); every request finished its budget; every pool whole; launches
+    exact (each engine's mixed step: L x launches of #5 and #6).
+    Reported: the actions, pool sizes, saturation peak, walls, tokens/s
+    and the overload wave's match with ``against`` (the mixed engine's
+    streams of the same prompts).  Returns the row."""
+    import torch
+    from paddle_tpu_torch.inference.elastic import ElasticController
+    from paddle_tpu_torch.inference.router import ServingRouter
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.observability.capacity import CapacityConfig
+    L, V = model.config.num_hidden_layers, model.config.vocab_size
+    engines = [ContinuousBatchingEngine(model, engine_id=1970 + i,
+                                        **ELASTIC_KW) for i in range(3)]
+    rng = np.random.RandomState(SEED + 3)
+    for eng in engines:
+        eng.add_request(rng.randint(V - 50, V, (64,)).astype(np.int64), 4)
+        eng.run_to_completion()
+        eng.finished.clear()
+        eng.mixed = _Calls(eng.mixed)
+        eng.prefill_tokens = 0
+    torch.cuda.synchronize()
+    _reset_launches()
+    router = ServingRouter(engines[:2], capacity=CapacityConfig(
+        min_dwell=2, halflife_s=0.05, sample_every=1))
+    ctl = ElasticController(router, standby=[engines[2]], min_engines=1,
+                            max_engines=3, cooldown_steps=4)
+    plens = {}
+
+    def submit(ps):
+        out = []
+        for p in ps:
+            rid = router.submit(p, NEW_TOKENS)
+            plens[rid] = len(p)
+            out.append(rid)
+        return out
+    pool_sizes, sat_peak = [len(router.handles)], 0.0
+    t0 = time.perf_counter()
+    wave = submit(list(prompts) * 2)
+    while router.has_work():
+        router.step()
+        ctl.step()
+        pool_sizes.append(len(router.handles))
+        sat_peak = max(sat_peak,
+                       router.capacity.fleet_signals()["saturation"])
+    torch.cuda.synchronize()
+    overload_s = time.perf_counter() - t0
+    for _ in range(300):                     # bounded: fail, don't spin
+        router.step()
+        ctl.step()
+        pool_sizes.append(len(router.handles))
+        if any(a[1] == "scale_down" for a in ctl.actions):
+            break
+        time.sleep(0.01)
+    planned = [a[1] for a in ctl.actions]
+    drained = submit(prompts[:4])
+    for _ in range(400):                     # until all 4 are extractable
+        router.step()
+        live = [router._inflight[k] for k in list(router._inflight)]
+        if len(live) == len(drained) and all(
+                rr.engine_req is not None
+                and getattr(rr.engine_req, "state", "") == "running"
+                and rr.engine_req.output_ids for rr in live):
+            break
+    before_drain = len(router.handles)
+    fates = (ctl.actions[-1][2]["fates"]
+             if ctl._scale_down() == "scale_down" else {})
+    while router.has_work():
+        router.step()
+        pool_sizes.append(len(router.handles))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    mixed_launches = sum(e.mixed.n for e in engines)
+    want = _no_launches()
+    want["ragged_paged_attention"] = want["rope_qkv_epilogue"] = \
+        L * mixed_launches
+    outs = {r: router.finished[r].output_ids for r in plens}
+    gen = sum(len(o) for o in outs.values())
+    row = dict(
+        phase=name, layers=L, requests=len(plens),
+        engine={k: v for k, v in ELASTIC_KW.items()
+                if k not in ENGINE_BASE or k == "num_blocks"},
+        controller_actions=[(a[1], a[2]) for a in ctl.actions],
+        planner_actions=list(router.capacity.planner.actions),
+        pool_sizes=dict(min=min(pool_sizes), max=max(pool_sizes),
+                        final=len(router.handles),
+                        before_forced_drain=before_drain),
+        saturation_peak=sat_peak, forced_drain_fates=fates,
+        prefilled_tokens=sum(e.prefill_tokens for e in engines),
+        prompt_tokens=sum(plens.values()), overload_wall_s=overload_s,
+        wall_s=wall, generated_tokens=gen, tokens_per_s=gen / wall,
+        mixed_launches=mixed_launches, launches=launches,
+        overload_match_rate_vs_mixed_engine=_rates(
+            [outs[r] for r in wave], list(against) * 2)[0])
+    bad = []
+    if "scale_up" not in planned or "scale_down" not in planned:
+        bad.append("the controller actuated %s before the forced drain"
+                   % planned)
+    if not fates or fates.get("re_prefilled") or not fates.get("migrated"):
+        bad.append("forced drain fates %s" % fates)
+    if row["prefilled_tokens"] != row["prompt_tokens"]:
+        bad.append("prefilled %d tokens for %d prompt tokens"
+                   % (row["prefilled_tokens"], row["prompt_tokens"]))
+    if sorted(outs) != sorted(plens) or not all(
+            len(o) == NEW_TOKENS for o in outs.values()):
+        bad.append("dropped or short requests: %s"
+                   % sorted(len(o) for o in outs.values()))
+    for eng in engines:
+        if not pool_whole(eng):
+            bad.append("engine %d's pool is not whole" % eng.engine_id)
+    if launches != want:
+        bad.append("launches %s, want %s" % (launches, want))
+    emit(row)
+    if bad:
+        raise AssertionError("%s: %s" % (name, "; ".join(bad)))
+    return row
+
+
+def fleet_drills_2l(model, prompts):
+    """The reference's four slow fleet drills on two mixed port processes
+    (``ENGINE_KW``) of Llama-2-7B widths at 2 layers in fp32 (the phase's
+    model, ``SEED``), and a third whose RPC plane hangs
+    (``hang:rpc.recv:ms=60000:after=4``):
+
+    - the pool: a router over the two processes serves the phase-3
+      traffic byte-identical to the same router over two in-process
+      engines (the twin: same model, keyword arguments and engine ids),
+      both processes serving;
+    - cross-socket migration: a request extracted mid-decode from one
+      process resumes on the other by ``inject_request``; its stream
+      against the twin's >= 0.98;
+    - the hang: a router over one process and the hung one (2 s RPC
+      deadlines) drains the hung engine by its deadline and finishes
+      every request at full budget (zero drops);
+    - kill -9 of one process mid-decode: zero drops, every request at
+      full budget, ``engine_lost`` counted, the survivor's pool whole;
+      the streams the kill did not touch >= 0.98 of the twin's, the
+      re-prefilled ones' match reported.
+
+    Returns the row and the gates (name -> rate, each >= 0.98 in the
+    caller)."""
+    from paddle_tpu_torch.inference.router import ServingRouter
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    from paddle_tpu_torch.observability import default_registry
+    ids = (1980, 1981, 1986)
+    short = dict(step=2.0, add_request=2.0, extract_request=2.0,
+                 preempt_request=2.0, health_payload=1.0)
+    t0 = time.perf_counter()
+    procs, spawn_s = spawn_fleet(
+        [server_config(ENGINE_KW, i, dtype="float32", layers=2)
+         for i in ids[:2]]
+        + [server_config(ENGINE_KW, ids[2], dtype="float32", layers=2,
+                         fault_spec="hang:rpc.recv:ms=60000:after=4")])
+    row, gates, bad = dict(phase="parity_2l_fleet",
+                           spawn_and_warm_s=spawn_s), {}, []
+    try:
+        twin = ServingRouter([ContinuousBatchingEngine(
+            model, engine_id=i, **ENGINE_KW) for i in ids[:2]])
+        rids, _ = serve_router(twin, prompts)
+        want = [twin.finished[r].output_ids for r in rids]
+        del twin
+        a, b = (fleet_client(p) for p in procs[:2])
+        router = ServingRouter([a, b])
+        rids, _ = serve_router(router, prompts)
+        got = [router.finished[r].output_ids for r in rids]
+        used = {e for r in rids for e in router.finished[r].engines_visited()}
+        row["pool_match_rate_vs_twin"] = _rates(got, want)[0]
+        if got != want or len(used) != 2:
+            bad.append("pool: streams %s of the twin's, engines used %s"
+                       % (row["pool_match_rate_vs_twin"], sorted(used)))
+        # cross-socket migration of prompts[0]
+        erid = a.add_request(prompts[0], max_new_tokens=NEW_TOKENS)
+        gen = []
+        while len(gen) < 4:
+            a.step()
+            gen = list(next(v for v in a.slots + a.waiting
+                            if v.req_id == erid).output_ids)
+        _p, gen, buf = a.extract_request(erid)
+        resume = np.concatenate([prompts[0], np.asarray(gen, np.int64)])
+        erid_b = b.inject_request(resume, buf,
+                                  max_new_tokens=NEW_TOKENS - len(gen))
+        while b.has_work():
+            b.step()
+        cont = gen + b.finished.pop(erid_b).output_ids
+        gates["fleet_migration_vs_twin"] = _match_rate(cont, want[0])
+        row.update(migration_pages=buf.n_pages, migration_bytes=buf.nbytes)
+        # the hung server, drained by its deadline
+        hung = fleet_client(procs[2], **short)
+        router = ServingRouter([a, hung], probe_failure_threshold=2)
+        t1 = time.perf_counter()
+        rids, _ = serve_router(router, prompts)
+        got = [router.finished[r].output_ids for r in rids]
+        row.update(hang_drain_s=time.perf_counter() - t1,
+                   hang_engine_healthy=router.handles[ids[2]].healthy,
+                   hang_match_rate_vs_twin=_rates(got, want)[0])
+        if router.handles[ids[2]].healthy or not all(
+                len(o) == NEW_TOKENS for o in got):
+            bad.append("hang: engine healthy %s, lengths %s"
+                       % (row["hang_engine_healthy"], [len(o) for o in got]))
+        hung.close()
+        procs[2].kill()
+        # kill -9 mid-decode
+        met = default_registry().get("router_requeues_total")
+        lost0 = sum(ch.value for ch in met.children()
+                    if ch.labels["reason"] == "engine_lost") if met else 0
+        router = ServingRouter([a, b], probe_failure_threshold=2)
+        rids = [router.submit(p, NEW_TOKENS) for p in prompts]
+        for _ in range(3):
+            router.step()
+        victim = next(h.engine_id for h in router.handles.values()
+                      if any(k[0] == h.engine_id for k in router._inflight))
+        procs[ids.index(victim)].kill()
+        router.run_to_completion()
+        met = default_registry().get("router_requeues_total")
+        lost = sum(ch.value for ch in met.children()
+                   if ch.labels["reason"] == "engine_lost") - lost0
+        got = [router.finished[r].output_ids for r in rids]
+        touched = [victim in router.finished[r].engines_visited()
+                   for r in rids]
+        survivor = b if victim == ids[0] else a
+        hp = survivor.health_payload()
+        row.update(kill_victim=victim, kill_engine_lost=lost,
+                   kill_touched=sum(touched),
+                   kill_reprefilled_match_rate=_rates(
+                       [g for g, t in zip(got, touched) if t],
+                       [w for w, t in zip(want, touched) if t])[0]
+                   if any(touched) else None,
+                   kill_survivor_pool=[hp["free_pages"],
+                                       hp["total_pages"]])
+        if any(not t for t in touched):
+            gates["fleet_kill9_untouched_vs_twin"] = _rates(
+                [g for g, t in zip(got, touched) if not t],
+                [w for w, t in zip(want, touched) if not t])[0]
+        if sorted(router.finished) != sorted(rids) or not all(
+                len(o) == NEW_TOKENS for o in got) or lost < 1 \
+                or hp["free_pages"] != hp["total_pages"]:
+            bad.append("kill -9: finished %d of %d, lengths %s, engine_lost "
+                       "%s, survivor pool %s" % (
+                           len(router.finished), len(rids),
+                           [len(o) for o in got], lost,
+                           row["kill_survivor_pool"]))
+        survivor.shutdown_server()
+    finally:
+        for p in procs:
+            p.kill()
+    row["wall_s"] = time.perf_counter() - t0
+    row.update(gates)
+    emit(row)
+    if bad:
+        raise AssertionError("parity_2l fleet drills: %s" % "; ".join(bad))
+    return row, gates
 
 # ---- the prefix cache: chat turns under one system prompt -----------------
 SYSTEM_LEN = 768            # a deployment's system prompt: 48 pages of 16
@@ -2883,6 +3575,10 @@ def phase_parity_2l():
     drow, _ = serve_disagg(model, prompts, {"mixed": outs["mixed"]},
                            name="parity_2l_disagg")
     gates["disagg_vs_mixed"] = drow["match_rate_vs_mixed"]
+    # the fleet drills on server processes of this model
+    frow, fgates = fleet_drills_2l(model, prompts)
+    gates.update(fgates)
+    row["fleet_drills"] = {k: v for k, v in frow.items() if k != "phase"}
     row.update(gates)
     for mode in ("mixed", "split"):
         row["kv8_%s_vs_fp32_%s" % (mode, mode)] = _rates(

@@ -30,7 +30,13 @@ Ported so far:
 - the layerwise training step — ``jit.layerwise.LlamaLayerwiseTrainStep``
   (the optimizer applied per layer inside the reverse sweep) with
   ``optimizer.Adafactor`` — over the flash kernels and the RMSNorm kernel
-  of ``ops.rms_norm``.
+  of ``ops.rms_norm``;
+- the serving plane over those engines — ``inference.router``
+  (in-process routing, migration, disaggregation), ``inference.fleet``
+  and ``inference.engine_server`` (engines in other processes over the
+  reference's PTF1 wire protocol), ``observability`` (metrics, request
+  tracing, the capacity plane, step telemetry) and
+  ``inference.elastic`` (scaling the pool on the capacity plan).
 """
 from .core.device import resolve_device  # noqa: F401
 

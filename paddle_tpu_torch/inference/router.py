@@ -84,10 +84,27 @@ specialist (high slot counts, int8 KV) — TTFT is paid on the prefill
 tier, TPOT is isolated on the decode tier.  All-"mixed" pools (the
 default) behave exactly as before.
 
-**Not ported yet:** the capacity & efficiency plane (``capacity=``
-raises ``NotImplementedError``) and the remote engines of the
-multi-process fleet (an :class:`EngineHandle` still scrapes a remote
-``/healthz``).
+**Capacity & efficiency plane (``capacity=``).**  A router built with
+``capacity=True`` (or a
+:class:`~paddle_tpu_torch.observability.CapacityConfig`) samples every
+probe-refreshed engine payload into bounded per-engine
+``SignalWindow``\\ s once per step — rolling tokens/s, admission and
+preempt rates, queue-depth growth, prefix-hit-rate drift, host-tier
+spill/restore pressure, saturation EWMA — and folds the fleet rollup
+through a hysteresis + minimum-dwell planner into an advisory action
+(``scale_up`` / ``scale_down`` / ``rebalance`` / ``steady``) exposed
+via :meth:`ServingRouter.capacity_plan`,
+``health_payload()["capacity"]`` (hence ``/healthz``) and the
+``router_capacity_*`` metrics; per-engine serving-step MFU and
+HBM-bytes/token gauges ride the same plane off the engines'
+``efficiency_stats``.  :class:`~paddle_tpu_torch.inference.elastic.
+ElasticController` acts on the plan.  Default off: an unconfigured
+router runs its plain step loop.
+
+**Remote engines.**  A :class:`~paddle_tpu_torch.inference.fleet.
+RemoteEngineClient` stands in for an engine in another process: the
+router fans one ``step`` out to every remote engine before collecting
+any reply, and an exhausted RPC takes the engine-lost drain.
 
 Engine protocol (what a pool member must provide): ``add_request(
 prompt_ids, max_new_tokens=, eos_token_id=)`` appending to ``waiting``,
@@ -466,11 +483,14 @@ class ServingRouter:
         from ..observability import default_registry
         from ..observability.request_trace import (LatencyReservoir,
                                                    resolve_tracer)
-        if capacity not in (None, False):
-            raise NotImplementedError(
-                "the capacity & efficiency plane (capacity=) is not "
-                "ported to paddle_tpu_torch yet: the router serves without "
-                "capacity monitoring")
+        from ..observability.capacity import resolve_capacity_monitor
+        # fleet capacity & efficiency plane: OFF by default — an
+        # unconfigured router runs its plain step loop.  capacity=True
+        # (or a CapacityConfig / prebuilt FleetCapacityMonitor) samples
+        # every probe-refreshed payload into per-engine SignalWindows
+        # once per step and ticks the hysteresis+dwell planner behind
+        # ``capacity_plan()`` / ``health_payload()["capacity"]``.
+        self.capacity = resolve_capacity_monitor(capacity)
         # bounded per-request phase tracer: default ON —
         # host-side appends only; tracer=False drops to the no-op stub
         self.tracer = resolve_tracer(tracer)
@@ -560,10 +580,11 @@ class ServingRouter:
     # ---- elastic pool membership ----------------------------------------
     def add_engine(self, engine) -> int:
         """Admit one engine (or pre-built :class:`EngineHandle`) to the
-        live pool.  The newcomer is routable from the next ``step()``:
-        it probes and ranks (its empty slots make it the least-loaded
-        target) like any founding member.  Returns its engine_id; a
-        duplicate id raises ValueError."""
+        live pool — the elastic actuator's scale_up.  The newcomer is
+        routable from the next ``step()``: it probes, ranks (its empty
+        slots make it the least-loaded target), and samples into the
+        capacity plane like any founding member.  Returns its
+        engine_id; a duplicate id raises ValueError."""
         h = engine if isinstance(engine, EngineHandle) \
             else EngineHandle(engine)
         if h.engine_id in self.handles:
@@ -598,6 +619,10 @@ class ServingRouter:
         h = self.handles[engine_id]
         fates = self._drain_engine(h, reason=reason)
         del self.handles[engine_id]
+        if self.capacity is not None:
+            # its frozen windows must leave the rollup too, or the
+            # planner would keep averaging a ghost engine forever
+            self.capacity.drop_engine(engine_id)
         self._refresh_roles()
         self._m_healthy.labels(engine=str(engine_id)).set(0)
         self._m_pool.set(len(self.handles))
@@ -692,6 +717,11 @@ class ServingRouter:
             self._sync_first_tokens(h)
         if self._disagg:
             self._migrate_ready()
+        if self.capacity is not None:
+            # one sampling + planner tick per router round, fed from
+            # the payloads _probe_all already refreshed (zero extra
+            # scrapes; O(1) window appends per engine)
+            self.capacity.observe_router(self)
         self._m_pending.set(len(self.pending))
         done, self._done_backlog = self._done_backlog, []
         return done
@@ -772,10 +802,27 @@ class ServingRouter:
         self._publish_latency_gauges(out)
         return out
 
+    def capacity_plan(self) -> Dict:
+        """The committed fleet capacity recommendation — windowed
+        per-engine signals, fleet rollup, and the advisory action
+        (``scale_up`` / ``scale_down`` / ``rebalance`` / ``steady``)
+        with the declared hysteresis bands + minimum dwell already
+        applied, so an actuator can follow it verbatim without its own
+        debouncing.  Requires capacity monitoring: construct with
+        ``capacity=True`` (or a ``CapacityConfig`` / prebuilt
+        ``FleetCapacityMonitor``)."""
+        if self.capacity is None:
+            raise ValueError(
+                "capacity monitoring is off: construct ServingRouter("
+                "capacity=True) (or pass a CapacityConfig / "
+                "FleetCapacityMonitor) to enable capacity_plan()")
+        return self.capacity.capacity_plan()
+
     def health_payload(self) -> Dict:
         """Fleet-level load/health snapshot (the router-side twin of
         the engine's ``health_payload``): queue depths, healthy-engine
-        count and the SLO attainment digests.
+        count, the SLO attainment digests, and — when capacity
+        monitoring is configured — the committed capacity plan.
         Install as the process's health provider
         (``observability.set_health_provider(router.health_payload)``)
         and ``/healthz`` serves it."""
@@ -788,6 +835,8 @@ class ServingRouter:
                                    if h.healthy),
             "slo": self.slo_snapshot(),
         }
+        if self.capacity is not None:
+            payload["capacity"] = self.capacity.capacity_plan()
         return payload
 
     # ---- health ---------------------------------------------------------

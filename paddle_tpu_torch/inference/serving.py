@@ -75,13 +75,15 @@ running request's KV pages to another engine as one host
 ``KVPageBuffer`` (the reference's wire format, so buffers travel between
 the two packages' engines) and resume it there with zero re-prefill;
 ``role="prefill"|"decode"|"mixed"`` labels the engine for the router's
-disaggregated dispatch (``inference/router.py``).
+disaggregated dispatch (``inference/router.py``); :meth:`efficiency_stats`
+counts one launch of the steady-state serving step for the capacity plane
+(``observability/capacity.py``), and ``inference/engine_server.py``
+serves an engine to other processes (``inference/fleet.py``).
 
 Ported: single device.  What still raises ``NotImplementedError``
 naming the feature (none is silently ignored): tensor/context/expert
 parallelism (``mesh``/``sharding``), quantized collectives
-(``quant_collectives``), a pool dtype other than the model's or int8,
-and :meth:`efficiency_stats` (the capacity plane).
+(``quant_collectives``) and a pool dtype other than the model's or int8.
 """
 from __future__ import annotations
 
@@ -623,6 +625,10 @@ class ContinuousBatchingEngine:
         self.counters: Dict[str, int] = {
             "tokens_generated": 0, "requests_received": 0,
             "requests_admitted": 0, "preempts": 0}
+        # the serving step's efficiency numbers (efficiency_stats): one
+        # probe ever, cached; a failed probe latches
+        self._efficiency_stats: Optional[Dict] = None
+        self._efficiency_failed = False
 
     @staticmethod
     def _auto_buckets(max_seq_len: int):
@@ -990,14 +996,70 @@ class ContinuousBatchingEngine:
             "host_tier_spills": pc.spills if pc is not None else 0,
             "host_tier_restores": pc.restores if pc is not None else 0,
         }
+        if self._efficiency_stats is not None:
+            payload["efficiency"] = self._efficiency_stats
         return payload
 
-    def efficiency_stats(self, compute: bool = False):
-        """The serving step's efficiency numbers belong to the capacity
-        plane, which is not ported."""
-        raise NotImplementedError(
-            "efficiency_stats (the capacity & efficiency plane) is not "
-            "ported to paddle_tpu_torch yet (%s)" % _PORT_SCOPE)
+    def efficiency_stats(self, compute: bool = False) -> Optional[Dict]:
+        """Serving-step device-efficiency numbers — the capacity plane's
+        per-token FLOPs and bytes source, with the reference's contract:
+        lazy, cached for the engine's lifetime, one probe ever, opt out
+        with ``PADDLE_TPU_MFU_COST_ANALYSIS=0``.  ``compute=False`` (the
+        health-payload read) returns the cached block or None — it NEVER
+        probes.
+
+        The probed launch is the engine's steady-state decode shape: the
+        SMALLEST mixed token budget an all-decode pack of ``slots x
+        (spec_k + 1)`` tokens fits, or the split decode step at the slot
+        count, each span attending ``max_seq_len`` keys (the block
+        table's reach).  Per-token numbers amortize over the launch's
+        packed token capacity.  The numbers are an analytic count of the
+        port's own launch (``jit/serving_step.launch_cost``: its GEMMs,
+        the attention kernels' work, the weights and KV pages it moves);
+        the reference's describe its compiled XLA module
+        (``cost_analysis``), a different program."""
+        if self._efficiency_stats is not None:
+            return self._efficiency_stats
+        if not compute:
+            return None
+        if self._efficiency_failed:
+            # a failed probe is cached too: a periodic refresh must not
+            # re-pay it every sweep; the env gate is NOT a failure
+            return None
+        from ..observability.capacity import _cost_analysis_enabled
+        if not _cost_analysis_enabled():
+            return None
+        try:
+            if self.mixed is not None:
+                # the SMALLEST budget an all-decode pack fits (explicit
+                # budget sets only validate their TOP against it, so
+                # budgets[0] can be far smaller — probing it would
+                # amortize the weights over too few tokens)
+                base = self.max_batch_size * (self.spec_k + 1)
+                T = min((b for b in self.token_budgets if b >= base),
+                        default=self.token_budgets[-1])
+                stats = self.mixed.launch_stats(T, self.max_seq_len)
+                kind = "mixed"
+            else:
+                stats = self.decode_step.launch_stats(self.max_batch_size,
+                                                      self.max_seq_len)
+                kind = "decode"
+        except Exception:                             # noqa: BLE001
+            self._efficiency_failed = True
+            return None
+        if not stats.get("flops_per_token"):
+            self._efficiency_failed = True
+            return None
+        self._efficiency_stats = {
+            "step": kind,
+            "tokens_per_launch": int(stats["tokens"]),
+            "flops_per_token": float(stats["flops_per_token"]),
+            "hbm_bytes_per_token": float(
+                stats.get("hbm_bytes_per_token", 0.0)),
+            "flops_per_launch": float(stats.get("flops", 0.0)),
+            "source": stats["source"],
+        }
+        return self._efficiency_stats
 
     # ---- page allocation -----------------------------------------------
     def _try_alloc(self) -> Optional[int]:

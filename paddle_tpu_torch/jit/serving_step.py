@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..nn import functional as PF
+from ..ops.dequant import LAYER_PROJECTIONS
 from ..ops.kernels import rope_qkv_epilogue, rope_tables_for_positions
 from ..ops.paged_attention import (KVPageBuffer, chunk_prefill_attention,
                                    paged_attention,
@@ -244,6 +245,65 @@ def inject_blocks(caches, buf: KVPageBuffer, dest_blocks) -> None:
             t.index_copy_(0, idx, sc[i])
 
 
+def launch_cost(model, caches, weights, rows: int, lm_rows: int,
+                spans) -> dict:
+    """FLOPs and bytes of ONE serving-step launch, counted analytically
+    (the counterpart of the reference's ``compiled_cost_stats``, which
+    reads the compiled XLA module's ``cost_analysis``: these numbers
+    describe the port's own launch, not that module).
+
+    ``rows`` packed token rows run every decoder layer; ``lm_rows`` rows
+    reach the LM head; ``spans`` is the attention's ``[(q_len, kv_len)]``
+    (padding spans attend nothing and are left out).
+
+    - ``flops``: the GEMMs — 2 x in x out per row for each of a layer's
+      seven projections, and 2 x hidden x vocab per LM-head row — plus
+      the attention kernels' own work, 4 per visible (query head, key,
+      head-dim) triple (row ``r`` of a span sees ``kv_len - q_len + r +
+      1`` keys).
+    - ``bytes_accessed``: the weights read once (the seven projections of
+      every layer and the LM head in the model dtype, or under
+      ``weight_quant="int8"`` the tree's int8 codes and fp32 scales), the
+      KV pages the attention reads (each span's ``kv_len`` tokens of K
+      and V in every layer; int8 pools add each read page's two fp32
+      scale rows) and the pages written (every packed row's K and V in
+      every layer; int8 pools add one fp32 scale a head for each).
+
+    ``tokens`` is ``rows``, the launch's packed capacity, and the per-token
+    numbers amortize over it (padding rows run the GEMMs too)."""
+    cfg = model.config
+    llama = model.llama
+    H, h, V = cfg.num_attention_heads, cfg.hidden_size, cfg.vocab_size
+    c0 = caches[0]
+    L, Hkv, D, bs = len(caches), c0.num_kv_heads, c0.head_dim, c0.block_size
+    pool_isz = c0.key_cache.element_size()
+    head = (model.lm_head.weight if model.lm_head is not None
+            else llama.embed_tokens.weight)
+    proj = [getattr(getattr(layer, mod), name).weight
+            for layer in llama.layers for mod, name in LAYER_PROJECTIONS]
+    gemm = 2.0 * rows * sum(w.numel() for w in proj) \
+        + 2.0 * lm_rows * h * V
+    pairs = sum(sum(kvl - ql + r + 1 for r in range(ql))
+                for ql, kvl in spans)
+    flops = gemm + 4.0 * L * pairs * H * D
+    if weights is not None:
+        w_bytes = weights.nbytes + (
+            head.numel() * head.element_size() if weights.head is None
+            else 0)
+    else:
+        w_bytes = sum(w.numel() * w.element_size() for w in proj + [head])
+    kv_read = sum(kvl for _, kvl in spans) * Hkv * D * pool_isz * 2
+    kv_write = rows * Hkv * D * pool_isz * 2
+    if c0.quantized:
+        kv_read += sum(-(-kvl // bs) for _, kvl in spans) * Hkv * 4 * 2
+        kv_write += rows * Hkv * 4 * 2
+    n_bytes = w_bytes + L * (kv_read + kv_write)
+    return {"tokens": int(rows), "source": "analytic",
+            "flops": float(flops), "bytes_accessed": float(n_bytes),
+            "flops_per_token": float(flops) / rows,
+            "hbm_bytes_per_token": float(n_bytes) / rows}
+
+
 class MixedStep:
     """One launch sequence per engine step that advances ANY admission
     mix — running decode slots and pending prefill chunks together
@@ -399,6 +459,22 @@ class MixedStep:
 
     def _lm(self, h):
         return _lm_logits(self.model, self.weights, h)
+
+    def launch_stats(self, T: int, kv_len: int) -> dict:
+        """:func:`launch_cost` of one budget-``T`` all-decode launch: every
+        one of the ``max_spans`` spans a decode span (``spec_k + 1``
+        tokens under speculation) attending ``kv_len`` keys, the rest of
+        the budget padding; each span's sample row (and, under
+        speculation, its ``spec_k + 1`` verify rows) reaches the LM head.
+        The counterpart of the reference's ``compiled_stats(T)``."""
+        q = self.spec_k + 1
+        if T < self.max_spans * q:
+            raise ValueError("budget %d holds no all-decode pack of %d "
+                             "spans of %d" % (T, self.max_spans, q))
+        lm_rows = self.max_spans * ((self.spec_k + 2) if self.spec_k
+                                    else 1)
+        return launch_cost(self.model, self.caches, self.weights, T,
+                           lm_rows, [(q, kv_len)] * self.max_spans)
 
     def logits_packed(self, pack: np.ndarray, T: int) -> torch.Tensor:
         """Run one packed step and return the fp32 logits of each span's
@@ -591,6 +667,13 @@ class DecodeStep:
         self.sink = _need_sink(caches, "DecodeStep")
         self.device = caches[0].key_cache.device
         self.compile_count = 0
+
+    def launch_stats(self, slots: int, kv_len: int) -> dict:
+        """:func:`launch_cost` of one decode launch at ``slots`` slots,
+        each attending ``kv_len`` keys (one token a slot).  The
+        counterpart of the reference's ``compiled_stats(slots)``."""
+        return launch_cost(self.model, self.caches, self.weights, slots,
+                           slots, [(1, kv_len)] * slots)
 
     @torch.no_grad()
     def __call__(self, tokens, seq_lens, block_tables,

@@ -70,10 +70,14 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                    "jit/layerwise.py", "ops/rms_norm.py",
                    "inference/prefix_cache.py", "inference/router.py",
                    "inference/fleet.py", "ops/dequant.py",
+                   "inference/engine_server.py", "inference/elastic.py",
+                   "testing/faults.py",
                    "observability/__init__.py", "observability/metrics.py",
                    "observability/exporters.py",
                    "observability/request_trace.py",
-                   "observability/trace_merge.py"):
+                   "observability/trace_merge.py",
+                   "observability/capacity.py",
+                   "observability/telemetry.py"):
         assert os.path.join("paddle_tpu_torch", module) in scanned
 
 
@@ -95,6 +99,10 @@ def test_importing_the_port_loads_no_jax():
         "assert 'paddle_tpu_torch.inference.router' in sys.modules\n"
         "assert 'paddle_tpu_torch.observability.request_trace' in "
         "sys.modules\n"
+        "for m in ('inference.fleet', 'inference.engine_server', "
+        "'inference.elastic', 'testing.faults', 'observability.capacity', "
+        "'observability.telemetry'):\n"
+        "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

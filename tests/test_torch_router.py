@@ -725,14 +725,3 @@ def test_fleet_trace_merges_groups_and_flow_links(m, tmp_path):
                       if e.get("ph") == "M" and e.get("name") == "thread_name"
                       and e["args"]["name"] == "req %d" % rid}
     assert len(pids_with_lane) >= 3             # router + both engines
-
-
-def test_port_router_refuses_the_capacity_plane():
-    """``capacity=`` other than off names the capacity plane (not
-    ported); off (None or False) serves."""
-    for capacity in (True, object()):
-        with pytest.raises(NotImplementedError, match="capacity"):
-            port_router.ServingRouter([_StubEngine(0)], capacity=capacity)
-    router = port_router.ServingRouter([_StubEngine(0)], capacity=False)
-    a = router.submit(np.arange(4, dtype=np.int64), max_new_tokens=1)
-    assert router.run_to_completion()[a] == [7]
