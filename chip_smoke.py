@@ -16,7 +16,8 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    the shapes the serving paths give them: ragged paged attention (fp32/
    bf16 and int8 pools; for bf16 q the tensor-core kernel over the host
    work list the mixed step builds: the all-decode step, the mixed step,
-   GQA at head dims 128 and 96, and poisoned odd packs at block sizes 5
+   GQA 32/8 at head dims 128 and 96, Qwen2-7B's 28/4 (all-decode and
+   mixed, bf16 and int8 pools), and poisoned odd packs at block sizes 5
    and 16 and head dims 64, 80 and 112), paged decode attention (fp32/
    bf16 and int8, head dims 32 to 128 with 80 and 112, GQA 32/8 and
    28/4, block sizes 5 to 128, 8 slots at kv 1024 and 4096, 32 at 2048;
@@ -25,7 +26,8 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    the fast kernels do not take (``GENERIC_RAGGED``, ``GENERIC_DECODE``:
    head dims 100 and 256 at GQA and MQA, 64 query heads over one kv
    head, #5's int8 pools at block size 128, #7 at block size 256; bf16
-   and int8 pools), the RoPE + QKV epilogue; one JSON line per
+   and int8 pools), the RoPE + QKV epilogue (at 512 rows of the 7B's
+   32/32, Mixtral's 32/8 and Qwen2's 28/4 heads); one JSON line per
    kernel and shape with
    the error, its tolerance, the kernel's and the plain version's times
    (CUDA events), the roofline bound and the library time (null: no
@@ -46,7 +48,9 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    must reject #4's own rounding point.  Then the weight dequant
    (``dequant_int8``, :func:`check_dequant`) bitwise against its plain
    version at a 7B decoder layer's seven projections in one launch, at the
-   7B LM head and at ``[37, 100]``, in bf16 and fp32, with a planted wrong
+   7B LM head and at ``[37, 100]``, in bf16 and fp32, and at a Mixtral
+   layer's four projections and three expert banks in bf16, with a planted
+   wrong
    scale that the check must reject; timed against its bound and the
    three-op torch expression.  Times are device time (:func:`time_ms`).
 3. The serving slice at full width: a random-weight Llama-2-7B (bf16),
@@ -126,6 +130,17 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    generic kernels' serving path (:func:`serve_head_dim_256`): a 2-layer
    model at head dim 256 through both engines and both pool types, with
    the generic kernels' launches exact.
+   Then the model families beside Llama (:func:`phase_serving_families`):
+   Mixtral-8x7B at its published widths cut to 16 of its 32 layers
+   (bf16, 46.9 GB) through the mixed engine (profiled), the split engine
+   and the split engine over int8 pools; Mixtral at 8 layers through the
+   w8 mixed engine against its dequantized twin (>= 0.98; the int8 tree
+   holds the expert banks); Qwen2-7B whole (28 layers, bf16, q/k/v
+   biases drawn from the seed) through the mixed (profiled) and split
+   engines.  Each: launches exact (#5, #6, #7 at GQA 32/8 and 28/4),
+   pools whole, and on the Mixtral mixed engine
+   ``serving_moe_dispatch_tokens_total`` routed = packed tokens x 2 x 16
+   and dropped 0.
 4. Serving parity at full width and reduced depth: the same model with 2
    layers in fp32 and the same traffic; the mixed and split engines must
    match the eager ``generate`` (which runs no kernel) and each other at a
@@ -160,7 +175,12 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    streams at 0.98.
    Then the first step's
    logits against the eager forward by depth and dtype: fp32 at all 32
-   layers (held to 1e-3) and bf16 at 2 layers.
+   layers (held to 1e-3) and bf16 at 2 layers.  Then the families
+   (:func:`phase_parity_families`): Mixtral-8x7B and Qwen2-7B widths at
+   2 layers in fp32, the mixed and split engines against eager
+   ``generate`` (Mixtral's built with ``expert_capacity_factor = E / k``,
+   where its capacity block drops nothing), against each other and
+   against themselves through the attention's plain versions, >= 0.98.
 5. The three flash kernels (forward, one-pass backward, two-kernel
    backward) against their plain versions over fp32/bf16, head dims 32,
    64, 96 and 128 (36, 80, 100 and 112 padded per half by the wrappers),
@@ -199,7 +219,13 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    the same weights through the kernels, through their plain versions on
    the card (losses within 1e-4 relative), and through ``TrainStep`` with
    ``Adafactor`` (within 5e-4, the reference's own bound).
-11. Before the last line, one JSON object with every kernel variant's
+11. The families' training (:func:`phase_train_families`):
+   ``train_mixtral_2l`` and ``train_qwen2_2l``, 2 layers at full width in
+   bf16 through ``TrainStep`` (AdamW, bf16 moments, clip 1.0; Mixtral's
+   criterion adds the router aux term), batch 1 x 2048, a warm-up and 3
+   steps: finite losses, the first within 0.5 of its random-init value,
+   Mixtral's aux term > 0, flash launches exact a step.
+12. Before the last line, one JSON object with every kernel variant's
    numbers; the last line is ``{"ok": true, "device": {...}}``.
 
 Each phase prints its wall seconds.
@@ -917,6 +943,12 @@ DEQUANT_CASES = (("7b_layer", [(4096, 4096)] * 4 + [(11008, 4096)] * 2
                  ("7b_lm_head", [(32000, 4096)]),
                  ("odd_37x100", [(37, 100)]))
 DEQUANT_MAIN = "7b_layer"
+# a Mixtral-8x7B layer in one launch: its four attention projections
+# [out, in] and its three expert banks, each bank's experts stored
+# transposed ([E * out, in]: the per-column scales on rows), 1.451 G codes
+DEQUANT_MOE_CASE = "mixtral_layer"
+DEQUANT_MOE_SEGS = [(4096, 4096), (1024, 4096), (1024, 4096), (4096, 4096),
+                    (8 * 14336, 4096), (8 * 14336, 4096), (8 * 4096, 14336)]
 
 
 def check_dequant(case, segments, dtype_name, gen):
@@ -1012,6 +1044,13 @@ def phase_kernels():
         rows[key].append(check_ragged(
             "gqa32x8_decode_8x1024", decode, 8, H, 8, D, bs, "bfloat16",
             gen, span_q=8, quantized=quantized))
+        # Qwen2-7B's served shape: 28 query heads over 4 (a group of 7)
+        rows[key].append(check_ragged(
+            "g7_28x4_decode_8x1024", decode, 8, 28, 4, D, bs, "bfloat16",
+            gen, span_q=8, quantized=quantized))
+        rows[key].append(check_ragged(
+            "g7_28x4_mixed_8x1024+256", mixed, 512, 28, 4, D, bs,
+            "bfloat16", gen, span_q=chunk, quantized=quantized))
         for dt in ("bfloat16", "float32"):
             rows[key].append(check_ragged(
                 "7b_mixed_8x1024+256", mixed, 512, H, H, D, bs, dt, gen,
@@ -1092,9 +1131,17 @@ def phase_kernels():
             rows["rope"].append(check_rope(
                 "7b_T%d%s" % (N, "_amax" if amax else ""), N, H, H, D,
                 amax, gen))
+    # the served GQA shapes: Mixtral-8x7B 32/8, Qwen2-7B 28/4
+    for fam, Hx, Hkvx in (("mixtral", 32, 8), ("qwen2", 28, 4)):
+        for amax in (False, True):
+            rows["rope"].append(check_rope(
+                "%s_T512%s" % (fam, "_amax" if amax else ""), 512, Hx, Hkvx,
+                D, amax, gen))
     rows["dequant"] = [check_dequant(case, segs, dt, gen)
                        for case, segs in DEQUANT_CASES
                        for dt in ("bfloat16", "float32")]
+    rows["dequant"].append(check_dequant(DEQUANT_MOE_CASE, DEQUANT_MOE_SEGS,
+                                         "bfloat16", gen))
     rows["rms_norm"] = [check_rms_norm(case, n, d, dt, gen)
                         for case, n, d in RMS_CASES
                         for dt in ("bfloat16", "float32")]
@@ -2006,6 +2053,193 @@ def serve_head_dim_256():
     return runs
 
 
+# ---------------------------------------------------------------------------
+# the model families beside Llama: Mixtral (sparse MoE) and Qwen2
+# ---------------------------------------------------------------------------
+MIXTRAL_SERVE_LAYERS = 16    # of Mixtral-8x7B's 32: 46.9 GB in bf16
+MIXTRAL_W8_LAYERS = 8        # the w8 engine keeps the bf16 model beside it
+FAMILY_BIAS_STD = 0.02       # Qwen2's q/k/v biases, drawn so they carry
+
+
+def mixtral_model(layers: int, dtype: str, **kw):
+    """A random-weight Mixtral-8x7B at its published widths, cut to
+    ``layers`` layers, initialized on the card from ``SEED``."""
+    import torch
+    from paddle_tpu_torch.models.mixtral import (MixtralForCausalLM,
+                                                 mixtral_8x7b_config)
+    cfg = mixtral_8x7b_config(dtype=dtype, num_hidden_layers=layers, **kw)
+    return MixtralForCausalLM(
+        cfg, generator=torch.Generator("cuda").manual_seed(SEED))
+
+
+def qwen2_model(layers: int, dtype: str):
+    """A random-weight Qwen2-7B (``Qwen2Config``'s defaults) with
+    ``layers`` layers on the card from ``SEED``; its q/k/v biases (zero at
+    init, as in the reference) drawn N(0, ``FAMILY_BIAS_STD``) from the
+    same generator, so the served path adds real biases."""
+    import torch
+    from paddle_tpu_torch.models.qwen import Qwen2Config, Qwen2ForCausalLM
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    model = Qwen2ForCausalLM(
+        Qwen2Config(dtype=dtype, num_hidden_layers=layers), generator=gen)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".bias"):
+                p.normal_(0.0, FAMILY_BIAS_STD, generator=gen)
+    return model
+
+
+def moe_dispatch_counts():
+    """The port registry's ``serving_moe_dispatch_tokens_total`` by fate
+    (0s before any MoE engine registered it)."""
+    from paddle_tpu_torch import observability as obs
+    fam = obs.default_registry().get("serving_moe_dispatch_tokens_total")
+    if fam is None:
+        return dict(routed=0.0, dropped=0.0)
+    return {f: fam.labels(fate=f).value for f in ("routed", "dropped")}
+
+
+def serve_family(name, model, prompts, kw, profile=False, mixed_out=None):
+    """One family cell: :func:`serve` with exact launches, the MoE
+    dispatch counts of the run (a Mixtral mixed engine: routed = packed
+    tokens x k x layers, dropped 0; the split engine counts none, as the
+    reference), the token match against the mixed engine's ``mixed_out``
+    (reported), and with ``profile`` one more run under the profiler.
+    Returns the tokens and the row."""
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    before = moe_dispatch_counts()
+    t1 = time.perf_counter()
+    eng, out, stats = serve(model, prompts, kw)
+    check_launches(name, kw, stats, L)
+    after = moe_dispatch_counts()
+    moe = {f: after[f] - before[f] for f in after}
+    k = getattr(cfg, "num_experts_per_tok", 0)
+    if k:
+        packed = (stats["prefilled_tokens"] + stats["generated_tokens"]
+                  - len(prompts))
+        want = packed * k * L if kw.get("mixed_step") else 0
+        stats.update(moe_dispatch=moe, moe_routed_want=want)
+        if moe != dict(routed=want, dropped=0):
+            raise AssertionError("%s: MoE dispatch %s, want routed %d and "
+                                 "none dropped" % (name, moe, want))
+    stats.update(phase=name + "_bf16", layers=L, model=type(model).__name__,
+                 heads="%d/%d" % (cfg.num_attention_heads,
+                                  cfg.num_key_value_heads),
+                 engine={k2: v for k2, v in kw.items()
+                         if k2 not in ENGINE_BASE})
+    if mixed_out is not None:
+        stats["match_rate_vs_mixed_engine"] = _rates(out, mixed_out)[0]
+    if kw.get("mixed_step") and not kw.get("weight_quant"):
+        # the analytic count keeps the reference's dense expert FLOPs
+        stats["efficiency"] = serving_efficiency(eng, stats)
+    del eng
+    stats["phase_wall_s"] = time.perf_counter() - t1
+    emit(stats)
+    if profile:
+        stats["profile"] = profile_serve(name + "_bf16", model, prompts,
+                                         stats["wall_s"], kw)
+    return out, stats
+
+
+def phase_serving_families():
+    """Mixtral-8x7B (16 of 32 layers, bf16) through the mixed engine
+    (profiled), the split engine and the split engine over int8 pools;
+    Mixtral at 8 layers through the w8 mixed engine against its
+    dequantized twin (>= 0.98); Qwen2-7B in full (bf16, random q/k/v
+    biases) through the mixed (profiled) and split engines.  Launches
+    exact, pools whole, the MoE dispatch counted exactly; the split
+    engines' token match against the mixed ones reported."""
+    import torch
+    runs, outs = {}, {}
+    t0 = time.perf_counter()
+    model = mixtral_model(MIXTRAL_SERVE_LAYERS, "bfloat16")
+    torch.cuda.synchronize()
+    print("mixtral: %d layers, %.2f GB bf16, initialized in %.1f s"
+          % (MIXTRAL_SERVE_LAYERS, sum(p.numel() for p in model.parameters())
+             * 2 / 1e9, time.perf_counter() - t0), flush=True)
+    prompts = _prompts(model.config.vocab_size)
+    for name, kw, prof in (
+            ("serve_mixtral", ENGINE_KW, True),
+            ("serve_mixtral_split", SPLIT_KW, False),
+            ("serve_mixtral_kv8", dict(SPLIT_KW, kv_dtype="int8"), False)):
+        outs[name], runs[name] = serve_family(
+            name, model, prompts, kw, prof, outs.get("serve_mixtral"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = mixtral_model(MIXTRAL_W8_LAYERS, "bfloat16")
+    runs.update(serve_w8(model, prompts, None, outs,
+                         dict(prefix="serve_mixtral", mixed=None,
+                              split=None),
+                         MIXTRAL_W8_LAYERS, engines=("w8",)))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = qwen2_model(28, "bfloat16")
+    prompts = _prompts(model.config.vocab_size)
+    for name, kw, prof in (("serve_qwen2", ENGINE_KW, True),
+                           ("serve_qwen2_split", SPLIT_KW, False)):
+        outs[name], runs[name] = serve_family(
+            name, model, prompts, kw, prof, outs.get("serve_qwen2"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_parity_families():
+    """Mixtral-8x7B and Qwen2-7B widths at 2 layers in fp32 (mean
+    per-request token matches up to the first divergence, each >= 0.98):
+    the mixed and split engines against eager ``generate`` and against
+    each other, and each against itself run through the attention's
+    plain versions on the card.  Mixtral's eager oracle is built with
+    ``expert_capacity_factor = E / k``, where its capacity block drops
+    nothing (the engines never drop)."""
+    import torch
+    row, gates = dict(phase="parity_families_2layer_fp32"), {}
+    for fam in ("mixtral", "qwen2"):
+        if fam == "mixtral":
+            model = mixtral_model(2, "float32", expert_capacity_factor=4.0)
+            cfg = model.config
+            if cfg.expert_capacity_factor < (cfg.num_local_experts
+                                              / cfg.num_experts_per_tok):
+                raise AssertionError("the eager oracle would drop")
+        else:
+            model = qwen2_model(2, "float32")
+        prompts = _prompts(model.config.vocab_size)
+        t0 = time.perf_counter()
+        ref = eager_tokens(model, prompts)
+        row[fam + "_eager_s"] = time.perf_counter() - t0
+        outs = {}
+        for name, kw in (("mixed", ENGINE_KW), ("split", SPLIT_KW)):
+            for swap in (False, True):
+                key = name + ("_plain" if swap else "")
+                if swap:
+                    with swapped_attention():
+                        _, outs[key], _ = serve(model, prompts, kw)
+                else:
+                    _, outs[key], stats = serve(model, prompts, kw)
+                    check_launches("parity %s %s" % (fam, key), kw, stats, 2)
+                    row["%s_%s_launches" % (fam, key)] = stats["launches"]
+            gates["%s_%s_vs_eager" % (fam, name)] = _rates(outs[name],
+                                                           ref)[0]
+            gates["%s_%s_vs_plain" % (fam, name)] = _rates(
+                outs[name], outs[name + "_plain"])[0]
+        gates[fam + "_split_vs_mixed"] = _rates(outs["split"],
+                                                outs["mixed"])[0]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    row.update(gates)
+    emit(row)
+    for gate, rate in gates.items():
+        if not rate >= 0.98:
+            raise AssertionError("fp32 2-layer %s token match %.4f < 0.98"
+                                 % (gate, rate))
+    return row
+
+
 def sampling_draw_launches(S: int = 8, V: int = 32000):
     """What one sampling draw costs the host: the device operations one
     ``sample_logits`` call over [S, V] fp32 logits at ``SAMPLED_KNOBS``
@@ -2099,29 +2333,33 @@ def serve_sampled_and_spec(model, prompts, ref, outs):
 
 # ---- int8 weights and the disaggregated router ------------------------------
 def dequantized_twin(model, eng):
-    """A copy of ``model`` whose projection weights and LM head are
-    ``eng``'s int8 tree dequantized (by the engine's own kernel): the fp
-    engine that must give the w8 engine's tokens."""
+    """A copy of ``model`` whose quantized weights (projections, a Mixtral
+    layer's expert banks) and LM head are ``eng``'s int8 tree dequantized
+    (by the engine's own kernel): the fp engine that must give the w8
+    engine's tokens."""
     import copy
     import torch
-    from paddle_tpu_torch.ops.dequant import LAYER_PROJECTIONS
+    from paddle_tpu_torch.models.llama import inner_model
+    from paddle_tpu_torch.ops.dequant import layer_weights
     twin = copy.deepcopy(model)
     w8 = eng.weight_qtree
     with torch.no_grad():
-        for i, layer in enumerate(twin.llama.layers):
+        for i, layer in enumerate(inner_model(twin).layers):
             ws = w8.layer(i)
-            for mod, name in LAYER_PROJECTIONS:
-                getattr(getattr(layer, mod), name).weight.copy_(ws[name])
+            for suffix, w in layer_weights(layer):
+                w.copy_(ws[suffix.split(".")[1]])
         head = w8.lm_head()
         if head is not None:
             twin.lm_head.weight.copy_(head)
     return twin
 
 
-def serve_w8(model, prompts, ref, outs, runs_bf16, layers):
+def serve_w8(model, prompts, ref, outs, runs_bf16, layers,
+             engines=("w8", "split_w8")):
     """The int8-weight engines on ``model`` and the phase-3 traffic:
     ``serve_<...>_w8`` (the mixed engine) and ``serve_<...>_split_w8``
-    (bucketed split), each with exact launches (the bf16 twins' kernels,
+    (bucketed split; ``engines`` names which), each with exact launches
+    (the bf16 twins' kernels,
     plus ``dequant_int8`` (L + 1) times a target step) and a whole pool,
     then its dequantized twin (:func:`dequantized_twin`, the same engine
     without ``weight_quant``) over the same traffic, which must give its
@@ -2136,6 +2374,8 @@ def serve_w8(model, prompts, ref, outs, runs_bf16, layers):
     runs = {}
     for suffix, kw, bf16 in (("w8", W8_KW, runs_bf16["mixed"]),
                              ("split_w8", SPLIT_W8_KW, runs_bf16["split"])):
+        if suffix not in engines:
+            continue
         name = "%s_%s" % (prefix, suffix)
         t1 = time.perf_counter()
         eng, outs[name], stats = serve(model, prompts, kw)
@@ -3948,6 +4188,89 @@ def phase_train_7b():
     return row
 
 
+FAMILY_TRAIN_BATCH = (1, 2048)
+FAMILY_TRAIN_STEPS = 3
+
+
+def phase_train_families():
+    """``train_mixtral_2l`` and ``train_qwen2_2l``: 2 layers at full width
+    in bf16 through ``TrainStep`` (AdamW with bf16 moments, clip 1.0; no
+    recompute), batch 1 x 2048, a warm-up and 3 timed steps.  Mixtral's
+    criterion is cross-entropy plus the router aux term of the same
+    forward.  Finite losses, the first within 0.5 of its random-init
+    value (:func:`init_loss`, plus the aux term for Mixtral), the aux
+    term > 0, and exact flash launches a step (forward L, fused backward
+    L, two-kernel backward 0; k and v repeated to the query heads
+    first)."""
+    import torch
+    from paddle_tpu_torch.jit.train_step import TrainStep
+    from paddle_tpu_torch.models.llama import LlamaPretrainingCriterion
+    from paddle_tpu_torch.models.mixtral import MixtralPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+    rows = {}
+    B, S = FAMILY_TRAIN_BATCH
+    for name in ("train_mixtral_2l", "train_qwen2_2l"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        moe = name.startswith("train_mixtral")
+        model = (mixtral_model(2, "bfloat16") if moe
+                 else qwen2_model(2, "bfloat16"))
+        cfg = model.config
+        crit = (MixtralPretrainingCriterion(model) if moe
+                else LlamaPretrainingCriterion())
+        step = TrainStep(model, crit,
+                         AdamW(TRAIN_LR, parameters=model.named_parameters(),
+                               moment_dtype=cfg.dtype), clip_norm=1.0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        ids = _tokens(cfg.vocab_size, (B, S), SEED)
+        warm, warm_s = run_steps(step, ids, 1)
+        aux0 = model.router_aux_loss().item() if moe else 0.0
+        _reset_train_launches()
+        auxes, losses, wall = [], [], 0.0
+        for _ in range(FAMILY_TRAIN_STEPS):
+            got, dt = run_steps(step, ids, 1)
+            losses += got
+            wall += dt
+            if moe:
+                auxes.append(model.router_aux_loss().item())
+        launches = _train_launches()
+        losses = warm + losses
+        L = cfg.num_hidden_layers
+        row = dict(phase=name + "_bf16", layers=L, batch=B, seq=S,
+                   params=sum(p.numel() for p in model.parameters()),
+                   init_s=init_s, warmup_step_s=warm_s,
+                   steps=FAMILY_TRAIN_STEPS, wall_s=wall,
+                   step_s=wall / FAMILY_TRAIN_STEPS, losses=losses,
+                   aux_losses=[aux0] + auxes,
+                   expected_first_loss=init_loss(cfg) + aux0,
+                   tokens_per_s=B * S * FAMILY_TRAIN_STEPS / wall,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   launches=launches)
+        emit(row)
+        want = {"flash_fwd": L * FAMILY_TRAIN_STEPS,
+                "flash_bwd_fused": L * FAMILY_TRAIN_STEPS,
+                "flash_bwd_two_kernel": 0, "rms_norm": 0}
+        if launches != want:
+            raise AssertionError("%s launches %s, want %s"
+                                 % (name, launches, want))
+        if not all(math.isfinite(x) for x in losses + row["aux_losses"]):
+            raise AssertionError("%s: non-finite loss %s" % (name, row))
+        if moe and not min(row["aux_losses"]) > 0:
+            raise AssertionError("%s: router aux loss %s not > 0"
+                                 % (name, row["aux_losses"]))
+        if not abs(losses[0] - row["expected_first_loss"]) <= 0.5:
+            raise AssertionError("%s: first loss %g is not within 0.5 of "
+                                 "the random-init value %g"
+                                 % (name, losses[0],
+                                    row["expected_first_loss"]))
+        rows[name] = row
+        del model, step, crit
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _plain_kernels():
     """A context in which the model's and the layerwise step's attention
     run the flash plain versions on the card (``_flash_fwd_plain`` /
@@ -4301,6 +4624,12 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
         entry["launches_by_path"] = {
             p: r["launches"][name] for p, r in serving.items()
             if r["launches"].get(name)}
+        # the GQA shapes the Mixtral (32/8) and Qwen2 (28/4) cells serve
+        entry["served_gqa_shapes"] = {
+            x["case"]: dict(ms=x["kernel_ms"], bound_ms=x["bound_ms"])
+            for x in rs if x["dtype"] == "bfloat16"
+            and x["case"].startswith(("gqa32x8_", "g7_28x4_", "mixtral_",
+                                      "qwen2_"))}
         out.append(entry)
     # the generic kernels: the head-dim-256 serving path launches them
     # (the 7B paths assert 0); timed at GENERIC_MAIN
@@ -4341,6 +4670,10 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
         bound_by=r["bound_by"], library_ms=r["library_ms"],
         library=r["library"],
         lm_head_ms=pick(rs, "7b_lm_head")["kernel_ms"],
+        mixtral_layer=dict(
+            ms=pick(rs, DEQUANT_MOE_CASE)["kernel_ms"],
+            bound_ms=pick(rs, DEQUANT_MOE_CASE)["bound_ms"],
+            plain_ms=pick(rs, DEQUANT_MOE_CASE)["plain_ms"]),
         launches_by_path={p: x["launches"]["dequant_int8"]
                           for p, x in serving.items()
                           if x.get("launches", {}).get("dequant_int8")}))
@@ -4367,6 +4700,9 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
         out.append(dict(name=name, route="cuda", source=r["source"],
                         replaces=FLASH_REPLACES[name],
                         launches=train_launches[path][name], path=path,
+                        launches_by_path={
+                            p: x[name] for p, x in train_launches.items()
+                            if x.get(name)},
                         max_abs_err=max(x["max_abs_err"] for x in rs),
                         ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -4486,7 +4822,9 @@ def main() -> int:
     run("build", phase_build)
     rows = run("kernels", phase_kernels)
     serving = run("serving_7b", phase_serving_7b)
+    serving.update(run("serving_families", phase_serving_families))
     run("parity_2l", phase_parity_2l)
+    run("parity_families_2l", phase_parity_families)
     run("logits", phase_logits_by_depth)
     flash_rows = run("flash", phase_flash_kernels)
     train = run("train_7b", phase_train_7b)
@@ -4494,11 +4832,13 @@ def main() -> int:
     long = run("train_long", phase_train_long)
     layerwise = run("train_7b_layerwise", phase_train_7b_layerwise)
     run("layerwise_parity", phase_layerwise_parity)
+    families = run("train_families", phase_train_families)
     emit({"kernels": kernel_summary(
         rows, serving, flash_rows,
-        {"train_7b": train["launches"],
-         "train_long_16k": long["launches"],
-         "train_7b_layerwise": layerwise["launches"]})})
+        dict({"train_7b": train["launches"],
+              "train_long_16k": long["launches"],
+              "train_7b_layerwise": layerwise["launches"]},
+             **{k: v["launches"] for k, v in families.items()}))})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -36,7 +36,12 @@ Ported so far:
   and ``inference.engine_server`` (engines in other processes over the
   reference's PTF1 wire protocol), ``observability`` (metrics, request
   tracing, the capacity plane, step telemetry) and
-  ``inference.elastic`` (scaling the pool on the capacity plan).
+  ``inference.elastic`` (scaling the pool on the capacity plan);
+- the model families beside Llama — ``models.mixtral`` (sparse top-k
+  MoE over ``ops.moe_gate``; served in both engines, with int8 pools and
+  int8 weights, its expert banks included, and trained through
+  ``TrainStep``) and ``models.qwen`` (Qwen2: GQA with q/k/v biases) —
+  over the same kernels.
 """
 from .core.device import resolve_device  # noqa: F401
 

@@ -174,7 +174,10 @@ class _UnportedAndInvalid(NotImplementedError, ValueError):
 
 class ContinuousBatchingEngine:
     """Slot scheduler over the split decode/prefill steps or the fused
-    mixed step, for ``LlamaForCausalLM``.
+    mixed step, for ``LlamaForCausalLM``, ``Qwen2ForCausalLM`` or
+    ``MixtralForCausalLM`` (the MoE layers through the dropless
+    ``ops.moe_gate.moe_ffn``; the mixed engine counts their assignments
+    in ``serving_moe_dispatch_tokens_total``).
 
     ``add_request()`` may be called at any time, including between steps
     while other requests are mid-decode; ``step()`` advances every running
@@ -286,6 +289,12 @@ class ContinuousBatchingEngine:
                                  "on %s" % (what, m.device, self.device))
         self.model = model
         self.cfg = cfg
+        # MoE dispatch accounting (reference): every real token of a mixed
+        # pack is routed to top_k experts in each MoE layer, counted on
+        # the host
+        self._moe_layers = (cfg.num_hidden_layers
+                            if getattr(cfg, "num_local_experts", 0) else 0)
+        self._moe_topk = int(getattr(cfg, "num_experts_per_tok", 0))
         self.max_batch_size = max_batch_size
         self.block_size = block_size
         self.lazy_alloc = bool(lazy_alloc)
@@ -588,6 +597,17 @@ class ContinuousBatchingEngine:
                 "engine (ep shards every MoE expert bank's E dim — "
                 "per-chip expert HBM is 1/ep; 1 = expert banks "
                 "replicated)").set(1)
+        self._m_moe_dispatch = r.counter(
+            "serving_moe_dispatch_tokens_total",
+            "token->expert assignments made by the fused MoE serving "
+            "dispatch (tokens x top_k x MoE layers), by fate — the "
+            "dispatch is DROPLESS (capacity == worst-case load), so "
+            "'dropped' stays 0 by construction and a nonzero value "
+            "means the capacity invariant broke", labels=("fate",))
+        self._m_moe_routed = self._m_moe_dispatch.labels(fate="routed")
+        # resolved eagerly so /metrics always shows the 0 that documents
+        # droplessness
+        self._m_moe_dropped = self._m_moe_dispatch.labels(fate="dropped")
         r.gauge("serving_kv_quant_dtype",
                 "KV-cache element width in bits of the most recently "
                 "constructed engine (8 = int8 quantized pools, 16/32 = "
@@ -1488,6 +1508,11 @@ class ContinuousBatchingEngine:
             self._m_mixed_tok_decode.inc(n_dec)
         if n_pre:
             self._m_mixed_tok_prefill.inc(n_pre)
+        if self._moe_layers:
+            # dropless dispatch: every real token lands on exactly top_k
+            # experts per MoE layer, none are dropped
+            self._m_moe_routed.inc((n_dec + n_pre) * self._moe_topk
+                                   * self._moe_layers)
         if traced:
             # the first step at a budget stays out of the histograms
             self._m_mixed_compiles.inc(traced)

@@ -17,9 +17,13 @@ keyed by the global position of the token it samples), and
 ``MixedStep(return_probs=True)`` is the sampled draft that returns its
 filtered distributions.  ``weights=`` (an :class:`~paddle_tpu_torch.ops.
 dequant.Int8Weights`, the engine's ``weight_quant="int8"`` tree) makes a
-step take every layer's projections and the LM head from the int8 tree,
-dequantized on use one layer at a time (``ops/dequant.py``).  The steps
-run eagerly (no CUDA graphs yet); the
+step take every layer's projections (and a Mixtral layer's expert banks)
+and the LM head from the int8 tree, dequantized on use one layer at a
+time (``ops/dequant.py``).  The steps serve any model with an inner
+``.llama`` (Llama, Qwen2) or ``.mixtral`` decoder stack: a Mixtral
+layer's FFN is the dropless ``ops.moe_gate.moe_ffn`` (:func:`_ffn`), so
+the engines never drop an assignment where the eager block may.  The
+steps run eagerly (no CUDA graphs yet); the
 reference's compiled modules have no counterpart, but ``compile_counts``
 still records each distinct token budget or bucket width once
 (``compile_count`` the decode step's one slot count), so the reference's
@@ -35,7 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from ..nn import functional as PF
-from ..ops.dequant import LAYER_PROJECTIONS
+from ..models.llama import inner_model
+from ..ops.dequant import layer_weights
 from ..ops.kernels import rope_qkv_epilogue, rope_tables_for_positions
 from ..ops.paged_attention import (KVPageBuffer, chunk_prefill_attention,
                                    paged_attention,
@@ -45,6 +50,7 @@ from ..ops.paged_attention import (KVPageBuffer, chunk_prefill_attention,
                                    write_chunk_kv_q8, write_decode_kv,
                                    write_decode_kv_q8, write_prefill_kv,
                                    write_ragged_kv, write_ragged_kv_q8)
+from ..ops.moe_gate import moe_ffn
 from ..ops.sampling import (filtered_probs, greedy_sample, sample_logits,
                             spec_verify)
 
@@ -67,33 +73,60 @@ def _need_sink(caches, step: str) -> int:
     return sink
 
 
+def _proj(mod, name: str, h, w=None):
+    """``mod.name`` (a ``Linear``) over ``h``: the model's weight, or the
+    int8 tree's dequantized one from ``w`` (the bias always the
+    model's)."""
+    lin = getattr(mod, name)
+    return lin(h) if w is None else F.linear(h, w[name], lin.bias)
+
+
+def _moe_ffn(blk, h, w=None):
+    """The dropless MoE FFN (reference: ``_moe_ffn``) in place of
+    ``layer.mlp``: the block's top-k gate over the step's rows, each
+    expert over its assigned rows, the weighted combine
+    (``ops.moe_gate.moe_ffn``).  The banks are the model's, or with int8
+    weights the tree's dequantized ones; the router is always the
+    model's."""
+    if w is None:
+        banks = (blk.w_gate, blk.w_up, blk.w_down)
+    else:
+        banks = (w["w_gate"], w["w_up"], w["w_down"])
+    return moe_ffn(h, blk.gate.weight, *banks, top_k=blk.top_k)
+
+
+def _ffn(layer, h, w=None):
+    """Per-layer FFN dispatch (reference: ``_ffn``), branching on the
+    layer: the SwiGLU MLP of a Llama layer, the MoE FFN of a Mixtral
+    layer."""
+    if hasattr(layer, "block_sparse_moe"):
+        return _moe_ffn(layer.block_sparse_moe, h, w)
+    mlp = layer.mlp
+    return _proj(mlp, "down_proj", PF.swiglu(_proj(mlp, "gate_proj", h, w),
+                                             _proj(mlp, "up_proj", h, w)), w)
+
+
 def _attend_layer(layer, x, cos, sin, cache, write, attend, w=None):
     """One decoder layer of a serving step over ``x`` [N, h]: RMSNorm, the
-    q/k/v projections, the fused RoPE + QKV epilogue kernel (with the
-    per-token absmax of k and v for an int8 pool), the in-place K/V write
-    ``write(k, v, k_amax, v_amax)`` into ``cache``, the attention
-    ``attend(q)`` -> [N, H, D], o_proj and the residual, then the MLP
-    block.  ``w``: the layer's projection weights by name, dequantized
-    from the int8 tree (the model's own weights when None; biases always
-    the model's)."""
+    q/k/v projections (with their biases, Qwen2's), the fused RoPE + QKV
+    epilogue kernel (with the per-token absmax of k and v for an int8
+    pool), the in-place K/V write ``write(k, v, k_amax, v_amax)`` into
+    ``cache``, the attention ``attend(q)`` -> [N, H, D], o_proj and the
+    residual, then the FFN block (:func:`_ffn`).  ``w``: the layer's
+    quantized weights by name, dequantized from the int8 tree (the
+    model's own weights when None)."""
     N = x.shape[0]
-    at, mlp = layer.self_attn, layer.mlp
-
-    def proj(mod, name, h):
-        lin = getattr(mod, name)
-        return lin(h) if w is None else F.linear(h, w[name], lin.bias)
+    at = layer.self_attn
     H, Hkv, D = at.num_heads, at.num_kv_heads, at.head_dim
     h = layer.input_layernorm(x)
-    q = proj(at, "q_proj", h).view(N, H, D)
-    k = proj(at, "k_proj", h).view(N, Hkv, D)
-    v = proj(at, "v_proj", h).view(N, Hkv, D)
+    q = _proj(at, "q_proj", h, w).view(N, H, D)
+    k = _proj(at, "k_proj", h, w).view(N, Hkv, D)
+    v = _proj(at, "v_proj", h, w).view(N, Hkv, D)
     q, k, k_amax, v_amax = rope_qkv_epilogue(q, k, v, cos, sin,
                                              with_amax=cache.quantized)
     write(k, v, k_amax, v_amax)
-    x = x + proj(at, "o_proj", attend(q).reshape(N, H * D))
-    h = layer.post_attention_layernorm(x)
-    return x + proj(mlp, "down_proj", PF.swiglu(proj(mlp, "gate_proj", h),
-                                                proj(mlp, "up_proj", h)))
+    x = x + _proj(at, "o_proj", attend(q).reshape(N, H * D), w)
+    return x + _ffn(layer, layer.post_attention_layernorm(x), w)
 
 
 def _layer_weights(weights, i: int):
@@ -257,12 +290,16 @@ def launch_cost(model, caches, weights, rows: int, lm_rows: int,
     (padding spans attend nothing and are left out).
 
     - ``flops``: the GEMMs — 2 x in x out per row for each of a layer's
-      seven projections, and 2 x hidden x vocab per LM-head row — plus
-      the attention kernels' own work, 4 per visible (query head, key,
-      head-dim) triple (row ``r`` of a span sees ``kv_len - q_len + r +
-      1`` keys).
-    - ``bytes_accessed``: the weights read once (the seven projections of
-      every layer and the LM head in the model dtype, or under
+      seven quantizable weights, and 2 x hidden x vocab per LM-head row —
+      plus the attention kernels' own work, 4 per visible (query head,
+      key, head-dim) triple (row ``r`` of a span sees ``kv_len - q_len +
+      r + 1`` keys).  A Mixtral layer's expert banks count whole, as if
+      every row ran every expert: the reference's dense count (its XLA
+      cost analysis counts the dense dispatch buffers), which overstates
+      a MoE step's routed expert work ``E / k`` times; the router is not
+      counted.
+    - ``bytes_accessed``: the weights read once (the seven of every layer
+      and the LM head in the model dtype, or under
       ``weight_quant="int8"`` the tree's int8 codes and fp32 scales), the
       KV pages the attention reads (each span's ``kv_len`` tokens of K
       and V in every layer; int8 pools add each read page's two fp32
@@ -272,15 +309,14 @@ def launch_cost(model, caches, weights, rows: int, lm_rows: int,
     ``tokens`` is ``rows``, the launch's packed capacity, and the per-token
     numbers amortize over it (padding rows run the GEMMs too)."""
     cfg = model.config
-    llama = model.llama
+    llama = inner_model(model)
     H, h, V = cfg.num_attention_heads, cfg.hidden_size, cfg.vocab_size
     c0 = caches[0]
     L, Hkv, D, bs = len(caches), c0.num_kv_heads, c0.head_dim, c0.block_size
     pool_isz = c0.key_cache.element_size()
     head = (model.lm_head.weight if model.lm_head is not None
             else llama.embed_tokens.weight)
-    proj = [getattr(getattr(layer, mod), name).weight
-            for layer in llama.layers for mod, name in LAYER_PROJECTIONS]
+    proj = [w for layer in llama.layers for _n, w in layer_weights(layer)]
     gemm = 2.0 * rows * sum(w.numel() for w in proj) \
         + 2.0 * lm_rows * h * V
     pairs = sum(sum(kvl - ql + r + 1 for r in range(ql))
@@ -403,7 +439,7 @@ class MixedStep:
         if T not in self.compile_counts:
             self.compile_counts[T] = 1
         cfg = self.cfg
-        llama = self.model.llama
+        llama = inner_model(self.model)
         D = cfg.hidden_size // cfg.num_attention_heads
         S, W, EX = self.max_spans, self.bt_width, self.row_extra
         scale = 1.0 / math.sqrt(D)
@@ -592,7 +628,7 @@ class PrefillStep:
         C = tokens.shape[1]
         self.compile_counts.setdefault(C, 1)
         cfg = self.cfg
-        llama = self.model.llama
+        llama = inner_model(self.model)
         D = cfg.hidden_size // cfg.num_attention_heads
         scale = 1.0 / math.sqrt(D)
         start, n_valid = int(start), int(n_valid)
@@ -689,7 +725,7 @@ class DecodeStep:
                              "temperature 0)")
         self.compile_count = 1
         cfg = self.cfg
-        llama = self.model.llama
+        llama = inner_model(self.model)
         D = cfg.hidden_size // cfg.num_attention_heads
         scale = 1.0 / math.sqrt(D)
         bt = np.asarray(block_tables, np.int32)

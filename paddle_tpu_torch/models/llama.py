@@ -242,7 +242,7 @@ class LlamaForCausalLM(nn.Module):
             generator = torch.Generator(self.device).manual_seed(0)
         std = self.config.initializer_range
         for name, p in self.named_parameters():
-            if name.endswith("layernorm.weight") or name == "llama.norm.weight":
+            if name.endswith("norm.weight"):
                 p.fill_(1.0)
             elif name.endswith(".bias"):
                 p.zero_()
@@ -273,7 +273,8 @@ class LlamaForCausalLM(nn.Module):
         ``input_ids`` [B, L] -> [B, L + n] (``n <= max_new_tokens``; stops
         early when every row emitted ``eos_token_id``)."""
         ids = input_ids.to(self.device, torch.long)
-        logits, caches = self(ids, [(None, None)] * len(self.llama.layers))
+        logits, caches = self(ids,
+                              [(None, None)] * self.config.num_hidden_layers)
         out = [ids]
         cur_len = ids.shape[1]
         for step in range(max_new_tokens):
@@ -286,6 +287,21 @@ class LlamaForCausalLM(nn.Module):
                 logits, caches = self(nxt, caches, position_offset=cur_len)
                 cur_len += 1
         return torch.cat(out, dim=1)
+
+
+def inner_model(model: nn.Module) -> nn.Module:
+    """The decoder stack behind a causal-LM wrapper (reference:
+    ``jit/serving_step.py`` ``_inner_model``): ``model.llama`` (Llama,
+    Qwen2) or ``model.mixtral``.  Both expose ``embed_tokens``, ``layers``
+    and ``norm``; a layer's FFN is its ``mlp`` or its
+    ``block_sparse_moe``."""
+    for name in ("llama", "mixtral"):
+        inner = getattr(model, name, None)
+        if inner is not None:
+            return inner
+    raise ValueError(
+        "serving steps need a LlamaForCausalLM-shaped model (an inner "
+        ".llama or .mixtral decoder stack); got %r" % type(model).__name__)
 
 
 class LlamaPretrainingCriterion(nn.Module):

@@ -6,7 +6,10 @@ Kernel: ``csrc/dequant_int8.cu``.  It replaces no Pallas kernel: the
 reference dequantizes its whole int8 tree inside each compiled step and
 XLA fuses the expression into the matmuls.  The port runs its steps
 eagerly, so :class:`Int8Weights` keeps each decoder layer's seven
-projection weights as ONE contiguous int8 buffer with ONE fp32 scale
+quantized weights (a Llama layer's projections; a Mixtral layer's four
+attention projections and three expert banks, each expert stored
+transposed so that its per-column scales fall on rows, the kernel's one
+scale a row) as ONE contiguous int8 buffer with ONE fp32 scale
 buffer, and before a layer runs, one launch writes the layer's weights in
 the model dtype into a scratch buffer that every layer reuses (one more
 launch for the LM head).  The matmuls stay ``F.linear``.  The model's
@@ -30,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .. import _build
+from ..models.llama import inner_model
 from ..quantization.functional import (WEIGHT_SCALE_SUFFIX,
                                        dequantize_weight, ptq_quantizable,
                                        quantize_param_tree)
@@ -42,7 +46,9 @@ def _dequant_int8_plain(codes: torch.Tensor, scales: torch.Tensor,
                         segments: Sequence[Tuple[int, int]],
                         out: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version: each ``[rows, cols]`` segment of
-    ``codes`` through :func:`dequantize_weight` with its rows' scales."""
+    ``codes`` through :func:`dequantize_weight` with its rows' scales (an
+    expert bank's segment holds its experts transposed, so this is the
+    bank's own expression, transposed)."""
     e = r = 0
     for rows, cols in segments:
         q = codes[e:e + rows * cols].view(rows, cols)
@@ -112,23 +118,60 @@ def dequant_int8(codes: torch.Tensor, scales: torch.Tensor,
 
 dequant_int8.launches = 0
 
-# a decoder layer's projections, in buffer order: (module path, key)
+# a decoder layer's projections, in buffer order: (module path, name)
 LAYER_PROJECTIONS = (("self_attn", "q_proj"), ("self_attn", "k_proj"),
                      ("self_attn", "v_proj"), ("self_attn", "o_proj"),
                      ("mlp", "gate_proj"), ("mlp", "up_proj"),
                      ("mlp", "down_proj"))
+# a Mixtral layer's: the attention's, then the three expert banks (the
+# router stays fp, as in the reference)
+MOE_LAYER_PROJECTIONS = LAYER_PROJECTIONS[:4] + (
+    ("block_sparse_moe", "w_gate"), ("block_sparse_moe", "w_up"),
+    ("block_sparse_moe", "w_down"))
+
+
+def layer_weights(layer) -> List[Tuple[str, torch.Tensor]]:
+    """``(parameter suffix, weight)`` of each quantized weight of a layer,
+    in buffer order: ``self_attn.q_proj.weight`` for a projection,
+    ``block_sparse_moe.w_gate`` for an expert bank."""
+    projections = (MOE_LAYER_PROJECTIONS
+                   if hasattr(layer, "block_sparse_moe")
+                   else LAYER_PROJECTIONS)
+    out = []
+    for mod, name in projections:
+        t = getattr(getattr(layer, mod), name)
+        if isinstance(t, torch.nn.Parameter):          # an expert bank
+            out.append(("%s.%s" % (mod, name), t))
+        else:
+            out.append(("%s.%s.weight" % (mod, name), t.weight))
+    return out
+
+
+def _segment(shape) -> Tuple[int, int]:
+    """The ``[rows, cols]`` a weight takes in a group, one scale a row: a
+    2-D ``[out, in]`` weight as it is, an expert bank ``[E, in, out]`` as
+    ``[E * out, in]`` (each expert transposed, so that its per-column
+    scales fall on rows)."""
+    if len(shape) == 2:
+        return shape
+    E, n_in, n_out = shape
+    return E * n_out, n_in
 
 
 class _Group:
     """One launch's worth of weights: the int8 codes and fp32 scales of
-    ``keys`` back to back, their ``[rows, cols]`` segments, and the
-    element offset of each weight."""
+    ``keys`` back to back (an expert bank's codes transposed per expert to
+    ``[E, out, in]``), their ``[rows, cols]`` segments, and the element
+    offset of each weight."""
 
     def __init__(self, qtree: Dict[str, torch.Tensor], keys: List[str]):
         self.keys = keys
-        self.segments = [tuple(qtree[k].shape) for k in keys]
-        self.codes = torch.cat([qtree[k].reshape(-1) for k in keys])
-        self.scales = torch.cat([qtree[k + WEIGHT_SCALE_SUFFIX]
+        self.shapes = [tuple(qtree[k].shape) for k in keys]
+        self.segments = [_segment(s) for s in self.shapes]
+        self.codes = torch.cat([
+            (qtree[k] if qtree[k].ndim == 2
+             else qtree[k].transpose(1, 2)).reshape(-1) for k in keys])
+        self.scales = torch.cat([qtree[k + WEIGHT_SCALE_SUFFIX].reshape(-1)
                                  for k in keys])
         self.offsets, e = [], 0
         for r, c in self.segments:
@@ -139,10 +182,33 @@ class _Group:
     def numel(self) -> int:
         return self.codes.numel()
 
+    def _views(self, flat: torch.Tensor) -> List[torch.Tensor]:
+        """Each weight of ``flat`` (laid out as the codes) in its own
+        shape: ``[out, in]``, or a bank ``[E, in, out]`` (a transposed
+        view of its ``[E, out, in]`` rows)."""
+        out = []
+        for o, shape, (r, c) in zip(self.offsets, self.shapes,
+                                    self.segments):
+            t = flat[o:o + r * c]
+            out.append(t.view(r, c) if len(shape) == 2 else
+                       t.view(shape[0], shape[2], shape[1]).transpose(1, 2))
+        return out
+
     def dequant(self, scratch: torch.Tensor) -> List[torch.Tensor]:
         dequant_int8(self.codes, self.scales, self.segments, scratch)
-        return [scratch[o:o + r * c].view(r, c)
-                for o, (r, c) in zip(self.offsets, self.segments)]
+        return self._views(scratch)
+
+    def tree(self) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        r = 0
+        for k, v, shape, (rows, _c) in zip(self.keys, self._views(
+                self.codes), self.shapes, self.segments):
+            out[k] = v
+            sc = self.scales[r:r + rows]
+            out[k + WEIGHT_SCALE_SUFFIX] = (
+                sc if len(shape) == 2 else sc.view(shape[0], 1, shape[2]))
+            r += rows
+        return out
 
 
 class Int8Weights:
@@ -151,32 +217,39 @@ class Int8Weights:
     once, one layer at a time), held per decoder layer as one contiguous
     int8 buffer and one fp32 scale buffer, with one scratch buffer in the
     model dtype that every layer's dequant reuses, and the LM head (when
-    the model has an untied one) with a scratch of its own.
+    the model has an untied one) with a scratch of its own.  A Mixtral
+    layer's group holds its four attention projections and its three
+    expert banks (seven segments, one launch); its router stays fp.
 
     ``layer(i)`` launches layer ``i``'s dequant and returns its weights by
-    projection name (views into the scratch, valid until the next
-    ``layer`` call); ``lm_head()`` the LM head's, or None when it stays fp.
-    ``tree()`` is the PTQ tree itself (views of the buffers, the
-    reference's keys); ``nbytes`` counts codes and scales."""
+    name (``q_proj`` ... ``down_proj``, or ``w_gate``/``w_up``/``w_down``
+    as ``[E, in, out]`` views; valid until the next ``layer`` call);
+    ``lm_head()`` the LM head's, or None when it stays fp.  ``tree()`` is
+    the PTQ tree itself (views of the buffers, the reference's keys and
+    layouts); ``nbytes`` counts codes and scales."""
 
     def __init__(self, model):
-        llama = model.llama
+        stack = inner_model(model)
+        prefix = "mixtral" if stack is getattr(model, "mixtral", None) \
+            else "llama"
         dtype = model.config.torch_dtype
         self.layers: List[_Group] = []
-        for i, layer in enumerate(llama.layers):
-            vals = {"llama.layers.%d.%s.%s.weight" % (i, mod, name):
-                    getattr(getattr(layer, mod), name).weight.detach()
-                    for mod, name in LAYER_PROJECTIONS}
-            keys = list(vals)
+        self._names: List[List[str]] = []
+        for i, layer in enumerate(stack.layers):
+            weights = layer_weights(layer)
+            vals = {"%s.layers.%d.%s" % (prefix, i, suffix): w.detach()
+                    for suffix, w in weights}
             if not all(ptq_quantizable(k, v) for k, v in vals.items()):
                 raise ValueError("a decoder layer's projections must all be "
-                                 "2-D weights")
-            self.layers.append(_Group(quantize_param_tree(vals), keys))
+                                 "2-D weights or 3-D expert banks")
+            self.layers.append(_Group(quantize_param_tree(vals), list(vals)))
+            self._names.append([suffix.split(".")[1]
+                                for suffix, _w in weights])
         self.head = None
         if model.lm_head is not None:
             vals = {"lm_head.weight": model.lm_head.weight.detach()}
             self.head = _Group(quantize_param_tree(vals), list(vals))
-        dev = llama.embed_tokens.weight.device
+        dev = stack.embed_tokens.weight.device
         self._scratch = torch.empty(max(g.numel for g in self.layers),
                                     dtype=dtype, device=dev)
         self._head_scratch = (None if self.head is None else
@@ -190,7 +263,7 @@ class Int8Weights:
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
         ws = self.layers[i].dequant(self._scratch)
-        return {name: w for (_m, name), w in zip(LAYER_PROJECTIONS, ws)}
+        return dict(zip(self._names[i], ws))
 
     def lm_head(self) -> Optional[torch.Tensor]:
         if self.head is None:
@@ -200,9 +273,5 @@ class Int8Weights:
     def tree(self) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
         for g in self.layers + ([self.head] if self.head else []):
-            r = 0
-            for k, o, (rows, cols) in zip(g.keys, g.offsets, g.segments):
-                out[k] = g.codes[o:o + rows * cols].view(rows, cols)
-                out[k + WEIGHT_SCALE_SUFFIX] = g.scales[r:r + rows]
-                r += rows
+            out.update(g.tree())
         return out

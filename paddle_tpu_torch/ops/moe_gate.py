@@ -1,0 +1,152 @@
+"""MoE gating and expert dispatch (counterpart of
+``paddle_tpu/ops/moe_gate.py``).
+
+The one top-k gate and dispatch of the port.  Callers:
+
+- ``models/mixtral.py``'s eager block: GShard capacity buffers with
+  drops, and the load-balancing aux term (computed by the caller from the
+  raw assignment);
+- ``jit/serving_step.py``: :func:`moe_ffn` is the dropless MoE FFN of the
+  serving steps.
+
+Every rounding point is the reference's: router logits in fp32, the
+softmax in fp32, the dispatch an fp32 scatter-add cast back to the input
+dtype (exact: one source a slot, or zeros), SiLU in fp32 cast to the
+dtype before the product with ``u``, and the combine an fp32 sum over the
+k assignments with their renormalized weights before the cast.
+
+Layouts: the router weight is the port's ``Linear`` weight ``[E, D]``
+(the reference's is ``[D, E]``); the expert banks keep the reference's
+``[E, D, M]`` (``w_gate``, ``w_up``) and ``[E, M, D]`` (``w_down``).
+
+:func:`moe_ffn` computes each expert over its assigned rows only (a
+stable sort by expert, one matrix product per expert and bank), where the
+reference fills ``[E, N k, D]`` buffers and multiplies all of them: a
+row's result depends on no other row, so both give the same rows, and
+the port multiplies ``N k`` rows where the reference multiplies ``E N k``.
+The expert products are plain ``torch.matmul`` calls, as the reference's
+are XLA einsums outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["topk_gate", "assignment_slots", "dispatch_to_buffers",
+           "grouped_expert_swiglu", "combine_from_buffers", "moe_ffn"]
+
+
+def topk_gate(logits: torch.Tensor, k: int, renormalize: bool = True):
+    """Softmax + top-k routing from raw router logits ``[N, E]``.
+
+    Returns ``(top_w f32 [N, k], top_i int32 [N, k], probs f32 [N, E])``.
+    Ties go to the lower expert index first, as ``jax.lax.top_k`` orders
+    them (a stable descending sort: ``torch.topk`` promises no order for
+    ties on CUDA).  ``renormalize=True`` rescales the selected weights to
+    sum to 1 (Mixtral's convention)."""
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    top_w, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_i = top_w[..., :k], top_i[..., :k]
+    if renormalize:
+        top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+    return top_w, top_i.to(torch.int32), probs
+
+
+def assignment_slots(top_i: torch.Tensor, num_experts: int):
+    """Per-assignment capacity slot: the running count per expert over the
+    flattened ``[N k]`` assignment order (a one-hot cumsum).
+
+    Returns ``(slot int32 [N, k], oh f32 [N, k, E])``; ``oh`` is handed
+    back for the aux loss."""
+    oh = F.one_hot(top_i.long(), num_experts).to(torch.float32)
+    pos = oh.reshape(-1, num_experts).cumsum(0).reshape(oh.shape) - 1.0
+    slot = (pos * oh).sum(dim=-1).to(torch.int32)
+    return slot, oh
+
+
+def dispatch_to_buffers(x: torch.Tensor, top_i: torch.Tensor,
+                        slot: torch.Tensor, keep, num_experts: int,
+                        capacity: int) -> torch.Tensor:
+    """Scatter tokens into ``[E, C, D]`` expert buffers (fp32 scatter-add,
+    cast back to ``x.dtype``).  ``keep=None`` is dropless; otherwise the
+    rows of dropped assignments scatter zeros."""
+    n, k = top_i.shape
+    vf = x.to(torch.float32)
+    if keep is None:
+        src = vf[:, None, :].expand(n, k, vf.shape[1])
+    else:
+        src = vf[:, None, :] * keep[..., None].to(torch.float32)
+    src = src.reshape(n * k, -1)
+    slot_c = slot.clamp(0, capacity - 1).reshape(-1).long()
+    zeros = torch.zeros(num_experts, capacity, vf.shape[1],
+                        dtype=torch.float32, device=x.device)
+    buf = zeros.index_put((top_i.reshape(-1).long(), slot_c), src,
+                          accumulate=True)
+    return buf.to(x.dtype)
+
+
+def grouped_expert_swiglu(disp: torch.Tensor, wg: torch.Tensor,
+                          wu: torch.Tensor, wd: torch.Tensor
+                          ) -> torch.Tensor:
+    """Batched expert SwiGLU over the whole bank: ``disp [E, C, D]``,
+    ``wg/wu [E, D, M]``, ``wd [E, M, D]`` -> ``[E, C, D]`` (or one
+    expert's: ``[C, D]`` rows with its ``[D, M]``/``[M, D]`` weights).
+    SiLU in fp32, cast to the dtype before the product with ``u``."""
+    h = F.silu(torch.matmul(disp, wg).to(torch.float32)).to(disp.dtype)
+    return torch.matmul(h * torch.matmul(disp, wu), wd)
+
+
+def combine_from_buffers(eo: torch.Tensor, top_i: torch.Tensor,
+                         slot: torch.Tensor, top_w: torch.Tensor,
+                         keep=None) -> torch.Tensor:
+    """Gather each assignment's expert output and sum over k with the
+    routing weights.  Returns fp32 ``[N, D]`` (the caller casts); ``keep``
+    masks dropped assignments."""
+    n, k = top_i.shape
+    slot_c = slot.clamp(0, eo.shape[1] - 1).reshape(-1).long()
+    picked = eo[top_i.reshape(-1).long(), slot_c].reshape(n, k, -1)
+    w_eff = top_w if keep is None else top_w * keep.to(top_w.dtype)
+    return (picked.to(torch.float32)
+            * w_eff.to(torch.float32)[..., None]).sum(dim=1)
+
+
+def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, wg: torch.Tensor,
+            wu: torch.Tensor, wd: torch.Tensor, *, top_k: int,
+            ep_axis=None, ep_degree: int = 1) -> torch.Tensor:
+    """Dropless MoE FFN over a flat token block ``x [N, D]``.
+
+    ``gate_w [E, D]`` (the router's ``Linear`` weight); ``wg/wu [E, D,
+    M]``, ``wd [E, M, D]`` (any strides: the int8 serving path passes
+    transposed views of its dequantized ``[E, out, in]`` banks).  No
+    assignment is ever dropped.  Each expert multiplies only the rows
+    assigned to it: the assignments are sorted by expert (stably, so the
+    order within an expert is the assignment order), which needs the
+    per-expert counts on the host, one device-to-host copy of ``E``
+    integers a call.
+
+    The expert-parallel path (``ep_degree > 1`` over ``ep_axis``) is not
+    ported and raises."""
+    if ep_axis is not None and ep_degree > 1:
+        raise NotImplementedError(
+            "expert parallelism (moe_ffn's ep path: the all_to_all "
+            "dispatch over an ep mesh axis) is not ported to "
+            "paddle_tpu_torch yet; the port serves MoE models on one "
+            "device")
+    n, d = x.shape
+    logits = x.to(torch.float32) @ gate_w.to(torch.float32).t()
+    top_w, top_i, _ = topk_gate(logits, top_k)
+    flat = top_i.reshape(-1).long()
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=wg.shape[0]).tolist()
+    rows = x[order // top_k]
+    out = torch.empty_like(rows)
+    start = 0
+    for e, c in enumerate(counts):
+        if c:
+            out[start:start + c] = grouped_expert_swiglu(
+                rows[start:start + c], wg[e], wu[e], wd[e])
+            start += c
+    eo = torch.empty_like(out)
+    eo[order] = out
+    picked = eo.view(n, top_k, d).to(torch.float32)
+    return (picked * top_w[..., None]).sum(dim=1).to(x.dtype)

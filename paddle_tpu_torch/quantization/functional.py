@@ -47,8 +47,8 @@ WEIGHT_SCALE_SUFFIX = "::scale"
 _PTQ_FAMILIES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
                  "up_proj", "down_proj", "lm_head")
 
-# 3-D batched MoE expert banks: the reference quantizes them per expert
-# and output channel; the port has no MoE model yet
+# 3-D batched MoE expert banks [E, in, out] (the reference's layout in
+# both packages): quantized per expert and output channel
 _PTQ_EXPERT_FAMILIES = ("w_gate", "w_up", "w_down")
 
 
@@ -135,33 +135,38 @@ def quantize_param_tree(values: Dict[str, torch.Tensor],
     Linear weights are ``[out, in]``: each output channel (row) gets its
     own absmax scale (a dim-1 reduction -> an ``[out]`` fp32 vector
     stored at ``key + WEIGHT_SCALE_SUFFIX``), and the weight itself is
-    replaced by its int8 codes.  Everything else passes through as it is.
-    A 3-D expert bank raises ``NotImplementedError``."""
+    replaced by its int8 codes.  An expert bank ``[E, in, out]`` gets one
+    scale per expert and output channel, the absmax over its contraction
+    dim, stored full-rank as ``[E, 1, out]`` (the reference's codes and
+    scales, in the reference's layout).  Everything else passes through
+    as it is."""
     out: Dict[str, torch.Tensor] = {}
     for k, v in values.items():
         if not ptq_quantizable(k, v):
             out[k] = v
             continue
-        if v.ndim == 3:
-            raise NotImplementedError(
-                "weight PTQ of 3-D MoE expert banks (%s) is not ported to "
-                "paddle_tpu_torch yet: the port serves no MoE model" % k)
-        scale = absmax_scale(v, dim=1, keepdim=True)          # [out, 1]
+        # dim 1 is the contraction dim of both layouts
+        scale = absmax_scale(v, dim=1, keepdim=True)   # [out, 1] / [E, 1, out]
         out[k] = quantize_symmetric(v, scale, bits).to(torch.int8)
-        out[k + WEIGHT_SCALE_SUFFIX] = scale[:, 0]            # [out]
+        out[k + WEIGHT_SCALE_SUFFIX] = scale if v.ndim == 3 else scale[:, 0]
     return out
 
 
 def dequantize_weight(q: torch.Tensor, scale: torch.Tensor, dtype,
                       bits: int = 8) -> torch.Tensor:
     """One weight's dequant: ``q.float() * (scale / bnt)`` per output
-    channel (row) in fp32, then the cast to ``dtype``.  The division is
-    elementwise between tensors, so it rounds correctly on every device
-    (CUDA would turn a division by a Python scalar into a multiplication
-    by its reciprocal), as the reference's expression does."""
+    channel in fp32, then the cast to ``dtype``: a row of a 2-D ``[out,
+    in]`` weight (``scale [out]``), or a column of each expert of a bank
+    ``[E, in, out]`` (``scale [E, 1, out]``, broadcast as stored).  The
+    division is elementwise between tensors, so it rounds correctly on
+    every device (CUDA would turn a division by a Python scalar into a
+    multiplication by its reciprocal), as the reference's expression
+    does."""
     s = scale.to(torch.float32)
     s = s / torch.full_like(s, float(symmetric_bound(bits)))
-    return (q.to(torch.float32) * s[:, None]).to(dtype)
+    if s.ndim == 1:
+        s = s[:, None]
+    return (q.to(torch.float32) * s).to(dtype)
 
 
 def dequantize_param_tree(params: Dict[str, torch.Tensor], dtype,

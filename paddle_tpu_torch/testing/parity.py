@@ -1,13 +1,18 @@
 """Carry weights from the reference package to the port.
 
-The reference (``paddle_tpu``) names its Llama parameters as the port
-does (``llama.layers.0.self_attn.q_proj.weight``, ...), but stores every
+The reference (``paddle_tpu``) names its Llama, Qwen2 and Mixtral
+parameters as the port does (``llama.layers.0.self_attn.q_proj.weight``,
+``mixtral.layers.0.block_sparse_moe.gate.weight``, ...), but stores every
 ``Linear`` weight as ``[in, out]`` where the port stores torch's
-``[out, in]``.  The layerwise step's stacked buffers have one layout in
-both packages.  The serving engine's int8 weight tree (weight PTQ) keeps
-the reference's keys, int8 codes transposed like the weights they
-replace, and ``::scale`` vectors as they are.  The state arrives as plain
-numpy arrays, so this module imports nothing of the reference.
+``[out, in]``: the projections, the LM head and the MoE router are
+transposed.  Mixtral's expert banks (``w_gate``, ``w_up``, ``w_down``) are
+raw ``[E, in, out]`` parameters in both packages and biases are 1-D, so
+they carry across as they are.  The layerwise step's stacked buffers have
+one layout in both packages.  The serving engine's int8 weight tree
+(weight PTQ) keeps the reference's keys, 2-D int8 codes transposed like
+the weights they replace, and expert-bank codes and every ``::scale``
+entry as they are.  The state arrives as plain numpy arrays, so this
+module imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ from torch import nn
 
 
 def _is_linear_weight(name: str) -> bool:
-    return name.endswith("_proj.weight") or name == "lm_head.weight"
+    return (name.endswith("_proj.weight") or name == "lm_head.weight"
+            or name.endswith("block_sparse_moe.gate.weight"))
 
 
 def state_from_paddle_tpu(np_state: Dict[str, np.ndarray]
@@ -43,10 +49,11 @@ def ptq_tree_from_paddle_tpu(np_tree: Dict[str, np.ndarray]
                              ) -> Dict[str, torch.Tensor]:
     """Map a reference PTQ tree (``quantize_param_tree`` of the
     reference's state, as numpy: int8 codes ``[in, out]`` under the
-    weight's key and an ``[out]`` fp32 vector under ``key + "::scale"``;
-    everything else fp) onto the port's tree: codes transposed to ``[out,
-    in]``, scales copied, the fp entries mapped as
-    :func:`state_from_paddle_tpu` maps them."""
+    weight's key and an ``[out]`` fp32 vector under ``key + "::scale"``,
+    or an expert bank's codes ``[E, in, out]`` with ``[E, 1, out]``
+    scales; everything else fp) onto the port's tree: 2-D codes
+    transposed to ``[out, in]``, bank codes and every scale copied, the fp
+    entries mapped as :func:`state_from_paddle_tpu` maps them."""
     from ..quantization.functional import (WEIGHT_SCALE_SUFFIX,
                                            is_weight_scale_key)
     out = {}
@@ -56,10 +63,11 @@ def ptq_tree_from_paddle_tpu(np_tree: Dict[str, np.ndarray]
         if is_weight_scale_key(name):
             out[name] = torch.tensor(np.ascontiguousarray(a))
         elif name + WEIGHT_SCALE_SUFFIX in np_tree:
-            if a.dtype != np.int8 or a.ndim != 2:
-                raise ValueError("%s: expected 2-D int8 codes, got %s %s"
-                                 % (name, a.dtype, a.shape))
-            out[name] = torch.tensor(np.ascontiguousarray(a.T))
+            if a.dtype != np.int8 or a.ndim not in (2, 3):
+                raise ValueError("%s: expected 2-D or 3-D int8 codes, got "
+                                 "%s %s" % (name, a.dtype, a.shape))
+            out[name] = torch.tensor(np.ascontiguousarray(
+                a.T if a.ndim == 2 else a))
         else:
             fp[name] = a
     out.update(state_from_paddle_tpu(fp))

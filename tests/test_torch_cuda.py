@@ -26,6 +26,7 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            LlamaPretrainingCriterion,
                                            llama_tiny_config,
                                            llama_truncated_draft)
+from paddle_tpu_torch.ops import dequant as dq
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import kernels as pk
 from paddle_tpu_torch.ops import rms_norm as rn
@@ -385,6 +386,107 @@ def test_tiny_engine_on_card_matches_eager(cuda):
     eng.run_to_completion()
     assert [eng.result(x) for x in r] == want
     assert len(eng.caches[0]._free) == 64
+
+
+FAMILY_MODES = {"mixed": dict(mixed_step=True),
+                "split": dict(prefill_buckets="auto"),
+                "kv8_split": dict(prefill_buckets="auto", kv_dtype="int8"),
+                "w8_mixed": dict(mixed_step=True, weight_quant="int8")}
+
+
+def _family_model(family, dev):
+    from paddle_tpu_torch.models import (MixtralForCausalLM,
+                                         Qwen2ForCausalLM,
+                                         mixtral_tiny_config,
+                                         qwen2_tiny_config)
+    widths = dict(num_hidden_layers=2, hidden_size=128, vocab_size=256,
+                  num_attention_heads=4, num_key_value_heads=2)
+    gen = torch.Generator(dev).manual_seed(0)
+    if family == "mixtral":
+        return MixtralForCausalLM(mixtral_tiny_config(**widths), device=dev,
+                                  generator=gen)
+    return Qwen2ForCausalLM(qwen2_tiny_config(intermediate_size=256,
+                                              **widths),
+                            device=dev, generator=gen)
+
+
+@pytest.mark.parametrize("mode", sorted(FAMILY_MODES))
+@pytest.mark.parametrize("family", ["mixtral", "qwen2"])
+def test_tiny_family_engines_on_card_match_cpu(cuda, family, mode):
+    """A tiny Mixtral (4 experts, top-2; the MoE FFN through
+    ``moe_ffn``) or Qwen2 (q/k/v biases) at GQA 4/2, fp32, served on the
+    card through the kernels and on the CPU through their plain versions
+    with the same weights: tokens equal (int8 pools: at least 0.9), the
+    card run's attention, epilogue and dequant launches counted, the
+    pool whole."""
+    kw = dict(FAMILY_MODES[mode], max_batch_size=3, num_blocks=64,
+              block_size=8, prefill_chunk_size=16)
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(1, 256, (n,)) for n in (3, 17, 40, 9)]
+    outs = []
+    for dev in ("cpu", cuda):
+        model = _family_model(family, dev)
+        if dev != "cpu":
+            model.load_state_dict(cpu_state)
+        cpu_state = model.state_dict()
+        before = (pk.rope_qkv_epilogue.launches
+                  + pk.rope_qkv_epilogue.amax_launches,
+                  pa.ragged_paged_attention.launches
+                  + pa.paged_attention.launches
+                  + pa.ragged_paged_attention.int8_launches
+                  + pa.paged_attention.int8_launches,
+                  dq.dequant_int8.launches)
+        eng = ContinuousBatchingEngine(model, device=dev, **kw)
+        r = [eng.add_request(p, 6) for p in prompts[:2]]
+        eng.step()
+        r += [eng.add_request(p, 6) for p in prompts[2:]]
+        eng.run_to_completion()
+        outs.append([eng.result(x) for x in r])
+        after = (pk.rope_qkv_epilogue.launches
+                 + pk.rope_qkv_epilogue.amax_launches,
+                 pa.ragged_paged_attention.launches
+                 + pa.paged_attention.launches
+                 + pa.ragged_paged_attention.int8_launches
+                 + pa.paged_attention.int8_launches,
+                 dq.dequant_int8.launches)
+        grew = [a > b for a, b in zip(after, before)]
+        want = [dev != "cpu"] * 2 + [dev != "cpu" and "w8" in mode]
+        assert grew == want
+        assert len(eng.caches[0]._free) == 64
+    if "kv_dtype" in kw:
+        same = sum(a == b for g, w in zip(*outs) for a, b in zip(g, w))
+        assert same / sum(len(w) for w in outs[0]) >= 0.9
+    else:
+        assert outs[1] == outs[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_card_matches_cpu(cuda, dtype):
+    """``ops.moe_gate.moe_ffn`` on the card (its per-expert products on
+    cuBLAS, the stable sort and bincount on the device) against the same
+    call on the CPU: the routing exact, the outputs within rounding, also
+    over the int8 path's transposed bank views."""
+    from paddle_tpu_torch.ops.moe_gate import moe_ffn, topk_gate
+    g = torch.Generator().manual_seed(0)
+    N, D, M, E = 37, 64, 96, 8
+    x = torch.randn(N, D, generator=g).to(dtype)
+    gate_w = torch.randn(E, D, generator=g).to(dtype)
+    banks = [(torch.randn(*s, generator=g) * 0.1).to(dtype)
+             for s in ((E, D, M), (E, D, M), (E, M, D))]
+    want = moe_ffn(x, gate_w, *banks, top_k=2)
+    got = moe_ffn(x.to(cuda), gate_w.to(cuda),
+                  *[b.to(cuda) for b in banks], top_k=2)
+    logits = x.float() @ gate_w.float().t()
+    assert torch.equal(topk_gate(logits.to(cuda), 2)[1].cpu(),
+                       topk_gate(logits, 2)[1])
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    tv = [b.to(cuda).transpose(1, 2).contiguous().transpose(1, 2)
+          for b in banks]
+    torch.testing.assert_close(
+        moe_ffn(x.to(cuda), gate_w.to(cuda), *tv, top_k=2).cpu().float(),
+        want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])

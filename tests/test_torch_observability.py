@@ -33,11 +33,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HostSpan = collections.namedtuple("HostSpan", "name start end tid")
 
 # reference engine families the port leaves out: their features
-# (tensor/context/expert parallelism, fsdp, MoE dispatch, quantized
-# collectives) are not ported
+# (tensor/context/expert parallelism, fsdp, quantized collectives) are not
+# ported
 UNPORTED_FAMILIES = {
     "serving_tp_collective_bytes_total", "serving_cp_collective_bytes_total",
-    "serving_ep_collective_bytes_total", "serving_moe_dispatch_tokens_total",
+    "serving_ep_collective_bytes_total",
     "spmd_allgather_bytes_total", "serving_quant_collective_bytes_total"}
 
 

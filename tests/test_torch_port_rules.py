@@ -65,6 +65,7 @@ def test_ast_scan_finds_no_jax_or_reference_import():
     scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in ("ops/flash_attention.py", "optimizer/optimizer.py",
                    "jit/train_step.py", "models/llama.py",
+                   "models/mixtral.py", "models/qwen.py", "ops/moe_gate.py",
                    "nn/functional.py", "quantization/functional.py",
                    "ops/online_softmax.py", "jit/serving_step.py",
                    "jit/layerwise.py", "ops/rms_norm.py",
@@ -101,7 +102,8 @@ def test_importing_the_port_loads_no_jax():
         "sys.modules\n"
         "for m in ('inference.fleet', 'inference.engine_server', "
         "'inference.elastic', 'testing.faults', 'observability.capacity', "
-        "'observability.telemetry'):\n"
+        "'observability.telemetry', 'models.mixtral', 'models.qwen', "
+        "'ops.moe_gate'):\n"
         "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

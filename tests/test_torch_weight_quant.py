@@ -326,8 +326,12 @@ def test_model_untouched_and_eager_generate_unchanged(pair):
 
 
 def test_expert_bank_ptq_not_ported():
-    """A 3-D expert bank raises NotImplementedError naming it; the
-    reference's rule for what is quantizable otherwise holds."""
+    """A 3-D expert bank (no longer refused: the port serves Mixtral)
+    quantizes per expert and output channel, as the reference does: an
+    all-zero bank gives zero codes and zero ``[E, 1, out]`` scales
+    (``tests/test_torch_mixtral.py`` holds the codes bitwise to the
+    reference's); the reference's rule for what is quantizable otherwise
+    holds."""
     bank = torch.zeros(2, 4, 6)
     key = "llama.layers.0.block_sparse_moe.w_up"
     assert qf.ptq_quantizable(key, bank)
@@ -335,8 +339,10 @@ def test_expert_bank_ptq_not_ported():
                                   torch.zeros(4, 4))
     assert not qf.ptq_quantizable("lm_head.weight" + SUFFIX,
                                   torch.zeros(4))
-    with pytest.raises(NotImplementedError, match="expert"):
-        qf.quantize_param_tree({key: bank})
+    tree = qf.quantize_param_tree({key: bank})
+    assert tree[key].dtype == torch.int8 and not tree[key].any()
+    assert tree[key + SUFFIX].shape == (2, 1, 6)
+    assert not tree[key + SUFFIX].any()
 
 
 def test_carried_state_round_trip(pair):
