@@ -181,6 +181,28 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    ``generate`` (Mixtral's built with ``expert_capacity_factor = E / k``,
    where its capacity block drops nothing), against each other and
    against themselves through the attention's plain versions, >= 0.98.
+4b. Multi-device serving (:func:`phase_mesh_serving`): rank processes
+   that share the card (``distributed.launch.run_world`` of
+   :func:`mesh_cells`; collectives over gloo through the host, so every
+   collective second is printed with ``backend=gloo, N ranks on one
+   card`` beside it and is no multi-card number), each building its
+   shard from ``SEED`` (``jit.spmd.shard_model``).  Two ranks:
+   serve_7b_tp2 (the mixed engine, 16/16 heads a rank), serve_7b_tp2_split
+   (buckets, #7 at 16/16), serve_7b_tp2_q8 (int8 pools, the int8 logits
+   gather: ``max_batch_size * V/2 + 4`` bytes at the top budget),
+   serve_qwen2_tp2 (14/2) and serve_mixtral_ep2 (16 layers, experts
+   halved, attention and pools whole on each rank) on phase 3's traffic;
+   every rank's launches exact for its engine, per-rank pool bytes
+   exactly 1/tp of the one-card cell's, the counted collective bytes
+   equal to ``TPContext.collective_bytes`` of the run's step shapes,
+   Mixtral's routed = packed tokens x 2 x 16 with none dropped and its
+   per-rank expert bytes 1/ep; the token match against the one-card cell
+   reported.  Then parity_tp_2l (7B widths, 2 layers, fp32): tp 2 mixed,
+   split and w8, ep 2 Mixtral (at capacity factor E/k) over two ranks,
+   tp 4 (8/8) and ep2 x tp2 over four, each against its one-card twin
+   and against itself run through the plain versions, >= 0.98.  Phase 2
+   holds #5, #6, #7 and ``dequant_int8`` at these per-rank shapes
+   against their plain versions (``RANK_HEADS``, ``DEQUANT_RANK_CASES``).
 5. The three flash kernels (forward, one-pass backward, two-kernel
    backward) against their plain versions over fp32/bf16, head dims 32,
    64, 96 and 128 (36, 80, 100 and 112 padded per half by the wrappers),
@@ -943,6 +965,21 @@ DEQUANT_CASES = (("7b_layer", [(4096, 4096)] * 4 + [(11008, 4096)] * 2
                  ("7b_lm_head", [(32000, 4096)]),
                  ("odd_37x100", [(37, 100)]))
 DEQUANT_MAIN = "7b_layer"
+# the sharded cells' per-rank shapes: (tag, query heads, kv heads, dtypes of
+# #5, int8 pools too, the split engine's #7 too).  The 7B at tp 2 (16/16;
+# mixed, split and the int8-pool q8 cell in bf16, the fp32 parity runs)
+# and tp 4 (8/8), Qwen2-7B at tp 2 (14/2, a group of 7), Mixtral at tp 2
+# in the ep2 x tp2 cell (16/4); ep alone keeps the whole 32/8
+RANK_HEADS = (("7b_tp2", 16, 16, ("bfloat16", "float32"), True, True),
+              ("7b_tp4", 8, 8, ("float32",), False, False),
+              ("qwen2_tp2", 14, 2, ("bfloat16",), False, False),
+              ("mixtral_tp2", 16, 4, ("float32",), False, False))
+# a 7B decoder layer's seven projections on one rank of tp 2, and its LM
+# head's vocab shard
+DEQUANT_RANK_CASES = (("rank_7b_tp2_layer", [(2048, 4096)] * 3
+                       + [(4096, 2048)] + [(5504, 4096)] * 2
+                       + [(4096, 5504)]),
+                      ("rank_7b_tp2_lm_head", [(16000, 4096)]))
 # a Mixtral-8x7B layer in one launch: its four attention projections
 # [out, in] and its three expert banks, each bank's experts stored
 # transposed ([E * out, in]: the per-column scales on rows), 1.451 G codes
@@ -1137,11 +1174,36 @@ def phase_kernels():
             rows["rope"].append(check_rope(
                 "%s_T512%s" % (fam, "_amax" if amax else ""), 512, Hx, Hkvx,
                 D, amax, gen))
+    # the per-rank head counts of the sharded cells (phase 4b): #5, #6 and
+    # #7 at each rank's heads, in the dtypes and pools those cells serve
+    for tag, Hx, Hkvx, dts, int8, split in RANK_HEADS:
+        for dt in dts:
+            for quantized in ((False, True) if int8 and dt == "bfloat16"
+                              else (False,)):
+                key = "ragged_int8" if quantized else "ragged"
+                rows[key].append(check_ragged(
+                    "rank_%s_mixed_8x1024+256" % tag, mixed, 512, Hx, Hkvx,
+                    D, bs, dt, gen, span_q=chunk, quantized=quantized))
+                if dt == "bfloat16":
+                    rows[key].append(check_ragged(
+                        "rank_%s_decode_8x1024" % tag, decode, 8, Hx, Hkvx,
+                        D, bs, dt, gen, span_q=8, quantized=quantized))
+            if split:
+                rows["decode"].append(check_paged(
+                    "rank_%s_decode_8x1024" % tag, [1024] * 8, 0, Hx, Hkvx,
+                    D, bs, dt, gen))
+        for amax in ((False, True) if int8 else (False,)):
+            rows["rope"].append(check_rope(
+                "rank_%s_T512%s" % (tag, "_amax" if amax else ""), 512, Hx,
+                Hkvx, D, amax, gen))
     rows["dequant"] = [check_dequant(case, segs, dt, gen)
                        for case, segs in DEQUANT_CASES
                        for dt in ("bfloat16", "float32")]
     rows["dequant"].append(check_dequant(DEQUANT_MOE_CASE, DEQUANT_MOE_SEGS,
                                          "bfloat16", gen))
+    rows["dequant"] += [check_dequant(case, segs, dt, gen)
+                        for case, segs in DEQUANT_RANK_CASES
+                        for dt in ("bfloat16", "float32")]
     rows["rms_norm"] = [check_rms_norm(case, n, d, dt, gen)
                         for case, n, d in RMS_CASES
                         for dt in ("bfloat16", "float32")]
@@ -1495,13 +1557,16 @@ class _Calls:
     def __init__(self, step):
         self.step, self.n = step, 0
         self.full_drafts = self.full_accepts = 0
+        self.shapes = []      # each call's token count: budget, bucket, slots
 
     def __call__(self, *args):
         self.n += 1
+        self.shapes.append(np.asarray(args[0]).shape[-1])
         return self.step(*args)
 
     def call_packed(self, pack, T, **kw):
         self.n += 1
+        self.shapes.append(T)
         out = self.step.call_packed(pack, T, **kw)
         K = getattr(self.step, "spec_k", 0)
         if K:
@@ -1578,7 +1643,7 @@ def pool_whole(eng) -> bool:
 
 
 def serve(model, prompts, engine_kw=None, draft=None, sampled=False,
-          traffic=None):
+          traffic=None, mesh=None):
     """Run ``traffic`` (default: :func:`admit_4_4` over ``prompts``) on an
     engine built with ``engine_kw`` (default: the mixed engine) and
     ``draft`` as its draft model.  Returns the engine, the tokens per
@@ -1589,10 +1654,12 @@ def serve(model, prompts, engine_kw=None, draft=None, sampled=False,
     prompt tokens the engine prefilled, the mixed engine's target launches
     and the draft's launches, for a speculative engine the draft tokens
     proposed and accepted, and with the prefix cache its counters and
-    each request's hit tokens."""
+    each request's hit tokens.  ``mesh``: rank 0 of a sharded engine (the
+    other ranks run ``run_worker``; they are shut down after the traffic),
+    and the stats add the collective bytes the run's steps must count."""
     import torch
     from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
-    eng = ContinuousBatchingEngine(model, draft_model=draft,
+    eng = ContinuousBatchingEngine(model, draft_model=draft, mesh=mesh,
                                    **(engine_kw or ENGINE_KW))
     eng.decode_step = _Calls(eng.decode_step)
     if eng.prefill_step is not None:
@@ -1613,6 +1680,7 @@ def serve(model, prompts, engine_kw=None, draft=None, sampled=False,
     traffic = traffic or admit_4_4(prompts, sampled)
     t0 = time.perf_counter()
     rids = traffic(eng, step)
+    eng.shutdown_workers()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     steps = len(step_s)
@@ -1679,6 +1747,9 @@ def serve(model, prompts, engine_kw=None, draft=None, sampled=False,
             cached_pages=len(pc),
             prefix_hit_tokens=[eng.finished[r].prefix_hit_tokens
                                for r in rids])
+    if eng.tp is not None:
+        stats.update(collective_bytes_want=sharded_bytes_want(eng),
+                     control_broadcasts=eng.control_broadcasts)
     if eng.prefill_step is not None:
         seen = sorted(eng.prefill_step.compile_counts)
         if len(seen) > len(eng.prefill_buckets):
@@ -1687,6 +1758,26 @@ def serve(model, prompts, engine_kw=None, draft=None, sampled=False,
         stats.update(prefill_buckets=list(eng.prefill_buckets),
                      buckets_seen=seen)
     return eng, outs, stats
+
+
+def sharded_bytes_want(eng):
+    """The per-rank collective bytes a sharded run's steps must have
+    counted: ``TPContext.collective_bytes`` of every step call's shape
+    (each mixed budget with ``max_spans`` logits rows; each prefill chunk
+    with one; each decode step over the slots)."""
+    cfg, tp = eng.cfg, eng.tp
+    q8 = eng.quant_collectives and tp.degree > 1
+    want = {}
+    calls = []
+    if eng.mixed is not None:
+        calls += [(T, eng.max_batch_size) for T in eng.mixed.shapes]
+    else:
+        calls += [(C, 1) for C in eng.prefill_step.shapes]
+        calls += [(S, S) for S in eng.decode_step.shapes]
+    for n, rows in calls:
+        for k, v in tp.collective_bytes(cfg, n, rows, q8).items():
+            want[k] = want.get(k, 0) + v
+    return want
 
 
 def expected_launches(engine_kw, stats, layers):
@@ -1968,6 +2059,7 @@ def phase_serving_7b():
         if name == "serve_7b_split":
             stats["match_rate_vs_mixed_engine"] = _rates(
                 outs[name], outs["serve_7b"])[0]
+        SERVED[name] = (outs[name], stats["kv_pool_bytes"])
         emit(stats)
         runs[name] = stats
         if name in ("serve_7b", "serve_7b_split", "serve_7b_kv8_split"):
@@ -2130,6 +2222,7 @@ def serve_family(name, model, prompts, kw, profile=False, mixed_out=None):
                          if k2 not in ENGINE_BASE})
     if mixed_out is not None:
         stats["match_rate_vs_mixed_engine"] = _rates(out, mixed_out)[0]
+    SERVED[name] = (out, stats["kv_pool_bytes"])
     if kw.get("mixed_step") and not kw.get("weight_quant"):
         # the analytic count keeps the reference's dense expert FLOPs
         stats["efficiency"] = serving_efficiency(eng, stats)
@@ -4584,6 +4677,395 @@ def phase_layerwise_parity():
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: multi-device serving, tp / ep / ep x tp ranks on the one card
+# ---------------------------------------------------------------------------
+# one card: the ranks are processes that share cuda:0 (NCCL takes one
+# rank a device), their collectives gloo through the host.  The run proves
+# parity, the per-rank bytes and the kernels at the per-rank head counts;
+# no collective time it prints is a multi-card number.
+MESH_NOTE = "backend=gloo, %d ranks on one card"
+MESH_TIMEOUT = 900.0
+SERVED = {}       # the one-card cells' tokens and pool bytes, by cell name
+PARITY_MIXTRAL = dict(expert_capacity_factor=4.0)   # E / k: eager drops none
+
+
+def shard_of(family, layers, dtype, mesh, **kw):
+    """This rank's shard of the model the one-card cells build for
+    ``family`` (:func:`mixtral_model`, :func:`qwen2_model`, the 7B's):
+    the same config and seed, drawn parameter by parameter on the card
+    (``jit.spmd.shard_model``), Qwen2's biases drawn after the init from
+    the same generator, as :func:`qwen2_model` draws them."""
+    import torch
+    from paddle_tpu_torch.jit import spmd
+    from paddle_tpu_torch.models import (LlamaForCausalLM,
+                                         MixtralForCausalLM,
+                                         Qwen2ForCausalLM, llama_7b_config,
+                                         mixtral_8x7b_config)
+    from paddle_tpu_torch.models.qwen import Qwen2Config
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    if family == "llama":
+        cls, cfg = LlamaForCausalLM, llama_7b_config(
+            dtype=dtype, num_hidden_layers=layers, **kw)
+    elif family == "mixtral":
+        cls, cfg = MixtralForCausalLM, mixtral_8x7b_config(
+            dtype=dtype, num_hidden_layers=layers, **kw)
+    else:
+        cls, cfg = Qwen2ForCausalLM, Qwen2Config(dtype=dtype,
+                                                 num_hidden_layers=layers)
+    model = spmd.shard_model(cls, cfg, mesh, generator=gen)
+    if family == "qwen2":
+        ctx = spmd.tp_serving_context(model, mesh)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith(".bias"):
+                    full = torch.empty(model._ptt_shard.full_shapes[name],
+                                       dtype=p.dtype, device=p.device)
+                    full.normal_(0.0, FAMILY_BIAS_STD, generator=gen)
+                    p.copy_(ctx.shard(name, full))
+    return model
+
+
+def _coll_counts():
+    """The port registry's sharded-collective byte counters."""
+    from paddle_tpu_torch import observability as obs
+    r = obs.default_registry()
+    out = {}
+    for fam, key, ops in (("serving_tp_collective_bytes_total", "",
+                           ("psum", "all_gather")),
+                          ("serving_ep_collective_bytes_total", "ep_",
+                           ("all_to_all", "all_gather")),
+                          ("serving_quant_collective_bytes_total", "q8_",
+                           ("all_gather",))):
+        m = r.get(fam)
+        for op in ops:
+            out[key + op] = m.labels(op=op).value if m is not None else 0.0
+    return out
+
+
+@contextlib.contextmanager
+def _plain_serving(on: bool):
+    """The attention and the dequant through their plain versions on the
+    card when ``on`` (every rank swaps alike)."""
+    if not on:
+        yield
+        return
+    with swapped_attention(), swapped_dequant():
+        yield
+
+
+def mesh_cells(rank, world, args):
+    """Runs on every rank of a world on the one card
+    (``distributed.launch.run_world``): for each cell, this rank's shard of
+    the cell's model from ``SEED``, then each run's engine with the cell's
+    mesh.  Rank 0 drives the traffic through :func:`serve`; the other
+    ranks construct the same engine and replay it (``run_worker``).  Every
+    rank resets its launch counts just after building its engine and
+    sends home its launches, pool and expert bytes, peak memory, wall and
+    collective counts; rank 0 checks them (:func:`check_mesh_run`)."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rows = {}
+    for cell in args["cells"]:
+        from paddle_tpu_torch.jit.spmd import ep_mesh, tp_mesh
+        m = cell["mesh"]
+        mesh = (ep_mesh(m["ep"], tp=m.get("tp", 1), backend="gloo")
+                if m.get("ep", 1) > 1 else tp_mesh(m["tp"], backend="gloo"))
+        t0 = time.perf_counter()
+        model = shard_of(cell["family"], cell["layers"], cell["dtype"], mesh,
+                         **cell.get("config", {}))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        cfg = model.config
+        prompts = _prompts(cfg.vocab_size)
+        experts = sum(p.numel() * p.element_size()
+                      for n, p in model.named_parameters()
+                      if n.endswith(("w_gate", "w_up", "w_down")))
+        for run in cell["runs"]:
+            kw = run["kw"]
+            collective.reset_stats()
+            c0, moe0 = _coll_counts(), moe_dispatch_counts()
+            facts = {}
+            if rank == 0:
+                with _plain_serving(run.get("plain", False)):
+                    eng, outs, stats = serve(model, prompts, kw, mesh=mesh)
+                facts = dict(
+                    q8_top=(eng.mixed.collective_bytes(
+                        eng.token_budgets[-1])["all_gather"]
+                        if eng.mixed is not None else None),
+                    slots=eng.max_batch_size,
+                    heads=[eng.caches[0].num_kv_heads,
+                           inner_heads(model)])
+                del eng
+                mine = dict(launches=stats["launches"],
+                            kv_pool_bytes=stats["kv_pool_bytes"],
+                            peak_bytes=stats["peak_memory_bytes"],
+                            wall_s=stats["wall_s"])
+            else:
+                eng = ContinuousBatchingEngine(model, mesh=mesh, **kw)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_launches()
+                t1 = time.perf_counter()
+                with _plain_serving(run.get("plain", False)):
+                    eng.run_worker()
+                torch.cuda.synchronize()
+                mine = dict(launches=_launches(),
+                            kv_pool_bytes=sum(c.pool_bytes()
+                                              for c in eng.caches),
+                            peak_bytes=torch.cuda.max_memory_allocated(),
+                            wall_s=time.perf_counter() - t1)
+                del eng
+            mine.update(rank=rank, expert_bytes=experts,
+                        collectives=collective.stats())
+            ranks = [None] * world
+            dist.all_gather_object(ranks, mine)
+            if rank == 0:
+                c1, moe1 = _coll_counts(), moe_dispatch_counts()
+                rows[run["name"]] = check_mesh_run(
+                    run, cell, cfg, stats, outs, ranks, facts,
+                    {k: c1[k] - c0[k] for k in c1},
+                    {k: moe1[k] - moe0[k] for k in moe1}, build_s, world)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows if rank == 0 else None
+
+
+def inner_heads(model):
+    """The per-rank query heads of a shard's attention modules."""
+    from paddle_tpu_torch.models.llama import inner_model
+    return inner_model(model).layers[0].self_attn.num_heads
+
+
+def check_mesh_run(run, cell, cfg, stats, outs, ranks, facts, coll, moe,
+                   build_s, world):
+    """Rank 0's gates of one sharded run: every rank's launches exact for
+    the engine (the same count on each: every rank runs every step),
+    every rank's pool bytes equal and, against the one-card cell,
+    ``1/tp`` of it; the collective bytes the engine counted equal to
+    ``TPContext.collective_bytes`` of the run's step shapes (the q8 cell's
+    logits gather ``max_batch_size * V/2 + 4`` at the top budget); a
+    Mixtral cell's dispatch routed = packed tokens x k x layers, none
+    dropped, and each rank's expert bytes ``1/ep`` of the model's."""
+    name, kw, L = run["name"], run["kw"], cfg.num_hidden_layers
+    want = expected_launches(kw, stats, L)
+    if run.get("plain"):
+        # the attention and the dequant ran their plain versions; the
+        # epilogue kernel still runs
+        want = {k: v if k.startswith("rope_qkv_epilogue") else 0
+                for k, v in want.items()}
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError("%s rank %d launches %s, want %s"
+                                 % (name, r["rank"], r["launches"], want))
+    pools = {r["kv_pool_bytes"] for r in ranks}
+    if len(pools) != 1:
+        raise AssertionError("%s: per-rank pool bytes differ: %s"
+                             % (name, pools))
+    tp = cell["mesh"].get("tp", 1)
+    ep = cell["mesh"].get("ep", 1)
+    row = dict(phase=name, mesh=cell["mesh"], layers=L, dtype=cfg.dtype,
+               model=cell["family"], heads_per_rank="%d/%d" % (
+                   facts["heads"][1], facts["heads"][0]),
+               engine={k: v for k, v in kw.items()
+                       if k not in ENGINE_BASE},
+               ranks=world, shard_build_s=build_s,
+               steps=stats["steps"], wall_s=stats["wall_s"],
+               tokens_per_s=stats["tokens_per_s"],
+               generated_tokens=stats["generated_tokens"],
+               step_host_s=stats["step_host_s"],
+               launches=want, launches_per_rank=want,
+               kv_pool_bytes_per_rank=pools.pop(),
+               peak_bytes_per_rank=[r["peak_bytes"] for r in ranks],
+               wall_s_per_rank=[r["wall_s"] for r in ranks],
+               control_broadcasts=stats["control_broadcasts"],
+               collective_bytes=coll,
+               collective_bytes_want=stats["collective_bytes_want"],
+               collectives_per_rank=[r["collectives"] for r in ranks],
+               collective_note=MESH_NOTE % world)
+    one = run.get("one_card_pool_bytes")
+    if one is not None:
+        row["kv_pool_bytes_vs_one_card"] = row["kv_pool_bytes_per_rank"] / one
+        if row["kv_pool_bytes_per_rank"] * tp != one:
+            raise AssertionError("%s: per-rank pool bytes %d, want 1/%d of "
+                                 "%d" % (name, row["kv_pool_bytes_per_rank"],
+                                         tp, one))
+    got = {"psum": coll["psum"], "all_gather": coll["all_gather"],
+           "ep_all_to_all": coll["ep_all_to_all"],
+           "ep_all_gather": coll["ep_all_gather"]}
+    want_b = stats["collective_bytes_want"]
+    for k, v in got.items():
+        if v != want_b.get(k, 0):
+            raise AssertionError("%s: %s bytes %s, TPContext.collective_"
+                                 "bytes gives %s" % (name, k, v,
+                                                     want_b.get(k, 0)))
+    if kw.get("quant_collectives"):
+        row["q8_gather_bytes_top_budget"] = facts["q8_top"]
+        want_q8 = facts["slots"] * (cfg.vocab_size // tp) + 4
+        if facts["q8_top"] != want_q8 or coll["q8_all_gather"] \
+                != coll["all_gather"]:
+            raise AssertionError("%s: int8 gather bytes %s (top budget %s), "
+                                 "want %d" % (name, coll, facts["q8_top"],
+                                              want_q8))
+    k = getattr(cfg, "num_experts_per_tok", 0)
+    if k:
+        packed = stats["prefilled_tokens"] + stats["generated_tokens"] \
+            - len(outs)
+        row["moe_dispatch"] = moe
+        if moe != dict(routed=packed * k * L, dropped=0):
+            raise AssertionError("%s: MoE dispatch %s, want routed %d and "
+                                 "none dropped" % (name, moe,
+                                                   packed * k * L))
+        whole = (L * cfg.num_local_experts * 3 * cfg.hidden_size
+                 * cfg.intermediate_size * (2 if cfg.dtype == "bfloat16"
+                                            else 4))
+        per = [r["expert_bytes"] for r in ranks]
+        row["expert_bytes_per_rank"] = per
+        if any(b * ep != whole for b in per):
+            raise AssertionError("%s: per-rank expert bytes %s, want 1/%d "
+                                 "of %d" % (name, per, ep, whole))
+    for key, against in run.get("against", {}).items():
+        row["match_rate_vs_" + key] = _rates(outs, against)[0]
+    row["tokens"] = outs
+    return row
+
+
+def _one_card(name, model, prompts, kw):
+    """A one-card twin's tokens and pool bytes (launches exact)."""
+    eng, out, stats = serve(model, prompts, kw)
+    check_launches(name, kw, stats, model.config.num_hidden_layers)
+    del eng
+    return out, stats["kv_pool_bytes"]
+
+
+def phase_mesh_serving():
+    """Multi-device serving on the one card (see the module notes, 4b):
+    serve_7b_tp2 (mixed), serve_7b_tp2_split, serve_7b_tp2_q8 (int8 pools,
+    the int8 logits gather), serve_qwen2_tp2 and serve_mixtral_ep2 at
+    full width over two ranks, then parity_tp_2l at 7B widths, 2 layers,
+    fp32: tp = 2 mixed, split and w8, ep = 2 Mixtral over two ranks, tp =
+    4 and ep2 x tp2 over four, each against its one-card twin and against
+    itself through the plain versions at >= 0.98."""
+    import torch
+    from paddle_tpu_torch.distributed.launch import run_world
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the one-card twins of the parity runs, in this process
+    twins = {}
+    t0 = time.perf_counter()
+    m = mixtral_model(2, "float32", **PARITY_MIXTRAL)
+    mp = _prompts(m.config.vocab_size)
+    twins["mixtral_2l"] = _one_card("twin mixtral_2l", m, mp, ENGINE_KW)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_7b_config)
+    m = LlamaForCausalLM(llama_7b_config(dtype="float32",
+                                         num_hidden_layers=2),
+                         generator=torch.Generator("cuda").manual_seed(SEED))
+    lp = _prompts(m.config.vocab_size)
+    for name, kw in (("mixed", ENGINE_KW), ("split", SPLIT_KW),
+                     ("w8", W8_KW)):
+        twins["7b_2l_" + name] = _one_card("twin 7b_2l_" + name, m, lp, kw)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("mesh: the one-card parity twins in %.1f s"
+          % (time.perf_counter() - t0), flush=True)
+
+    def runs(prefix, pairs, against, one=None, plain=True):
+        out = []
+        for name, kw in pairs:
+            out.append(dict(name=prefix + name, kw=kw,
+                            against=dict(against.get(name, {})),
+                            one_card_pool_bytes=(one or {}).get(name)))
+            if plain:
+                out.append(dict(name=prefix + name + "_plain", kw=kw,
+                                plain=True))
+        return out
+
+    s7 = SERVED["serve_7b"]
+    two = [
+        dict(family="llama", layers=32, dtype="bfloat16", mesh={"tp": 2},
+             runs=[dict(name="serve_7b_tp2", kw=ENGINE_KW,
+                        against={"serve_7b": s7[0]},
+                        one_card_pool_bytes=s7[1]),
+                   dict(name="serve_7b_tp2_split", kw=SPLIT_KW,
+                        against={"serve_7b_split":
+                                 SERVED["serve_7b_split"][0]},
+                        one_card_pool_bytes=SERVED["serve_7b_split"][1]),
+                   dict(name="serve_7b_tp2_q8",
+                        kw=dict(ENGINE_KW, kv_dtype="int8",
+                                quant_collectives=True),
+                        one_card_pool_bytes=SERVED["serve_7b_kv8_mixed"][1])
+                   ]),
+        dict(family="qwen2", layers=28, dtype="bfloat16", mesh={"tp": 2},
+             runs=[dict(name="serve_qwen2_tp2", kw=ENGINE_KW,
+                        against={"serve_qwen2": SERVED["serve_qwen2"][0]},
+                        one_card_pool_bytes=SERVED["serve_qwen2"][1])]),
+        dict(family="mixtral", layers=MIXTRAL_SERVE_LAYERS,
+             dtype="bfloat16", mesh={"ep": 2},
+             runs=[dict(name="serve_mixtral_ep2", kw=ENGINE_KW,
+                        against={"serve_mixtral":
+                                 SERVED["serve_mixtral"][0]})]),
+        dict(family="llama", layers=2, dtype="float32", mesh={"tp": 2},
+             runs=runs("parity_tp2_", (("mixed", ENGINE_KW),
+                                       ("split", SPLIT_KW), ("w8", W8_KW)),
+                       {n: {"twin": twins["7b_2l_" + n][0]}
+                        for n in ("mixed", "split", "w8")},
+                       {n: twins["7b_2l_" + n][1]
+                        for n in ("mixed", "split", "w8")})),
+        dict(family="mixtral", layers=2, dtype="float32", mesh={"ep": 2},
+             config=PARITY_MIXTRAL,
+             runs=runs("parity_ep2_", (("mixed", ENGINE_KW),),
+                       {"mixed": {"twin": twins["mixtral_2l"][0]}})),
+    ]
+    four = [
+        dict(family="llama", layers=2, dtype="float32", mesh={"tp": 4},
+             runs=runs("parity_tp4_", (("mixed", ENGINE_KW),),
+                       {"mixed": {"twin": twins["7b_2l_mixed"][0]}},
+                       {"mixed": twins["7b_2l_mixed"][1]})),
+        dict(family="mixtral", layers=2, dtype="float32",
+             mesh={"ep": 2, "tp": 2}, config=PARITY_MIXTRAL,
+             runs=runs("parity_ep2tp2_", (("mixed", ENGINE_KW),),
+                       {"mixed": {"twin": twins["mixtral_2l"][0]}})),
+    ]
+    rows = {}
+    for world, cells in ((2, two), (4, four)):
+        t0 = time.perf_counter()
+        got = run_world("chip_smoke:mesh_cells", world, dict(cells=cells),
+                        timeout=MESH_TIMEOUT)
+        print("mesh: %d ranks in %.1f s (%s)" % (
+            world, time.perf_counter() - t0, MESH_NOTE % world), flush=True)
+        rows.update(got)
+    # the q8 cell against the exact-gather tp2 cell (reported)
+    rows["serve_7b_tp2_q8"]["match_rate_vs_serve_7b_tp2"] = _rates(
+        rows["serve_7b_tp2_q8"]["tokens"], rows["serve_7b_tp2"]["tokens"])[0]
+    gates = {}
+    for name, row in rows.items():
+        if name.startswith("parity_") and not name.endswith("_plain"):
+            gates[name + "_vs_twin"] = row["match_rate_vs_twin"]
+            gates[name + "_vs_plain"] = _rates(
+                row["tokens"], rows[name + "_plain"]["tokens"])[0]
+    for name, row in rows.items():
+        emit({k: v for k, v in row.items() if k != "tokens"})
+    emit(dict(phase="parity_tp_2l", **gates))
+    for gate, rate in gates.items():
+        if not rate >= 0.98:
+            raise AssertionError("mesh parity %s token match %.4f < 0.98"
+                                 % (gate, rate))
+    # the runs through the kernels, whose per-rank launches the final
+    # line lists by path
+    return {n: r for n, r in rows.items() if not n.endswith("_plain")}
+
+
 def kernel_summary(rows, serving, flash_rows, train_launches):
     """One entry per kernel variant for the final JSON line: the times at
     the variant's main-path shape, the worst error of any shape, and the
@@ -4630,6 +5112,12 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
             for x in rs if x["dtype"] == "bfloat16"
             and x["case"].startswith(("gqa32x8_", "g7_28x4_", "mixtral_",
                                       "qwen2_"))}
+        # the sharded cells' per-rank heads (phase 4b), every dtype
+        entry["per_rank_shapes"] = {
+            "%s/%s" % (x["case"], x["dtype"]): dict(
+                ms=x["kernel_ms"], plain_ms=x["plain_ms"],
+                bound_ms=x["bound_ms"], max_abs_err=x["max_abs_err"])
+            for x in rs if x["case"].startswith("rank_")}
         out.append(entry)
     # the generic kernels: the head-dim-256 serving path launches them
     # (the 7B paths assert 0); timed at GENERIC_MAIN
@@ -4674,6 +5162,10 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
             ms=pick(rs, DEQUANT_MOE_CASE)["kernel_ms"],
             bound_ms=pick(rs, DEQUANT_MOE_CASE)["bound_ms"],
             plain_ms=pick(rs, DEQUANT_MOE_CASE)["plain_ms"]),
+        per_rank_shapes={"%s/%s" % (x["case"], x["dtype"]): dict(
+            ms=x["kernel_ms"], plain_ms=x["plain_ms"],
+            bound_ms=x["bound_ms"]) for x in rs
+            if x["case"].startswith("rank_")},
         launches_by_path={p: x["launches"]["dequant_int8"]
                           for p, x in serving.items()
                           if x.get("launches", {}).get("dequant_int8")}))
@@ -4825,6 +5317,7 @@ def main() -> int:
     serving.update(run("serving_families", phase_serving_families))
     run("parity_2l", phase_parity_2l)
     run("parity_families_2l", phase_parity_families)
+    serving.update(run("mesh_serving", phase_mesh_serving))
     run("logits", phase_logits_by_depth)
     flash_rows = run("flash", phase_flash_kernels)
     train = run("train_7b", phase_train_7b)

@@ -24,8 +24,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "paddle_tpu_torch runs on the CUDA card by default, and no "
             "CUDA device is available; pass device='cpu' explicitly to "
             "run the plain PyTorch path on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError("unsupported device %r (cuda or cpu)" % (dev,))
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError("unsupported device %r (cuda or cpu; meta for a "
+                         "shard's skeleton)" % (dev,))
     if dev.type == "cuda" and dev.index is None:
         # the card tensors actually land on, so devices compare equal
         dev = torch.device("cuda", torch.cuda.current_device())

@@ -1,0 +1,121 @@
+"""The collectives of the sharded serving steps, through one module.
+
+Two kinds of process group carry them (``process_mesh.init_world`` and
+``ProcessMesh.bind``):
+
+- the **control** group, the world's default group, always gloo on host
+  tensors: rank 0's broadcast of each step's packed int32 array;
+- a **data** group per mesh axis, whose backend is an explicit argument
+  of the mesh: ``"nccl"`` when every rank has its own card, ``"gloo"``
+  when ranks share one card or run on the CPU.  Nothing picks or switches
+  a backend on its own, and a collective that fails raises.
+
+gloo takes CUDA tensors for every collective used here (all_reduce,
+all_gather, all_to_all_single, broadcast; checked in fp32, bf16 and int8
+on an H100 with PyTorch 2.11), copying through the host inside the
+backend, so nothing is staged in this module.  bf16 sums are taken in
+fp32 (``all_reduce``): the result rounds once, the same on every rank.
+The data-movement collectives carry bf16 as its bit patterns.
+
+``STATS`` counts calls and wall seconds per collective in this process; the bytes the engines report follow the reference's static
+accounting (``jit/spmd.TPContext.collective_bytes``), not what a backend
+moves.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["STATS", "reset_stats", "stats", "all_reduce", "all_reduce_max",
+           "all_gather", "all_to_all", "broadcast"]
+
+STATS: Dict[str, Dict[str, float]] = {"calls": {}, "seconds": {}}
+
+
+def reset_stats() -> None:
+    for d in STATS.values():
+        d.clear()
+
+
+def stats() -> Dict[str, Dict[str, float]]:
+    """A copy of ``STATS``."""
+    return {k: dict(v) for k, v in STATS.items()}
+
+
+def _count(op: str, seconds: float) -> None:
+    STATS["calls"][op] = STATS["calls"].get(op, 0) + 1
+    STATS["seconds"][op] = STATS["seconds"].get(op, 0.0) + seconds
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over ``group``; returns the sum (``t`` itself, summed in
+    place, unless bf16: that is summed in fp32 and rounded once)."""
+    t0 = time.perf_counter()
+    work = t.to(torch.float32) if t.dtype == torch.bfloat16 else t
+    dist.all_reduce(work, op=dist.ReduceOp.SUM, group=group)
+    out = work.to(t.dtype) if work is not t else t
+    _sync(out)
+    _count("all_reduce", time.perf_counter() - t0)
+    return out
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """Elementwise max of ``t`` over ``group``, in place; returns ``t``."""
+    t0 = time.perf_counter()
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    _sync(t)
+    _count("all_reduce", time.perf_counter() - t0)
+    return t
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """Data-movement collectives carry bf16 as its 16-bit patterns, in
+    the fp16 dtype gloo moves (gloo takes no int16)."""
+    return t.view(torch.float16) if t.dtype == torch.bfloat16 else t
+
+
+def all_gather(t: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    """Concatenate every rank's ``t`` along ``dim`` in rank order (the
+    tiled all-gather)."""
+    t0 = time.perf_counter()
+    src = _wire(t.contiguous())
+    parts = [torch.empty_like(src) for _ in range(size)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    if t.dtype == torch.bfloat16:
+        out = out.view(torch.bfloat16)
+    _sync(out)
+    _count("all_gather", time.perf_counter() - t0)
+    return out
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """Split ``t`` along dim 0 into equal chunks, chunk ``g`` to rank
+    ``g`` of ``group``; returns the received chunks stacked along dim 0
+    in rank order (the tiled all_to_all with split and concat axis 0)."""
+    t0 = time.perf_counter()
+    src = _wire(t.contiguous())
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    if t.dtype == torch.bfloat16:
+        out = out.view(torch.bfloat16)
+    _sync(out)
+    _count("all_to_all", time.perf_counter() - t0)
+    return out
+
+
+def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Broadcast the host tensor ``t`` from global rank ``src`` over the
+    control group (the world's default gloo group), in place."""
+    t0 = time.perf_counter()
+    dist.broadcast(t, src=src, group=group)
+    _count("broadcast", time.perf_counter() - t0)
+    return t

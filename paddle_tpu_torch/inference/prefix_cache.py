@@ -27,6 +27,15 @@ device-to-host copy per dtype (``jit/serving_step.extract_blocks``); a
 later ``match`` whose device chain breaks continues into the tier and
 restores every consecutive spilled page with ONE ``inject_blocks``, under
 the same digest chain.  Restores never evict: they take only free pages.
+
+Under a tp or ep mesh the table, refcounts and free list live on rank 0
+alone (the driver's scheduler): they are host state, and every rank's
+pools hold the same page ids.  The one page operation that touches the
+pools, the copy-on-write copy, goes to every rank in rank 0's order
+(``ContinuousBatchingEngine._copy_block``: one control broadcast, then
+the copy on each rank's shard); without it the head-sharded pools drift
+apart.  The host tier moves whole pages and is refused under a mesh, as
+in the reference.
 """
 from __future__ import annotations
 

@@ -80,10 +80,25 @@ counts one launch of the steady-state serving step for the capacity plane
 (``observability/capacity.py``), and ``inference/engine_server.py``
 serves an engine to other processes (``inference/fleet.py``).
 
-Ported: single device.  What still raises ``NotImplementedError``
-naming the feature (none is silently ignored): tensor/context/expert
-parallelism (``mesh``/``sharding``), quantized collectives
-(``quant_collectives``) and a pool dtype other than the model's or int8.
+``mesh=`` (a ``distributed.process_mesh.ProcessMesh`` with ``tp`` and/or
+``ep`` axes, e.g. ``jit.spmd.tp_mesh(2, backend="gloo")``; ``sharding=`` a
+``jit.spmd.ShardingConfig``) serves over ``torch.distributed`` ranks, one
+process each (the reference's ``mesh=`` engines, its checks at
+construction).  Every rank constructs the same engine over its own shard
+of the model (``jit.spmd.shard_model``): the pools hold the rank's kv
+heads, the steps run the rank's heads, vocabulary rows and FFN columns
+(or, over ep, its experts) with the reference's collectives between them,
+and ``quant_collectives=True`` makes the logits all-gather int8.  Rank 0
+is the driver: it schedules, serves the public API and writes every
+device operation — a step's one packed int32 array, a copy-on-write page
+copy — into one control broadcast; ranks > 0 call :meth:`run_worker` and
+replay them in order until :meth:`shutdown_workers`.  As in the
+reference, speculative decoding, the host spill tier and page migration
+are single-chip, and the dense prefill cannot feed sharded pools.
+
+What still raises ``NotImplementedError`` naming the feature (none is
+silently ignored): a mesh's cp (context parallelism) or fsdp axis, and a
+pool dtype other than the model's or int8.
 """
 from __future__ import annotations
 
@@ -97,6 +112,7 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, resolve_device
+from ..distributed.collective import broadcast
 from ..jit.serving_step import (DecodeStep, MixedStep, PrefillStep,
                                 copy_block, extract_blocks, inject_blocks,
                                 prefill_scatter)
@@ -110,6 +126,12 @@ from .prefix_cache import HostPageTier, PrefixPageCache
 # process-wide engine-id sequence: a multi-engine router needs a stable
 # identity per engine for health gauges and the /healthz payload
 _ENGINE_IDS = itertools.count()
+
+# a sharded engine's control operations (rank 0 -> ranks > 0): the buffer
+# is a header of _CTL_HEADER int32 (the op, then its scalars) and the
+# operation's packed int32 operands
+_OP_SHUTDOWN, _OP_MIXED, _OP_PREFILL, _OP_DECODE, _OP_COPY_BLOCK = range(5)
+_CTL_HEADER = 8
 
 
 @dataclass
@@ -167,11 +189,6 @@ def _unported(options: Dict[str, bool]) -> None:
                 % (name, _PORT_SCOPE))
 
 
-class _UnportedAndInvalid(NotImplementedError, ValueError):
-    """An option that is not ported and that the reference also rejects
-    with a ``ValueError`` for this configuration."""
-
-
 class ContinuousBatchingEngine:
     """Slot scheduler over the split decode/prefill steps or the fused
     mixed step, for ``LlamaForCausalLM``, ``Qwen2ForCausalLM`` or
@@ -197,8 +214,10 @@ class ContinuousBatchingEngine:
     ``enable_prefix_cache`` and ``host_tier_bytes`` (the cache's host
     spill tier, in bytes): see the module notes.
 
-    ``weight_quant`` (``None`` or ``"int8"``), ``tracer``, ``role`` and
-    ``engine_id``: see the module notes.
+    ``weight_quant`` (``None`` or ``"int8"``), ``tracer``, ``role``,
+    ``engine_id``, ``mesh``, ``sharding`` and ``quant_collectives``: see
+    the module notes (``tp_degree``, ``ep_degree`` and ``tp``, the
+    ``jit.spmd.TPContext`` or None, say how the engine is sharded).
 
     ``device=None`` is the CUDA card (raises without one); the model must
     live on the same device.
@@ -245,14 +264,11 @@ class ContinuousBatchingEngine:
                 "mixed_step=True or prefill_buckets='auto' — the dense "
                 "prefill runs the model in fp and writes unquantized K/V")
         if quant_collectives and mesh is None and sharding is None:
-            raise _UnportedAndInvalid(
-                "quantized collectives (quant_collectives) are not ported "
-                "to paddle_tpu_torch yet, and they quantize the tensor-"
-                "parallel logits all-gather: a single-chip engine has no "
-                "collectives — drop the flag")
+            raise ValueError(
+                "quant_collectives=True quantizes the tensor-parallel "
+                "logits all-gather; a single-chip engine has no "
+                "collectives — pass mesh= (tp >= 2) or drop the flag")
         _unported({
-            "multi-device serving (mesh/sharding)":
-                mesh is not None or sharding is not None,
             "a KV pool dtype other than the model's (kv_dtype)":
                 kv_dtype not in (None, "int8", cfg.dtype),
         })
@@ -271,6 +287,12 @@ class ContinuousBatchingEngine:
                     "mixed_step=True: the target verifies all slots' k+1 "
                     "positions as length-(k+1) ragged spans in one "
                     "MixedStep launch")
+            if mesh is not None or sharding is not None:
+                raise ValueError(
+                    "speculative decoding is single-chip for now: the "
+                    "draft engine runs unsharded, so a tensor-parallel "
+                    "target would mix placements — drop mesh/sharding "
+                    "or drop draft_model")
             if int(spec_k) < 1:
                 raise ValueError(
                     "spec_k must be >= 1 (the draft proposes at least one "
@@ -282,6 +304,8 @@ class ContinuousBatchingEngine:
                     % (draft_model.config.vocab_size, cfg.vocab_size))
         self.draft_model = draft_model
         self.spec_k = int(spec_k) if draft_model is not None else 0
+        self._init_mesh(model, mesh, sharding, mixed_step, prefill_buckets,
+                        quant_collectives, host_tier_bytes, token_budgets)
         self.device = resolve_device(device)
         for what, m in (("model", model), ("draft model", draft_model)):
             if m is not None and m.device != self.device:
@@ -299,8 +323,10 @@ class ContinuousBatchingEngine:
         self.block_size = block_size
         self.lazy_alloc = bool(lazy_alloc)
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
+        # under tp each rank's pools hold its kv heads of every page
         self.caches = [
-            PagedKVCache(num_blocks, block_size, cfg.num_key_value_heads,
+            PagedKVCache(num_blocks, block_size,
+                         cfg.num_key_value_heads // self.tp_degree,
                          self.head_dim, cfg.torch_dtype, sink_block=True,
                          device=self.device,
                          kv_dtype="int8" if kv_dtype == "int8" else None)
@@ -310,8 +336,8 @@ class ContinuousBatchingEngine:
                               num_blocks * block_size // max_batch_size)
         # per-channel absmax PTQ, once: the target's steps dequantize this
         # tree on use (the draft stays fp, as in the reference)
-        self.weight_qtree = (Int8Weights(model) if weight_quant == "int8"
-                             else None)
+        self.weight_qtree = (Int8Weights(model, tp=self.tp)
+                             if weight_quant == "int8" else None)
         self.weight_quant_bytes = (self.weight_qtree.nbytes
                                    if self.weight_qtree is not None else 0)
         self.max_seq_len = max_seq_len
@@ -339,9 +365,11 @@ class ContinuousBatchingEngine:
         self.spec_accepted = 0
         # prompt tokens the steps prefilled (a prefix hit skips its own)
         self.prefill_tokens = 0
+        shard_kw = dict(tp=self.tp,
+                        quant_collectives=self.quant_collectives)
         self.decode_step = DecodeStep(model, self.caches,
                                       sampling=self.sampling,
-                                      weights=self.weight_qtree)
+                                      weights=self.weight_qtree, **shard_kw)
 
         # ---- bucketed / chunked prefill (split engine) -------------------
         if prefill_buckets == "auto":
@@ -363,7 +391,8 @@ class ContinuousBatchingEngine:
             self.prefill_step = PrefillStep(model, self.caches,
                                             self.bt_width,
                                             sampling=self.sampling,
-                                            weights=self.weight_qtree)
+                                            weights=self.weight_qtree,
+                                            **shard_kw)
 
         # ---- fused mixed prefill+decode step -------------------------------
         self.token_budgets = None
@@ -387,6 +416,11 @@ class ContinuousBatchingEngine:
                         "(spec_k+1)): an all-decode step would not fit"
                         % (token_budgets, base_spans))
             self.token_budgets = budgets
+            if self.ep_degree > 1:
+                # every budget stripes over the ep ranks
+                from ..jit.spmd import validate_ep_serving
+                validate_ep_serving(cfg.num_local_experts, self.ep_degree,
+                                    budgets=budgets)
             self.mixed = MixedStep(
                 model, self.caches, self.bt_width, max_spans=max_batch_size,
                 # a verify span is spec_k + 1 tokens: the attention's span
@@ -394,7 +428,7 @@ class ContinuousBatchingEngine:
                 span_q=min(max(self.chunk_size, self.spec_k + 1),
                            budgets[-1]),
                 sampling=self.sampling, spec_k=self.spec_k,
-                weights=self.weight_qtree)
+                weights=self.weight_qtree, **shard_kw)
             # padding tokens spread over the sink page's slots
             self._dest_pad = (np.arange(budgets[-1], dtype=np.int32)
                               % block_size)
@@ -465,15 +499,75 @@ class ContinuousBatchingEngine:
         # the prefix cache's stat counters as last published into the
         # metrics (_sync_prefix_stats publishes each increment once)
         self._pc_published: Dict[str, int] = {}
+        self._init_control()
         self._init_observability(tracer)
+
+    def _init_mesh(self, model, mesh, sharding, mixed_step, prefill_buckets,
+                   quant_collectives, host_tier_bytes, token_budgets):
+        """Resolve ``mesh``/``sharding`` into ``self.tp`` (a
+        ``jit.spmd.TPContext``, None on one device or when every axis is
+        1) with the reference's checks at construction, then join the
+        mesh's data groups; ``model`` must be this rank's shard
+        (``jit.spmd.shard_model``)."""
+        cfg = model.config
+        self.tp = None
+        if mesh is not None or sharding is not None:
+            from ..jit.spmd import tp_serving_context
+            self.tp = tp_serving_context(model, mesh, sharding)
+        self.tp_degree = self.tp.degree if self.tp is not None else 1
+        self.ep_degree = self.tp.ep_degree if self.tp is not None else 1
+        if self.ep_degree > 1:
+            from ..jit.spmd import validate_ep_serving
+            validate_ep_serving(
+                getattr(cfg, "num_local_experts", 0), self.ep_degree,
+                mixed_step=bool(mixed_step),
+                dense_prefill=(not mixed_step and not prefill_buckets),
+                spec_decode=self.draft_model is not None,
+                # an explicit set here, the "auto" set once it resolves
+                budgets=() if token_budgets == "auto" else token_budgets)
+        if quant_collectives and self.tp is None:
+            raise ValueError(
+                "quant_collectives=True but the mesh's tp axis "
+                "degenerates to 1 chip — there is no logits all-gather "
+                "to quantize; use tp >= 2 or drop the flag")
+        self.quant_collectives = bool(quant_collectives)
+        if self.tp is not None and not mixed_step and not prefill_buckets:
+            raise ValueError(
+                "tensor-parallel serving needs a compiled prefill path: "
+                "pass mixed_step=True or prefill_buckets='auto' (the "
+                "legacy dense prefill runs the model eagerly on one "
+                "chip and cannot feed head-sharded KV pools)")
+        if host_tier_bytes and self.tp is not None:
+            raise ValueError(
+                "the host spill tier is single-chip for now: a "
+                "tensor-parallel engine's pools are head-sharded and the "
+                "batched extract/inject path moves whole pages — drop "
+                "host_tier_bytes or drop mesh/sharding")
+        self._rank = 0
+        if self.tp is None:
+            return
+        info = getattr(model, "_ptt_shard", None)
+        want = self.tp.mesh.axis_sizes()
+        if info is None or info.mesh_sizes != want:
+            raise ValueError(
+                "under a %s mesh every rank serves its own shard of the "
+                "model: build it with paddle_tpu_torch.jit.spmd."
+                "shard_model(model_cls, config, mesh, ...) on each rank "
+                "(got %s)" % (want, "a whole model" if info is None
+                              else "a shard of a %s mesh" % info.mesh_sizes))
+        self.tp.bind()
+        self._rank = self.tp.rank
+        if info.coords != self.tp.coords:
+            raise ValueError("the model is the shard of rank %s, not of "
+                             "this rank %s" % (info.coords, self.tp.coords))
 
     def _init_observability(self, tracer):
         """The request tracer (default on; decode spans sampled every
         ``trace_decode_every`` steps a request), the ``serving_*`` metric
         families in the port's registry, and the engine's own cumulative
-        ``counters``.  The tensor/context/expert-parallel, quantized
-        collective and MoE families are not registered: those features
-        are not ported."""
+        ``counters``, with the tensor/expert-parallel, quantized
+        collective and MoE families (the context-parallel degree stays
+        1: cp is not ported)."""
         self.tracer = resolve_tracer(tracer)
         self.trace_decode_every = 8
         r = default_registry()
@@ -576,18 +670,28 @@ class ContinuousBatchingEngine:
             self._m_mixed_span_tokens.labels(kind="decode")
         self._m_mixed_tok_prefill = \
             self._m_mixed_span_tokens.labels(kind="prefill")
-        # a single-device engine: degree 1 on every parallel axis
         r.gauge("serving_tp_degree",
                 "tensor-parallel degree of the most recently constructed "
-                "engine in this process (1 = single chip)").set(1)
+                "engine in this process (1 = single chip)").set(
+                    self.tp_degree)
+        tp_coll = r.counter(
+            "serving_tp_collective_bytes_total",
+            "per-chip activation bytes moved through the sharded "
+            "step's collectives (psum per layer boundary, exact "
+            "embedding psum, exact logits all-gather)", labels=("op",))
+        self._m_tp_psum = tp_coll.labels(op="psum")
+        self._m_tp_all_gather = tp_coll.labels(op="all_gather")
         mesh_shape = r.gauge(
             "serving_mesh_shape",
             "serving mesh degree per axis for the most recently "
             "constructed engine (fsdp = weight-storage sharding, tp = "
             "tensor parallel, dp = replica) — 1 means the axis is "
             "absent", labels=("axis",))
-        for axis in ("fsdp", "tp", "dp", "cp", "ep"):
-            mesh_shape.labels(axis=axis).set(1)
+        mesh_shape.labels(axis="fsdp").set(1)
+        mesh_shape.labels(axis="tp").set(self.tp_degree)
+        mesh_shape.labels(axis="dp").set(1)
+        mesh_shape.labels(axis="cp").set(1)
+        mesh_shape.labels(axis="ep").set(self.ep_degree)
         r.gauge("serving_cp_degree",
                 "context-parallel degree of the most recently constructed "
                 "engine (cp stripes every KV pool's slot dim — per-chip "
@@ -596,7 +700,20 @@ class ContinuousBatchingEngine:
                 "expert-parallel degree of the most recently constructed "
                 "engine (ep shards every MoE expert bank's E dim — "
                 "per-chip expert HBM is 1/ep; 1 = expert banks "
-                "replicated)").set(1)
+                "replicated)").set(self.ep_degree)
+        ep_coll = r.counter(
+            "serving_ep_collective_bytes_total",
+            "per-chip bytes moved by the expert-parallel dispatch "
+            "(all_to_all = the send/return buffer pair per MoE layer, "
+            "all_gather = re-replicating the combined token stripes)",
+            labels=("op",))
+        self._m_ep_all_to_all = ep_coll.labels(op="all_to_all")
+        self._m_ep_all_gather = ep_coll.labels(op="all_gather")
+        self._m_quant_all_gather = r.counter(
+            "serving_quant_collective_bytes_total",
+            "per-chip bytes moved through QUANTIZED collectives (the "
+            "EQuARX-style int8 logits all-gather: codes + per-shard "
+            "scales)", labels=("op",)).labels(op="all_gather")
         self._m_moe_dispatch = r.counter(
             "serving_moe_dispatch_tokens_total",
             "token->expert assignments made by the fused MoE serving "
@@ -692,6 +809,7 @@ class ContinuousBatchingEngine:
         generations of the prompt that share its one prefill, generation
         ``i`` sampling with ``seed + i``, and returns the list of their
         req_ids."""
+        self._check_driver()
         if (temperature or top_k or top_p or seed) and not self.sampling:
             raise ValueError(
                 "per-request sampling parameters need a sampling engine: "
@@ -740,6 +858,155 @@ class ContinuousBatchingEngine:
         self._m_queue.set(len(self.waiting))
         return ids[0] if n == 1 else ids
 
+    # ---- multi-rank: rank 0 drives, ranks > 0 replay --------------------
+    def _init_control(self):
+        """The control buffer of a sharded engine: rank 0 writes every
+        device operation into it (a header, then the operation's packed
+        int32 operands) and broadcasts it over the control group, ONE
+        broadcast an operation; ranks > 0 run the same operation on their
+        shards.  Its size is the largest operation the engine can make
+        (the mixed step's pack at the top budget, a bucket-wide prefill
+        chunk, or the decode step's operands)."""
+        self._ctl = None
+        self._driver = self.tp is not None and self._rank == 0
+        self._workers_live = self._driver
+        if self.tp is None:
+            return
+        S, W = self.max_batch_size, self.bt_width
+        cap = [S * (6 + W)]
+        if self.prefill_buckets:
+            cap.append(self.prefill_buckets[-1] + W + 4)
+        if self.mixed is not None:
+            cap.append(4 * self.token_budgets[-1]
+                       + S * (W + self.mixed.row_extra))
+        self._ctl = torch.zeros(_CTL_HEADER + max(cap), dtype=torch.int32)
+        self._ctl_np = self._ctl.numpy()
+        self.control_broadcasts = 0
+
+    def _send(self, op: int, header, *payload) -> None:
+        """Rank 0: broadcast one operation to the other ranks (nothing on
+        one device or on ranks > 0)."""
+        if not self._driver:
+            return
+        if not self._workers_live:
+            raise RuntimeError("the sharded engine's workers were shut "
+                               "down (shutdown_workers)")
+        buf = self._ctl_np
+        buf[:_CTL_HEADER] = 0
+        buf[0] = op
+        buf[1:1 + len(header)] = header
+        off = _CTL_HEADER
+        for a in payload:
+            a = np.asarray(a, np.int32).reshape(-1)
+            buf[off:off + a.size] = a
+            off += a.size
+        broadcast(self._ctl, 0)
+        self.control_broadcasts += 1
+
+    def run_worker(self) -> None:
+        """Ranks > 0 of a sharded engine: run every device operation rank
+        0 broadcasts (the steps and the page copies, in rank 0's order) on
+        this rank's shard, until rank 0 calls :meth:`shutdown_workers`."""
+        if self.tp is None or self._rank == 0:
+            raise RuntimeError(
+                "run_worker is for ranks > 0 of a sharded engine; rank 0 "
+                "drives it through add_request / step")
+        b = self._ctl_np
+        while True:
+            broadcast(self._ctl, 0)
+            op = int(b[0])
+            h = [int(v) for v in b[1:_CTL_HEADER]]
+            p = b[_CTL_HEADER:]
+            if op == _OP_SHUTDOWN:
+                return
+            if op == _OP_MIXED:
+                self._exec_mixed(p[:h[1]].copy(), h[0])
+            elif op == _OP_PREFILL:
+                C, start, n_valid, W, has_samp = h[:5]
+                self._exec_prefill(p[:C].reshape(1, C).copy(), start,
+                                   n_valid, p[C:C + W].reshape(1, W).copy(),
+                                   p[C + W:C + W + 4].copy() if has_samp
+                                   else None)
+            elif op == _OP_DECODE:
+                S, W, has_samp = h[:3]
+                q = p[:S * (2 + W + (4 if has_samp else 0))].copy()
+                self._exec_decode(q[:S], q[S:2 * S],
+                                  q[2 * S:2 * S + S * W].reshape(S, W),
+                                  q[2 * S + S * W:].reshape(S, 4)
+                                  if has_samp else None)
+            elif op == _OP_COPY_BLOCK:
+                copy_block(self.caches, h[0], h[1])
+            else:
+                raise RuntimeError("unknown control operation %d" % op)
+
+    def shutdown_workers(self) -> None:
+        """Rank 0 of a sharded engine: end the other ranks'
+        :meth:`run_worker` loops (once; a no-op on one device)."""
+        if self._driver and self._workers_live:
+            self._send(_OP_SHUTDOWN, ())
+            self._workers_live = False
+
+    def _check_driver(self):
+        if self.tp is not None and self._rank != 0:
+            raise RuntimeError(
+                "rank %d of a sharded engine runs run_worker(); rank 0 "
+                "schedules and serves the requests" % self._rank)
+
+    def _exec_mixed(self, pack: np.ndarray, B: int, q_probs=None):
+        out = self.mixed.call_packed(pack, B, q_probs=q_probs)
+        self._count_collectives(self.mixed.collective_bytes(B))
+        return out
+
+    def _exec_prefill(self, toks, start, size, row, samp):
+        out = self.prefill_step(toks, start, size, row, samp)
+        self._count_collectives(
+            self.prefill_step.collective_bytes(toks.shape[1]))
+        return out
+
+    def _exec_decode(self, tokens, seq_lens, bt, samp):
+        out = self.decode_step(tokens, seq_lens, bt, samp)
+        self._count_collectives(
+            self.decode_step.collective_bytes(len(tokens)))
+        return out
+
+    def _mixed_call(self, pack: np.ndarray, B: int, q_probs=None):
+        self._send(_OP_MIXED, (B, pack.size), pack)
+        return self._exec_mixed(pack, B, q_probs)
+
+    def _prefill_call(self, toks, start, size, row, samp):
+        self._send(_OP_PREFILL, (toks.shape[1], start, size, row.shape[1],
+                                 samp is not None),
+                   toks, row, *(() if samp is None else (samp,)))
+        return self._exec_prefill(toks, start, size, row, samp)
+
+    def _decode_call(self, tokens, seq_lens, bt, samp):
+        self._send(_OP_DECODE, (len(tokens), bt.shape[1], samp is not None),
+                   tokens, seq_lens, bt, *(() if samp is None else (samp,)))
+        return self._exec_decode(tokens, seq_lens, bt, samp)
+
+    def _copy_block(self, src: int, dst: int) -> None:
+        """Copy-on-write of a shared page, on every rank's pools."""
+        self._send(_OP_COPY_BLOCK, (src, dst))
+        copy_block(self.caches, src, dst)
+
+    def _count_collectives(self, by_op: Dict[str, int]) -> None:
+        """Publish one sharded dispatch's per-rank collective payload
+        (reference: ``_count_collectives``; static per shape); the logits
+        all-gather counts under the quantized family too when it is
+        int8."""
+        if not by_op:
+            return
+        if by_op.get("psum"):
+            self._m_tp_psum.inc(by_op["psum"])
+        if by_op.get("all_gather"):
+            self._m_tp_all_gather.inc(by_op["all_gather"])
+            if self.quant_collectives:
+                self._m_quant_all_gather.inc(by_op["all_gather"])
+        if by_op.get("ep_all_to_all"):
+            self._m_ep_all_to_all.inc(by_op["ep_all_to_all"])
+        if by_op.get("ep_all_gather"):
+            self._m_ep_all_gather.inc(by_op["ep_all_gather"])
+
     def has_work(self) -> bool:
         return bool(self.waiting) or any(s is not None for s in self.slots)
 
@@ -750,6 +1017,7 @@ class ContinuousBatchingEngine:
         decodes every running slot.  Returns the req_ids finished this
         step, those finished during admission (a one-token budget or EOS
         on the first token) included."""
+        self._check_driver()
         self._finished_this_step = fts = []
         try:
             self._admit()
@@ -823,7 +1091,7 @@ class ContinuousBatchingEngine:
         kv_dtype)`` that page buffers extracted from or injected into this
         engine must match, or None when the engine cannot migrate pages
         (a speculative engine's draft KV cannot travel)."""
-        if self.draft_step is not None:
+        if self.tp is not None or self.draft_step is not None:
             return None
         return (len(self.caches),) + self.caches[0].page_geometry()
 
@@ -878,6 +1146,11 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 "inject_request needs a KVPageBuffer — use add_request "
                 "for a fresh (un-migrated) prompt")
+        if self.tp is not None:
+            raise ValueError(
+                "page migration is single-chip for now: a tensor-"
+                "parallel engine's pools are head-sharded and the "
+                "batched inject moves whole pages")
         if self.draft_step is not None:
             raise ValueError(
                 "a speculative engine cannot accept migrated pages: "
@@ -1218,7 +1491,7 @@ class ContinuousBatchingEngine:
         if cow:
             src = req.block_ids[-1]
             dst = self._alloc_block()
-            copy_block(self.caches, src, dst)
+            self._copy_block(src, dst)
             if self.draft_caches:
                 # the draft pools share the page ids: their copy of the
                 # shared page moves with the target's
@@ -1303,7 +1576,7 @@ class ContinuousBatchingEngine:
         row = self._row_for(req)
         t0 = time.perf_counter()
         pre = self.prefill_step.total_compiles
-        first = self.prefill_step(
+        first = self._prefill_call(
             toks, start, size, row,
             self._samp_row(req) if self.sampling else None)
         traced = self.prefill_step.total_compiles - pre
@@ -1344,8 +1617,8 @@ class ContinuousBatchingEngine:
                    for r in self.slots):
             return done
         t0 = time.perf_counter()
-        nxt = self.decode_step(self._tokens, self._seq_lens, self._bt,
-                               self._samp if self.sampling else None)
+        nxt = self._decode_call(self._tokens, self._seq_lens, self._bt,
+                                self._samp if self.sampling else None)
         t1 = time.perf_counter()
         if self._decode_warm:
             self._m_decode.observe(t1 - t0)
@@ -1499,7 +1772,7 @@ class ContinuousBatchingEngine:
                                         fill)
         t0 = time.perf_counter()
         pre = self.mixed.total_compiles
-        nxt = self.mixed.call_packed(pack, B)
+        nxt = self._mixed_call(pack, B)
         traced = self.mixed.total_compiles - pre
         t1 = time.perf_counter()
         n_dec = sum(1 for _, kind, _, _ in spans if kind == "decode")
@@ -1683,7 +1956,7 @@ class ContinuousBatchingEngine:
             q_probs = tuple(q_list)
         t0 = time.perf_counter()
         pre = self.mixed.total_compiles
-        nxt, n_acc = self.mixed.call_packed(pack, B, q_probs=q_probs)
+        nxt, n_acc = self._mixed_call(pack, B, q_probs=q_probs)
         traced = self.mixed.total_compiles - pre
         t1 = time.perf_counter()
         n_pre = sum(size for _, size, _ in chunk_spans)

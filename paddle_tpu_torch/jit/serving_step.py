@@ -7,8 +7,13 @@ a shared page) and ``extract_blocks`` / ``inject_blocks`` (pages to and
 from a host :class:`~paddle_tpu_torch.ops.paged_attention.KVPageBuffer`,
 the host tier's spill and restore).
 
-Single device, over fp32/bf16 pools or int8 pools (quantize on write,
-the int8 attention kernels on read).  Greedy by default; ``sampling=True``
+One device, or one rank of a tp/ep mesh (``tp=``: the engine's
+``jit.spmd.TPContext``; the model is then the rank's shard, the pools hold
+its kv heads, and the steps add the reference's collectives: the
+embedding sum, a sum after each o_proj and down projection, the logits
+all-gather — exact, or int8 with ``quant_collectives`` — and the MoE
+dispatch's all_to_alls), over fp32/bf16 pools or int8 pools (quantize on
+write, the int8 attention kernels on read).  Greedy by default; ``sampling=True``
 puts the ``ops/sampling`` epilogue in each step (per-row temperature,
 top-k, top-p and seed, carried in the step's one packed int32 host
 buffer, temperature and top-p bitcast into their int32 lanes; each draw
@@ -53,6 +58,22 @@ from ..ops.paged_attention import (KVPageBuffer, chunk_prefill_attention,
 from ..ops.moe_gate import moe_ffn
 from ..ops.sampling import (filtered_probs, greedy_sample, sample_logits,
                             spec_verify)
+from .spmd import tp_embed, tp_gather_logits, tp_gather_logits_q8
+
+
+def _local_heads(cfg, tp):
+    """This rank's ``(query heads, kv heads)``: the config's over the tp
+    degree."""
+    deg = tp.degree if tp is not None else 1
+    return cfg.num_attention_heads // deg, cfg.num_key_value_heads // deg
+
+
+def _collective_bytes(tp, cfg, n_tokens: int, rows: int, q8: bool):
+    """One sharded dispatch's per-rank collective payload ({} on one
+    device; ``spmd.TPContext.collective_bytes``)."""
+    if tp is None:
+        return {}
+    return tp.collective_bytes(cfg, n_tokens, rows, quant_gather=q8)
 
 
 def _samp_knobs(samp: torch.Tensor):
@@ -81,32 +102,55 @@ def _proj(mod, name: str, h, w=None):
     return lin(h) if w is None else F.linear(h, w[name], lin.bias)
 
 
-def _moe_ffn(blk, h, w=None):
+def _tp_psum(t, tp):
+    """The layer-boundary sum (reference: ``_tp_psum``): identity on one
+    device, the sum of the row-sharded projection's partial products over
+    the tp ranks otherwise."""
+    if tp is None or tp.tp_comm is None:
+        return t
+    return tp.tp_comm.all_reduce(t)
+
+
+def _embed(llama, tokens, tp):
+    """The token embedding (reference: ``_embed``): the module's lookup on
+    one device, the vocab-parallel masked lookup and exact sum under
+    tp."""
+    if tp is None or tp.tp_comm is None:
+        return llama.embed_tokens(tokens)
+    return tp_embed(llama.embed_tokens.weight, tokens, tp.tp_comm)
+
+
+def _moe_ffn(blk, h, w=None, tp=None):
     """The dropless MoE FFN (reference: ``_moe_ffn``) in place of
     ``layer.mlp``: the block's top-k gate over the step's rows, each
     expert over its assigned rows, the weighted combine
-    (``ops.moe_gate.moe_ffn``).  The banks are the model's, or with int8
-    weights the tree's dequantized ones; the router is always the
-    model's."""
+    (``ops.moe_gate.moe_ffn``); under an ep axis the token stripes cross
+    it through the two all_to_alls and one all_gather.  The banks are the
+    rank's (its ``E/ep`` experts), or with int8 weights the tree's
+    dequantized ones; the router is always the model's, replicated.  No
+    tp sum: the combine is already the whole activation."""
     if w is None:
         banks = (blk.w_gate, blk.w_up, blk.w_down)
     else:
         banks = (w["w_gate"], w["w_up"], w["w_down"])
-    return moe_ffn(h, blk.gate.weight, *banks, top_k=blk.top_k)
+    ep = tp.ep_comm if tp is not None else None
+    return moe_ffn(h, blk.gate.weight, *banks, top_k=blk.top_k,
+                   ep_axis=ep, ep_degree=ep.size if ep is not None else 1)
 
 
-def _ffn(layer, h, w=None):
+def _ffn(layer, h, w=None, tp=None):
     """Per-layer FFN dispatch (reference: ``_ffn``), branching on the
-    layer: the SwiGLU MLP of a Llama layer, the MoE FFN of a Mixtral
-    layer."""
+    layer: the SwiGLU MLP of a Llama layer (column/row sharded, one sum
+    under tp), the MoE FFN of a Mixtral layer."""
     if hasattr(layer, "block_sparse_moe"):
-        return _moe_ffn(layer.block_sparse_moe, h, w)
+        return _moe_ffn(layer.block_sparse_moe, h, w, tp)
     mlp = layer.mlp
-    return _proj(mlp, "down_proj", PF.swiglu(_proj(mlp, "gate_proj", h, w),
-                                             _proj(mlp, "up_proj", h, w)), w)
+    return _tp_psum(_proj(mlp, "down_proj", PF.swiglu(
+        _proj(mlp, "gate_proj", h, w), _proj(mlp, "up_proj", h, w)), w), tp)
 
 
-def _attend_layer(layer, x, cos, sin, cache, write, attend, w=None):
+def _attend_layer(layer, x, cos, sin, cache, write, attend, w=None,
+                  tp=None):
     """One decoder layer of a serving step over ``x`` [N, h]: RMSNorm, the
     q/k/v projections (with their biases, Qwen2's), the fused RoPE + QKV
     epilogue kernel (with the per-token absmax of k and v for an int8
@@ -114,7 +158,11 @@ def _attend_layer(layer, x, cos, sin, cache, write, attend, w=None):
     ``cache``, the attention ``attend(q)`` -> [N, H, D], o_proj and the
     residual, then the FFN block (:func:`_ffn`).  ``w``: the layer's
     quantized weights by name, dequantized from the int8 tree (the
-    model's own weights when None)."""
+    model's own weights when None).  Under tp (``tp``: the engine's
+    :class:`~paddle_tpu_torch.jit.spmd.TPContext`) the model is this
+    rank's shard: the attention module's head counts are the rank's, the
+    pools hold its kv heads, and o_proj and the FFN end in a sum over
+    the tp ranks."""
     N = x.shape[0]
     at = layer.self_attn
     H, Hkv, D = at.num_heads, at.num_kv_heads, at.head_dim
@@ -125,8 +173,9 @@ def _attend_layer(layer, x, cos, sin, cache, write, attend, w=None):
     q, k, k_amax, v_amax = rope_qkv_epilogue(q, k, v, cos, sin,
                                              with_amax=cache.quantized)
     write(k, v, k_amax, v_amax)
-    x = x + _proj(at, "o_proj", attend(q).reshape(N, H * D), w)
-    return x + _ffn(layer, layer.post_attention_layernorm(x), w)
+    x = x + _tp_psum(_proj(at, "o_proj", attend(q).reshape(N, H * D), w),
+                     tp)
+    return x + _ffn(layer, layer.post_attention_layernorm(x), w, tp)
 
 
 def _layer_weights(weights, i: int):
@@ -135,11 +184,18 @@ def _layer_weights(weights, i: int):
     return None if weights is None else weights.layer(i)
 
 
-def _lm_logits(model, weights, h):
+def _lm_logits(model, weights, h, tp=None, q8: bool = False):
     """The LM head over ``h``: the int8 tree's dequantized head (one
-    launch) when it holds one, else the model's."""
+    launch) when it holds one, else the model's.  Under tp the head is the
+    rank's vocab shard and the logits come back whole through the exact
+    all-gather, or with ``q8`` the int8 one (reference: ``_tp_logits``)."""
     head = None if weights is None else weights.lm_head()
-    return model.lm_logits(h) if head is None else F.linear(h, head)
+    out = model.lm_logits(h) if head is None else F.linear(h, head)
+    if tp is None or tp.tp_comm is None:
+        return out
+    if q8:
+        return tp_gather_logits_q8(out, tp.tp_comm)
+    return tp_gather_logits(out, tp.tp_comm)
 
 
 def prefill_scatter(caches: List, kv, block_table_row) -> None:
@@ -378,9 +434,13 @@ class MixedStep:
 
     def __init__(self, model, caches: List, bt_width: int, max_spans: int,
                  span_q: int, sampling: bool = False, spec_k: int = 0,
-                 return_probs: bool = False, weights=None):
+                 return_probs: bool = False, weights=None, tp=None,
+                 quant_collectives: bool = False):
         self.model = model
         self.weights = weights
+        self.tp = tp
+        self.q8_gather = bool(quant_collectives) and tp is not None \
+            and tp.degree > 1
         self.caches = caches
         self.cfg = model.config
         self.bt_width = bt_width
@@ -416,6 +476,12 @@ class MixedStep:
     def total_compiles(self) -> int:
         return sum(self.compile_counts.values())
 
+    def collective_bytes(self, T: int) -> dict:
+        """Per-rank collective payload of one sharded step at budget ``T``
+        ({} on one device; reference: ``MixedStep.collective_bytes``)."""
+        return _collective_bytes(self.tp, self.cfg, T, self.max_spans,
+                                 self.q8_gather)
+
     def new_pack(self, T: int):
         """Allocate the step's single host buffer: ``(pack, tok_tab,
         span_tab)`` where ``tok_tab`` [4, T] (rows tokens / positions /
@@ -446,16 +512,15 @@ class MixedStep:
         span_q = min(self.span_q, T)
 
         c0 = self.caches[0]
+        H, Hkv = _local_heads(cfg, self.tp)
         work = None
         if self.device.type == "cuda" and ragged_tensor_cores(
-                cfg.torch_dtype, c0.quantized, c0.block_size, D,
-                cfg.num_attention_heads // cfg.num_key_value_heads):
+                cfg.torch_dtype, c0.quantized, c0.block_size, D, H // Hkv):
             # the ragged kernel's work list, built here from the host
             # pack's span lengths and shipped in the pack's one copy
             spans = pack[4 * T:].reshape(S, W + EX)
-            work_host = ragged_work(spans[:, W + 1], spans[:, W + 2],
-                                    cfg.num_attention_heads,
-                                    cfg.num_key_value_heads, c0.block_size)
+            work_host = ragged_work(spans[:, W + 1], spans[:, W + 2], H,
+                                    Hkv, c0.block_size)
             dev = torch.from_numpy(np.concatenate([pack, work_host])).to(
                 self.device)
             dev_pack, work = dev[:pack.size], dev[pack.size:]
@@ -471,7 +536,7 @@ class MixedStep:
         q_lens = span_tab[:, W + 1].contiguous()
         kv_lens = span_tab[:, W + 2].contiguous()
 
-        x = llama.embed_tokens(tokens)                         # [T, h]
+        x = _embed(llama, tokens, self.tp)                     # [T, h]
         # rope tables built ONCE per step: positions are layer-invariant
         cos, sin = rope_tables_for_positions(tok_tab[1], D, cfg.rope_theta)
         for i, (layer, cache) in enumerate(zip(llama.layers, self.caches)):
@@ -490,11 +555,12 @@ class MixedStep:
                     kv_lens, scale, span_q=span_q, key_scale=c.key_scale,
                     value_scale=c.value_scale, work=work)
             x = _attend_layer(layer, x, cos, sin, cache, write, attend,
-                              _layer_weights(self.weights, i))
+                              _layer_weights(self.weights, i), self.tp)
         return llama.norm(x), tok_tab, span_tab
 
     def _lm(self, h):
-        return _lm_logits(self.model, self.weights, h)
+        return _lm_logits(self.model, self.weights, h, self.tp,
+                          self.q8_gather)
 
     def launch_stats(self, T: int, kv_len: int) -> dict:
         """:func:`launch_cost` of one budget-``T`` all-decode launch: every
@@ -602,9 +668,13 @@ class PrefillStep:
     """
 
     def __init__(self, model, caches: List, bt_width: int,
-                 sampling: bool = False, weights=None):
+                 sampling: bool = False, weights=None, tp=None,
+                 quant_collectives: bool = False):
         self.model = model
         self.weights = weights
+        self.tp = tp
+        self.q8_gather = bool(quant_collectives) and tp is not None \
+            and tp.degree > 1
         self.caches = caches
         self.cfg = model.config
         self.bt_width = bt_width
@@ -616,6 +686,11 @@ class PrefillStep:
     @property
     def total_compiles(self) -> int:
         return sum(self.compile_counts.values())
+
+    def collective_bytes(self, C: int) -> dict:
+        """Per-rank collective payload of one sharded chunk of bucket
+        width ``C`` (one logits row; {} on one device)."""
+        return _collective_bytes(self.tp, self.cfg, C, 1, self.q8_gather)
 
     @torch.no_grad()
     def __call__(self, tokens, start: int, n_valid: int,
@@ -644,7 +719,7 @@ class PrefillStep:
         row = dev_pack[C:C + row_host.size].view(1, -1)
         pos = start + torch.arange(C, dtype=torch.int32, device=dev)
         cos, sin = rope_tables_for_positions(pos, D, cfg.rope_theta)
-        x = llama.embed_tokens(ids)                            # [C, h]
+        x = _embed(llama, ids, self.tp)                        # [C, h]
         for i, (layer, cache) in enumerate(zip(llama.layers, self.caches)):
             def write(k, v, ka, va, c=cache):
                 if c.quantized:
@@ -662,9 +737,10 @@ class PrefillStep:
                     q[None], c.key_cache, c.value_cache, row, start, scale,
                     c.key_scale, c.value_scale)[0]
             x = _attend_layer(layer, x, cos, sin, cache, write, attend,
-                              _layer_weights(self.weights, i))
+                              _layer_weights(self.weights, i), self.tp)
         last = llama.norm(x[n_valid - 1:n_valid])
-        logits = _lm_logits(self.model, self.weights, last)
+        logits = _lm_logits(self.model, self.weights, last, self.tp,
+                            self.q8_gather)
         if not self.sampling:
             return int(greedy_sample(logits)[0])
         # first-token sample: counter = start + n_valid, the sampled
@@ -694,15 +770,24 @@ class DecodeStep:
     """
 
     def __init__(self, model, caches: List, sampling: bool = False,
-                 weights=None):
+                 weights=None, tp=None, quant_collectives: bool = False):
         self.model = model
         self.weights = weights
+        self.tp = tp
+        self.q8_gather = bool(quant_collectives) and tp is not None \
+            and tp.degree > 1
         self.caches = caches
         self.cfg = model.config
         self.sampling = bool(sampling)
         self.sink = _need_sink(caches, "DecodeStep")
         self.device = caches[0].key_cache.device
         self.compile_count = 0
+
+    def collective_bytes(self, slots: int) -> dict:
+        """Per-rank collective payload of one sharded decode step over
+        ``slots`` slots ({} on one device)."""
+        return _collective_bytes(self.tp, self.cfg, slots, slots,
+                                 self.q8_gather)
 
     def launch_stats(self, slots: int, kv_len: int) -> dict:
         """:func:`launch_cost` of one decode launch at ``slots`` slots,
@@ -741,7 +826,7 @@ class DecodeStep:
         bt_d = dev_pack[2 * S:2 * S + S * W].view(S, W)
         seen = lens + 1                                       # int32
         cos, sin = rope_tables_for_positions(lens, D, cfg.rope_theta)
-        x = llama.embed_tokens(tok)                            # [S, h]
+        x = _embed(llama, tok, self.tp)                        # [S, h]
         for i, (layer, cache) in enumerate(zip(llama.layers, self.caches)):
             def write(k, v, ka, va, c=cache):
                 if c.quantized:
@@ -757,8 +842,9 @@ class DecodeStep:
                                        seen, scale, c.key_scale,
                                        c.value_scale)
             x = _attend_layer(layer, x, cos, sin, cache, write, attend,
-                              _layer_weights(self.weights, i))
-        logits = _lm_logits(self.model, self.weights, llama.norm(x))
+                              _layer_weights(self.weights, i), self.tp)
+        logits = _lm_logits(self.model, self.weights, llama.norm(x),
+                            self.tp, self.q8_gather)
         if not self.sampling:
             return greedy_sample(logits).cpu().numpy()
         knobs = _samp_knobs(dev_pack[2 * S + S * W:].view(S, 4))

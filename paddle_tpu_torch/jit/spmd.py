@@ -1,0 +1,691 @@
+"""The serving half of ``paddle_tpu/jit/spmd.py``: meshes, the per-weight
+family partition specs, the validation of a sharded engine, the
+per-rank :class:`TPContext` with its collective accounting, the traced
+helpers of the sharded steps (vocab-parallel embedding, the exact and the
+int8 logits all-gather), and building a rank's shard of a model.
+
+The tables are the reference's, key for key (its module notes give the
+Megatron layout: q/k/v, gate/up and the LM head column-sharded over
+``tp``, o_proj, down and the embedding row-sharded, norms and the MoE
+router replicated, the MoE expert banks' E dim over ``ep``, the KV pools
+over kv heads).  Specs are written in the reference's layout, where a
+``Linear`` weight is ``[in, out]``; the port stores ``[out, in]``, so
+:func:`port_spec` reverses a 2-D Linear weight's spec before a tensor is
+cut.
+
+Where the reference runs one SPMD program over a device mesh, the port
+runs one process a rank (``distributed/process_mesh.py``): each rank
+holds only its shard — built with :func:`shard_model` parameter by
+parameter, from the seed or from a state, never the whole model on the
+card — and runs the steps over it with the collectives of
+``distributed/collective.py`` at the reference's points (one sum after
+the embedding, after each o_proj and each down projection, one logits
+all-gather; the MoE dispatch's two all_to_alls and one all_gather).
+
+The reference's fsdp and cp axes (2-D fsdp x tp serving, context-parallel
+pools) are not ported: they raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..distributed.process_mesh import AxisComm, ProcessMesh, as_mesh
+
+__all__ = ["PartitionSpec", "P", "ShardingConfig", "SpecLayout",
+           "TPContext", "resolve_mesh_axis", "llama_param_specs",
+           "mixtral_param_specs", "validate_tp_serving",
+           "validate_ep_serving", "tp_mesh", "ep_mesh", "cp_mesh",
+           "mesh_2d", "tp_serving_context", "tp_embed", "tp_gather_logits",
+           "tp_gather_logits_q8", "prune_spec_axes",
+           "port_spec", "shard_tensor", "shard_model", "full_shapes"]
+
+
+def _unported(what: str):
+    return NotImplementedError(
+        "%s is not ported to paddle_tpu_torch yet (the port serves over "
+        "tp and ep mesh axes: tensor and expert parallelism)" % what)
+
+
+class PartitionSpec(tuple):
+    """One entry per array dim: ``None`` (whole), an axis name, or a tuple
+    of axis names (major to minor); trailing dims are whole.  Equal to the
+    reference's ``jax.sharding.PartitionSpec`` with the same entries as a
+    tuple."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return "PartitionSpec%s" % (tuple.__repr__(self),)
+
+
+P = PartitionSpec
+
+
+class ShardingConfig:
+    """The reference's ``ShardingConfig``; serving reads ``degree`` and
+    ``axis`` (``stage``, ``bucket_mb`` and ``loss_reduction`` are the
+    training step's, validated the same way)."""
+
+    def __init__(self, stage: int = 1, degree: int = -1, axis: str = "dp",
+                 bucket_mb: float = 25.0, loss_reduction: str = "mean"):
+        if int(stage) not in (1, 2):
+            raise ValueError(
+                f"ShardingConfig stage must be 1 (os) or 2 (os_g), got "
+                f"{stage!r}; stage-3 (params themselves sharded) is not a "
+                f"stage knob here — pass a mesh with an 'fsdp' axis "
+                f"(spmd.mesh_2d) and the fsdp×tp TrainStep stores the "
+                f"params ZeRO-3-sharded as its natural layout")
+        if loss_reduction not in ("mean", "sum"):
+            raise ValueError(
+                f"loss_reduction must be 'mean' or 'sum', got "
+                f"{loss_reduction!r}")
+        self.stage = int(stage)
+        self.degree = int(degree)
+        self.axis = axis
+        self.bucket_mb = float(bucket_mb)
+        self.loss_reduction = loss_reduction
+
+    def __repr__(self):
+        return (f"ShardingConfig(stage={self.stage}, degree={self.degree}, "
+                f"axis={self.axis!r}, bucket_mb={self.bucket_mb}, "
+                f"loss_reduction={self.loss_reduction!r})")
+
+
+def resolve_mesh_axis(mesh, axis: str, degree: int = -1,
+                      candidates: Sequence[str] = ("dp", "sharding", "data"),
+                      ) -> Tuple[ProcessMesh, str, int]:
+    """The mesh and the axis to shard over (reference:
+    ``resolve_mesh_axis``): ``axis`` when the mesh has it, else the first
+    of ``candidates`` present with size > 1; ``degree`` must equal its
+    size or be -1."""
+    if mesh is None:
+        raise ValueError("ShardingConfig requires a mesh")
+    pm = as_mesh(mesh)
+    sizes = pm.axis_sizes()
+    if axis not in sizes:
+        axis = next((a for a in candidates
+                     if a in sizes and sizes[a] > 1), None)
+        if axis is None:
+            raise ValueError(
+                f"no shardable axis on mesh {tuple(pm.dim_names)} "
+                f"(wanted one of {tuple(candidates)})")
+    deg = sizes[axis]
+    if degree not in (-1, deg):
+        raise ValueError(
+            f"sharding degree {degree} must equal the '{axis}' axis "
+            f"size {deg} (or -1 to infer)")
+    return pm, axis, deg
+
+
+def tp_mesh(tp: int, axis: str = "tp", backend: Optional[str] = None):
+    """A 1-D ``tp``-rank mesh; ``backend`` the data groups' (``"gloo"``
+    or ``"nccl"``), needed when an engine binds it."""
+    return ProcessMesh(shape=[int(tp)], dim_names=[axis], backend=backend)
+
+
+def ep_mesh(ep: int, tp: int = 1, ep_axis: str = "ep", tp_axis: str = "tp",
+            backend: Optional[str] = None):
+    """The ``(ep, tp)`` serving mesh (``tp=1``: pure expert parallelism):
+    rank ``r`` sits at ``(r // tp, r % tp)``."""
+    if tp > 1:
+        return ProcessMesh(shape=[int(ep), int(tp)],
+                           dim_names=[ep_axis, tp_axis], backend=backend)
+    return ProcessMesh(shape=[int(ep)], dim_names=[ep_axis],
+                       backend=backend)
+
+
+def cp_mesh(cp: int, tp: int = 1, **_kw):
+    raise _unported("context-parallel serving (cp_mesh: slot-striped KV "
+                    "pools and the partial-softmax merge)")
+
+
+def mesh_2d(fsdp: int, tp: int, replica: int = 1, **_kw):
+    raise _unported("2-D fsdp x tp serving (mesh_2d)")
+
+
+# ---------------------------------------------------------------------------
+# canonical per-weight-family specs (the reference's tables)
+# ---------------------------------------------------------------------------
+class SpecLayout:
+    """The reference's ``SpecLayout`` over the ``tp`` and ``ep`` axes; an
+    fsdp or cp axis raises ``NotImplementedError`` (not ported)."""
+
+    def __init__(self, tp_axis: Optional[str] = "tp",
+                 fsdp_axis: Optional[str] = None,
+                 cp_axis: Optional[str] = None,
+                 ep_axis: Optional[str] = None):
+        if fsdp_axis is not None:
+            raise _unported("the fsdp axis (weight-storage sharding)")
+        if cp_axis is not None:
+            raise _unported("the cp axis (slot-striped KV pools)")
+        self.tp_axis = tp_axis
+        self.fsdp_axis = None
+        self.cp_axis = None
+        self.ep_axis = ep_axis
+
+    def embeddings(self) -> PartitionSpec:
+        return P(self.tp_axis, self.fsdp_axis)
+
+    def qkv_projection(self) -> PartitionSpec:
+        return P(self.fsdp_axis, self.tp_axis)
+
+    def qkv_bias(self) -> PartitionSpec:
+        return P(self.tp_axis)
+
+    def attn_output(self) -> PartitionSpec:
+        return P(self.tp_axis, self.fsdp_axis)
+
+    def ffn_up(self) -> PartitionSpec:
+        return P(self.fsdp_axis, self.tp_axis)
+
+    def ffn_down(self) -> PartitionSpec:
+        return P(self.tp_axis, self.fsdp_axis)
+
+    def lm_head(self) -> PartitionSpec:
+        return P(self.fsdp_axis, self.tp_axis)
+
+    def replicated(self) -> PartitionSpec:
+        return P()
+
+    def fsdp_default(self) -> PartitionSpec:
+        return P(self.fsdp_axis) if self.fsdp_axis else P()
+
+    def kv_pool(self) -> PartitionSpec:
+        """[phys_pages, block_size, Hkv, D]: kv heads over tp."""
+        return P(None, self.cp_axis, self.tp_axis, None)
+
+    def kv_scale(self) -> PartitionSpec:
+        return P(None, self.tp_axis)
+
+    def expert_bank(self) -> PartitionSpec:
+        return P(self.ep_axis, None, None)
+
+    def expert_bank_scale(self) -> PartitionSpec:
+        return P(self.ep_axis, None, None)
+
+    def col_weight_scale(self) -> PartitionSpec:
+        return P(self.tp_axis)
+
+    def row_weight_scale(self) -> PartitionSpec:
+        return P()
+
+
+WEIGHT_SCALE_SUFFIX = "::scale"     # quantization.functional's suffix
+
+
+def llama_param_specs(keys: Iterable[str],
+                      layout: Optional[SpecLayout] = None,
+                      shapes: Optional[Dict[str, Tuple[int, ...]]] = None,
+                      mesh=None) -> Dict[str, PartitionSpec]:
+    """Classify Llama state-dict keys (and PTQ ``::scale`` keys) into the
+    family specs (reference: ``llama_param_specs``); with ``shapes`` and
+    ``mesh`` each spec is pruned to what the dims divide."""
+    layout = layout or SpecLayout()
+    specs: Dict[str, PartitionSpec] = {}
+    for k in keys:
+        if k.endswith(WEIGHT_SCALE_SUFFIX):
+            base = k[:-len(WEIGHT_SCALE_SUFFIX)]
+            if any(p in base for p in ("q_proj", "k_proj", "v_proj",
+                                       "gate_proj", "up_proj",
+                                       "lm_head")):
+                specs[k] = layout.col_weight_scale()
+            elif "o_proj" in base or "down_proj" in base:
+                specs[k] = layout.row_weight_scale()
+            else:
+                specs[k] = layout.replicated()
+        elif "embed_tokens" in k:
+            specs[k] = layout.embeddings()
+        elif any(p in k for p in ("q_proj", "k_proj", "v_proj")):
+            specs[k] = layout.qkv_bias() if k.endswith("bias") \
+                else layout.qkv_projection()
+        elif "o_proj" in k:
+            specs[k] = layout.attn_output()
+        elif "gate_proj" in k or "up_proj" in k:
+            specs[k] = layout.ffn_up()
+        elif "down_proj" in k:
+            specs[k] = layout.ffn_down()
+        elif "lm_head" in k:
+            specs[k] = layout.lm_head()
+        else:
+            specs[k] = layout.fsdp_default()
+    if shapes is not None and mesh is not None:
+        specs = {k: prune_spec_axes(s, shapes[k], mesh)
+                 if k in shapes else s for k, s in specs.items()}
+    return specs
+
+
+_EXPERT_BANK_FAMILIES = ("w_gate", "w_up", "w_down")
+
+
+def mixtral_param_specs(keys: Iterable[str],
+                        layout: Optional[SpecLayout] = None,
+                        shapes: Optional[Dict[str, Tuple[int, ...]]] = None,
+                        mesh=None) -> Dict[str, PartitionSpec]:
+    """The MoE classifier (reference: ``mixtral_param_specs``): expert
+    banks and their scales ``P(ep, None, None)``, the router replicated,
+    everything else :func:`llama_param_specs`."""
+    layout = layout or SpecLayout()
+    specs: Dict[str, PartitionSpec] = {}
+    rest = []
+    for k in keys:
+        base = k[:-len(WEIGHT_SCALE_SUFFIX)] \
+            if k.endswith(WEIGHT_SCALE_SUFFIX) else k
+        if any(base.endswith(f) for f in _EXPERT_BANK_FAMILIES):
+            specs[k] = layout.expert_bank_scale() if base != k \
+                else layout.expert_bank()
+        elif "block_sparse_moe.gate." in base:
+            specs[k] = layout.replicated()
+        else:
+            rest.append(k)
+    specs.update(llama_param_specs(rest, layout))
+    if shapes is not None and mesh is not None:
+        specs = {k: prune_spec_axes(s, shapes[k], mesh)
+                 if k in shapes else s for k, s in specs.items()}
+    return specs
+
+
+def _entry_names(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    if isinstance(entry, tuple):
+        return tuple(entry)
+    return (entry,)
+
+
+def _sizes(mesh) -> Dict[str, int]:
+    if isinstance(mesh, ProcessMesh):
+        return mesh.axis_sizes()
+    return dict(mesh)
+
+
+def prune_spec_axes(spec, shape: Tuple[int, ...], mesh) -> PartitionSpec:
+    """Drop the axis names a dim cannot honor (a degree that does not
+    divide it, an entry past the rank; reference: ``prune_spec_axes``)."""
+    sizes = _sizes(mesh)
+    entries = []
+    for dim, entry in enumerate(spec):
+        if dim >= len(shape):
+            break
+        keep, part = [], 1
+        for name in _entry_names(entry):
+            size = sizes.get(name, 1)
+            if size > 1 and shape[dim] % (part * size) == 0:
+                keep.append(name)
+                part *= size
+        entries.append(tuple(keep) if len(keep) > 1
+                       else (keep[0] if keep else None))
+    while entries and entries[-1] is None:
+        entries.pop()
+    return P(*entries)
+
+
+def validate_tp_serving(cfg, degree: int, pool_kv_heads: Optional[int]
+                        = None) -> None:
+    """Every divisibility tp serving needs, at engine construction
+    (reference: ``validate_tp_serving``, the same message)."""
+    if degree <= 1:
+        return
+    problems = []
+    for name, val in (("num_attention_heads", cfg.num_attention_heads),
+                      ("num_key_value_heads", cfg.num_key_value_heads),
+                      ("vocab_size", cfg.vocab_size),
+                      ("intermediate_size", cfg.intermediate_size)):
+        if val % degree:
+            problems.append(f"{name}={val}")
+    if pool_kv_heads is not None \
+            and pool_kv_heads != cfg.num_key_value_heads:
+        problems.append(
+            f"KV page pool has {pool_kv_heads} kv heads but the model "
+            f"config says {cfg.num_key_value_heads}")
+    if problems:
+        raise ValueError(
+            "tensor-parallel serving with tp=%d requires every sharded "
+            "dimension to divide by tp; violated: %s.  Pick a tp that "
+            "divides the head/vocab/ffn dims (or pad the model)."
+            % (degree, ", ".join(problems)))
+
+
+def validate_ep_serving(num_experts: int, ep_degree: int,
+                        mixed_step: bool = True,
+                        dense_prefill: bool = False,
+                        spec_decode: bool = False,
+                        budgets: Sequence[int] = ()) -> None:
+    """Every constraint ep serving needs, at engine construction
+    (reference: ``validate_ep_serving``, the same messages)."""
+    if ep_degree <= 1:
+        return
+    if not num_experts:
+        raise ValueError(
+            f"expert-parallel serving with ep={ep_degree} needs an MoE "
+            f"model (num_local_experts on the config): a dense model "
+            f"has no expert banks for the ep axis to shard — drop the "
+            f"ep mesh axis or serve the Mixtral-family model.")
+    if num_experts % ep_degree:
+        raise ValueError(
+            f"expert-parallel serving with ep={ep_degree} requires the "
+            f"expert count to divide by ep (each chip owns E/ep "
+            f"experts); got num_local_experts={num_experts}.  Pick an "
+            f"ep that divides E, or lower ep.")
+    if not mixed_step or dense_prefill:
+        raise ValueError(
+            f"expert-parallel serving (ep={ep_degree}) requires the "
+            f"mixed ragged step: the token->expert all_to_all dispatch "
+            f"is fused into the ONE compiled mixed launch, and the "
+            f"legacy dense prefill/decode bodies have no ep stripe.  "
+            f"Construct the engine with mixed_step=True.")
+    if spec_decode:
+        raise ValueError(
+            f"expert-parallel serving (ep={ep_degree}) does not "
+            f"support speculative decoding yet: the draft/verify steps "
+            f"bypass the fused MoE dispatch.  Disable spec-decode "
+            f"under ep.")
+    bad = [b for b in budgets if int(b) % ep_degree]
+    if bad:
+        raise ValueError(
+            f"expert-parallel serving (ep={ep_degree}) stripes each "
+            f"compiled token budget over the ep axis, so every budget "
+            f"must divide by ep; violated: {bad}.  Adjust the mixed "
+            f"budget set (token_budgets) or lower ep.")
+
+
+class TPContext:
+    """One engine's sharded serving context on this rank (reference:
+    ``TPContext``): the mesh, the tp axis and degree, the ep axis and
+    degree, the layout and the per-parameter specs (the reference's
+    tables, reference layout).  :meth:`bind` joins the mesh's data groups
+    (collectively) and gives ``tp_comm`` / ``ep_comm``, this rank's
+    :class:`AxisComm` on each axis (None for a degree-1 axis)."""
+
+    def __init__(self, mesh: ProcessMesh, axis: Optional[str], degree: int,
+                 layout: SpecLayout, specs: Dict[str, PartitionSpec],
+                 ep_axis: Optional[str] = None, ep_degree: int = 1):
+        self.mesh = mesh
+        self.axis = axis
+        self.degree = degree
+        self.ep_axis = ep_axis if ep_degree > 1 else None
+        self.ep_degree = ep_degree if ep_degree > 1 else 1
+        self.layout = layout
+        self.specs = specs
+        self.tp_comm: Optional[AxisComm] = None
+        self.ep_comm: Optional[AxisComm] = None
+        self.rank: Optional[int] = None
+
+    def bind(self) -> "TPContext":
+        comms = self.mesh.bind()
+        self.tp_comm = comms[self.axis] if self.degree > 1 else None
+        self.ep_comm = comms[self.ep_axis] if self.ep_degree > 1 else None
+        import torch.distributed as dist
+        self.rank = dist.get_rank()
+        return self
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's coordinate on each axis (binds first if needed)."""
+        if self.rank is None:
+            self.bind()
+        return self.mesh.coords(self.rank)
+
+    def collective_bytes(self, cfg, n_tokens: int, n_gather_rows: int,
+                         quant_gather: bool = False) -> Dict[str, int]:
+        """Per-rank collective payload of ONE sharded dispatch (reference:
+        ``TPContext.collective_bytes``, the same formula): ``(2L + 1)``
+        sums of ``[n_tokens, hidden]``, one logits all-gather of
+        ``[n_gather_rows, V/tp]`` (int8 codes + a 4-byte scale with
+        ``quant_gather``), and with ep the MoE dispatch's two all_to_alls
+        and one token-stripe all_gather per layer."""
+        if self.degree <= 1:
+            out = {"psum": 0, "all_gather": 0}
+        else:
+            item = 2 if cfg.dtype == "bfloat16" else 4
+            shard = n_gather_rows * (cfg.vocab_size // self.degree)
+            out = {
+                "psum": (2 * cfg.num_hidden_layers + 1) * n_tokens
+                * cfg.hidden_size * item,
+                "all_gather": shard + 4 if quant_gather else shard * item,
+            }
+        if self.ep_degree > 1:
+            item = 2 if cfg.dtype == "bfloat16" else 4
+            ep = self.ep_degree
+            E = cfg.num_local_experts
+            k = cfg.num_experts_per_tok
+            L = cfg.num_hidden_layers
+            tl = n_tokens // ep
+            buf = E * (tl * k) * cfg.hidden_size * item
+            out["ep_all_to_all"] = 2 * L * buf * (ep - 1) // ep
+            out["ep_all_gather"] = (L * (ep - 1) * tl
+                                    * cfg.hidden_size * item)
+        return out
+
+    def shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of parameter ``name`` (``full`` in the port's
+        layout)."""
+        return shard_tensor(full, port_spec(name, self.specs[name]),
+                            self.mesh, self.coords)
+
+    def __repr__(self):
+        return (f"TPContext(axis={self.axis!r}, degree={self.degree}, "
+                f"ep_axis={self.ep_axis!r}, ep_degree={self.ep_degree}, "
+                f"mesh={tuple(self.mesh.axis_sizes().items())})")
+
+
+def full_shapes(model) -> Dict[str, Tuple[int, ...]]:
+    """The whole model's parameter shapes: a shard's are recorded by
+    :func:`shard_model`, a whole model's are its own."""
+    info = getattr(model, "_ptt_shard", None)
+    if info is not None:
+        return dict(info.full_shapes)
+    return {k: tuple(t.shape) for k, t in model.state_dict().items()}
+
+
+def tp_serving_context(model, mesh, sharding: Optional[ShardingConfig]
+                       = None) -> Optional[TPContext]:
+    """Resolve an engine's ``mesh``/``sharding`` into a :class:`TPContext`,
+    or None when every axis degenerates to 1 (reference:
+    ``tp_serving_context``); validates tp divisibility first.  An fsdp or
+    cp axis raises ``NotImplementedError``."""
+    if sharding is not None and not isinstance(sharding, ShardingConfig):
+        raise TypeError("sharding must be a jit.spmd.ShardingConfig; got %r"
+                        % type(sharding).__name__)
+    cfg = sharding or ShardingConfig(axis="tp")
+    pm = as_mesh(mesh) if mesh is not None else None
+    sizes = pm.axis_sizes() if pm is not None else {}
+    if sizes.get("fsdp", 1) > 1:
+        raise _unported("2-D fsdp x tp serving (an fsdp mesh axis)")
+    if sizes.get("cp", 1) > 1:
+        raise _unported("context-parallel serving (a cp mesh axis)")
+    ep_axis = "ep" if "ep" in sizes else None
+    ep_deg = sizes["ep"] if ep_axis else 1
+    try:
+        pm, axis, deg = resolve_mesh_axis(
+            mesh, cfg.axis, cfg.degree, candidates=("tp", "model", "mp"))
+    except ValueError:
+        if ep_axis is None and "fsdp" not in sizes and "cp" not in sizes:
+            raise
+        axis, deg = None, 1
+    if deg <= 1 and ep_deg <= 1:
+        return None
+    if deg > 1:
+        validate_tp_serving(model.config, deg)
+    layout = SpecLayout(tp_axis=axis if deg > 1 else None,
+                        ep_axis=ep_axis if ep_deg > 1 else None)
+    shapes = full_shapes(model)
+    specs_fn = mixtral_param_specs \
+        if getattr(model.config, "num_local_experts", 0) \
+        else llama_param_specs
+    specs = specs_fn(shapes.keys(), layout, shapes=shapes, mesh=pm)
+    return TPContext(pm, axis if deg > 1 else None, deg, layout, specs,
+                     ep_axis=ep_axis if ep_deg > 1 else None,
+                     ep_degree=ep_deg)
+
+
+# ---------------------------------------------------------------------------
+# cutting a rank's shard
+# ---------------------------------------------------------------------------
+def _is_linear_weight(name: str) -> bool:
+    return (name.endswith("_proj.weight") or name == "lm_head.weight"
+            or name.endswith("block_sparse_moe.gate.weight"))
+
+
+def port_spec(name: str, spec) -> PartitionSpec:
+    """``spec`` (reference layout) for the port's tensor ``name``: a 2-D
+    Linear weight is ``[out, in]`` here, so its two entries swap."""
+    if not _is_linear_weight(name):
+        return P(*spec)
+    ents = list(spec) + [None] * (2 - len(spec))
+    return _trim(P(ents[1], ents[0]))
+
+
+def _trim(spec) -> PartitionSpec:
+    ents = list(spec)
+    while ents and ents[-1] is None:
+        ents.pop()
+    return P(*ents)
+
+
+def shard_tensor(full: torch.Tensor, spec, mesh: ProcessMesh,
+                 coords: Dict[str, int]) -> torch.Tensor:
+    """The slice of ``full`` that the rank at ``coords`` holds under
+    ``spec`` (port layout): each dim named by axes splits into the
+    product of their sizes, major to minor."""
+    sizes = mesh.axis_sizes()
+    out = full
+    for dim, entry in enumerate(spec):
+        names = _entry_names(entry)
+        if not names:
+            continue
+        part, idx = 1, 0
+        for n in names:
+            idx = idx * sizes[n] + coords[n]
+            part *= sizes[n]
+        if full.shape[dim] % part:
+            raise ValueError("dim %d of size %d does not split into %d"
+                             % (dim, full.shape[dim], part))
+        step = full.shape[dim] // part
+        out = out.narrow(dim, idx * step, step)
+    return out
+
+
+@dataclass
+class _ShardInfo:
+    mesh_sizes: Dict[str, int]
+    coords: Dict[str, int]
+    full_shapes: Dict[str, Tuple[int, ...]]
+
+
+def _set_param(model: nn.Module, name: str, value: torch.Tensor) -> None:
+    mod_path, _, leaf = name.rpartition(".")
+    mod = model.get_submodule(mod_path) if mod_path else model
+    setattr(mod, leaf, nn.Parameter(value, requires_grad=False))
+
+
+@torch.no_grad()
+def shard_model(model_cls, config, mesh, *, rank: Optional[int] = None,
+                device=None, generator: Optional[torch.Generator] = None,
+                state: Optional[Dict[str, torch.Tensor]] = None):
+    """This rank's shard of ``model_cls(config)``, in eval mode.
+
+    Built parameter by parameter: the model is constructed on ``meta``,
+    then each parameter, in the order ``init_weights`` draws them, is made
+    whole on ``device`` — drawn from ``generator`` exactly as the
+    single-card model draws it (seed 0 on the device when None), or taken
+    from ``state`` (the port's names and layouts, e.g.
+    ``testing.parity.state_from_paddle_tpu``) — and only this rank's slice
+    is kept.  So each shard equals, bit for bit, the slice of the model
+    the same seed builds on one card, and at most one whole parameter is
+    on the card at a time.
+
+    ``rank`` defaults to this process's ``torch.distributed`` rank.  The
+    attention modules report their per-rank head counts (``num_heads``,
+    ``num_kv_heads``), which the serving steps read."""
+    from ..core.device import resolve_device
+    from ..models.llama import init_parameter
+    pm = as_mesh(mesh)
+    if rank is None:
+        import torch.distributed as dist
+        rank = dist.get_rank() if dist.is_initialized() else 0
+    coords = pm.coords(rank)
+    model = model_cls(config, device="meta")
+    shapes = {k: tuple(t.shape) for k, t in model.state_dict().items()}
+    sizes = pm.axis_sizes()
+    tp = sizes.get("tp", 1)
+    if tp > 1:
+        validate_tp_serving(config, tp)
+    if "ep" in sizes and sizes["ep"] > 1:
+        validate_ep_serving(getattr(config, "num_local_experts", 0),
+                            sizes["ep"])
+    layout = SpecLayout(tp_axis="tp" if tp > 1 else None,
+                        ep_axis="ep" if sizes.get("ep", 1) > 1 else None)
+    specs_fn = mixtral_param_specs \
+        if getattr(config, "num_local_experts", 0) else llama_param_specs
+    specs = specs_fn(shapes.keys(), layout, shapes=shapes, mesh=pm)
+    dev = resolve_device(device)
+    dtype = config.torch_dtype
+    if state is None and generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    for name, p in list(model.named_parameters()):
+        if state is None:
+            full = torch.empty(p.shape, dtype=dtype, device=dev)
+            init_parameter(name, full, config.initializer_range, generator)
+        else:
+            full = state[name].to(device=dev, dtype=p.dtype)
+        piece = shard_tensor(full, port_spec(name, specs[name]), pm, coords)
+        _set_param(model, name, piece.contiguous().clone())
+        del full
+    for mod in model.modules():
+        if hasattr(mod, "num_kv_heads") and hasattr(mod, "q_proj"):
+            mod.num_heads //= tp
+            mod.num_kv_heads //= tp
+    model._ptt_shard = _ShardInfo(sizes, coords, shapes)
+    model.eval()
+    return model
+
+
+# ---------------------------------------------------------------------------
+# the helpers of the sharded steps
+# ---------------------------------------------------------------------------
+def tp_embed(table_local: torch.Tensor, tokens: torch.Tensor,
+             comm: AxisComm) -> torch.Tensor:
+    """Vocab-parallel embedding (reference: ``tp_embed``): this rank's
+    ``[V/tp, h]`` rows looked up where the token falls in them, zeros
+    elsewhere, then one sum over tp — exact, each token's row lives on
+    one rank."""
+    vs = table_local.shape[0]
+    local = tokens.long() - comm.index * vs
+    ok = (local >= 0) & (local < vs)
+    e = table_local[local.clamp(0, vs - 1)]
+    e = torch.where(ok[..., None], e, torch.zeros((), dtype=e.dtype,
+                                                  device=e.device))
+    return comm.all_reduce(e)
+
+
+def tp_gather_logits(logits_local: torch.Tensor,
+                     comm: AxisComm) -> torch.Tensor:
+    """All-gather the ``[*, V/tp]`` vocab shards into ``[*, V]`` (exact:
+    rank order is vocab order; reference: ``tp_gather_logits``)."""
+    return comm.all_gather(logits_local, logits_local.ndim - 1)
+
+
+def tp_gather_logits_q8(logits_local: torch.Tensor,
+                        comm: AxisComm) -> torch.Tensor:
+    """The int8 logits all-gather (reference: ``tp_gather_logits_q8``):
+    each rank quantizes its shard with one absmax scale, the gather moves
+    the int8 codes and the 4-byte scales, and every rank dequantizes each
+    shard with its own scale.  Not exact: logits within ``absmax/127``
+    of each other can swap."""
+    from ..quantization.functional import (dequantize_symmetric,
+                                           quantize_symmetric)
+    x = logits_local.to(torch.float32)
+    s = x.abs().amax()
+    q = quantize_symmetric(x, s).to(torch.int8)
+    gq = comm.all_gather(q, q.ndim - 1)
+    gs = comm.all_gather(s.reshape(1), 0)                  # [tp]
+    tp = gs.shape[0]
+    lead, V = tuple(gq.shape[:-1]), gq.shape[-1]
+    out = dequantize_symmetric(gq.reshape(lead + (tp, V // tp)),
+                               gs[:, None])
+    return out.reshape(lead + (V,)).to(logits_local.dtype)

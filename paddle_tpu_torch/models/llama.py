@@ -238,16 +238,13 @@ class LlamaForCausalLM(nn.Module):
     def init_weights(self, generator: Optional[torch.Generator] = None):
         """Normal(0, initializer_range) for every matrix, 1 for the norm
         weights, 0 for biases, drawn from ``generator``."""
+        if self.device.type == "meta":
+            return      # a shard's skeleton (jit.spmd.shard_model)
         if generator is None:
             generator = torch.Generator(self.device).manual_seed(0)
         std = self.config.initializer_range
         for name, p in self.named_parameters():
-            if name.endswith("norm.weight"):
-                p.fill_(1.0)
-            elif name.endswith(".bias"):
-                p.zero_()
-            else:
-                p.normal_(0.0, std, generator=generator)
+            init_parameter(name, p, std, generator)
 
     def lm_logits(self, h: torch.Tensor) -> torch.Tensor:
         if self.lm_head is None:
@@ -287,6 +284,21 @@ class LlamaForCausalLM(nn.Module):
                 logits, caches = self(nxt, caches, position_offset=cur_len)
                 cur_len += 1
         return torch.cat(out, dim=1)
+
+
+@torch.no_grad()
+def init_parameter(name: str, p: torch.Tensor, std: float,
+                   generator: torch.Generator) -> None:
+    """``init_weights``'s rule for one parameter, in place: norm weights
+    1, biases 0, everything else normal(0, ``std``) from ``generator``
+    (``jit.spmd.shard_model`` draws each whole parameter through it, in
+    the same order, so a shard is the slice of the one-card model)."""
+    if name.endswith("norm.weight"):
+        p.fill_(1.0)
+    elif name.endswith(".bias"):
+        p.zero_()
+    else:
+        p.normal_(0.0, std, generator=generator)
 
 
 def inner_model(model: nn.Module) -> nn.Module:

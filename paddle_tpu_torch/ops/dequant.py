@@ -226,9 +226,17 @@ class Int8Weights:
     as ``[E, in, out]`` views; valid until the next ``layer`` call);
     ``lm_head()`` the LM head's, or None when it stays fp.  ``tree()`` is
     the PTQ tree itself (views of the buffers, the reference's keys and
-    layouts); ``nbytes`` counts codes and scales."""
+    layouts); ``nbytes`` counts codes and scales.
 
-    def __init__(self, model):
+    ``tp`` (a rank of a sharded engine, ``jit.spmd.TPContext``): the
+    model is the rank's shard, and each row-sharded weight's scales take
+    the max over the tp ranks, so the rank's codes and scales are the
+    slice of the one-card tree by the PTQ tree's specs."""
+
+    def __init__(self, model, tp=None):
+        from ..quantization.functional import (ensure_quant_specs,
+                                               tp_scale_reduce)
+        reduce = tp_scale_reduce(tp)
         stack = inner_model(model)
         prefix = "mixtral" if stack is getattr(model, "mixtral", None) \
             else "llama"
@@ -242,13 +250,17 @@ class Int8Weights:
             if not all(ptq_quantizable(k, v) for k, v in vals.items()):
                 raise ValueError("a decoder layer's projections must all be "
                                  "2-D weights or 3-D expert banks")
-            self.layers.append(_Group(quantize_param_tree(vals), list(vals)))
+            q = quantize_param_tree(vals, scale_reduce=reduce)
+            ensure_quant_specs(tp, q)
+            self.layers.append(_Group(q, list(vals)))
             self._names.append([suffix.split(".")[1]
                                 for suffix, _w in weights])
         self.head = None
         if model.lm_head is not None:
             vals = {"lm_head.weight": model.lm_head.weight.detach()}
-            self.head = _Group(quantize_param_tree(vals), list(vals))
+            q = quantize_param_tree(vals, scale_reduce=reduce)
+            ensure_quant_specs(tp, q)
+            self.head = _Group(q, list(vals))
         dev = stack.embed_tokens.weight.device
         self._scratch = torch.empty(max(g.numel for g in self.layers),
                                     dtype=dtype, device=dev)

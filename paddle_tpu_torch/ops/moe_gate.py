@@ -7,7 +7,7 @@ The one top-k gate and dispatch of the port.  Callers:
   drops, and the load-balancing aux term (computed by the caller from the
   raw assignment);
 - ``jit/serving_step.py``: :func:`moe_ffn` is the dropless MoE FFN of the
-  serving steps.
+  serving steps, on one device or over an ep mesh axis.
 
 Every rounding point is the reference's: router logits in fp32, the
 softmax in fp32, the dispatch an fp32 scatter-add cast back to the input
@@ -115,24 +115,35 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, wg: torch.Tensor,
             ep_axis=None, ep_degree: int = 1) -> torch.Tensor:
     """Dropless MoE FFN over a flat token block ``x [N, D]``.
 
-    ``gate_w [E, D]`` (the router's ``Linear`` weight); ``wg/wu [E, D,
-    M]``, ``wd [E, M, D]`` (any strides: the int8 serving path passes
-    transposed views of its dequantized ``[E, out, in]`` banks).  No
-    assignment is ever dropped.  Each expert multiplies only the rows
+    ``gate_w [E, D]`` (the router's ``Linear`` weight, replicated);
+    ``wg/wu [El, D, M]``, ``wd [El, M, D]``: this rank's experts (any
+    strides: the int8 serving path passes transposed views of its
+    dequantized ``[E, out, in]`` banks; the whole bank, ``El = E``, on one
+    device).  No assignment is ever dropped.
+
+    One device (``ep_degree <= 1``): each expert multiplies only the rows
     assigned to it: the assignments are sorted by expert (stably, so the
     order within an expert is the assignment order), which needs the
     per-expert counts on the host, one device-to-host copy of ``E``
     integers a call.
 
-    The expert-parallel path (``ep_degree > 1`` over ``ep_axis``) is not
-    ported and raises."""
-    if ep_axis is not None and ep_degree > 1:
-        raise NotImplementedError(
-            "expert parallelism (moe_ffn's ep path: the all_to_all "
-            "dispatch over an ep mesh axis) is not ported to "
-            "paddle_tpu_torch yet; the port serves MoE models on one "
-            "device")
+    Expert parallelism (``ep_axis``: this rank's
+    ``distributed.process_mesh.AxisComm`` of the ep axis, ``ep_degree``
+    its size; the reference's branch): rank ``r`` gates its token stripe
+    ``x[r Tl:(r+1) Tl]``, scatters it into a dropless send buffer ``[E,
+    Tl k, D]``, one all_to_all ships each expert's slices to the rank that
+    owns it, the local experts run over ``[El, ep Tl k, D]``, a second
+    all_to_all ships the outputs home, the weighted combine runs there and
+    one all_gather rebuilds the replicated ``[N, D]``.  ``ep`` must divide
+    ``N`` and ``E`` (the engine validates both)."""
     n, d = x.shape
+    if ep_axis is not None and ep_degree > 1:
+        from ..distributed.process_mesh import AxisComm
+        if not isinstance(ep_axis, AxisComm):
+            raise TypeError(
+                "moe_ffn's ep_axis is this rank's AxisComm of the ep mesh "
+                "axis (jit.spmd.TPContext.ep_comm); got %r" % (ep_axis,))
+        return _moe_ffn_ep(x, gate_w, wg, wu, wd, top_k, ep_axis, ep_degree)
     logits = x.to(torch.float32) @ gate_w.to(torch.float32).t()
     top_w, top_i, _ = topk_gate(logits, top_k)
     flat = top_i.reshape(-1).long()
@@ -150,3 +161,30 @@ def moe_ffn(x: torch.Tensor, gate_w: torch.Tensor, wg: torch.Tensor,
     eo[order] = out
     picked = eo.view(n, top_k, d).to(torch.float32)
     return (picked * top_w[..., None]).sum(dim=1).to(x.dtype)
+
+
+def _moe_ffn_ep(x, gate_w, wg, wu, wd, top_k, comm, ep):
+    """:func:`moe_ffn`'s expert-parallel branch (reference buffers and
+    collectives, see there)."""
+    n, d = x.shape
+    e_local = wg.shape[0]
+    e_total = e_local * ep
+    tl = n // ep                        # token stripe per rank
+    cl = tl * top_k                     # dropless send capacity
+    x_r = x[comm.index * tl:(comm.index + 1) * tl]
+    logits = x_r.to(torch.float32) @ gate_w.to(torch.float32).t()
+    top_w, top_i, _ = topk_gate(logits, top_k)
+    slot, _ = assignment_slots(top_i, e_total)
+    disp = dispatch_to_buffers(x_r, top_i, slot, None, e_total, cl)
+    # dispatch: recv[g] = rank g's rows for this rank's experts
+    recv = comm.all_to_all(disp)                        # [E, cl, d]
+    work = recv.view(ep, e_local, cl, d).transpose(0, 1).reshape(
+        e_local, ep * cl, d)
+    eo = torch.stack([grouped_expert_swiglu(work[e], wg[e], wu[e], wd[e])
+                      for e in range(e_local)])
+    back = eo.view(e_local, ep, cl, d).transpose(0, 1).reshape(
+        e_total, cl, d)
+    # combine: the outputs travel home, aligned with (top_i, slot)
+    back = comm.all_to_all(back)
+    out_r = combine_from_buffers(back, top_i, slot, top_w).to(x.dtype)
+    return comm.all_gather(out_r, 0)

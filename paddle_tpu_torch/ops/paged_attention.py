@@ -163,6 +163,12 @@ class PagedKVCache:
             arrs += [self.key_scale, self.value_scale]
         return sum(a.numel() * a.element_size() for a in arrs)
 
+    def per_chip_pool_bytes(self) -> int:
+        """Bytes of this rank's pools (reference: ``per_chip_pool_bytes``,
+        a chip's shard of the pool): under tp a rank's pools hold its kv
+        heads, so this is ``pool_bytes`` — 1/tp of the one-card pool."""
+        return self.pool_bytes()
+
     def page_geometry(self) -> tuple:
         """``(block_size, num_kv_heads, head_dim, kv_dtype)``: the
         per-layer part of a :class:`KVPageBuffer`'s header."""

@@ -35,7 +35,8 @@ __all__ = ["symmetric_bound", "absmax_scale", "quantize_symmetric",
            "dequantize_symmetric", "quantize_rows_symmetric",
            "fold_int8_scores", "WEIGHT_SCALE_SUFFIX", "is_weight_scale_key",
            "ptq_quantizable", "quantize_param_tree", "dequantize_weight",
-           "dequantize_param_tree"]
+           "dequantize_param_tree", "tp_scale_reduce",
+           "ensure_quant_specs"]
 
 # the serving PTQ tree stores each quantized weight's per-channel absmax
 # next to it under this suffixed key ("<param>::scale")
@@ -129,7 +130,8 @@ def ptq_quantizable(key: str, value) -> bool:
 
 
 def quantize_param_tree(values: Dict[str, torch.Tensor],
-                        bits: int = 8) -> Dict[str, torch.Tensor]:
+                        bits: int = 8, scale_reduce=None
+                        ) -> Dict[str, torch.Tensor]:
     """Per-output-channel absmax PTQ over a serving state dict.
 
     Linear weights are ``[out, in]``: each output channel (row) gets its
@@ -139,7 +141,13 @@ def quantize_param_tree(values: Dict[str, torch.Tensor],
     scale per expert and output channel, the absmax over its contraction
     dim, stored full-rank as ``[E, 1, out]`` (the reference's codes and
     scales, in the reference's layout).  Everything else passes through
-    as it is."""
+    as it is.
+
+    ``scale_reduce(key, scale)``, when given, returns the scale to use
+    for ``key`` from this tensor's own absmax: a tp rank holding a
+    row-sharded weight (o_proj, down) has only part of each channel's
+    contraction dim, and reduces the max over the tp ranks there, so its
+    codes are the slice of the one-card tree's."""
     out: Dict[str, torch.Tensor] = {}
     for k, v in values.items():
         if not ptq_quantizable(k, v):
@@ -147,6 +155,8 @@ def quantize_param_tree(values: Dict[str, torch.Tensor],
             continue
         # dim 1 is the contraction dim of both layouts
         scale = absmax_scale(v, dim=1, keepdim=True)   # [out, 1] / [E, 1, out]
+        if scale_reduce is not None:
+            scale = scale_reduce(k, scale)
         out[k] = quantize_symmetric(v, scale, bits).to(torch.int8)
         out[k + WEIGHT_SCALE_SUFFIX] = scale if v.ndim == 3 else scale[:, 0]
     return out
@@ -183,3 +193,42 @@ def dequantize_param_tree(params: Dict[str, torch.Tensor], dtype,
         s = params.get(k + WEIGHT_SCALE_SUFFIX)
         out[k] = v if s is None else dequantize_weight(v, s, dtype, bits)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the PTQ tree under tp specs
+# ---------------------------------------------------------------------------
+def tp_scale_reduce(tp):
+    """The ``scale_reduce`` of :func:`quantize_param_tree` for a rank of
+    ``tp`` (a ``jit.spmd.TPContext``; None or tp = 1: no reduce): a
+    row-sharded weight's per-channel absmax is the max over the tp ranks'
+    parts of its contraction dim; a column-sharded weight's channels are
+    whole on the rank, and an expert bank's experts too."""
+    if tp is None or tp.tp_comm is None:
+        return None
+    comm = tp.tp_comm
+
+    def reduce(key, scale):
+        if "o_proj" in key or "down_proj" in key:
+            return comm.all_reduce_max(scale.contiguous())
+        return scale
+    return reduce
+
+
+def ensure_quant_specs(tp, qtree_keys) -> None:
+    """Register the PTQ tree's keys in ``tp``'s spec table (reference:
+    ``_ensure_quant_specs``): codes keep their weight's spec, a
+    column-sharded weight's scale vector shards with its channels, a
+    row-sharded one's is replicated, an expert bank's ``[E, 1, out]``
+    scales shard over ep with their bank.  The codes and scales a rank
+    holds are cut by these specs, so ``dequant_int8`` runs on the rank's
+    shard.  A no-op without tp."""
+    if tp is None:
+        return
+    from ..jit.spmd import llama_param_specs, mixtral_param_specs
+    missing = [k for k in qtree_keys if k not in tp.specs]
+    if missing:
+        specs_fn = mixtral_param_specs if any(
+            "block_sparse_moe" in k for k in qtree_keys) \
+            else llama_param_specs
+        tp.specs.update(specs_fn(missing, tp.layout))

@@ -12,7 +12,8 @@ one layout in both packages.  The serving engine's int8 weight tree
 (weight PTQ) keeps the reference's keys, 2-D int8 codes transposed like
 the weights they replace, and expert-bank codes and every ``::scale``
 entry as they are.  The state arrives as plain numpy arrays, so this
-module imports nothing of the reference.
+module imports nothing of the reference.  Under a tp/ep mesh,
+:func:`shard_from_paddle_tpu` gives a rank its shard of the same state.
 """
 from __future__ import annotations
 
@@ -93,6 +94,20 @@ def load_paddle_tpu_weights(model: nn.Module,
             raise ValueError("%s: port shape %s vs reference %s"
                              % (name, tuple(p.shape), tuple(t.shape)))
         p.copy_(t.to(device=p.device, dtype=p.dtype))
+
+
+def shard_from_paddle_tpu(model_cls, config, mesh,
+                          np_state: Dict[str, np.ndarray], rank=None,
+                          device="cpu") -> nn.Module:
+    """This rank's shard of the reference's weights under ``mesh`` (a
+    tp/ep ``distributed.process_mesh.ProcessMesh``): the state mapped onto
+    the port's names and layouts (:func:`state_from_paddle_tpu`), then cut
+    by the spec of each key (``jit.spmd.shard_model``; the reference's
+    spec tables, each 2-D Linear weight's spec swapped to the port's
+    ``[out, in]``)."""
+    from ..jit.spmd import shard_model
+    return shard_model(model_cls, config, mesh, rank=rank, device=device,
+                       state=state_from_paddle_tpu(np_state))
 
 
 def layerwise_params_from_paddle_tpu(np_params) -> Dict:

@@ -1354,3 +1354,113 @@ def test_w8_engine_on_card_launches_and_matches_cpu(cuda):
             assert dq.dequant_int8.launches - before == \
                 (cfg.num_hidden_layers + 1) * steps
     assert outs[0] == outs[1]
+
+
+# the per-rank head counts of the sharded engines (chip_smoke's
+# RANK_HEADS): the 7B at tp 2 and 4, Qwen2-7B at tp 2 (a group of 7),
+# Mixtral at tp 2
+RANK_HEADS = [(16, 16), (8, 8), (14, 2), (16, 4)]
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads", RANK_HEADS,
+                         ids=["7b_tp2", "7b_tp4", "qwen2_tp2", "mixtral_tp2"])
+def test_paged_kernels_match_plain_at_per_rank_heads(cuda, quantized, dtype,
+                                                     heads):
+    """#5 (with the mixed step's work list for bf16 q) and #7 at a rank's
+    heads, D 128, block size 16: decode spans and a chunk, NaN pages
+    behind unused entries; one launch each, within the kernels' limits."""
+    H, Hkv = heads
+    spans = [(1, 300), (1, 17), (40, 90), (1, 1)]
+    T = sum(q for q, _ in spans) + 3
+    q, kc, vc, bt, qo, ql, kl = _pack(spans, 2, T, H, Hkv, 128, 16, dtype,
+                                      cuda)
+    scales, counter = {}, "launches"
+    if quantized:
+        kc, vc, ks, vs, vmax = _quantize_pools(kc, vc, kc.shape[0] - 2)
+        scales, counter = dict(key_scale=ks, value_scale=vs), "int8_launches"
+    work = torch.from_numpy(pa.ragged_work(ql.cpu(), kl.cpu(), H, Hkv,
+                                           16)).to(cuda)
+    scale = 1.0 / np.sqrt(128)
+    before = getattr(pa.ragged_paged_attention, counter)
+    got = pa.ragged_paged_attention(q, kc, vc, bt, qo, ql, kl, span_q=40,
+                                    work=work, **scales)
+    torch.cuda.synchronize()
+    assert getattr(pa.ragged_paged_attention, counter) == before + 1
+    if quantized:
+        want, flips = pa._ragged_attention_int8_plain(
+            q, kc, vc, ks, vs, bt, qo, ql, kl, scale, flip_bound=True)
+        tol = int8_tolerance(want, flips, vmax)
+    else:
+        want = pa._ragged_attention_plain(q, kc, vc, bt, qo, ql, kl, scale)
+        tol = ragged_tolerance(want)
+    assert (got.float() - want.float()).abs().le(tol).all()
+    # #7 over the decode spans' queries
+    dq_rows = qo[torch.tensor([0, 1, 3], device=cuda)].long()
+    qd = q[dq_rows]
+    sl = kl[[0, 1, 3]]
+    btd = bt[[0, 1, 3]]
+    before = getattr(pa.paged_attention, counter)
+    got = pa.paged_attention(qd, kc, vc, btd, sl, **scales)
+    want = pa._paged_attention_plain(qd, kc, vc, btd, sl, scale,
+                                     flip_bound=quantized, **scales)
+    torch.cuda.synchronize()
+    assert getattr(pa.paged_attention, counter) == before + 1
+    if quantized:
+        want, flips = want
+        tol = int8_tolerance(want, flips, vmax)
+    else:
+        tol = ragged_tolerance(want)
+    assert (got.float() - want.float()).abs().le(tol).all()
+
+
+@pytest.mark.parametrize("with_amax", [False, True])
+@pytest.mark.parametrize("heads", RANK_HEADS,
+                         ids=["7b_tp2", "7b_tp4", "qwen2_tp2", "mixtral_tp2"])
+def test_rope_epilogue_bitwise_at_per_rank_heads(cuda, heads, with_amax):
+    H, Hkv = heads
+    g = torch.Generator(cuda).manual_seed(2)
+    q, k, v = (torch.randn(64, h, 128, generator=g, device=cuda).bfloat16()
+               for h in (H, Hkv, Hkv))
+    cos, sin = pk.rope_tables_for_positions(
+        torch.randint(0, 4096, (64,), generator=g, device=cuda), 128)
+    got = pk.rope_qkv_epilogue(q, k, v, cos, sin, with_amax)
+    want = pk._rope_qkv_epilogue_plain(q, k, v, cos, sin, with_amax)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("mesh", [{"tp": 2}, {"ep": 2}],
+                         ids=["tp2", "ep2"])
+def test_tiny_sharded_engine_on_card_matches_one_card(cuda, mesh):
+    """Two ranks sharing the card (gloo): a tiny fp32 Llama (tp 2) or
+    Mixtral (ep 2) mixed engine gives the one-card engine's tokens, with
+    the rank's kernels launched on every rank."""
+    from paddle_tpu_torch.distributed.launch import run_world
+    if "tp" in mesh:
+        family = "llama"
+        config = dict(vocab_size=256, hidden_size=128, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=256)
+    else:
+        family = "mixtral"
+        config = dict(vocab_size=256, hidden_size=128, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=4, max_position_embeddings=256,
+                      num_local_experts=4, num_experts_per_tok=2)
+    ops = [["add", list(range(1, 12)), 6], ["step"],
+           ["add", list(range(40, 45)), 6], ["run"]]
+    kw = dict(max_batch_size=2, num_blocks=32, block_size=16,
+              mixed_step=True, prefill_chunk_size=8)
+    out = run_world("paddle_tpu_torch.testing.sharded:serve_cases", 2, dict(
+        device=None, backend="gloo",
+        models={"m": dict(family=family, config=config)},
+        cases=[dict(name="one", model="m", mesh=None, engine=kw, ops=ops),
+               dict(name="sharded", model="m", mesh=mesh, engine=kw,
+                    ops=ops)]), timeout=300)
+    one, sharded = out
+    assert sharded["tokens"] == one["tokens"]
+    for r in sharded["ranks"]:
+        assert r["launches"]["ragged"] == \
+            one["ranks"][0]["launches"]["ragged"] > 0

@@ -186,19 +186,24 @@ def test_moe_ffn_matches_reference_and_dense_dispatch(k):
 
 
 def test_expert_parallel_and_sharding_raise(pair):
+    """Expert-parallel serving is ported (``tests/test_torch_ep_serving.
+    py``): ``moe_ffn``'s ep path takes a rank's ``AxisComm`` and an engine
+    mesh a ``ProcessMesh``, anything else raises ``TypeError``.  Sharded
+    training is not ported and still raises."""
     _ref, port = pair
     x = torch.zeros(4, 64)
     blk = port.mixtral.layers[0].block_sparse_moe
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
+    with pytest.raises(TypeError, match="AxisComm"):
         mg.moe_ffn(x, blk.gate.weight, blk.w_gate, blk.w_up, blk.w_down,
                    top_k=2, ep_axis="ep", ep_degree=2)
     with pytest.raises(NotImplementedError, match="not ported"):
         shard_mixtral(port, mesh=object())
-    for option in ("mesh", "sharding"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for option, kind in (("mesh", "ProcessMesh"),
+                         ("sharding", "ShardingConfig")):
+        with pytest.raises(TypeError, match=kind):
             ContinuousBatchingEngine(port, max_batch_size=2, num_blocks=8,
                                      block_size=4, device="cpu",
-                                     **{option: object()})
+                                     mixed_step=True, **{option: object()})
         with pytest.raises(NotImplementedError, match="not ported"):
             TrainStep(port, MixtralPretrainingCriterion(port),
                       AdamW(1e-3, parameters=port.named_parameters()),

@@ -32,13 +32,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a host span as ``merge_chrome_trace`` reads one
 HostSpan = collections.namedtuple("HostSpan", "name start end tid")
 
-# reference engine families the port leaves out: their features
-# (tensor/context/expert parallelism, fsdp, quantized collectives) are not
-# ported
-UNPORTED_FAMILIES = {
-    "serving_tp_collective_bytes_total", "serving_cp_collective_bytes_total",
-    "serving_ep_collective_bytes_total",
-    "spmd_allgather_bytes_total", "serving_quant_collective_bytes_total"}
+# reference engine families the port leaves out: their features (context
+# parallelism, fsdp) are not ported; tensor and expert parallelism and the
+# quantized logits gather are
+UNPORTED_FAMILIES = {"serving_cp_collective_bytes_total",
+                     "spmd_allgather_bytes_total"}
 
 
 @pytest.fixture(params=["reference", "port"])

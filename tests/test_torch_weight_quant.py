@@ -301,10 +301,6 @@ def test_quant_construction_errors(pair):
     with pytest.raises(ValueError, match="single-chip"):
         ContinuousBatchingEngine(model, quant_collectives=True,
                                  mixed_step=True, **base)
-    # not ported: the quantized collectives say so as well
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatchingEngine(model, quant_collectives=True,
-                                 mixed_step=True, **base)
 
 
 def test_model_untouched_and_eager_generate_unchanged(pair):
