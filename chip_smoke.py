@@ -69,10 +69,11 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    against the eager ``generate`` and between engines are reported, not
    asserted (random bf16 logits can tie).  The mixed engine serves the
    traffic ``SERVE_REPEATS`` times: its wall is the median, with the
-   spread of the runs and of their steps' host seconds.  The mixed and
-   split runs (and the split run over int8 pools) are profiled once more
-   under ``torch.profiler`` (device activity): device time by kernel
-   kind and the device's idle share.  Then the sampling and speculative
+   spread of the runs and of their steps' host seconds.  The mixed run
+   is profiled once more under ``torch.profiler`` (device activity):
+   device time by kernel kind and the device's idle share; with
+   ``--profile-serving`` the split runs (bf16 and int8 pools) and the
+   families' mixed runs are too.  Then the sampling and speculative
    engines on the same model and traffic (:func:`serve_sampled_and_spec`:
    the mixed and split engines with ``sampling=True``, the mixed engine
    with an 8-layer truncated draft and ``spec_k`` 2, greedy and sampled;
@@ -132,12 +133,11 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    the generic kernels' launches exact.
    Then the model families beside Llama (:func:`phase_serving_families`):
    Mixtral-8x7B at its published widths cut to 16 of its 32 layers
-   (bf16, 46.9 GB) through the mixed engine (profiled), the split engine
+   (bf16, 46.9 GB) through the mixed engine, the split engine
    and the split engine over int8 pools; Mixtral at 8 layers through the
    w8 mixed engine against its dequantized twin (>= 0.98; the int8 tree
    holds the expert banks); Qwen2-7B whole (28 layers, bf16, q/k/v
-   biases drawn from the seed) through the mixed (profiled) and split
-   engines.  Each: launches exact (#5, #6, #7 at GQA 32/8 and 28/4),
+   biases drawn from the seed) through the mixed and split engines.  Each: launches exact (#5, #6, #7 at GQA 32/8 and 28/4),
    pools whole, and on the Mixtral mixed engine
    ``serving_moe_dispatch_tokens_total`` routed = packed tokens x 2 x 16
    and dropped 0.
@@ -190,19 +190,40 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    serve_7b_tp2 (the mixed engine, 16/16 heads a rank), serve_7b_tp2_split
    (buckets, #7 at 16/16), serve_7b_tp2_q8 (int8 pools, the int8 logits
    gather: ``max_batch_size * V/2 + 4`` bytes at the top budget),
-   serve_qwen2_tp2 (14/2) and serve_mixtral_ep2 (16 layers, experts
-   halved, attention and pools whole on each rank) on phase 3's traffic;
+   serve_qwen2_tp2 (14/2) and serve_mixtral_ep2 (experts halved,
+   attention and pools whole on each rank), each at ``TP_SERVE_LAYERS``
+   (8) layers, on phase 3's traffic;
    every rank's launches exact for its engine, per-rank pool bytes
    exactly 1/tp of the one-card cell's, the counted collective bytes
    equal to ``TPContext.collective_bytes`` of the run's step shapes,
    Mixtral's routed = packed tokens x 2 x 16 with none dropped and its
-   per-rank expert bytes 1/ep; the token match against the one-card cell
-   reported.  Then parity_tp_2l (7B widths, 2 layers, fp32): tp 2 mixed,
+   per-rank expert bytes 1/ep.  Then parity_tp_2l (7B widths, 2 layers, fp32): tp 2 mixed,
    split and w8, ep 2 Mixtral (at capacity factor E/k) over two ranks,
    tp 4 (8/8) and ep2 x tp2 over four, each against its one-card twin
    and against itself run through the plain versions, >= 0.98.  Phase 2
    holds #5, #6, #7 and ``dequant_int8`` at these per-rank shapes
    against their plain versions (``RANK_HEADS``, ``DEQUANT_RANK_CASES``).
+4c. Context-parallel and fsdp serving (:func:`phase_mesh_serving_2d_cp`),
+   the same rank processes.  Two ranks, cp 2: serve_7b_cp2 (mixed) and
+   serve_7b_cp2_split on phase 3's traffic, serve_7b_cp2_long (CodeLlama-
+   7B, two 8,192-token prompts, 16 new tokens, 1,100 pages): per-rank
+   pools exactly half the one-card pools, #6 launched layers x steps
+   (split: x (decode steps + chunks)) on every rank and #5 and #7 never
+   (the stripe partials are plain PyTorch, as the reference's), the
+   counted merge bytes equal to ``collective_bytes()["cp_merge"]`` over
+   the run's dispatches, every long prompt prefilled once, pools whole;
+   the partials' device seconds on rank 0 (CUDA events) and the merge's
+   host seconds reported.  Four ranks: serve_7b_fsdp2_tp2 (4 layers):
+   each rank stores a quarter of every fsdp-sharded weight, #5 and #6
+   launched 4 x steps at 16/16, the counted gather bytes
+   ``fsdp_gather_bytes`` x dispatches.  Then parity_cp_fsdp_2l (7B widths,
+   2 layers, fp32): cp 2 mixed and split, cp2 x tp2 and cp 4 on phase 3's
+   traffic, each against its one-card twin and against itself through the
+   plain versions (the epilogue's too); fsdp2 x tp2 mixed and split, pure
+   fsdp 4 and dp2 x fsdp2 on a short traffic (``FSDP_PARITY``: every
+   dispatch gathers the fp32 model through the host), each against its
+   one-card twin on it, the mixed fsdp2 x tp2 engine also against its
+   plain run; all >= 0.98.
 5. The three flash kernels (forward, one-pass backward, two-kernel
    backward) against their plain versions over fp32/bf16, head dims 32,
    64, 96 and 128 (36, 80, 100 and 112 padded per half by the wrappers),
@@ -262,6 +283,13 @@ yardstick.
 
 profiles the 7B chat traffic with and without the prefix cache
 (:func:`profile_prefix`): the device time the cache saves.
+
+    python3 chip_smoke.py --profile-serving
+
+runs every phase and also profiles phase 3's split, kv8-split, Mixtral
+and Qwen2 mixed runs (``PROFILE_SERVING``; ~100 s of the profiler's
+event processing, left out of the default run to keep it in its
+budget).
 
 The script imports nothing of JAX and nothing of ``paddle_tpu``.  Without
 a CUDA card it exits nonzero before printing any result.
@@ -1643,7 +1671,7 @@ def pool_whole(eng) -> bool:
 
 
 def serve(model, prompts, engine_kw=None, draft=None, sampled=False,
-          traffic=None, mesh=None):
+          traffic=None, mesh=None, new_tokens=NEW_TOKENS):
     """Run ``traffic`` (default: :func:`admit_4_4` over ``prompts``) on an
     engine built with ``engine_kw`` (default: the mixed engine) and
     ``draft`` as its draft model.  Returns the engine, the tokens per
@@ -1700,7 +1728,7 @@ def serve(model, prompts, engine_kw=None, draft=None, sampled=False,
     V = model.config.vocab_size
     if not all(0 <= t < V for o in outs for t in o):
         raise AssertionError("a served token lies outside the vocabulary")
-    if not all(len(o) == NEW_TOKENS for o in outs):
+    if not all(len(o) == new_tokens for o in outs):
         raise AssertionError("a request ended early: %s"
                              % [len(o) for o in outs])
     gen_tok = sum(len(o) for o in outs)
@@ -1749,7 +1777,8 @@ def serve(model, prompts, engine_kw=None, draft=None, sampled=False,
                                for r in rids])
     if eng.tp is not None:
         stats.update(collective_bytes_want=sharded_bytes_want(eng),
-                     control_broadcasts=eng.control_broadcasts)
+                     control_broadcasts=eng.control_broadcasts,
+                     fsdp_gather_bytes=eng._fsdp_gather_bytes)
     if eng.prefill_step is not None:
         seen = sorted(eng.prefill_step.compile_counts)
         if len(seen) > len(eng.prefill_buckets):
@@ -1919,6 +1948,9 @@ def profile_serve(name, model, prompts, unprofiled_wall_s,
 # runs of the mixed engine over the same traffic: its wall follows the
 # host, so it is given as the median of these with their spread
 SERVE_REPEATS = 5
+# --profile-serving: profile every phase-3 cell that has a profile (the
+# default run profiles serve_7b alone)
+PROFILE_SERVING = False
 
 
 def _repeat_serve(name, model, prompts, kw, layers, first):
@@ -2002,9 +2034,10 @@ def _rates(outs, ref):
 def phase_serving_7b():
     """Llama-2-7B bf16 at full width and depth, built once, serves the
     same traffic through the mixed engine (then profiled), the split
-    engine with bucketed prefill (profiled), the split engine with the
-    dense prefill, and both engines over int8 pools (the split one
-    profiled: decode attention's int8 variant).  Each run's launches
+    engine with bucketed prefill, the split engine with the dense
+    prefill, and both engines over int8 pools (with ``PROFILE_SERVING``
+    the split engines profiled too: decode attention's bf16 and int8
+    variants).  Each run's launches
     must be exact for its engine; the token matches against eager
     ``generate`` and against the bf16-pool engines are reported, not
     asserted (random bf16 logits tie)."""
@@ -2062,7 +2095,8 @@ def phase_serving_7b():
         SERVED[name] = (outs[name], stats["kv_pool_bytes"])
         emit(stats)
         runs[name] = stats
-        if name in ("serve_7b", "serve_7b_split", "serve_7b_kv8_split"):
+        if name == "serve_7b" or PROFILE_SERVING and name in (
+                "serve_7b_split", "serve_7b_kv8_split"):
             runs[name]["profile"] = profile_serve(
                 name + "_bf16", model, prompts, stats["wall_s"], kw)
     runs.update(serve_sampled_and_spec(model, prompts, ref, outs))
@@ -2229,7 +2263,7 @@ def serve_family(name, model, prompts, kw, profile=False, mixed_out=None):
     del eng
     stats["phase_wall_s"] = time.perf_counter() - t1
     emit(stats)
-    if profile:
+    if profile and PROFILE_SERVING:
         stats["profile"] = profile_serve(name + "_bf16", model, prompts,
                                          stats["wall_s"], kw)
     return out, stats
@@ -2237,10 +2271,12 @@ def serve_family(name, model, prompts, kw, profile=False, mixed_out=None):
 
 def phase_serving_families():
     """Mixtral-8x7B (16 of 32 layers, bf16) through the mixed engine
-    (profiled), the split engine and the split engine over int8 pools;
+    (profiled with ``PROFILE_SERVING``), the split engine and the split
+    engine over int8 pools;
     Mixtral at 8 layers through the w8 mixed engine against its
     dequantized twin (>= 0.98); Qwen2-7B in full (bf16, random q/k/v
-    biases) through the mixed (profiled) and split engines.  Launches
+    biases) through the mixed (profiled with ``PROFILE_SERVING``) and
+    split engines.  Launches
     exact, pools whole, the MoE dispatch counted exactly; the split
     engines' token match against the mixed ones reported."""
     import torch
@@ -4686,6 +4722,11 @@ def phase_layerwise_parity():
 # no collective time it prints is a multi-card number.
 MESH_NOTE = "backend=gloo, %d ranks on one card"
 MESH_TIMEOUT = 900.0
+# the depth of phase 4b's serve cells (7B, Qwen2-7B and Mixtral-8x7B
+# widths): each of their steps makes 2L + 1 gloo sums (ep: 3 exchanges a
+# layer) through the host (~3.2 ms each), so their walls grow with the
+# layers
+TP_SERVE_LAYERS = 8
 SERVED = {}       # the one-card cells' tokens and pool bytes, by cell name
 PARITY_MIXTRAL = dict(expert_capacity_factor=4.0)   # E / k: eager drops none
 
@@ -4736,22 +4777,130 @@ def _coll_counts():
                           ("serving_ep_collective_bytes_total", "ep_",
                            ("all_to_all", "all_gather")),
                           ("serving_quant_collective_bytes_total", "q8_",
+                           ("all_gather",)),
+                          ("serving_cp_collective_bytes_total", "cp_",
                            ("all_gather",))):
         m = r.get(fam)
         for op in ops:
             out[key + op] = m.labels(op=op).value if m is not None else 0.0
+    m = r.get("spmd_allgather_bytes_total")
+    out["fsdp_gather"] = (m.labels(site="serving_params").value
+                          if m is not None else 0.0)
     return out
 
 
 @contextlib.contextmanager
-def _plain_serving(on: bool):
+def _plain_serving(on: bool, epilogue: bool = False):
     """The attention and the dequant through their plain versions on the
-    card when ``on`` (every rank swaps alike)."""
+    card when ``on`` (every rank swaps alike); ``epilogue``: the RoPE +
+    QKV epilogue too (the cp engines', whose attention is plain
+    already)."""
     if not on:
         yield
         return
-    with swapped_attention(), swapped_dequant():
+    with swapped_attention(), swapped_dequant(), \
+            (swapped_epilogue() if epilogue else contextlib.nullcontext()):
         yield
+
+
+@contextlib.contextmanager
+def swapped_epilogue():
+    """The serving steps' RoPE + QKV epilogue through its plain version
+    on the card (its launch count untouched)."""
+    from paddle_tpu_torch.jit import serving_step as ss
+    from paddle_tpu_torch.ops import kernels
+    orig = ss.rope_qkv_epilogue
+    ss.rope_qkv_epilogue = (
+        lambda q, k, v, cos, sin, with_amax=False:
+        kernels._rope_qkv_epilogue_plain(q, k, v, cos, sin, with_amax))
+    try:
+        yield
+    finally:
+        ss.rope_qkv_epilogue = orig
+
+
+CP_PARTIALS = ("ragged_attention_partial", "paged_attention_partial",
+               "chunk_prefill_attention_partial")
+
+
+@contextlib.contextmanager
+def timed_partials(log: list):
+    """The cp stripe partials with a CUDA event recorded before and after
+    each call (appended to ``log`` as pairs): their device seconds are
+    the events' spans, idle gaps between their kernels included."""
+    import torch
+    from paddle_tpu_torch.jit import serving_step as ss
+    orig = {n: getattr(ss, n) for n in CP_PARTIALS}
+
+    def timed(fn):
+        def run(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            log.append((e0, e1))
+            return out
+        return run
+    for n, fn in orig.items():
+        setattr(ss, n, timed(fn))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(ss, n, fn)
+
+
+def _event_seconds(log) -> float:
+    import torch
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in log) / 1e3
+
+
+def long_prompts(vocab: int):
+    """serve_7b_cp2_long's prompts: ``CP_LONG["n"]`` of
+    ``CP_LONG["prompt_len"]`` tokens from the seed."""
+    rng = np.random.RandomState(SEED + 3)
+    return [rng.randint(1, vocab, (CP_LONG["prompt_len"],)).astype(np.int64)
+            for _ in range(CP_LONG["n"])]
+
+
+def short_prompts(vocab: int):
+    """The fsdp parity engines' prompts (``FSDP_PARITY``) from the seed."""
+    rng = np.random.RandomState(SEED + 4)
+    return [rng.randint(1, vocab, (n,)).astype(np.int64)
+            for n in FSDP_PARITY["prompt_lens"]]
+
+
+def admit_all(prompts, new_tokens):
+    """Admit every prompt at once, then run to completion."""
+    def traffic(eng, step):
+        rids = [eng.add_request(p, new_tokens) for p in prompts]
+        while eng.has_work():
+            step()
+        return rids
+    return traffic
+
+
+def fsdp_stored(model, mesh):
+    """``(stored, sliced, whole)`` bytes of the parameters whose spec names
+    fsdp: what this rank stores of them, what their slices by their specs
+    hold (``1/(fsdp·tp)`` of a projection, ``1/fsdp`` of a norm), and what
+    they are whole."""
+    from paddle_tpu_torch.jit import spmd
+    ctx = spmd.tp_serving_context(model, mesh)
+    if ctx is None or ctx.fsdp_axis is None:
+        return 0, 0, 0
+    shapes, sizes = spmd.full_shapes(model), mesh.axis_sizes()
+    stored = sliced = whole = 0
+    for n, p in model.named_parameters():
+        axes = spmd.spec_axes(ctx.specs[n])
+        if ctx.fsdp_axis in axes:
+            full = int(np.prod(shapes[n])) * p.element_size()
+            stored += p.numel() * p.element_size()
+            sliced += full // int(np.prod([sizes[a] for a in axes]))
+            whole += full
+    return stored, sliced, whole
 
 
 def mesh_cells(rank, world, args):
@@ -4770,30 +4919,45 @@ def mesh_cells(rank, world, args):
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from paddle_tpu_torch.testing.sharded import mesh_of
     rows = {}
     for cell in args["cells"]:
-        from paddle_tpu_torch.jit.spmd import ep_mesh, tp_mesh
-        m = cell["mesh"]
-        mesh = (ep_mesh(m["ep"], tp=m.get("tp", 1), backend="gloo")
-                if m.get("ep", 1) > 1 else tp_mesh(m["tp"], backend="gloo"))
+        mesh = mesh_of(cell["mesh"], "gloo")
+        cp = cell["mesh"].get("cp", 1)
         t0 = time.perf_counter()
         model = shard_of(cell["family"], cell["layers"], cell["dtype"], mesh,
                          **cell.get("config", {}))
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         cfg = model.config
+        new_tokens = NEW_TOKENS
+        traffic = None
+        if cell.get("traffic") == "long":
+            new_tokens = CP_LONG["new_tokens"]
+            traffic = admit_all(long_prompts(cfg.vocab_size), new_tokens)
+        elif cell.get("traffic") == "short":
+            new_tokens = FSDP_PARITY["new_tokens"]
+            traffic = admit_all(short_prompts(cfg.vocab_size), new_tokens)
         prompts = _prompts(cfg.vocab_size)
         experts = sum(p.numel() * p.element_size()
                       for n, p in model.named_parameters()
                       if n.endswith(("w_gate", "w_up", "w_down")))
+        stored = fsdp_stored(model, mesh)
         for run in cell["runs"]:
             kw = run["kw"]
             collective.reset_stats()
             c0, moe0 = _coll_counts(), moe_dispatch_counts()
             facts = {}
+            plain = _plain_serving(run.get("plain", False), epilogue=cp > 1)
             if rank == 0:
-                with _plain_serving(run.get("plain", False)):
-                    eng, outs, stats = serve(model, prompts, kw, mesh=mesh)
+                events = []
+                with plain, (timed_partials(events) if cp > 1
+                             else contextlib.nullcontext()):
+                    eng, outs, stats = serve(model, prompts, kw, mesh=mesh,
+                                             traffic=traffic,
+                                             new_tokens=new_tokens)
+                stats["partials_device_s"] = _event_seconds(events)
+                stats["partials_calls"] = len(events)
                 facts = dict(
                     q8_top=(eng.mixed.collective_bytes(
                         eng.token_budgets[-1])["all_gather"]
@@ -4812,7 +4976,7 @@ def mesh_cells(rank, world, args):
                 torch.cuda.reset_peak_memory_stats()
                 _reset_launches()
                 t1 = time.perf_counter()
-                with _plain_serving(run.get("plain", False)):
+                with plain:
                     eng.run_worker()
                 torch.cuda.synchronize()
                 mine = dict(launches=_launches(),
@@ -4822,7 +4986,7 @@ def mesh_cells(rank, world, args):
                             wall_s=time.perf_counter() - t1)
                 del eng
             mine.update(rank=rank, expert_bytes=experts,
-                        collectives=collective.stats())
+                        fsdp_stored=stored, collectives=collective.stats())
             ranks = [None] * world
             dist.all_gather_object(ranks, mine)
             if rank == 0:
@@ -4854,11 +5018,17 @@ def check_mesh_run(run, cell, cfg, stats, outs, ranks, facts, coll, moe,
     Mixtral cell's dispatch routed = packed tokens x k x layers, none
     dropped, and each rank's expert bytes ``1/ep`` of the model's."""
     name, kw, L = run["name"], run["kw"], cfg.num_hidden_layers
+    tp = cell["mesh"].get("tp", 1)
+    ep = cell["mesh"].get("ep", 1)
+    cp = cell["mesh"].get("cp", 1)
+    fsdp = cell["mesh"].get("fsdp", 1)
     want = expected_launches(kw, stats, L)
-    if run.get("plain"):
-        # the attention and the dequant ran their plain versions; the
-        # epilogue kernel still runs
-        want = {k: v if k.startswith("rope_qkv_epilogue") else 0
+    if run.get("plain") or cp > 1:
+        # the attention and the dequant ran their plain versions (under
+        # cp always: the stripe partials); the epilogue kernel still runs,
+        # except in a cp engine's plain run
+        keep = not (run.get("plain") and cp > 1)
+        want = {k: v if keep and k.startswith("rope_qkv_epilogue") else 0
                 for k, v in want.items()}
     for r in ranks:
         if r["launches"] != want:
@@ -4868,8 +5038,6 @@ def check_mesh_run(run, cell, cfg, stats, outs, ranks, facts, coll, moe,
     if len(pools) != 1:
         raise AssertionError("%s: per-rank pool bytes differ: %s"
                              % (name, pools))
-    tp = cell["mesh"].get("tp", 1)
-    ep = cell["mesh"].get("ep", 1)
     row = dict(phase=name, mesh=cell["mesh"], layers=L, dtype=cfg.dtype,
                model=cell["family"], heads_per_rank="%d/%d" % (
                    facts["heads"][1], facts["heads"][0]),
@@ -4892,19 +5060,63 @@ def check_mesh_run(run, cell, cfg, stats, outs, ranks, facts, coll, moe,
     one = run.get("one_card_pool_bytes")
     if one is not None:
         row["kv_pool_bytes_vs_one_card"] = row["kv_pool_bytes_per_rank"] / one
-        if row["kv_pool_bytes_per_rank"] * tp != one:
+        if row["kv_pool_bytes_per_rank"] * tp * cp != one:
             raise AssertionError("%s: per-rank pool bytes %d, want 1/%d of "
                                  "%d" % (name, row["kv_pool_bytes_per_rank"],
-                                         tp, one))
+                                         tp * cp, one))
     got = {"psum": coll["psum"], "all_gather": coll["all_gather"],
            "ep_all_to_all": coll["ep_all_to_all"],
-           "ep_all_gather": coll["ep_all_gather"]}
+           "ep_all_gather": coll["ep_all_gather"],
+           "cp_merge": coll["cp_all_gather"]}
     want_b = stats["collective_bytes_want"]
     for k, v in got.items():
         if v != want_b.get(k, 0):
             raise AssertionError("%s: %s bytes %s, TPContext.collective_"
                                  "bytes gives %s" % (name, k, v,
                                                      want_b.get(k, 0)))
+    if cp > 1:
+        merge = ranks[0]["collectives"]
+        row.update(
+            cp_merge_s_rank0=merge["seconds"].get("cp_merge", 0.0),
+            cp_merge_calls_rank0=merge["calls"].get("cp_merge", 0),
+            partials_device_s_rank0=stats["partials_device_s"],
+            partials_calls_rank0=stats["partials_calls"],
+            partials_note="CUDA events around each stripe partial on rank "
+            "0: their spans, idle gaps between the partials' kernels "
+            "included; the merge's seconds are host seconds over gloo")
+    if fsdp > 1:
+        dispatches = (stats["mixed_launches"] if kw.get("mixed_step")
+                      else stats["decode_steps"] + stats["prefill_chunks"])
+        want_g = stats["fsdp_gather_bytes"] * dispatches
+        row.update(fsdp_gather_bytes=coll["fsdp_gather"],
+                   fsdp_gather_bytes_per_dispatch=stats["fsdp_gather_bytes"],
+                   fsdp_gather_s_rank0=ranks[0]["collectives"]["seconds"].get(
+                       "fsdp_gather", 0.0),
+                   fsdp_gather_calls_rank0=ranks[0]["collectives"][
+                       "calls"].get("fsdp_gather", 0),
+                   fsdp_stored_bytes_per_rank=[r["fsdp_stored"][0]
+                                               for r in ranks],
+                   fsdp_sharded_whole_bytes=ranks[0]["fsdp_stored"][2],
+                   fsdp_stored_share=(ranks[0]["fsdp_stored"][0]
+                                      / ranks[0]["fsdp_stored"][2]))
+        if coll["fsdp_gather"] != want_g or not want_g:
+            raise AssertionError("%s: fsdp gather bytes %s, want %d = %d x "
+                                 "%d dispatches" % (
+                                     name, coll["fsdp_gather"], want_g,
+                                     stats["fsdp_gather_bytes"], dispatches))
+        for r in ranks:
+            st, sliced, whole = r["fsdp_stored"]
+            if st != sliced or not sliced:
+                raise AssertionError("%s rank %d stores %d bytes of the "
+                                     "fsdp-sharded weights (%d whole), not "
+                                     "their slices' %d" % (
+                                         name, r["rank"], st, whole, sliced))
+    if run.get("prefilled") is not None:
+        row["prefilled_tokens"] = stats["prefilled_tokens"]
+        if stats["prefilled_tokens"] != run["prefilled"]:
+            raise AssertionError("%s prefilled %d prompt tokens, want %d"
+                                 % (name, stats["prefilled_tokens"],
+                                    run["prefilled"]))
     if kw.get("quant_collectives"):
         row["q8_gather_bytes_top_budget"] = facts["q8_top"]
         want_q8 = facts["slots"] * (cfg.vocab_size // tp) + 4
@@ -4948,7 +5160,7 @@ def phase_mesh_serving():
     """Multi-device serving on the one card (see the module notes, 4b):
     serve_7b_tp2 (mixed), serve_7b_tp2_split, serve_7b_tp2_q8 (int8 pools,
     the int8 logits gather), serve_qwen2_tp2 and serve_mixtral_ep2 at
-    full width over two ranks, then parity_tp_2l at 7B widths, 2 layers,
+    full width and ``TP_SERVE_LAYERS`` over two ranks, then parity_tp_2l at 7B widths, 2 layers,
     fp32: tp = 2 mixed, split and w8, ep = 2 Mixtral over two ranks, tp =
     4 and ep2 x tp2 over four, each against its one-card twin and against
     itself through the plain versions at >= 0.98."""
@@ -4979,6 +5191,8 @@ def phase_mesh_serving():
     torch.cuda.empty_cache()
     print("mesh: the one-card parity twins in %.1f s"
           % (time.perf_counter() - t0), flush=True)
+    # phase 4c holds its 2-layer engines against the same twins
+    SERVED.update({"twin_" + k: v for k, v in twins.items()})
 
     def runs(prefix, pairs, against, one=None, plain=True):
         out = []
@@ -4991,30 +5205,28 @@ def phase_mesh_serving():
                                 plain=True))
         return out
 
-    s7 = SERVED["serve_7b"]
+    def cut(name, layers=32):
+        """The one-card cell's pool bytes at the sharded cells' depth."""
+        return SERVED[name][1] * TP_SERVE_LAYERS // layers
     two = [
-        dict(family="llama", layers=32, dtype="bfloat16", mesh={"tp": 2},
+        dict(family="llama", layers=TP_SERVE_LAYERS, dtype="bfloat16",
+             mesh={"tp": 2},
              runs=[dict(name="serve_7b_tp2", kw=ENGINE_KW,
-                        against={"serve_7b": s7[0]},
-                        one_card_pool_bytes=s7[1]),
+                        one_card_pool_bytes=cut("serve_7b")),
                    dict(name="serve_7b_tp2_split", kw=SPLIT_KW,
-                        against={"serve_7b_split":
-                                 SERVED["serve_7b_split"][0]},
-                        one_card_pool_bytes=SERVED["serve_7b_split"][1]),
+                        one_card_pool_bytes=cut("serve_7b_split")),
                    dict(name="serve_7b_tp2_q8",
                         kw=dict(ENGINE_KW, kv_dtype="int8",
                                 quant_collectives=True),
-                        one_card_pool_bytes=SERVED["serve_7b_kv8_mixed"][1])
+                        one_card_pool_bytes=cut("serve_7b_kv8_mixed"))
                    ]),
-        dict(family="qwen2", layers=28, dtype="bfloat16", mesh={"tp": 2},
+        dict(family="qwen2", layers=TP_SERVE_LAYERS, dtype="bfloat16",
+             mesh={"tp": 2},
              runs=[dict(name="serve_qwen2_tp2", kw=ENGINE_KW,
-                        against={"serve_qwen2": SERVED["serve_qwen2"][0]},
-                        one_card_pool_bytes=SERVED["serve_qwen2"][1])]),
-        dict(family="mixtral", layers=MIXTRAL_SERVE_LAYERS,
+                        one_card_pool_bytes=cut("serve_qwen2", 28))]),
+        dict(family="mixtral", layers=TP_SERVE_LAYERS,
              dtype="bfloat16", mesh={"ep": 2},
-             runs=[dict(name="serve_mixtral_ep2", kw=ENGINE_KW,
-                        against={"serve_mixtral":
-                                 SERVED["serve_mixtral"][0]})]),
+             runs=[dict(name="serve_mixtral_ep2", kw=ENGINE_KW)]),
         dict(family="llama", layers=2, dtype="float32", mesh={"tp": 2},
              runs=runs("parity_tp2_", (("mixed", ENGINE_KW),
                                        ("split", SPLIT_KW), ("w8", W8_KW)),
@@ -5063,6 +5275,141 @@ def phase_mesh_serving():
                                  % (gate, rate))
     # the runs through the kernels, whose per-rank launches the final
     # line lists by path
+    return {n: r for n, r in rows.items() if not n.endswith("_plain")}
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: context-parallel and fsdp serving on the one card
+# ---------------------------------------------------------------------------
+# CodeLlama-7B (16k context; Llama-2-7B stops at 4,096) over cp 2: two
+# prompts of 8,192 tokens, each rank holding half of every page
+CP_LONG = dict(prompt_len=8192, n=2, new_tokens=16)
+CP_LONG_KW = dict(ENGINE_KW, num_blocks=1100,
+                  max_seq_len=CP_LONG["prompt_len"] + CP_LONG["new_tokens"])
+CODELLAMA = dict(vocab_size=32016, rope_theta=1e6,
+                 max_position_embeddings=16384)
+# each fsdp dispatch gathers the weights through the host: 4 of 32 layers
+FSDP_SERVE_LAYERS = 4
+# the fsdp parity engines' traffic: each of their dispatches gathers the
+# 2-layer fp32 model through gloo (0.67 GB a rank at fsdp2 x tp2, 2.0 GB at
+# fsdp 4; ~0.3-0.5 GB/s a rank on one card), so two short prompts admitted
+# together, 2 new tokens each: a prefill and a decode dispatch
+FSDP_PARITY = dict(prompt_lens=(32, 48), new_tokens=2)
+
+
+def one_card_pool_bytes(layers: int, kw, dtype_bytes: int = 2,
+                        kv_heads: int = 32, head_dim: int = 128) -> int:
+    """A one-card engine's K + V pools (the sink page included), for the
+    cells no phase-3 run serves whole."""
+    return (layers * 2 * (kw["num_blocks"] + 1) * kw["block_size"]
+            * kv_heads * head_dim * dtype_bytes)
+
+
+def phase_mesh_serving_2d_cp():
+    """Context-parallel and fsdp serving on the one card (see the module
+    notes, 4c): serve_7b_cp2 (mixed), serve_7b_cp2_split and
+    serve_7b_cp2_long over two ranks, serve_7b_fsdp2_tp2 (4 layers) over
+    four, then parity_cp_fsdp_2l at 7B widths, 2 layers, fp32: cp 2 mixed
+    and split over two ranks; cp2 x tp2, cp 4, fsdp2 x tp2 mixed and
+    split, pure fsdp 4 and dp2 x fsdp2 over four, each against its
+    one-card twin (phase 4b's) and against itself through the plain
+    versions at >= 0.98."""
+    import torch
+    from paddle_tpu_torch.distributed.launch import run_world
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_7b_config)
+    gc.collect()
+    torch.cuda.empty_cache()
+    twins = {n: SERVED["twin_7b_2l_" + n] for n in ("mixed", "split")}
+    # the fsdp engines' one-card twins on their short traffic
+    m = LlamaForCausalLM(llama_7b_config(dtype="float32",
+                                         num_hidden_layers=2),
+                         generator=torch.Generator("cuda").manual_seed(SEED))
+    for name, kw in (("mixed", ENGINE_KW), ("split", SPLIT_KW)):
+        eng, out, stats = serve(m, None, kw, traffic=admit_all(
+            short_prompts(m.config.vocab_size), FSDP_PARITY["new_tokens"]),
+            new_tokens=FSDP_PARITY["new_tokens"])
+        check_launches("twin short " + name, kw, stats, 2)
+        twins["short_" + name] = (out, stats["kv_pool_bytes"])
+        del eng
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    s7, s7s = SERVED["serve_7b"], SERVED["serve_7b_split"]
+
+    def parity(mesh, pairs, prefix, short=False, plain=True):
+        runs = []
+        for name, kw in pairs:
+            twin = twins[("short_" if short else "") + name]
+            runs.append(dict(name=prefix + name, kw=kw,
+                             against={"twin": twin[0]},
+                             one_card_pool_bytes=twin[1]))
+            if plain:
+                runs.append(dict(name=prefix + name + "_plain", kw=kw,
+                                 plain=True))
+        return dict(family="llama", layers=2, dtype="float32", mesh=mesh,
+                    runs=runs, traffic="short" if short else None)
+    mixed = (("mixed", ENGINE_KW),)
+    both = mixed + (("split", SPLIT_KW),)
+    two = [
+        dict(family="llama", layers=32, dtype="bfloat16", mesh={"cp": 2},
+             runs=[dict(name="serve_7b_cp2", kw=ENGINE_KW,
+                        against={"serve_7b": s7[0]},
+                        one_card_pool_bytes=s7[1]),
+                   dict(name="serve_7b_cp2_split", kw=SPLIT_KW,
+                        against={"serve_7b_split": s7s[0]},
+                        one_card_pool_bytes=s7s[1])]),
+        dict(family="llama", layers=32, dtype="bfloat16", mesh={"cp": 2},
+             config=CODELLAMA, traffic="long",
+             runs=[dict(name="serve_7b_cp2_long", kw=CP_LONG_KW,
+                        one_card_pool_bytes=one_card_pool_bytes(
+                            32, CP_LONG_KW),
+                        prefilled=CP_LONG["n"] * CP_LONG["prompt_len"])]),
+        parity({"cp": 2}, both, "parity_cp2_"),
+    ]
+    four = [
+        dict(family="llama", layers=FSDP_SERVE_LAYERS, dtype="bfloat16",
+             mesh={"fsdp": 2, "tp": 2},
+             runs=[dict(name="serve_7b_fsdp2_tp2", kw=ENGINE_KW,
+                        one_card_pool_bytes=one_card_pool_bytes(
+                            FSDP_SERVE_LAYERS, ENGINE_KW))]),
+        parity({"cp": 2, "tp": 2}, mixed, "parity_cp2tp2_"),
+        parity({"cp": 4}, mixed, "parity_cp4_"),
+        # the fsdp engines on the short traffic, each against its twin (the
+        # gather is exact); a plain run for the mixed fsdp2 x tp2 engine,
+        # whose kernels run at the tp ranks' heads (the split engine's
+        # are 4b's parity_tp2_split's; pure fsdp and dp x fsdp run the
+        # one-card shapes, held against their plain versions in phase 4)
+        parity({"fsdp": 2, "tp": 2}, mixed, "parity_fsdp2tp2_", short=True),
+        parity({"fsdp": 2, "tp": 2}, (("split", SPLIT_KW),),
+               "parity_fsdp2tp2_", short=True, plain=False),
+        parity({"fsdp": 4, "tp": 1}, mixed, "parity_fsdp4_", short=True,
+               plain=False),
+        parity({"dp": 2, "fsdp": 2, "tp": 1}, mixed, "parity_dp2fsdp2_",
+               short=True, plain=False),
+    ]
+    rows = {}
+    for world, cells in ((2, two), (4, four)):
+        t0 = time.perf_counter()
+        got = run_world("chip_smoke:mesh_cells", world, dict(cells=cells),
+                        timeout=MESH_TIMEOUT)
+        print("mesh 2d/cp: %d ranks in %.1f s (%s)" % (
+            world, time.perf_counter() - t0, MESH_NOTE % world), flush=True)
+        for row in got.values():
+            emit({k: v for k, v in row.items() if k != "tokens"})
+        rows.update(got)
+    gates = {}
+    for name, row in rows.items():
+        if name.startswith("parity_") and not name.endswith("_plain"):
+            gates[name + "_vs_twin"] = row["match_rate_vs_twin"]
+            if name + "_plain" in rows:
+                gates[name + "_vs_plain"] = _rates(
+                    row["tokens"], rows[name + "_plain"]["tokens"])[0]
+    emit(dict(phase="parity_cp_fsdp_2l", **gates))
+    for gate, rate in gates.items():
+        if not rate >= 0.98:
+            raise AssertionError("mesh parity %s token match %.4f < 0.98"
+                                 % (gate, rate))
     return {n: r for n, r in rows.items() if not n.endswith("_plain")}
 
 
@@ -5299,6 +5646,9 @@ def main() -> int:
         return timing_of(sys.argv[2])
     if sys.argv[1:2] == ["--profile-prefix"]:
         return profile_prefix()
+    if sys.argv[1:2] == ["--profile-serving"]:
+        global PROFILE_SERVING
+        PROFILE_SERVING = True
     import paddle_tpu_torch  # noqa: F401  (fails outside a checkout)
     t_start = time.perf_counter()
 
@@ -5318,6 +5668,7 @@ def main() -> int:
     run("parity_2l", phase_parity_2l)
     run("parity_families_2l", phase_parity_families)
     serving.update(run("mesh_serving", phase_mesh_serving))
+    serving.update(run("mesh_serving_2d_cp", phase_mesh_serving_2d_cp))
     run("logits", phase_logits_by_depth)
     flash_rows = run("flash", phase_flash_kernels)
     train = run("train_7b", phase_train_7b)

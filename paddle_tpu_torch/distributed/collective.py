@@ -30,7 +30,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["STATS", "reset_stats", "stats", "all_reduce", "all_reduce_max",
-           "all_gather", "all_to_all", "broadcast"]
+           "all_gather", "all_gather_rows", "all_to_all", "broadcast"]
 
 STATS: Dict[str, Dict[str, float]] = {"calls": {}, "seconds": {}}
 
@@ -82,9 +82,10 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.float16) if t.dtype == torch.bfloat16 else t
 
 
-def all_gather(t: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+def all_gather(t: torch.Tensor, dim: int, group, size: int,
+               op: str = "all_gather") -> torch.Tensor:
     """Concatenate every rank's ``t`` along ``dim`` in rank order (the
-    tiled all-gather)."""
+    tiled all-gather); ``op`` names the call in ``STATS``."""
     t0 = time.perf_counter()
     src = _wire(t.contiguous())
     parts = [torch.empty_like(src) for _ in range(size)]
@@ -93,7 +94,20 @@ def all_gather(t: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
     if t.dtype == torch.bfloat16:
         out = out.view(torch.bfloat16)
     _sync(out)
-    _count("all_gather", time.perf_counter() - t0)
+    _count(op, time.perf_counter() - t0)
+    return out
+
+
+def all_gather_rows(out: torch.Tensor, t: torch.Tensor, group,
+                    op: str = "all_gather") -> torch.Tensor:
+    """Gather every rank's 1-D ``t`` into the rows of ``out`` [size, n]
+    (row ``g`` from rank ``g`` of ``group``), in place: no buffer is
+    allocated.  ``op`` names the call in ``STATS``."""
+    t0 = time.perf_counter()
+    dst = _wire(out)
+    dist.all_gather(list(dst.unbind(0)), _wire(t.contiguous()), group=group)
+    _sync(out)
+    _count(op, time.perf_counter() - t0)
     return out
 
 

@@ -59,8 +59,15 @@ class AxisComm:
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
         return C.all_reduce_max(t, self.group)
 
-    def all_gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
-        return C.all_gather(t, dim, self.group, self.size)
+    def all_gather(self, t: torch.Tensor, dim: int = 0,
+                   op: str = "all_gather") -> torch.Tensor:
+        return C.all_gather(t, dim, self.group, self.size, op)
+
+    def all_gather_rows(self, out: torch.Tensor,
+                        t: torch.Tensor) -> torch.Tensor:
+        """Every rank's 1-D ``t`` into the rows of ``out`` [size, n]."""
+        return C.all_gather_rows(out, t, self.group,
+                                 "%s_gather" % self.name)
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         return C.all_to_all(t, self.group)

@@ -80,25 +80,31 @@ counts one launch of the steady-state serving step for the capacity plane
 (``observability/capacity.py``), and ``inference/engine_server.py``
 serves an engine to other processes (``inference/fleet.py``).
 
-``mesh=`` (a ``distributed.process_mesh.ProcessMesh`` with ``tp`` and/or
-``ep`` axes, e.g. ``jit.spmd.tp_mesh(2, backend="gloo")``; ``sharding=`` a
-``jit.spmd.ShardingConfig``) serves over ``torch.distributed`` ranks, one
-process each (the reference's ``mesh=`` engines, its checks at
-construction).  Every rank constructs the same engine over its own shard
-of the model (``jit.spmd.shard_model``): the pools hold the rank's kv
-heads, the steps run the rank's heads, vocabulary rows and FFN columns
+``mesh=`` (a ``distributed.process_mesh.ProcessMesh`` with ``tp``,
+``ep``, ``cp``, ``fsdp`` and/or ``dp`` axes, e.g. ``jit.spmd.tp_mesh(2,
+backend="gloo")``, ``cp_mesh(2, ...)``, ``mesh_2d(2, 2, ...)``;
+``sharding=`` a ``jit.spmd.ShardingConfig``) serves over
+``torch.distributed`` ranks, one process each (the reference's ``mesh=``
+engines, its checks at construction).  Every rank constructs the same
+engine over its own shard of the model (``jit.spmd.shard_model``): the
+pools hold the rank's kv heads (tp) and its slot stripe of every page
+(cp: ``block_size / cp`` slots, the stripe partials merged over the cp
+ranks), the steps run the rank's heads, vocabulary rows and FFN columns
 (or, over ep, its experts) with the reference's collectives between them,
-and ``quant_collectives=True`` makes the logits all-gather int8.  Rank 0
-is the driver: it schedules, serves the public API and writes every
-device operation — a step's one packed int32 array, a copy-on-write page
-copy — into one control broadcast; ranks > 0 call :meth:`run_worker` and
-replay them in order until :meth:`shutdown_workers`.  As in the
-reference, speculative decoding, the host spill tier and page migration
-are single-chip, and the dense prefill cannot feed sharded pools.
+a rank stores ``1/(fsdp·tp)`` of each fsdp-sharded weight and gathers its
+tp shard back one group at a time at every dispatch, a ``dp`` axis
+replicates, and ``quant_collectives=True`` makes the logits all-gather
+int8.  Rank 0 is the driver: it schedules, serves the public API and
+writes every device operation — a step's one packed int32 array, a
+copy-on-write page copy — into one control broadcast; ranks > 0 call
+:meth:`run_worker` and replay them in order until
+:meth:`shutdown_workers`.  As in the reference, speculative decoding, the
+host spill tier and page migration are single-chip, the dense prefill
+cannot feed sharded pools, and cp refuses int8 pools and a block size it
+does not divide (``jit.spmd.validate_cp_serving``).
 
 What still raises ``NotImplementedError`` naming the feature (none is
-silently ignored): a mesh's cp (context parallelism) or fsdp axis, and a
-pool dtype other than the model's or int8.
+silently ignored): a pool dtype other than the model's or int8.
 """
 from __future__ import annotations
 
@@ -305,7 +311,8 @@ class ContinuousBatchingEngine:
         self.draft_model = draft_model
         self.spec_k = int(spec_k) if draft_model is not None else 0
         self._init_mesh(model, mesh, sharding, mixed_step, prefill_buckets,
-                        quant_collectives, host_tier_bytes, token_budgets)
+                        quant_collectives, host_tier_bytes, token_budgets,
+                        block_size, kv_dtype)
         self.device = resolve_device(device)
         for what, m in (("model", model), ("draft model", draft_model)):
             if m is not None and m.device != self.device:
@@ -323,13 +330,15 @@ class ContinuousBatchingEngine:
         self.block_size = block_size
         self.lazy_alloc = bool(lazy_alloc)
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
-        # under tp each rank's pools hold its kv heads of every page
+        # each rank's pools hold its kv heads (tp) of its slot stripe (cp)
+        # of every page
         self.caches = [
             PagedKVCache(num_blocks, block_size,
                          cfg.num_key_value_heads // self.tp_degree,
                          self.head_dim, cfg.torch_dtype, sink_block=True,
                          device=self.device,
-                         kv_dtype="int8" if kv_dtype == "int8" else None)
+                         kv_dtype="int8" if kv_dtype == "int8" else None,
+                         cp=self.cp_degree)
             for _ in range(cfg.num_hidden_layers)]
         if max_seq_len is None:
             max_seq_len = max(block_size,
@@ -338,6 +347,13 @@ class ContinuousBatchingEngine:
         # tree on use (the draft stays fp, as in the reference)
         self.weight_qtree = (Int8Weights(model, tp=self.tp)
                              if weight_quant == "int8" else None)
+        if self.fsdp_degree > 1:
+            # the dispatches' gather of the stored fsdp shards (the int8
+            # tree gathers its own codes)
+            from ..jit.spmd import FsdpParams
+            self.tp.fsdp_params = FsdpParams(model, self.tp, skip=(
+                self.weight_qtree.param_names if self.weight_qtree
+                else ()))
         self.weight_quant_bytes = (self.weight_qtree.nbytes
                                    if self.weight_qtree is not None else 0)
         self.max_seq_len = max_seq_len
@@ -503,7 +519,8 @@ class ContinuousBatchingEngine:
         self._init_observability(tracer)
 
     def _init_mesh(self, model, mesh, sharding, mixed_step, prefill_buckets,
-                   quant_collectives, host_tier_bytes, token_budgets):
+                   quant_collectives, host_tier_bytes, token_budgets,
+                   block_size, kv_dtype):
         """Resolve ``mesh``/``sharding`` into ``self.tp`` (a
         ``jit.spmd.TPContext``, None on one device or when every axis is
         1) with the reference's checks at construction, then join the
@@ -514,8 +531,20 @@ class ContinuousBatchingEngine:
         if mesh is not None or sharding is not None:
             from ..jit.spmd import tp_serving_context
             self.tp = tp_serving_context(model, mesh, sharding)
-        self.tp_degree = self.tp.degree if self.tp is not None else 1
-        self.ep_degree = self.tp.ep_degree if self.tp is not None else 1
+        tp = self.tp
+        self.tp_degree = tp.degree if tp is not None else 1
+        self.fsdp_degree = tp.fsdp_degree if tp is not None else 1
+        self.cp_degree = tp.cp_degree if tp is not None else 1
+        self.ep_degree = tp.ep_degree if tp is not None else 1
+        self.dp_degree = (tp.mesh.axis_sizes().get("dp", 1)
+                          if tp is not None else 1)
+        if self.cp_degree > 1:
+            from ..jit.spmd import validate_cp_serving
+            validate_cp_serving(
+                self.cp_degree, block_size,
+                quantized_kv=(kv_dtype == "int8"),
+                dense_prefill=(not mixed_step and not prefill_buckets),
+                spec_decode=self.draft_model is not None)
         if self.ep_degree > 1:
             from ..jit.spmd import validate_ep_serving
             validate_ep_serving(
@@ -565,9 +594,9 @@ class ContinuousBatchingEngine:
         """The request tracer (default on; decode spans sampled every
         ``trace_decode_every`` steps a request), the ``serving_*`` metric
         families in the port's registry, and the engine's own cumulative
-        ``counters``, with the tensor/expert-parallel, quantized
-        collective and MoE families (the context-parallel degree stays
-        1: cp is not ported)."""
+        ``counters``, with the sharded-serving families (degrees, mesh
+        shape, tp/cp/ep collective bytes, the fsdp gather's bytes), the
+        quantized collective and the MoE families."""
         self.tracer = resolve_tracer(tracer)
         self.trace_decode_every = 8
         r = default_registry()
@@ -687,15 +716,42 @@ class ContinuousBatchingEngine:
             "constructed engine (fsdp = weight-storage sharding, tp = "
             "tensor parallel, dp = replica) — 1 means the axis is "
             "absent", labels=("axis",))
-        mesh_shape.labels(axis="fsdp").set(1)
+        mesh_shape.labels(axis="fsdp").set(self.fsdp_degree)
         mesh_shape.labels(axis="tp").set(self.tp_degree)
-        mesh_shape.labels(axis="dp").set(1)
-        mesh_shape.labels(axis="cp").set(1)
+        mesh_shape.labels(axis="dp").set(self.dp_degree)
+        mesh_shape.labels(axis="cp").set(self.cp_degree)
         mesh_shape.labels(axis="ep").set(self.ep_degree)
         r.gauge("serving_cp_degree",
                 "context-parallel degree of the most recently constructed "
                 "engine (cp stripes every KV pool's slot dim — per-chip "
-                "pool HBM is 1/cp; 1 = pools not striped)").set(1)
+                "pool HBM is 1/cp; 1 = pools not striped)").set(
+                    self.cp_degree)
+        self._m_cp_all_gather = r.counter(
+            "serving_cp_collective_bytes_total",
+            "per-chip bytes received by the cross-chip online-softmax "
+            "stripe merge (one all_gather of the (o, m, l) partial "
+            "rows per layer per sharded dispatch)", labels=("op",)
+        ).labels(op="all_gather")
+        self._m_fsdp_gather = r.counter(
+            "spmd_allgather_bytes_total",
+            "per-chip bytes received by spmd param all-gathers, by "
+            "site: the 2D train step's per-step param gather "
+            "(train_params) and the sharded serving prologue's fsdp "
+            "gather (serving_params)", labels=("site",)
+        ).labels(site="serving_params")
+        # the static per-dispatch payload of the fsdp gather (0 without an
+        # fsdp axis), counted per sharded dispatch
+        self._fsdp_gather_bytes = 0
+        if self.tp is not None:
+            # over the served tree, as the reference: int8 codes where the
+            # weight tree stands in for a parameter
+            from ..jit.spmd import full_shapes
+            codes = set(self.weight_qtree.param_names
+                        if self.weight_qtree is not None else ())
+            self._fsdp_gather_bytes = self.tp.fsdp_gather_bytes({
+                k: torch.empty(v, device="meta", dtype=(
+                    torch.int8 if k in codes else self.cfg.torch_dtype))
+                for k, v in full_shapes(self.model).items()})
         r.gauge("serving_ep_degree",
                 "expert-parallel degree of the most recently constructed "
                 "engine (ep shards every MoE expert bank's E dim — "
@@ -1004,8 +1060,12 @@ class ContinuousBatchingEngine:
                 self._m_quant_all_gather.inc(by_op["all_gather"])
         if by_op.get("ep_all_to_all"):
             self._m_ep_all_to_all.inc(by_op["ep_all_to_all"])
+        if by_op.get("cp_merge"):
+            self._m_cp_all_gather.inc(by_op["cp_merge"])
         if by_op.get("ep_all_gather"):
             self._m_ep_all_gather.inc(by_op["ep_all_gather"])
+        if self._fsdp_gather_bytes:
+            self._m_fsdp_gather.inc(self._fsdp_gather_bytes)
 
     def has_work(self) -> bool:
         return bool(self.waiting) or any(s is not None for s in self.slots)

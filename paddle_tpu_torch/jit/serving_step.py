@@ -7,13 +7,22 @@ a shared page) and ``extract_blocks`` / ``inject_blocks`` (pages to and
 from a host :class:`~paddle_tpu_torch.ops.paged_attention.KVPageBuffer`,
 the host tier's spill and restore).
 
-One device, or one rank of a tp/ep mesh (``tp=``: the engine's
+One device, or one rank of a sharded mesh (``tp=``: the engine's
 ``jit.spmd.TPContext``; the model is then the rank's shard, the pools hold
 its kv heads, and the steps add the reference's collectives: the
 embedding sum, a sum after each o_proj and down projection, the logits
 all-gather — exact, or int8 with ``quant_collectives`` — and the MoE
-dispatch's all_to_alls), over fp32/bf16 pools or int8 pools (quantize on
-write, the int8 attention kernels on read).  Greedy by default; ``sampling=True``
+dispatch's all_to_alls).  Under an fsdp axis (``tp.fsdp_params``: the
+engine's ``jit.spmd.FsdpParams``) each group of parameters — the embedding, each
+decoder layer, the final norm, the LM head — is gathered back to its tp
+compute shard just before it runs.  Under a cp axis the pools hold the
+rank's slot stripe of every page: the host packs global in-page offsets
+and each rank keeps the rows its stripe owns (:func:`_cp_local_dest`, the
+rest to its own sink stripe), and the attention is the stripe's partial
+softmax (``ops/paged_attention``'s ``*_partial``, plain PyTorch, as the
+reference's) merged over the cp ranks in one all_gather a layer
+(``ops/online_softmax.cross_chip_merge``).  Pools are fp32/bf16 or int8
+(quantize on write, the int8 attention kernels on read).  Greedy by default; ``sampling=True``
 puts the ``ops/sampling`` epilogue in each step (per-row temperature,
 top-k, top-p and seed, carried in the step's one packed int32 host
 buffer, temperature and top-p bitcast into their int32 lanes; each draw
@@ -36,6 +45,7 @@ bounds (shapes seen <= the set's size) read the same.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List
 
@@ -47,8 +57,12 @@ from ..nn import functional as PF
 from ..models.llama import inner_model
 from ..ops.dequant import layer_weights
 from ..ops.kernels import rope_qkv_epilogue, rope_tables_for_positions
-from ..ops.paged_attention import (KVPageBuffer, chunk_prefill_attention,
-                                   paged_attention,
+from ..ops.online_softmax import cross_chip_merge
+from ..ops.paged_attention import (KVPageBuffer, _chunk_dest, _decode_dest,
+                                   chunk_prefill_attention,
+                                   chunk_prefill_attention_partial,
+                                   paged_attention, paged_attention_partial,
+                                   ragged_attention_partial,
                                    ragged_paged_attention,
                                    ragged_tensor_cores, ragged_work,
                                    write_chunk_kv,
@@ -74,6 +88,41 @@ def _collective_bytes(tp, cfg, n_tokens: int, rows: int, q8: bool):
     if tp is None:
         return {}
     return tp.collective_bytes(cfg, n_tokens, rows, quant_gather=q8)
+
+
+def _cp_comm(tp):
+    """This rank's cp ``AxisComm``, or None without a cp axis."""
+    return tp.cp_comm if tp is not None else None
+
+
+def _cp_local_dest(dest_blocks, dest_offsets, bsl: int, index: int,
+                   sink: int):
+    """GLOBAL per-token write destinations -> this rank's slot stripe
+    (reference: ``_cp_local_dest``): rank ``index`` holds slots
+    ``[index * bsl, (index + 1) * bsl)`` of every page; a token whose
+    global in-page offset falls there writes at the local offset, every
+    other token goes to this rank's own stripe of the sink page, so each
+    K/V row is written exactly once pool-wide."""
+    lo = dest_offsets - index * bsl
+    owned = (lo >= 0) & (lo < bsl)
+    n = dest_offsets.shape[0]
+    blk = torch.where(owned, dest_blocks, torch.full_like(dest_blocks, sink))
+    off = torch.where(owned, lo, torch.arange(
+        n, dtype=dest_offsets.dtype, device=dest_offsets.device) % bsl)
+    return blk, off
+
+
+def _cp_attend(q, partials, comm):
+    """The stripe partials merged over the cp ranks, in ``q``'s dtype."""
+    return cross_chip_merge(*partials, comm).to(q.dtype)
+
+
+def _gathered(tp, key):
+    """Group ``key``'s parameters at their tp compute shard for the block
+    (the engine's ``jit.spmd.FsdpParams.gather``); nothing without an fsdp
+    axis."""
+    fsdp = tp.fsdp_params if tp is not None else None
+    return contextlib.nullcontext() if fsdp is None else fsdp.gather(key)
 
 
 def _samp_knobs(samp: torch.Tensor):
@@ -186,11 +235,13 @@ def _layer_weights(weights, i: int):
 
 def _lm_logits(model, weights, h, tp=None, q8: bool = False):
     """The LM head over ``h``: the int8 tree's dequantized head (one
-    launch) when it holds one, else the model's.  Under tp the head is the
-    rank's vocab shard and the logits come back whole through the exact
-    all-gather, or with ``q8`` the int8 one (reference: ``_tp_logits``)."""
+    launch) when it holds one, else the model's (gathered first under
+    fsdp).  Under tp the head is the rank's vocab shard and the logits
+    come back whole through the exact all-gather, or with ``q8`` the int8
+    one (reference: ``_tp_logits``)."""
     head = None if weights is None else weights.lm_head()
-    out = model.lm_logits(h) if head is None else F.linear(h, head)
+    with _gathered(tp, "head"):
+        out = model.lm_logits(h) if head is None else F.linear(h, head)
     if tp is None or tp.tp_comm is None:
         return out
     if q8:
@@ -513,8 +564,9 @@ class MixedStep:
 
         c0 = self.caches[0]
         H, Hkv = _local_heads(cfg, self.tp)
+        cp = _cp_comm(self.tp)
         work = None
-        if self.device.type == "cuda" and ragged_tensor_cores(
+        if self.device.type == "cuda" and cp is None and ragged_tensor_cores(
                 cfg.torch_dtype, c0.quantized, c0.block_size, D, H // Hkv):
             # the ragged kernel's work list, built here from the host
             # pack's span lengths and shipped in the pack's one copy
@@ -535,8 +587,17 @@ class MixedStep:
         q_offsets = span_tab[:, W].contiguous()
         q_lens = span_tab[:, W + 1].contiguous()
         kv_lens = span_tab[:, W + 2].contiguous()
+        if cp is not None:
+            # the host packed GLOBAL in-page offsets; the span lengths the
+            # partials loop over are read from the host pack
+            bsl = c0.key_cache.shape[1]
+            dest_blocks, dest_offsets = _cp_local_dest(
+                dest_blocks, dest_offsets, bsl, cp.index, self.sink)
+            host = pack[4 * T:].reshape(S, W + EX)
+            spans = (host[:, W], host[:, W + 1], host[:, W + 2])
 
-        x = _embed(llama, tokens, self.tp)                     # [T, h]
+        with _gathered(self.tp, "embed"):
+            x = _embed(llama, tokens, self.tp)                 # [T, h]
         # rope tables built ONCE per step: positions are layer-invariant
         cos, sin = rope_tables_for_positions(tok_tab[1], D, cfg.rope_theta)
         for i, (layer, cache) in enumerate(zip(llama.layers, self.caches)):
@@ -550,13 +611,20 @@ class MixedStep:
                                     dest_blocks, dest_offsets)
 
             def attend(q, c=cache):
+                if cp is not None:
+                    return _cp_attend(q, ragged_attention_partial(
+                        q, c.key_cache, c.value_cache, bt, *spans, scale,
+                        cp.index * bsl, c.block_size), cp)
                 return ragged_paged_attention(
                     q, c.key_cache, c.value_cache, bt, q_offsets, q_lens,
                     kv_lens, scale, span_q=span_q, key_scale=c.key_scale,
                     value_scale=c.value_scale, work=work)
-            x = _attend_layer(layer, x, cos, sin, cache, write, attend,
-                              _layer_weights(self.weights, i), self.tp)
-        return llama.norm(x), tok_tab, span_tab
+            with _gathered(self.tp, i):
+                x = _attend_layer(layer, x, cos, sin, cache, write, attend,
+                                  _layer_weights(self.weights, i), self.tp)
+        with _gathered(self.tp, "norm"):
+            x = llama.norm(x)
+        return x, tok_tab, span_tab
 
     def _lm(self, h):
         return _lm_logits(self.model, self.weights, h, self.tp,
@@ -719,10 +787,22 @@ class PrefillStep:
         row = dev_pack[C:C + row_host.size].view(1, -1)
         pos = start + torch.arange(C, dtype=torch.int32, device=dev)
         cos, sin = rope_tables_for_positions(pos, D, cfg.rope_theta)
-        x = _embed(llama, ids, self.tp)                        # [C, h]
+        cp = _cp_comm(self.tp)
+        if cp is not None:
+            # the chunk's global destinations, then this rank's stripe
+            c0 = self.caches[0]
+            bsl = c0.key_cache.shape[1]
+            blk, off = _cp_local_dest(*_chunk_dest(
+                C, c0.block_size, row, start, n_valid, self.sink), bsl,
+                cp.index, self.sink)
+        with _gathered(self.tp, "embed"):
+            x = _embed(llama, ids, self.tp)                    # [C, h]
         for i, (layer, cache) in enumerate(zip(llama.layers, self.caches)):
             def write(k, v, ka, va, c=cache):
-                if c.quantized:
+                if cp is not None:
+                    write_ragged_kv(k, v, c.key_cache, c.value_cache, blk,
+                                    off)
+                elif c.quantized:
                     write_chunk_kv_q8(k[None], v[None], c.key_cache,
                                       c.value_cache, c.key_scale,
                                       c.value_scale, row, start, n_valid,
@@ -733,12 +813,19 @@ class PrefillStep:
                                    self.sink)
 
             def attend(q, c=cache):
+                if cp is not None:
+                    o, m, l = chunk_prefill_attention_partial(
+                        q[None], c.key_cache, c.value_cache, row, start,
+                        scale, cp.index * bsl, c.block_size)
+                    return _cp_attend(q, (o[0], m[0], l[0]), cp)
                 return chunk_prefill_attention(
                     q[None], c.key_cache, c.value_cache, row, start, scale,
                     c.key_scale, c.value_scale)[0]
-            x = _attend_layer(layer, x, cos, sin, cache, write, attend,
-                              _layer_weights(self.weights, i), self.tp)
-        last = llama.norm(x[n_valid - 1:n_valid])
+            with _gathered(self.tp, i):
+                x = _attend_layer(layer, x, cos, sin, cache, write, attend,
+                                  _layer_weights(self.weights, i), self.tp)
+        with _gathered(self.tp, "norm"):
+            last = llama.norm(x[n_valid - 1:n_valid])
         logits = _lm_logits(self.model, self.weights, last, self.tp,
                             self.q8_gather)
         if not self.sampling:
@@ -826,10 +913,24 @@ class DecodeStep:
         bt_d = dev_pack[2 * S:2 * S + S * W].view(S, W)
         seen = lens + 1                                       # int32
         cos, sin = rope_tables_for_positions(lens, D, cfg.rope_theta)
-        x = _embed(llama, tok, self.tp)                        # [S, h]
+        cp = _cp_comm(self.tp)
+        if cp is not None:
+            # each slot's global destination, then this rank's stripe; the
+            # host's longest sequence bounds the pages the partials read
+            c0 = self.caches[0]
+            bsl = c0.key_cache.shape[1]
+            blk, off = _cp_local_dest(*_decode_dest(bt_d, lens,
+                                                    c0.block_size),
+                                      bsl, cp.index, self.sink)
+            longest = int(parts[1].max()) + 1
+        with _gathered(self.tp, "embed"):
+            x = _embed(llama, tok, self.tp)                    # [S, h]
         for i, (layer, cache) in enumerate(zip(llama.layers, self.caches)):
             def write(k, v, ka, va, c=cache):
-                if c.quantized:
+                if cp is not None:
+                    write_ragged_kv(k, v, c.key_cache, c.value_cache, blk,
+                                    off)
+                elif c.quantized:
                     write_decode_kv_q8(k, v, c.key_cache, c.value_cache,
                                        c.key_scale, c.value_scale, bt_d,
                                        lens, ka, va)
@@ -838,13 +939,20 @@ class DecodeStep:
                                     lens)
 
             def attend(q, c=cache):
+                if cp is not None:
+                    return _cp_attend(q, paged_attention_partial(
+                        q, c.key_cache, c.value_cache, bt_d, seen, scale,
+                        cp.index * bsl, c.block_size, longest), cp)
                 return paged_attention(q, c.key_cache, c.value_cache, bt_d,
                                        seen, scale, c.key_scale,
                                        c.value_scale)
-            x = _attend_layer(layer, x, cos, sin, cache, write, attend,
-                              _layer_weights(self.weights, i), self.tp)
-        logits = _lm_logits(self.model, self.weights, llama.norm(x),
-                            self.tp, self.q8_gather)
+            with _gathered(self.tp, i):
+                x = _attend_layer(layer, x, cos, sin, cache, write, attend,
+                                  _layer_weights(self.weights, i), self.tp)
+        with _gathered(self.tp, "norm"):
+            x = llama.norm(x)
+        logits = _lm_logits(self.model, self.weights, x, self.tp,
+                            self.q8_gather)
         if not self.sampling:
             return greedy_sample(logits).cpu().numpy()
         knobs = _samp_knobs(dev_pack[2 * S + S * W:].view(S, 4))

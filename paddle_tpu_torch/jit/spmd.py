@@ -22,11 +22,20 @@ card — and runs the steps over it with the collectives of
 the embedding, after each o_proj and each down projection, one logits
 all-gather; the MoE dispatch's two all_to_alls and one all_gather).
 
-The reference's fsdp and cp axes (2-D fsdp x tp serving, context-parallel
-pools) are not ported: they raise ``NotImplementedError``.
+The other axes: ``fsdp`` (:func:`mesh_2d`) shards each weight family's
+non-tp dim for storage — a rank stores ``1/(fsdp·tp)`` of such a weight
+and :class:`FsdpParams` gathers its tp compute shard back, one layer at a
+time into a reused scratch, at every dispatch (the reference's
+``_wrap_sharded`` prologue); ``cp`` (:func:`cp_mesh`) stripes every KV
+pool's slot dim (``block_size / cp`` slots of every page a rank), and
+the attention merges the ranks' partial softmax rows
+(``ops/online_softmax.cross_chip_merge``); a ``dp`` replica axis is named
+by no spec, so weights and pools replicate across it.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from dataclasses import dataclass
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
@@ -36,18 +45,13 @@ from torch import nn
 from ..distributed.process_mesh import AxisComm, ProcessMesh, as_mesh
 
 __all__ = ["PartitionSpec", "P", "ShardingConfig", "SpecLayout",
-           "TPContext", "resolve_mesh_axis", "llama_param_specs",
-           "mixtral_param_specs", "validate_tp_serving",
-           "validate_ep_serving", "tp_mesh", "ep_mesh", "cp_mesh",
-           "mesh_2d", "tp_serving_context", "tp_embed", "tp_gather_logits",
-           "tp_gather_logits_q8", "prune_spec_axes",
-           "port_spec", "shard_tensor", "shard_model", "full_shapes"]
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        "%s is not ported to paddle_tpu_torch yet (the port serves over "
-        "tp and ep mesh axes: tensor and expert parallelism)" % what)
+           "TPContext", "FsdpParams", "resolve_mesh_axis",
+           "llama_param_specs", "mixtral_param_specs", "validate_tp_serving",
+           "validate_cp_serving", "validate_ep_serving", "tp_mesh",
+           "ep_mesh", "cp_mesh", "mesh_2d", "tp_serving_context", "tp_embed",
+           "tp_gather_logits", "tp_gather_logits_q8", "prune_spec_axes",
+           "spec_axes", "fsdp_gather", "port_spec", "shard_tensor",
+           "shard_model", "full_shapes"]
 
 
 class PartitionSpec(tuple):
@@ -139,33 +143,66 @@ def ep_mesh(ep: int, tp: int = 1, ep_axis: str = "ep", tp_axis: str = "tp",
                        backend=backend)
 
 
-def cp_mesh(cp: int, tp: int = 1, **_kw):
-    raise _unported("context-parallel serving (cp_mesh: slot-striped KV "
-                    "pools and the partial-softmax merge)")
+def _check_ranks(what: str, *degrees: int) -> None:
+    """A mesh of ``degrees``: each >= 1, and no more ranks than the joined
+    world holds (the reference's check against the visible devices;
+    without a world nothing is checked until the engine binds)."""
+    if min(int(d) for d in degrees) < 1:
+        raise ValueError("%s: every degree must be >= 1" % what)
+    need = math.prod(int(d) for d in degrees)
+    import torch.distributed as dist
+    if dist.is_initialized() and need > dist.get_world_size():
+        raise ValueError(
+            "%s needs %d ranks but the world has %d; start that many ranks "
+            "(paddle_tpu_torch.distributed.launch.run_world)"
+            % (what, need, dist.get_world_size()))
 
 
-def mesh_2d(fsdp: int, tp: int, replica: int = 1, **_kw):
-    raise _unported("2-D fsdp x tp serving (mesh_2d)")
+def mesh_2d(fsdp: int, tp: int, replica: int = 1, fsdp_axis: str = "fsdp",
+            tp_axis: str = "tp", replica_axis: str = "dp",
+            backend: Optional[str] = None):
+    """The ``(fsdp, tp)`` mesh (reference: ``mesh_2d``); ``replica > 1``
+    puts a data-parallel axis first (``["dp", "fsdp", "tp"]``: weights and
+    pools replicate across it, no spec names it)."""
+    _check_ranks("mesh_2d(replica=%s, fsdp=%s, tp=%s)" % (replica, fsdp, tp),
+                 replica, fsdp, tp)
+    if replica > 1:
+        return ProcessMesh(shape=[int(replica), int(fsdp), int(tp)],
+                           dim_names=[replica_axis, fsdp_axis, tp_axis],
+                           backend=backend)
+    return ProcessMesh(shape=[int(fsdp), int(tp)],
+                       dim_names=[fsdp_axis, tp_axis], backend=backend)
+
+
+def cp_mesh(cp: int, tp: int = 1, cp_axis: str = "cp", tp_axis: str = "tp",
+            backend: Optional[str] = None):
+    """The ``(cp, tp)`` serving mesh (reference: ``cp_mesh``): ``cp``
+    stripes every KV pool's slot dim, so a rank's pools are ``1/cp`` of a
+    one-card engine's; ``tp=1`` is pure context parallelism (weights
+    replicate: no spec names cp)."""
+    _check_ranks("cp_mesh(cp=%s, tp=%s)" % (cp, tp), cp, tp)
+    if tp > 1:
+        return ProcessMesh(shape=[int(cp), int(tp)],
+                           dim_names=[cp_axis, tp_axis], backend=backend)
+    return ProcessMesh(shape=[int(cp)], dim_names=[cp_axis], backend=backend)
 
 
 # ---------------------------------------------------------------------------
 # canonical per-weight-family specs (the reference's tables)
 # ---------------------------------------------------------------------------
 class SpecLayout:
-    """The reference's ``SpecLayout`` over the ``tp`` and ``ep`` axes; an
-    fsdp or cp axis raises ``NotImplementedError`` (not ported)."""
+    """The reference's ``SpecLayout``: ``tp`` shards compute (Megatron),
+    ``fsdp`` each family's non-tp dim for storage, ``cp`` only the KV
+    pools' slot dim, ``ep`` only the MoE expert banks' E dim; any axis may
+    be None."""
 
     def __init__(self, tp_axis: Optional[str] = "tp",
                  fsdp_axis: Optional[str] = None,
                  cp_axis: Optional[str] = None,
                  ep_axis: Optional[str] = None):
-        if fsdp_axis is not None:
-            raise _unported("the fsdp axis (weight-storage sharding)")
-        if cp_axis is not None:
-            raise _unported("the cp axis (slot-striped KV pools)")
         self.tp_axis = tp_axis
-        self.fsdp_axis = None
-        self.cp_axis = None
+        self.fsdp_axis = fsdp_axis
+        self.cp_axis = cp_axis
         self.ep_axis = ep_axis
 
     def embeddings(self) -> PartitionSpec:
@@ -196,7 +233,8 @@ class SpecLayout:
         return P(self.fsdp_axis) if self.fsdp_axis else P()
 
     def kv_pool(self) -> PartitionSpec:
-        """[phys_pages, block_size, Hkv, D]: kv heads over tp."""
+        """[phys_pages, block_size, Hkv, D]: slots over cp, kv heads over
+        tp."""
         return P(None, self.cp_axis, self.tp_axis, None)
 
     def kv_scale(self) -> PartitionSpec:
@@ -297,6 +335,14 @@ def _entry_names(entry) -> Tuple[str, ...]:
     return (entry,)
 
 
+def spec_axes(spec) -> Tuple[str, ...]:
+    """Every mesh axis a spec names, in dim order."""
+    out = []
+    for entry in spec:
+        out.extend(_entry_names(entry))
+    return tuple(out)
+
+
 def _sizes(mesh) -> Dict[str, int]:
     if isinstance(mesh, ProcessMesh):
         return mesh.axis_sizes()
@@ -350,6 +396,43 @@ def validate_tp_serving(cfg, degree: int, pool_kv_heads: Optional[int]
             % (degree, ", ".join(problems)))
 
 
+def validate_cp_serving(cp_degree: int, block_size: int,
+                        quantized_kv: bool = False,
+                        dense_prefill: bool = False,
+                        spec_decode: bool = False) -> None:
+    """Every constraint context-parallel serving needs, at engine
+    construction (reference: ``validate_cp_serving``, the same messages):
+    cp stripes the pool's slot dim, so ``block_size`` must divide by cp;
+    int8 pools, the dense prefill and speculative decoding are refused."""
+    if cp_degree <= 1:
+        return
+    if block_size % cp_degree:
+        raise ValueError(
+            f"context-parallel serving with cp={cp_degree} requires the "
+            f"KV page block_size to divide by cp (each chip owns "
+            f"block_size/cp slots of every page); got "
+            f"block_size={block_size}.  Pick a block_size that divides "
+            f"by cp, or lower cp.")
+    if quantized_kv:
+        raise ValueError(
+            f"context-parallel serving (cp={cp_degree}) does not "
+            f"support the int8 KV pool: the [phys_pages, Hkv] absmax "
+            f"tables are page-global and would diverge across slot "
+            f"stripes.  Serve with kv_dtype=None (fp32 pool) under cp.")
+    if dense_prefill:
+        raise ValueError(
+            f"context-parallel serving (cp={cp_degree}) requires the "
+            f"chunked/ragged prefill path; the legacy dense prefill "
+            f"writes whole pages per chip and cannot stripe.  Construct "
+            f"the engine with prefill_chunk_size set (paged prefill).")
+    if spec_decode:
+        raise ValueError(
+            f"context-parallel serving (cp={cp_degree}) does not "
+            f"support speculative decoding yet: the draft/verify steps "
+            f"bypass the striped scatter.  Disable spec-decode under "
+            f"cp.")
+
+
 def validate_ep_serving(num_experts: int, ep_degree: int,
                         mixed_step: bool = True,
                         dense_prefill: bool = False,
@@ -395,30 +478,45 @@ def validate_ep_serving(num_experts: int, ep_degree: int,
 
 class TPContext:
     """One engine's sharded serving context on this rank (reference:
-    ``TPContext``): the mesh, the tp axis and degree, the ep axis and
-    degree, the layout and the per-parameter specs (the reference's
+    ``TPContext``): the mesh, the tp axis and degree (compute), the fsdp
+    (weight storage), cp (pool slot stripes) and ep (expert banks) axes
+    and degrees, the layout and the per-parameter specs (the reference's
     tables, reference layout).  :meth:`bind` joins the mesh's data groups
-    (collectively) and gives ``tp_comm`` / ``ep_comm``, this rank's
-    :class:`AxisComm` on each axis (None for a degree-1 axis)."""
+    (collectively) and gives ``tp_comm`` / ``fsdp_comm`` / ``cp_comm`` /
+    ``ep_comm``, this rank's :class:`AxisComm` on each axis (None for a
+    degree-1 axis)."""
 
     def __init__(self, mesh: ProcessMesh, axis: Optional[str], degree: int,
                  layout: SpecLayout, specs: Dict[str, PartitionSpec],
+                 fsdp_axis: Optional[str] = None, fsdp_degree: int = 1,
+                 cp_axis: Optional[str] = None, cp_degree: int = 1,
                  ep_axis: Optional[str] = None, ep_degree: int = 1):
         self.mesh = mesh
         self.axis = axis
         self.degree = degree
+        self.fsdp_axis = fsdp_axis if fsdp_degree > 1 else None
+        self.fsdp_degree = fsdp_degree if fsdp_degree > 1 else 1
+        self.cp_axis = cp_axis if cp_degree > 1 else None
+        self.cp_degree = cp_degree if cp_degree > 1 else 1
         self.ep_axis = ep_axis if ep_degree > 1 else None
         self.ep_degree = ep_degree if ep_degree > 1 else 1
         self.layout = layout
         self.specs = specs
         self.tp_comm: Optional[AxisComm] = None
+        self.fsdp_comm: Optional[AxisComm] = None
+        self.cp_comm: Optional[AxisComm] = None
         self.ep_comm: Optional[AxisComm] = None
         self.rank: Optional[int] = None
+        self._fsdp_bytes: Optional[int] = None
+        # the engine's gather of the stored fsdp shards (FsdpParams)
+        self.fsdp_params: Optional["FsdpParams"] = None
 
     def bind(self) -> "TPContext":
         comms = self.mesh.bind()
         self.tp_comm = comms[self.axis] if self.degree > 1 else None
-        self.ep_comm = comms[self.ep_axis] if self.ep_degree > 1 else None
+        self.fsdp_comm = comms[self.fsdp_axis] if self.fsdp_axis else None
+        self.cp_comm = comms[self.cp_axis] if self.cp_axis else None
+        self.ep_comm = comms[self.ep_axis] if self.ep_axis else None
         import torch.distributed as dist
         self.rank = dist.get_rank()
         return self
@@ -430,14 +528,47 @@ class TPContext:
             self.bind()
         return self.mesh.coords(self.rank)
 
+    def fsdp_gather_bytes(self, arrays) -> int:
+        """Per-rank bytes RECEIVED by the fsdp gathers of one dispatch
+        (reference: ``TPContext.fsdp_gather_bytes``; 0 without an fsdp
+        axis): for each fsdp-sharded parameter of ``arrays`` (whole
+        shapes; numpy or torch), the rank holds ``1/part`` of it and
+        receives the other ``fsdp - 1`` fsdp shards of its tp slice.
+        Static per engine, cached on the first call."""
+        if self.fsdp_axis is None:
+            return 0
+        if self._fsdp_bytes is not None:
+            return self._fsdp_bytes
+        sizes = self.mesh.axis_sizes()
+        total = 0
+        for k, v in arrays.items():
+            spec = self.specs.get(k)
+            if spec is None:
+                continue
+            names = spec_axes(spec)
+            if self.fsdp_axis not in names:
+                continue
+            part = 1
+            for n in names:
+                part *= sizes.get(n, 1)
+            item = (v.element_size() if isinstance(v, torch.Tensor)
+                    else v.dtype.itemsize)
+            nbytes = int(math.prod(tuple(v.shape))) * item
+            total += nbytes // part * (sizes[self.fsdp_axis] - 1)
+        self._fsdp_bytes = total
+        return total
+
     def collective_bytes(self, cfg, n_tokens: int, n_gather_rows: int,
                          quant_gather: bool = False) -> Dict[str, int]:
         """Per-rank collective payload of ONE sharded dispatch (reference:
         ``TPContext.collective_bytes``, the same formula): ``(2L + 1)``
         sums of ``[n_tokens, hidden]``, one logits all-gather of
         ``[n_gather_rows, V/tp]`` (int8 codes + a 4-byte scale with
-        ``quant_gather``), and with ep the MoE dispatch's two all_to_alls
-        and one token-stripe all_gather per layer."""
+        ``quant_gather``); with cp the stripe merge's one all_gather of
+        the fp32 ``(o, m, l)`` rows a layer (``"cp_merge"``: ``L ·
+        n_tokens · H/tp · (D + 2) · 4`` from each of the other ``cp - 1``
+        ranks); with ep the MoE dispatch's two all_to_alls and one
+        token-stripe all_gather per layer."""
         if self.degree <= 1:
             out = {"psum": 0, "all_gather": 0}
         else:
@@ -448,6 +579,12 @@ class TPContext:
                 * cfg.hidden_size * item,
                 "all_gather": shard + 4 if quant_gather else shard * item,
             }
+        if self.cp_degree > 1:
+            h_local = cfg.num_attention_heads // self.degree
+            d = cfg.hidden_size // cfg.num_attention_heads
+            out["cp_merge"] = (cfg.num_hidden_layers * n_tokens
+                               * h_local * (d + 2) * 4
+                               * (self.cp_degree - 1))
         if self.ep_degree > 1:
             item = 2 if cfg.dtype == "bfloat16" else 4
             ep = self.ep_degree
@@ -469,6 +606,9 @@ class TPContext:
 
     def __repr__(self):
         return (f"TPContext(axis={self.axis!r}, degree={self.degree}, "
+                f"fsdp_axis={self.fsdp_axis!r}, "
+                f"fsdp_degree={self.fsdp_degree}, "
+                f"cp_axis={self.cp_axis!r}, cp_degree={self.cp_degree}, "
                 f"ep_axis={self.ep_axis!r}, ep_degree={self.ep_degree}, "
                 f"mesh={tuple(self.mesh.axis_sizes().items())})")
 
@@ -482,45 +622,56 @@ def full_shapes(model) -> Dict[str, Tuple[int, ...]]:
     return {k: tuple(t.shape) for k, t in model.state_dict().items()}
 
 
+def _layout_for(sizes: Dict[str, int], tp_axis: Optional[str],
+                tp_degree: int) -> SpecLayout:
+    """The layout of a mesh's axes: each of fsdp, cp and ep named when its
+    degree is > 1."""
+    def named(ax):
+        return ax if sizes.get(ax, 1) > 1 else None
+    return SpecLayout(tp_axis=tp_axis if tp_degree > 1 else None,
+                      fsdp_axis=named("fsdp"), cp_axis=named("cp"),
+                      ep_axis=named("ep"))
+
+
+def _specs_for(config, shapes, layout, mesh) -> Dict[str, PartitionSpec]:
+    fn = mixtral_param_specs if getattr(config, "num_local_experts", 0) \
+        else llama_param_specs
+    return fn(shapes.keys(), layout, shapes=shapes, mesh=mesh)
+
+
 def tp_serving_context(model, mesh, sharding: Optional[ShardingConfig]
                        = None) -> Optional[TPContext]:
     """Resolve an engine's ``mesh``/``sharding`` into a :class:`TPContext`,
     or None when every axis degenerates to 1 (reference:
-    ``tp_serving_context``); validates tp divisibility first.  An fsdp or
-    cp axis raises ``NotImplementedError``."""
+    ``tp_serving_context``); validates tp divisibility first.  A mesh
+    without a tp axis is still a sharded context when it has an fsdp
+    (pure fsdp, or fsdp x dp), cp or ep axis; any other axis (``dp``) is
+    named by no spec, so weights and pools replicate across it."""
     if sharding is not None and not isinstance(sharding, ShardingConfig):
         raise TypeError("sharding must be a jit.spmd.ShardingConfig; got %r"
                         % type(sharding).__name__)
     cfg = sharding or ShardingConfig(axis="tp")
     pm = as_mesh(mesh) if mesh is not None else None
     sizes = pm.axis_sizes() if pm is not None else {}
-    if sizes.get("fsdp", 1) > 1:
-        raise _unported("2-D fsdp x tp serving (an fsdp mesh axis)")
-    if sizes.get("cp", 1) > 1:
-        raise _unported("context-parallel serving (a cp mesh axis)")
-    ep_axis = "ep" if "ep" in sizes else None
-    ep_deg = sizes["ep"] if ep_axis else 1
+    fsdp_deg, cp_deg, ep_deg = (sizes.get(a, 1) for a in ("fsdp", "cp",
+                                                           "ep"))
     try:
         pm, axis, deg = resolve_mesh_axis(
             mesh, cfg.axis, cfg.degree, candidates=("tp", "model", "mp"))
     except ValueError:
-        if ep_axis is None and "fsdp" not in sizes and "cp" not in sizes:
+        if not any(a in sizes for a in ("fsdp", "cp", "ep")):
             raise
         axis, deg = None, 1
-    if deg <= 1 and ep_deg <= 1:
+    if deg <= 1 and fsdp_deg <= 1 and cp_deg <= 1 and ep_deg <= 1:
         return None
     if deg > 1:
         validate_tp_serving(model.config, deg)
-    layout = SpecLayout(tp_axis=axis if deg > 1 else None,
-                        ep_axis=ep_axis if ep_deg > 1 else None)
-    shapes = full_shapes(model)
-    specs_fn = mixtral_param_specs \
-        if getattr(model.config, "num_local_experts", 0) \
-        else llama_param_specs
-    specs = specs_fn(shapes.keys(), layout, shapes=shapes, mesh=pm)
+    layout = _layout_for(sizes, axis, deg)
+    specs = _specs_for(model.config, full_shapes(model), layout, pm)
     return TPContext(pm, axis if deg > 1 else None, deg, layout, specs,
-                     ep_axis=ep_axis if ep_deg > 1 else None,
-                     ep_degree=ep_deg)
+                     fsdp_axis=layout.fsdp_axis, fsdp_degree=fsdp_deg,
+                     cp_axis=layout.cp_axis, cp_degree=cp_deg,
+                     ep_axis=layout.ep_axis, ep_degree=ep_deg)
 
 
 # ---------------------------------------------------------------------------
@@ -601,7 +752,10 @@ def shard_model(model_cls, config, mesh, *, rank: Optional[int] = None,
 
     ``rank`` defaults to this process's ``torch.distributed`` rank.  The
     attention modules report their per-rank head counts (``num_heads``,
-    ``num_kv_heads``), which the serving steps read."""
+    ``num_kv_heads``), which the serving steps read.  Under an fsdp axis a
+    parameter whose spec names it is stored as its ``fsdp x tp`` slice;
+    the engine gathers the tp compute shard back at each dispatch
+    (:class:`FsdpParams`)."""
     from ..core.device import resolve_device
     from ..models.llama import init_parameter
     pm = as_mesh(mesh)
@@ -618,11 +772,7 @@ def shard_model(model_cls, config, mesh, *, rank: Optional[int] = None,
     if "ep" in sizes and sizes["ep"] > 1:
         validate_ep_serving(getattr(config, "num_local_experts", 0),
                             sizes["ep"])
-    layout = SpecLayout(tp_axis="tp" if tp > 1 else None,
-                        ep_axis="ep" if sizes.get("ep", 1) > 1 else None)
-    specs_fn = mixtral_param_specs \
-        if getattr(config, "num_local_experts", 0) else llama_param_specs
-    specs = specs_fn(shapes.keys(), layout, shapes=shapes, mesh=pm)
+    specs = _specs_for(config, shapes, _layout_for(sizes, "tp", tp), pm)
     dev = resolve_device(device)
     dtype = config.torch_dtype
     if state is None and generator is None:
@@ -643,6 +793,179 @@ def shard_model(model_cls, config, mesh, *, rank: Optional[int] = None,
     model._ptt_shard = _ShardInfo(sizes, coords, shapes)
     model.eval()
     return model
+
+
+# ---------------------------------------------------------------------------
+# the fsdp prologue: stored shards back to the tp compute shard
+# ---------------------------------------------------------------------------
+def _fsdp_dim(spec, fsdp_axis: str) -> Optional[int]:
+    """The dim a (port layout) spec shards over ``fsdp_axis``, or None.
+    The families name fsdp alone on a dim; a dim that splits over fsdp
+    and another axis together cannot be gathered over fsdp alone."""
+    for dim, entry in enumerate(spec):
+        names = _entry_names(entry)
+        if fsdp_axis in names:
+            if len(names) > 1:
+                raise ValueError("spec %s splits dim %d over %s together; "
+                                 "the fsdp gather takes fsdp alone on a "
+                                 "dim" % (spec, dim, names))
+            return dim
+    return None
+
+
+def fsdp_gather(x: torch.Tensor, spec, comm: AxisComm) -> torch.Tensor:
+    """Undo only the fsdp storage shard of ``x`` (reference:
+    ``fsdp_gather``): the rank's ``fsdp x tp`` slice under the port-layout
+    ``spec`` back to its tp compute shard, one all-gather over the fsdp
+    ranks along the dim the spec names fsdp on."""
+    dim = _fsdp_dim(spec, comm.name)
+    if dim is None:
+        return x
+    return comm.all_gather(x, dim)
+
+
+def unslice(rows: torch.Tensor, at: int, shape, dim: int,
+            dst: torch.Tensor) -> torch.Tensor:
+    """Lay out one tensor's fsdp slices, gathered as ``rows[g, at:at +
+    numel]`` from fsdp rank ``g`` (each of ``shape``), into ``dst``, the
+    whole tensor (``shape`` with ``dim`` times the fsdp degree), in
+    place."""
+    F = rows.shape[0]
+    src = rows[:, at:at + math.prod(shape)].view((F,) + tuple(shape))
+    dst.view(tuple(shape[:dim]) + (F, shape[dim]) + tuple(shape[dim + 1:])) \
+        .copy_(src.movedim(0, dim))
+    return dst
+
+
+class _FsdpGroup:
+    """The fsdp-sharded parameters of one module group (the embedding, a
+    decoder layer, the final norm, the LM head), their stored pieces held
+    back to back in one flat buffer."""
+
+    def __init__(self, params, flat):
+        self.params = params          # [(param, dim, piece shape, offset)]
+        self.flat = flat
+
+    @property
+    def numel(self) -> int:
+        return self.flat.numel()
+
+
+class FsdpParams:
+    """The serving prologue under an fsdp axis (reference:
+    ``_wrap_sharded``'s fsdp gather), one group at a time.
+
+    At construction each group's stored pieces are moved into ONE flat
+    buffer (the parameters become views of it), so a group crosses the
+    fsdp ranks in one all-gather.  :meth:`gather` (a context manager)
+    gathers a group into a wire scratch, lays each parameter's tp compute
+    shard out in a compute scratch, points the parameters at it for the
+    duration and back at their pieces after: a rank holds its stored
+    shards plus one group's compute shard, never a second model.  The two
+    scratches are reused by every group.  The bytes received a dispatch
+    (every group once) are ``TPContext.fsdp_gather_bytes``.  A model with
+    tied embeddings keeps its gathered table from ``"embed"`` to
+    ``"head"`` in a scratch of its own.  ``skip``: parameter names another
+    store stands in for (the engine's int8 weight tree, which gathers its
+    own codes), left out of the groups."""
+
+    def __init__(self, model, tp: TPContext, skip: Iterable[str] = ()):
+        from ..models.llama import inner_model
+        self.comm = tp.fsdp_comm
+        F = self.comm.size
+        stack = inner_model(model)
+        skip = set(skip)
+        names = {id(p): n for n, p in model.named_parameters()
+                 if n not in skip}
+        self.tied = model.lm_head is None
+        mods = {"embed": stack.embed_tokens, "norm": stack.norm,
+                "head": None if self.tied else model.lm_head}
+        mods.update(enumerate(stack.layers))
+        dtypes = {p.dtype for n, p in model.named_parameters()
+                  if n not in skip}
+        if len(dtypes) != 1:
+            raise ValueError("the fsdp gather packs one dtype; the model "
+                             "holds %s" % sorted(map(str, dtypes)))
+        dtype = dtypes.pop()
+        dev = stack.embed_tokens.weight.device
+        self.groups: Dict[object, _FsdpGroup] = {}
+        with torch.no_grad():
+            for key, mod in mods.items():
+                if mod is None:
+                    continue
+                items, off = [], 0
+                for p in mod.parameters():
+                    n = names.get(id(p))
+                    if n is None:
+                        continue
+                    dim = _fsdp_dim(port_spec(n, tp.specs[n]),
+                                    tp.fsdp_axis)
+                    if dim is not None:
+                        items.append((p, dim, tuple(p.shape), off))
+                        off += p.numel()
+                flat = torch.empty(off, dtype=dtype, device=dev)
+                for p, _d, shape, o in items:
+                    flat[o:o + p.numel()].copy_(p.reshape(-1))
+                    p.data = flat[o:o + p.numel()].view(shape)
+                self.groups[key] = _FsdpGroup(items, flat)
+        big = max(g.numel for g in self.groups.values())
+        self._wire = torch.empty(F * big, dtype=dtype, device=dev)
+        self._scratch = torch.empty(F * big, dtype=dtype, device=dev)
+        self._embed_scratch = (torch.empty(
+            F * self.groups["embed"].numel, dtype=dtype, device=dev)
+            if self.tied else None)
+        self.gathers = 0
+
+    def gathered_bytes(self) -> int:
+        """Bytes one dispatch receives (every group once)."""
+        F = self.comm.size
+        return sum(g.flat.numel() * g.flat.element_size() * (F - 1)
+                   for g in self.groups.values())
+
+    def _fill(self, g: _FsdpGroup, scratch: torch.Tensor) -> None:
+        F = self.comm.size
+        n = g.numel
+        if n == 0:
+            return
+        wire = self._wire[:F * n].view(F, n)
+        self.comm.all_gather_rows(wire, g.flat)
+        self.gathers += 1
+        at = 0
+        for p, dim, shape, off in g.params:
+            k = math.prod(shape)
+            full = shape[:dim] + (F * shape[dim],) + shape[dim + 1:]
+            p.data = unslice(wire, off, shape, dim,
+                             scratch[at:at + F * k]).view(full)
+            at += F * k
+
+    def _restore(self, g: _FsdpGroup) -> None:
+        for p, _dim, shape, off in g.params:
+            p.data = g.flat[off:off + math.prod(shape)].view(shape)
+
+    @contextlib.contextmanager
+    def gather(self, key):
+        """Group ``key`` (``"embed"``, a layer index, ``"norm"``,
+        ``"head"``) at its tp compute shard for the ``with`` block."""
+        if self.tied and key in ("embed", "head"):
+            g = self.groups["embed"]
+            if key == "embed":
+                self._fill(g, self._embed_scratch)
+                yield
+                return
+            try:
+                yield
+            finally:
+                self._restore(g)
+            return
+        g = self.groups.get(key)
+        if g is None:
+            yield
+            return
+        self._fill(g, self._scratch)
+        try:
+            yield
+        finally:
+            self._restore(g)
 
 
 # ---------------------------------------------------------------------------

@@ -158,13 +158,29 @@ def _segment(shape) -> Tuple[int, int]:
     return E * n_out, n_in
 
 
+def _view(flat: torch.Tensor, shape) -> torch.Tensor:
+    """A weight's codes or values laid out as in a group, in its own shape:
+    ``[out, in]``, or a bank ``[E, in, out]`` (a transposed view of its
+    ``[E, out, in]`` rows)."""
+    if len(shape) == 2:
+        return flat.view(shape)
+    return flat.view(shape[0], shape[2], shape[1]).transpose(1, 2)
+
+
 class _Group:
     """One launch's worth of weights: the int8 codes and fp32 scales of
     ``keys`` back to back (an expert bank's codes transposed per expert to
     ``[E, out, in]``), their ``[rows, cols]`` segments, and the element
-    offset of each weight."""
+    offset of each weight.
 
-    def __init__(self, qtree: Dict[str, torch.Tensor], keys: List[str]):
+    ``fsdp`` (``(AxisComm, {key: dim or None})``, a rank of an fsdp mesh):
+    of each weight whose codes split over fsdp on ``dim``, only this
+    rank's slice is kept, the slices back to back in ``stored``; the rest
+    (an expert bank) stay whole.  :meth:`dequant` then gathers the slices
+    over the fsdp ranks into a codes scratch first (one all-gather)."""
+
+    def __init__(self, qtree: Dict[str, torch.Tensor], keys: List[str],
+                 fsdp=None):
         self.keys = keys
         self.shapes = [tuple(qtree[k].shape) for k in keys]
         self.segments = [_segment(s) for s in self.shapes]
@@ -177,33 +193,87 @@ class _Group:
         for r, c in self.segments:
             self.offsets.append(e)
             e += r * c
+        self.numel = e
+        self.comm = None
+        if fsdp is not None:
+            self._keep_slices(*fsdp)
+
+    def _keep_slices(self, comm, dims) -> None:
+        F, i = comm.size, comm.index
+        self.comm = comm
+        self.sliced, self.resident, pieces, at = [], [], [], 0
+        for k, o, (r, c) in zip(self.keys, self.offsets, self.segments):
+            flat = self.codes[o:o + r * c]
+            d = dims[k]
+            if d is None:
+                self.resident.append((k, o, flat.clone()))
+                continue
+            n = (r, c)[d] // F
+            piece = flat.view(r, c).narrow(d, i * n, n).contiguous()
+            self.sliced.append((k, o, (r, c), d, tuple(piece.shape), at))
+            pieces.append(piece.reshape(-1))
+            at += piece.numel()
+        self.stored = (torch.cat(pieces) if pieces
+                       else self.codes.new_empty(0))
+        self.codes = None
 
     @property
-    def numel(self) -> int:
-        return self.codes.numel()
+    def code_bytes(self) -> int:
+        """The int8 codes this rank keeps."""
+        if self.comm is None:
+            return self.codes.numel()
+        return self.stored.numel() + sum(t.numel()
+                                         for _k, _o, t in self.resident)
 
-    def _views(self, flat: torch.Tensor) -> List[torch.Tensor]:
-        """Each weight of ``flat`` (laid out as the codes) in its own
-        shape: ``[out, in]``, or a bank ``[E, in, out]`` (a transposed
-        view of its ``[E, out, in]`` rows)."""
-        out = []
-        for o, shape, (r, c) in zip(self.offsets, self.shapes,
-                                    self.segments):
-            t = flat[o:o + r * c]
-            out.append(t.view(r, c) if len(shape) == 2 else
-                       t.view(shape[0], shape[2], shape[1]).transpose(1, 2))
+    def gathered_bytes(self) -> int:
+        """Bytes one dequant receives over the fsdp ranks."""
+        if self.comm is None:
+            return 0
+        return self.stored.numel() * (self.comm.size - 1)
+
+    def _codes(self, codes_scratch, wire) -> torch.Tensor:
+        """The group's whole codes: its own buffer, or under fsdp the
+        slices gathered into ``codes_scratch`` through ``wire``."""
+        if self.comm is None:
+            return self.codes
+        from ..jit.spmd import unslice
+        F, n = self.comm.size, self.stored.numel()
+        rows = wire[:F * n].view(F, n)
+        self.comm.all_gather_rows(rows, self.stored)
+        for _k, o, (r, c), d, shape, at in self.sliced:
+            unslice(rows, at, shape, d, codes_scratch[o:o + r * c])
+        for _k, o, t in self.resident:
+            codes_scratch[o:o + t.numel()].copy_(t)
+        return codes_scratch[:self.numel]
+
+    def dequant(self, scratch: torch.Tensor, codes_scratch=None,
+                wire=None) -> List[torch.Tensor]:
+        dequant_int8(self._codes(codes_scratch, wire), self.scales,
+                     self.segments, scratch)
+        return [_view(scratch[o:o + r * c], shape) for o, shape, (r, c)
+                in zip(self.offsets, self.shapes, self.segments)]
+
+    def _kept_codes(self) -> Dict[str, torch.Tensor]:
+        """Each weight's codes as this rank keeps them: whole, or under
+        fsdp its slice."""
+        if self.comm is None:
+            return {k: _view(self.codes[o:o + r * c], shape)
+                    for k, o, shape, (r, c) in zip(
+                        self.keys, self.offsets, self.shapes,
+                        self.segments)}
+        shapes = dict(zip(self.keys, self.shapes))
+        out = {k: self.stored[at:at + shape[0] * shape[1]].view(shape)
+               for k, _o, _rc, _d, shape, at in self.sliced}
+        out.update({k: _view(t, shapes[k]) for k, _o, t in self.resident})
         return out
 
-    def dequant(self, scratch: torch.Tensor) -> List[torch.Tensor]:
-        dequant_int8(self.codes, self.scales, self.segments, scratch)
-        return self._views(scratch)
-
     def tree(self) -> Dict[str, torch.Tensor]:
+        codes = self._kept_codes()
         out: Dict[str, torch.Tensor] = {}
         r = 0
-        for k, v, shape, (rows, _c) in zip(self.keys, self._views(
-                self.codes), self.shapes, self.segments):
-            out[k] = v
+        for k, shape, (rows, _c) in zip(self.keys, self.shapes,
+                                        self.segments):
+            out[k] = codes[k]
             sc = self.scales[r:r + rows]
             out[k + WEIGHT_SCALE_SUFFIX] = (
                 sc if len(shape) == 2 else sc.view(shape[0], 1, shape[2]))
@@ -231,16 +301,36 @@ class Int8Weights:
     ``tp`` (a rank of a sharded engine, ``jit.spmd.TPContext``): the
     model is the rank's shard, and each row-sharded weight's scales take
     the max over the tp ranks, so the rank's codes and scales are the
-    slice of the one-card tree by the PTQ tree's specs."""
+    slice of the one-card tree by the PTQ tree's specs.  Under an fsdp
+    axis each weight is first gathered to its tp compute shard (once, to
+    quantize it), the rank keeps its fsdp slice of the codes, and each
+    ``layer``/``lm_head`` call gathers the slices back into a codes scratch
+    that every group reuses before its dequant (the reference's fsdp
+    prologue over its int8 tree); ``param_names`` are the model parameters
+    the tree stands in for."""
 
     def __init__(self, model, tp=None):
+        from ..jit.spmd import _fsdp_dim, fsdp_gather, port_spec
         from ..quantization.functional import (ensure_quant_specs,
                                                tp_scale_reduce)
         reduce = tp_scale_reduce(tp)
+        comm = tp.fsdp_comm if tp is not None else None
         stack = inner_model(model)
         prefix = "mixtral" if stack is getattr(model, "mixtral", None) \
             else "llama"
         dtype = model.config.torch_dtype
+
+        def group(vals):
+            dims = None
+            if comm is not None:
+                specs = {k: port_spec(k, tp.specs[k]) for k in vals}
+                vals = {k: fsdp_gather(v, specs[k], comm)
+                        for k, v in vals.items()}
+                dims = {k: _fsdp_dim(specs[k], comm.name) for k in vals}
+            q = quantize_param_tree(vals, scale_reduce=reduce)
+            ensure_quant_specs(tp, q)
+            return _Group(q, list(vals), None if comm is None
+                          else (comm, dims))
         self.layers: List[_Group] = []
         self._names: List[List[str]] = []
         for i, layer in enumerate(stack.layers):
@@ -250,37 +340,49 @@ class Int8Weights:
             if not all(ptq_quantizable(k, v) for k, v in vals.items()):
                 raise ValueError("a decoder layer's projections must all be "
                                  "2-D weights or 3-D expert banks")
-            q = quantize_param_tree(vals, scale_reduce=reduce)
-            ensure_quant_specs(tp, q)
-            self.layers.append(_Group(q, list(vals)))
+            self.layers.append(group(vals))
             self._names.append([suffix.split(".")[1]
                                 for suffix, _w in weights])
         self.head = None
         if model.lm_head is not None:
-            vals = {"lm_head.weight": model.lm_head.weight.detach()}
-            q = quantize_param_tree(vals, scale_reduce=reduce)
-            ensure_quant_specs(tp, q)
-            self.head = _Group(q, list(vals))
+            self.head = group({"lm_head.weight":
+                               model.lm_head.weight.detach()})
+        groups = self.layers + ([self.head] if self.head else [])
+        self.param_names = [k for g in groups for k in g.keys]
         dev = stack.embed_tokens.weight.device
         self._scratch = torch.empty(max(g.numel for g in self.layers),
                                     dtype=dtype, device=dev)
         self._head_scratch = (None if self.head is None else
                               torch.empty(self.head.numel, dtype=dtype,
                                           device=dev))
+        self._codes = self._wire = None
+        if comm is not None:
+            self._codes = torch.empty(max(g.numel for g in groups),
+                                      dtype=torch.int8, device=dev)
+            self._wire = torch.empty(comm.size * max(
+                g.stored.numel() for g in groups), dtype=torch.int8,
+                device=dev)
 
     @property
     def nbytes(self) -> int:
         groups = self.layers + ([self.head] if self.head else [])
-        return sum(g.codes.numel() + 4 * g.scales.numel() for g in groups)
+        return sum(g.code_bytes + 4 * g.scales.numel() for g in groups)
+
+    def gathered_bytes(self) -> int:
+        """Bytes one dispatch receives over the fsdp ranks (every group's
+        codes once; 0 without fsdp)."""
+        groups = self.layers + ([self.head] if self.head else [])
+        return sum(g.gathered_bytes() for g in groups)
 
     def layer(self, i: int) -> Dict[str, torch.Tensor]:
-        ws = self.layers[i].dequant(self._scratch)
+        ws = self.layers[i].dequant(self._scratch, self._codes, self._wire)
         return dict(zip(self._names[i], ws))
 
     def lm_head(self) -> Optional[torch.Tensor]:
         if self.head is None:
             return None
-        return self.head.dequant(self._head_scratch)[0]
+        return self.head.dequant(self._head_scratch, self._codes,
+                                 self._wire)[0]
 
     def tree(self) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}

@@ -124,16 +124,26 @@ class PagedKVCache:
     absmax scales ``key_scale``/``value_scale`` [phys, Hkv], zero until
     written (``quantized`` is then True); ``"float32"``/``"bfloat16"``
     override ``dtype``; ``None`` keeps it.
+
+    ``cp > 1`` (one rank of a context-parallel engine): the pools hold
+    this rank's slot stripe of every page, ``[phys, block_size / cp, Hkv,
+    D]`` (rank ``r`` the slots ``[r * block_size / cp, (r + 1) *
+    block_size / cp)``), so ``pool_bytes`` is ``1/cp`` of a one-rank
+    pool's; ``block_size``, the free list and the refcounts stay the
+    whole page's, the same on every rank.
     """
 
     def __init__(self, num_blocks: int, block_size: int, num_kv_heads: int,
                  head_dim: int, dtype: torch.dtype = torch.float32,
                  sink_block: bool = False, device=None,
-                 kv_dtype: Optional[str] = None):
+                 kv_dtype: Optional[str] = None, cp: int = 1):
         if kv_dtype is not None and kv_dtype not in _KV_DTYPES:
             raise ValueError(
                 "PagedKVCache kv_dtype must be one of None (use dtype), "
                 "'float32', 'bfloat16' or 'int8'; got %r" % (kv_dtype,))
+        if cp < 1 or block_size % cp:
+            raise ValueError("PagedKVCache block_size %d does not split into "
+                             "%d slot stripes" % (block_size, cp))
         if kv_dtype is not None:
             dtype = _KV_DTYPES[kv_dtype]
         self.quantized = dtype == torch.int8
@@ -142,9 +152,10 @@ class PagedKVCache:
         self.block_size = block_size
         self.num_kv_heads = num_kv_heads
         self.head_dim = head_dim
+        self.cp = int(cp)
         self.sink = num_blocks if sink_block else -1
         phys = num_blocks + (1 if sink_block else 0)
-        shape = (phys, block_size, num_kv_heads, head_dim)
+        shape = (phys, block_size // self.cp, num_kv_heads, head_dim)
         self.key_cache = torch.zeros(shape, dtype=dtype, device=device)
         self.value_cache = torch.zeros(shape, dtype=dtype, device=device)
         self.key_scale = self.value_scale = None
@@ -165,8 +176,9 @@ class PagedKVCache:
 
     def per_chip_pool_bytes(self) -> int:
         """Bytes of this rank's pools (reference: ``per_chip_pool_bytes``,
-        a chip's shard of the pool): under tp a rank's pools hold its kv
-        heads, so this is ``pool_bytes`` — 1/tp of the one-card pool."""
+        a chip's shard of the pool): a rank's pools hold its kv heads
+        (tp) and its slot stripe (cp), so this is ``pool_bytes`` —
+        ``1/(tp·cp)`` of the one-card pool."""
         return self.pool_bytes()
 
     def page_geometry(self) -> tuple:
@@ -438,6 +450,140 @@ def chunk_prefill_attention(q, key_cache, value_cache, block_table_row,
     acc = torch.einsum("hqk,khd->qhd", p, gather(value_cache, value_scale))
     out = acc / l.clamp_min(1e-30).t()[:, :, None]
     return out[None].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# context parallelism: per-stripe partials (reference: paged_attention.py
+# :705-830).  A rank's pool holds slots [r*bsl, (r+1)*bsl) of every page,
+# so local stripe index j of a gathered row of pages is global position
+# (j // bsl) * block_size + stripe_offset + j % bsl.  Each function runs the
+# fp32 masked softmax of its full counterpart over the local stripe only
+# and returns the NORMALIZED (o, m, l) rows ops/online_softmax.merge_partials
+# combines; an empty stripe gives (0, -inf, 0).  Plain PyTorch, as the
+# reference computes them outside any Pallas kernel (its per-stripe kernel
+# variant is a follow-up there too).  The reference gathers each TOKEN's
+# whole block-table row; these gather each SPAN's used pages once (at 7B,
+# cp 2 and an 8,192-token context a 264-token step would otherwise gather
+# ~18 GB of K a rank), with the lengths read from the host.  No int8 pools:
+# cp refuses them at engine construction.
+# ---------------------------------------------------------------------------
+def _stripe_cols(n_pages: int, bsl: int, stripe_offset: int,
+                 global_block_size: int, device) -> torch.Tensor:
+    """Global kv position of each local stripe index of ``n_pages``
+    gathered pages."""
+    j = torch.arange(n_pages * bsl, device=device)
+    return (j // bsl) * global_block_size + stripe_offset + j % bsl
+
+
+def _partial_softmax_rows(s, valid, v, contract: str):
+    """Masked partial softmax over the last score axis (reference:
+    ``_partial_softmax_rows``): the normalized output and the ``(m, l)``
+    merge rows; an all-masked row gives ``(0, -inf, 0)``."""
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros((), device=m.device))
+    p = torch.where(valid, torch.exp(s - m_safe[..., None]),
+                    torch.zeros((), device=s.device))
+    l = p.sum(dim=-1)
+    o = torch.einsum(contract, p, v)
+    return o / l.clamp_min(1e-30)[..., None], m, l
+
+
+def _stripe_pages(cache, pages, rep: int):
+    """The local stripe of ``pages`` as fp32 rows ``[..., n * bsl, H, D]``
+    (kv heads repeated ``rep`` times for GQA)."""
+    x = cache[pages]
+    x = x.reshape(x.shape[:-4] + (-1,) + x.shape[-2:]).to(torch.float32)
+    return x.repeat_interleave(rep, dim=-2) if rep != 1 else x
+
+
+def _empty_partials(rows: int, H: int, D: int, device):
+    return (torch.zeros(rows, H, D, dtype=torch.float32, device=device),
+            torch.full((rows, H), float("-inf"), dtype=torch.float32,
+                       device=device),
+            torch.zeros(rows, H, dtype=torch.float32, device=device))
+
+
+def ragged_attention_partial(q, key_cache, value_cache, block_tables,
+                             q_offsets, q_lens, kv_lens, scale: float,
+                             stripe_offset: int, global_block_size: int):
+    """Per-stripe ragged attention partial (reference:
+    ``_ragged_attention_xla_partial``): ``q`` [T, H, D] against the local
+    pool stripe ``[phys, bsl, Hkv, D]``.  ``q_offsets``/``q_lens``/
+    ``kv_lens`` are the spans' host lengths (numpy or lists); span ``s``'s
+    used pages ``block_tables[s, :ceil(kv_len / block_size)]`` are
+    gathered once for all its rows.  Returns fp32 ``(o [T, H, D], m [T,
+    H], l [T, H])``; rows outside every span are ``(0, -inf, 0)``."""
+    T, H, D = q.shape
+    bsl, Hkv = key_cache.shape[1], key_cache.shape[2]
+    W = block_tables.shape[1]
+    gbs = int(global_block_size)
+    o, m, l = _empty_partials(T, H, D, q.device)
+    for s, (off, ql, kvl) in enumerate(zip(np.asarray(q_offsets).tolist(),
+                                           np.asarray(q_lens).tolist(),
+                                           np.asarray(kv_lens).tolist())):
+        if ql <= 0:
+            continue
+        n_pages = min(-(-kvl // gbs), W)
+        pages = block_tables[s, :n_pages].to(torch.long).clamp_min(0)
+        k = _stripe_pages(key_cache, pages, H // Hkv)     # [n*bsl, H, D]
+        v = _stripe_pages(value_cache, pages, H // Hkv)
+        qs = q[off:off + ql].to(torch.float32) * scale
+        sc = torch.einsum("qhd,khd->qhk", qs, k)
+        gcol = _stripe_cols(n_pages, bsl, stripe_offset, gbs, q.device)
+        qpos = kvl - ql + torch.arange(ql, device=q.device)
+        valid = gcol[None, None, :] <= qpos[:, None, None]
+        sc = sc.masked_fill(~valid, float("-inf"))
+        o[off:off + ql], m[off:off + ql], l[off:off + ql] = \
+            _partial_softmax_rows(sc, valid, v, "qhk,khd->qhd")
+    return o, m, l
+
+
+def paged_attention_partial(q, key_cache, value_cache, block_tables,
+                            seq_lens, scale: float, stripe_offset: int,
+                            global_block_size: int, max_seq_len: int):
+    """Per-stripe decode attention partial (reference:
+    ``_paged_attention_xla_partial``): slot ``b``'s query ``q[b]`` [B, H,
+    D] against the keys at global positions below ``seq_lens[b]`` in its
+    stripe.  ``max_seq_len`` (the host's largest ``seq_lens``) bounds the
+    pages gathered.  Returns fp32 ``(o [B, H, D], m [B, H], l [B, H])``."""
+    B, H, D = q.shape
+    bsl, Hkv = key_cache.shape[1], key_cache.shape[2]
+    W = block_tables.shape[1]
+    gbs = int(global_block_size)
+    n_pages = max(1, min(-(-int(max_seq_len) // gbs), W))
+    pages = block_tables[:, :n_pages].to(torch.long).clamp_min(0)
+    k = _stripe_pages(key_cache, pages, H // Hkv)         # [B, n*bsl, H, D]
+    v = _stripe_pages(value_cache, pages, H // Hkv)
+    sc = torch.einsum("bhd,blhd->bhl", q.to(torch.float32) * scale, k)
+    gcol = _stripe_cols(n_pages, bsl, stripe_offset, gbs, q.device)
+    valid = gcol[None, None, :] < seq_lens.to(torch.long)[:, None, None]
+    sc = sc.masked_fill(~valid, float("-inf"))
+    return _partial_softmax_rows(sc, valid, v, "bhl,blhd->bhd")
+
+
+def chunk_prefill_attention_partial(q, key_cache, value_cache,
+                                    block_table_row, start: int,
+                                    scale: float, stripe_offset: int,
+                                    global_block_size: int):
+    """Per-stripe chunked-prefill attention partial (reference:
+    ``chunk_prefill_attention_partial``): ``q`` [1, C, H, D] at global
+    positions ``start .. start + C - 1`` over the chunk's used pages.
+    Returns fp32 ``(o [1, C, H, D], m [1, C, H], l [1, C, H])``."""
+    _, C, H, D = q.shape
+    bsl, Hkv = key_cache.shape[1], key_cache.shape[2]
+    W = block_table_row.shape[1]
+    gbs = int(global_block_size)
+    n_pages = min(-(-(int(start) + C) // gbs), W)
+    pages = block_table_row[0, :n_pages].to(torch.long).clamp_min(0)
+    k = _stripe_pages(key_cache, pages, H // Hkv)         # [n*bsl, H, D]
+    v = _stripe_pages(value_cache, pages, H // Hkv)
+    sc = torch.einsum("qhd,khd->qhk", q[0].to(torch.float32) * scale, k)
+    gcol = _stripe_cols(n_pages, bsl, stripe_offset, gbs, q.device)
+    qpos = int(start) + torch.arange(C, device=q.device)
+    valid = gcol[None, None, :] <= qpos[:, None, None]
+    sc = sc.masked_fill(~valid, float("-inf"))
+    o, m, l = _partial_softmax_rows(sc, valid, v, "qhk,khd->qhd")
+    return o[None], m[None], l[None]
 
 
 def _ragged_attention_plain(q, key_cache, value_cache, block_tables,

@@ -10,21 +10,25 @@ tests and ``chip_smoke.py`` (run on every rank by
   {...}, "state": path of an ``.npz`` of the reference's numpy state, or
   None for the seeded init (``"seed"``, default 0, drawn on the device as
   the one-card model draws it)}``;
-- ``cases``: a list of ``{"name", "model", "mesh": {"tp": n, "ep": m} or
-  None, "engine": engine keyword arguments, "ops": the workload}``.  A
-  case without a mesh runs on rank 0 alone (the one-device twin).  The
-  workload is a list of ``["add", prompt, max_new_tokens, {keywords}]``,
-  ``["step"]`` and ``["run"]``.  ``"drop_copy_replay": True`` keeps rank
-  0 from broadcasting its copy-on-write page copies (the fault the
-  replay prevents).  A case ``{"name", "mesh", "helpers": {...}}`` runs
-  ``spmd``'s step helpers instead (:func:`_helpers`).
+- ``cases``: a list of ``{"name", "model", "mesh": {"tp": n, "ep": m,
+  "cp": c, "fsdp": f, "dp": r} or None, "engine": engine keyword
+  arguments, "ops": the workload}``.  A case without a mesh runs on rank
+  0 alone (the one-device twin).  The workload is a list of ``["add",
+  prompt, max_new_tokens, {keywords}]``, ``["step"]`` and ``["run"]``.
+  ``"drop_copy_replay": True`` keeps rank 0 from broadcasting its
+  copy-on-write page copies (the fault the replay prevents);
+  ``"return_params": True`` adds each rank's stored parameters and
+  ``"return_pools": True`` its layer pools (numpy, tiny models only).  A
+  case ``{"name", "mesh", "helpers": {...}}`` runs ``spmd``'s step
+  helpers instead (:func:`_helpers`).
 
 Each case returns, from rank 0: the tokens of each added request in
 order, the engine's facts (degrees, per-rank pool bytes, free pages,
-prefix hits, refcounts, control broadcasts, top-budget collective bytes)
-and the deltas of the named metric families; from every rank: its pool
-and expert bytes, its kernel launch counts over the case, its peak device
-memory and the case's wall seconds.
+prefix hits, refcounts, control broadcasts, top-budget collective bytes,
+the fsdp gather's bytes a dispatch) and the deltas of the named metric
+families; from every rank: its pool, expert and stored parameter bytes,
+its kernel launch counts over the case, its collective calls, its peak
+device memory and the case's wall seconds.
 """
 from __future__ import annotations
 
@@ -42,9 +46,13 @@ METRICS = {
     "serving_tp_collective_bytes_total": ("psum", "all_gather"),
     "serving_quant_collective_bytes_total": ("all_gather",),
     "serving_ep_collective_bytes_total": ("all_to_all", "all_gather"),
+    "serving_cp_collective_bytes_total": ("all_gather",),
+    "spmd_allgather_bytes_total": ("serving_params",),
     "serving_moe_dispatch_tokens_total": ("routed", "dropped"),
 }
-_LABEL = {"serving_moe_dispatch_tokens_total": "fate"}
+_LABEL = {"serving_moe_dispatch_tokens_total": "fate",
+          "spmd_allgather_bytes_total": "site"}
+MESH_AXES = ("fsdp", "tp", "dp", "cp", "ep")
 
 
 def _metric_values() -> Dict[str, float]:
@@ -57,11 +65,12 @@ def _metric_values() -> Dict[str, float]:
             out["%s{%s}" % (name, v)] = (
                 0.0 if m is None
                 else m.labels(**{_LABEL.get(name, "op"): v}).value)
-    for name in ("serving_tp_degree", "serving_ep_degree"):
+    for name in ("serving_tp_degree", "serving_ep_degree",
+                 "serving_cp_degree"):
         m = r.get(name)
         out[name] = None if m is None else m.value
     m = r.get("serving_mesh_shape")
-    for axis in ("tp", "ep"):
+    for axis in MESH_AXES:
         out["serving_mesh_shape{%s}" % axis] = (
             None if m is None else m.labels(axis=axis).value)
     return out
@@ -100,13 +109,22 @@ def build_model(spec, mesh, device):
     return cls(cfg, device=dev, generator=gen).eval()
 
 
-def _mesh(spec, backend):
-    from ..jit.spmd import ep_mesh, tp_mesh
+def mesh_of(spec, backend):
+    """The mesh a case's ``{"tp", "ep", "cp", "fsdp", "dp"}`` names:
+    ``mesh_2d`` with an fsdp or dp axis, ``cp_mesh`` with cp, ``ep_mesh``
+    with ep, else ``tp_mesh``."""
+    from ..jit.spmd import cp_mesh, ep_mesh, mesh_2d, tp_mesh
     if not spec:
         return None
+    tp = spec.get("tp", 1)
+    if "fsdp" in spec or "dp" in spec:
+        return mesh_2d(spec.get("fsdp", 1), tp, replica=spec.get("dp", 1),
+                       backend=backend)
+    if "cp" in spec:
+        return cp_mesh(spec["cp"], tp=tp, backend=backend)
     if spec.get("ep", 1) > 1:
-        return ep_mesh(spec["ep"], tp=spec.get("tp", 1), backend=backend)
-    return tp_mesh(spec.get("tp", 1), backend=backend)
+        return ep_mesh(spec["ep"], tp=tp, backend=backend)
+    return tp_mesh(tp, backend=backend)
 
 
 def _launches() -> Dict[str, int]:
@@ -152,7 +170,15 @@ def _engine_facts(eng) -> Dict:
     pc = eng.prefix_cache
     facts = {
         "tp_degree": eng.tp_degree, "ep_degree": eng.ep_degree,
-        "tp_is_none": eng.tp is None,
+        "cp_degree": eng.cp_degree, "fsdp_degree": eng.fsdp_degree,
+        "dp_degree": eng.dp_degree, "tp_is_none": eng.tp is None,
+        "fsdp_gather_bytes": eng._fsdp_gather_bytes,
+        "weight_quant_bytes": eng.weight_quant_bytes,
+        "fsdp_received_bytes": (
+            (eng.tp.fsdp_params.gathered_bytes()
+             if eng.tp is not None and eng.tp.fsdp_params else 0)
+            + (eng.weight_qtree.gathered_bytes()
+               if eng.weight_qtree is not None else 0)),
         "pool_bytes": c0.per_chip_pool_bytes(),
         "free": len(c0._free), "num_blocks": c0.num_blocks,
         "prefix_hits": {rid: r.prefix_hit_tokens
@@ -184,6 +210,15 @@ def _expert_bytes(model) -> int:
                if n.endswith(("w_gate", "w_up", "w_down")))
 
 
+def _param_bytes(model) -> int:
+    """Bytes of the parameters the rank stores."""
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
 def serve_cases(rank: int, world: int, args: Dict):
     from ..distributed import collective
     device = args.get("device")
@@ -192,7 +227,7 @@ def serve_cases(rank: int, world: int, args: Dict):
         torch.cuda.set_device(0)
     out = []
     for case in args["cases"]:
-        mesh = _mesh(case.get("mesh"), backend)
+        mesh = mesh_of(case.get("mesh"), backend)
         if "helpers" in case:
             res = _helpers(mesh, case["helpers"], device)
             out.append(res if rank == 0 else None)
@@ -234,11 +269,21 @@ def serve_cases(rank: int, world: int, args: Dict):
         mine = {"rank": rank,
                 "pool_bytes": eng.caches[0].per_chip_pool_bytes(),
                 "expert_bytes": _expert_bytes(model),
+                "param_bytes": _param_bytes(model),
                 "launches": {k: l1[k] - l0[k] for k in l1},
                 "wall": wall,
                 "collectives": collective.stats(),
                 "peak_bytes": (torch.cuda.max_memory_allocated()
                                if device is None else 0)}
+        if mesh is not None:
+            mine["axes"] = {n: (c.size, c.index)
+                            for n, c in mesh.bind().items()}
+        if case.get("return_params"):
+            mine["params"] = {n: _numpy(p)
+                              for n, p in model.named_parameters()}
+        if case.get("return_pools"):
+            mine["pools"] = [(_numpy(c.key_cache), _numpy(c.value_cache))
+                             for c in eng.caches]
         res["metrics"] = {k: (m1[k] - m0[k] if m0[k] is not None
                               and m1[k] is not None
                               and k.endswith("}") and "mesh" not in k

@@ -32,11 +32,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a host span as ``merge_chrome_trace`` reads one
 HostSpan = collections.namedtuple("HostSpan", "name start end tid")
 
-# reference engine families the port leaves out: their features (context
-# parallelism, fsdp) are not ported; tensor and expert parallelism and the
-# quantized logits gather are
-UNPORTED_FAMILIES = {"serving_cp_collective_bytes_total",
-                     "spmd_allgather_bytes_total"}
+# reference engine families the port leaves out: none since context
+# parallelism and fsdp serving were ported (with tensor and expert
+# parallelism and the quantized logits gather before them)
+UNPORTED_FAMILIES = set()
 
 
 @pytest.fixture(params=["reference", "port"])

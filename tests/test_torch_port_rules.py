@@ -214,26 +214,31 @@ def test_launch_counters_stay_zero_on_cpu(mode):
     assert [getattr(f, a) for f, a in LAUNCH_COUNTERS] == before
 
 
-# the engine options, or the forms of them, that are still not ported:
-# a mesh's cp axis (context parallelism) and fsdp axis (2-D fsdp x tp
-# serving), also when quantized collectives ride on them, and a pool
-# dtype other than the model's or int8 (tp and ep meshes are ported)
+# the engine options, or the forms of them, that are still not ported —
+# a pool dtype other than the model's or int8 — raise NotImplementedError;
+# the mesh forms ported since (a cp axis, an fsdp axis, quantized
+# collectives over cp) refuse only a whole model: each rank serves its
+# shard (jit.spmd.shard_model)
 UNPORTED_ENGINE = {
-    "mesh": dict(mesh=ProcessMesh([2], ["cp"]), mixed_step=True),
-    "sharding": dict(mesh=ProcessMesh([2], ["fsdp"]),
-                     sharding=ShardingConfig(axis="tp"), mixed_step=True),
-    "kv_dtype=bfloat16 under fp32": dict(kv_dtype="bfloat16"),
-    "quant_collectives": dict(quant_collectives=True, mixed_step=True,
-                              mesh=ProcessMesh([2], ["cp"])),
+    "mesh": (dict(mesh=ProcessMesh([2], ["cp"]), mixed_step=True),
+             ValueError, "shard_model"),
+    "sharding": (dict(mesh=ProcessMesh([2], ["fsdp"]),
+                      sharding=ShardingConfig(axis="tp"), mixed_step=True),
+                 ValueError, "shard_model"),
+    "kv_dtype=bfloat16 under fp32": (dict(kv_dtype="bfloat16"),
+                                     NotImplementedError, "not ported"),
+    "quant_collectives": (dict(quant_collectives=True, mixed_step=True,
+                               mesh=ProcessMesh([2], ["cp"])),
+                          ValueError, "shard_model"),
 }
 
 
 @pytest.mark.parametrize("option", sorted(UNPORTED_ENGINE))
 def test_unported_engine_options_raise(option):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    kw, error, match = UNPORTED_ENGINE[option]
+    with pytest.raises(error, match=match):
         ContinuousBatchingEngine(_tiny(), max_batch_size=2, num_blocks=8,
-                                 block_size=4, device="cpu",
-                                 **UNPORTED_ENGINE[option])
+                                 block_size=4, device="cpu", **kw)
 
 
 FLASH_COUNTERS = (fa.flash_fwd, fa.flash_bwd_fused, fa.flash_bwd_two_kernel)

@@ -389,12 +389,14 @@ def test_mesh_refusals_keep_the_reference_messages(whole):
                                  mesh=spmd.tp_mesh(2), **base)
     with pytest.raises(ValueError, match="single-chip"):
         ContinuousBatchingEngine(whole, quant_collectives=True, **base)
-    for mesh in (ProcessMesh([2], ["cp"]), ProcessMesh([2], ["fsdp"])):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # cp and fsdp meshes serve (tests/test_torch_cp_serving.py,
+    # tests/test_torch_fsdp_serving.py): every rank serves its shard, so a
+    # whole model under them is refused as under tp
+    for mesh in (ProcessMesh([2], ["cp"], backend="gloo"),
+                 ProcessMesh([2], ["fsdp"], backend="gloo"),
+                 spmd.cp_mesh(2, 2), spmd.mesh_2d(2, 2)):
+        with pytest.raises(ValueError, match="shard_model"):
             ContinuousBatchingEngine(whole, mesh=mesh, **base)
-    for fn in (spmd.cp_mesh, spmd.mesh_2d):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fn(2, 2)
 
 
 def test_spec_tables_and_collective_bytes_equal_the_reference(whole):
