@@ -215,7 +215,7 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    the partials' device seconds on rank 0 (CUDA events) and the merge's
    host seconds reported.  Four ranks: serve_7b_fsdp2_tp2 (4 layers):
    each rank stores a quarter of every fsdp-sharded weight, #5 and #6
-   launched 4 x steps at 16/16, the counted gather bytes
+   launched 2 x steps at 16/16, the counted gather bytes
    ``fsdp_gather_bytes`` x dispatches.  Then parity_cp_fsdp_2l (7B widths,
    2 layers, fp32): cp 2 mixed and split, cp2 x tp2 and cp 4 on phase 3's
    traffic, each against its one-card twin and against itself through the
@@ -268,6 +268,36 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    criterion adds the router aux term), batch 1 x 2048, a warm-up and 3
    steps: finite losses, the first within 0.5 of its random-init value,
    Mixtral's aux term > 0, flash launches exact a step.
+11b. Multi-device training (:func:`phase_train_mesh`), rank processes
+   sharing the card over gloo as in 4b (every collective second printed
+   with ``backend=gloo, N ranks on one card``: no multi-card number).
+   First the flash kernels at the sequence-parallel shapes against their
+   plain versions, timed with bound and SDPA time: #1 without rope with
+   lse at 1 x 8192 x 32 x 128 (a ring hop: the causal diagonal and a full
+   block), #2 there against the out and lse of a whole causal row it did
+   not compute (:func:`check_ring_backward`; the library time is
+   PyTorch's flash backward fed the same out and lse), #1 and #3 at 1 x
+   16384 x 16 x 128 (Ulysses).  Then ``testing.sharded.train_cases`` in a two-rank
+   world: train_7b_zero2_dp2 (Llama-2-7B widths, 2 layers, ZeRO-2 over dp
+   2, global 2 x 2048), train_long_sep2_ring and train_long_sep2_ulysses
+   (CodeLlama-7B widths, 1 layer, 1 x 16384 over sep 2), all bf16 with
+   AdamW's bf16 moments, recompute and clip 1.0, one step each; and in a
+   four-rank world train_7b_fsdp2_tp2 (1 layer, 4 x 2048, one step).  Every rank's flash launches exact (a causal ring's rank r runs
+   r + 1 blocks a pass, the masked hops none), every rank's counted
+   collective payload equal to the analytic count (``train_mesh_bytes``:
+   the ZeRO buckets and rows, the 2-D gathers and scatters with
+   ``spmd_allgather_bytes_total{train_params}``, the ring's k/v and dk/dv
+   a hop, Ulysses' all_to_alls), losses finite and the first within 0.5
+   of ln V + h·σ²/2; walls, tokens/s, collective seconds and each rank's
+   peak reported.  Parity (7B widths, 1 layer, fp32, 2 steps, short
+   sequences): ZeRO-1 and ZeRO-2 over dp 2 and fsdp2 x tp2 against the
+   one-card ``TrainStep`` on the same global 4 x 128 batches, ring and
+   Ulysses over sep 2 against the one-card run on 1 x 256: every loss
+   within 1e-4, and each parameter's gradient norm before the clip at
+   every step (put together from the ranks' slices) within
+   ``GRAD_RTOL``.
+   Depth and steps as ``ZERO_CELL``, ``FSDP_CELL``, ``SEP_CELL`` and
+   ``MESH_PARITY`` set them (cut to keep the run inside its limit).
 12. Before the last line, one JSON object with every kernel variant's
    numbers; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -1443,6 +1473,30 @@ def _library_ms(q, k, v, g, causal, backward, iters):
                                                retain_graph=True), iters)
 
 
+def _library_bwd(q, k, v, out, lse, g, causal):
+    """The one PyTorch call that computes a flash backward against an
+    ``out`` and ``lse`` given from outside (a ring hop's: the totals of
+    its whole row): ``aten._scaled_dot_product_flash_attention_backward``
+    (PyTorch's own flash kernel), fed ``out`` and the natural-log ``lse``
+    as they are; its length and philox arguments are those of a forward
+    call on the same inputs (no dropout).  Returns a function of no
+    arguments that gives ``(dq, dk, dv)`` in the port's layout.  Used
+    here as a yardstick only; the port never calls it."""
+    import torch
+    aten = torch.ops.aten
+    qt, kt, vt, ot, gt = (t.transpose(1, 2) for t in (q, k, v, out, g))
+    fwd = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal)
+    cum_q, cum_k, max_q, max_k, seed, offset = fwd[2:8]
+    del fwd
+
+    def call():
+        grads = aten._scaled_dot_product_flash_attention_backward(
+            gt, qt, kt, vt, ot, lse, cum_q, cum_k, max_q, max_k, 0.0,
+            causal, seed, offset)
+        return tuple(x.transpose(1, 2) for x in grads)
+    return call
+
+
 def check_flash(name, B, Sq, Sk, H, D, dtype_name, rope, causal, kernels,
                 gen, timed: bool):
     """Each kernel of ``kernels`` against its plain version on one case;
@@ -1528,7 +1582,7 @@ def check_flash(name, B, Sq, Sk, H, D, dtype_name, rope, causal, kernels,
                 plain_ms=time_ms(lambda: plain(*args, causal, tables), 2,
                                  warmup=1),
                 library_ms=(_library_ms(q, k, v, g, causal, bwd, iters)
-                            if Sq == Sk and causal else None),
+                            if Sq == Sk else None),
                 library_note="scaled_dot_product_attention%s on the same "
                 "inputs without rope (the rope variant adds two elementwise "
                 "passes to it)" % (" backward" if bwd else ""))
@@ -5413,10 +5467,397 @@ def phase_mesh_serving_2d_cp():
     return {n: r for n, r in rows.items() if not n.endswith("_plain")}
 
 
-def kernel_summary(rows, serving, flash_rows, train_launches):
+# ---------------------------------------------------------------------------
+# phase 11b: multi-device training, ranks on the one card
+# ---------------------------------------------------------------------------
+# the cells (bf16, AdamW with bf16 moments, recompute, clip 1.0; a fresh
+# batch a step; widths whole, depth and steps cut: gloo moves every
+# gradient and parameter through the host, ~0.4-0.8 GB/s a rank, and the
+# cells as first run (4 / 2 / 2 layers; 3 / 2 / 2 steps; parity 2 layers,
+# 3 steps) took the phase 260 s; at 2 / 1 / 1 layers, 2 steps, parity 3
+# steps it took 190 s of a 1,177-s run on a slow host)
+ZERO_CELL = dict(layers=2, steps=1, batch=(2, 2048))      # dp 2, stage 2
+FSDP_CELL = dict(layers=1, steps=1, batch=(4, 2048))      # fsdp 2 x tp 2
+SEP_CELL = dict(layers=1, steps=1, batch=(1, 16384))      # sep 2, CodeLlama
+# the fp32 parity runs: 7B widths, short sequences
+MESH_PARITY = dict(layers=1, steps=2, batch=(4, 128), sep_batch=(1, 256))
+# the same runs' gradients at every step, parameter by parameter, against
+# the one-card run's: the losses alone see little of a gradient's size
+# (Adam's first move is lr·sign(g), and its later ones a ratio of
+# gradients, which a wrong scale leaves unchanged); fp32, summation order
+# the only difference
+GRAD_RTOL = 1e-4
+RING_S = SEP_CELL["batch"][1] // 2        # a sep rank's slice of 16k
+# the flash kernels at the shapes the sequence-parallel cells give them:
+# a ring hop's forward with lse and no rope (the diagonal block, causal,
+# and a full block), and Ulysses' whole sequence at half the heads
+RING_FLASH_CASES = (
+    ("ring_diag_8k", 1, RING_S, RING_S, 32, 128, "bfloat16", False, True,
+     ("flash_fwd",)),
+    ("ring_full_8k", 1, RING_S, RING_S, 32, 128, "bfloat16", False, False,
+     ("flash_fwd",)),
+    ("ulysses_16k", 1, 2 * RING_S, 2 * RING_S, 16, 128, "bfloat16", False,
+     True, ("flash_fwd", "flash_bwd_two_kernel")),
+)
+
+
+def check_ring_backward(gen):
+    """#2 at a ring rank's shape (1 x ``RING_S``, 32 heads, D 128, bf16)
+    against an out and lse it did not compute: those of the whole causal
+    row of the second rank of a two-rank ring (its keys: rank 0's block,
+    then its own), for each hop kind, the full block and the diagonal,
+    each against its plain version on the same inputs; timed, with the
+    library's flash backward fed the same out and lse
+    (:func:`_library_bwd`; its largest difference from the plain
+    version reported)."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    B, S, H, D = 1, RING_S, 32, 128
+    q, k, v, g, _ = _flash_case(B, S, 2 * S, H, D, "bfloat16", False, gen)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    rows = []
+    for hop, lo, causal in (("full", 0, False), ("diag", S, True)):
+        kb = k[:, lo:lo + S].contiguous()
+        vb = v[:, lo:lo + S].contiguous()
+        got = fa.flash_bwd_fused(q, kb, vb, out, lse, g, causal)
+        torch.cuda.synchronize()
+        want = fa._flash_bwd_plain(q, kb, vb, out, lse, g, causal,
+                                   form="fused")
+        noise = flash_noise("flash_bwd_fused", q, kb, vb, out, lse, g,
+                            causal, None)
+        library = _library_bwd(q, kb, vb, out, lse, g, causal)
+        lib_diff = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(library(), want))
+        errs, excess = [], []
+        for a, b, f in zip(got, want, noise):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError("ring backward %s: non-finite" % hop)
+            tol = flash_tolerance(b, "bfloat16", f)
+            errs.append((a.float() - b.float()).abs().max().item())
+            excess.append(flash_excess(a, b, tol))
+        del noise, want
+        if any(not (x <= 1.0) for x in excess):
+            raise AssertionError("ring backward %s against the total lse: "
+                                 "errors %s exceed the tolerance (%s)"
+                                 % (hop, errs, excess))
+        n_bytes, flops = _flash_work("flash_bwd_fused", B, S, S, H, D, 2,
+                                     False, causal)
+        b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+        kernel_ms = time_ms(lambda: fa.flash_bwd_fused(
+            q, kb, vb, out, lse, g, causal), 3)
+        row = dict(kernel="flash_bwd_fused", case="ring_bwd_%s_8k" % hop,
+                   dtype="bfloat16", B=B, Sq=S, Sk=S, H=H, D=D, rope=False,
+                   causal=causal, external_lse=True, max_abs_err=max(errs),
+                   errs=errs, err_over_tol=excess, bound_ms=b_ms,
+                   bound_by=b_by, kernel_ms=kernel_ms, flops=flops,
+                   tflop_per_s=flops / (kernel_ms * 1e-3) / 1e12,
+                   plain_ms=time_ms(lambda: fa._flash_bwd_plain(
+                       q, kb, vb, out, lse, g, causal, form="fused"), 2,
+                       warmup=1),
+                   library_ms=time_ms(library, 3),
+                   library_max_abs_diff=lib_diff,
+                   library_note="aten._scaled_dot_product_flash_attention"
+                   "_backward fed the same total out and lse",
+                   source=flash_source("bfloat16"))
+        emit(row)
+        rows.append(row)
+    return rows
+
+
+def train_mesh_cases():
+    """The models and the two worlds' cases of phase 11b
+    (``testing.sharded.train_cases``)."""
+    from dataclasses import asdict
+    from paddle_tpu_torch.models.llama import llama_7b_config
+    models = {
+        "7b_zero": dict(family="llama", seed=SEED, config=asdict(
+            llama_7b_config(dtype="bfloat16", recompute=True,
+                            num_hidden_layers=ZERO_CELL["layers"]))),
+        "7b_fsdp": dict(family="llama", seed=SEED, config=asdict(
+            llama_7b_config(dtype="bfloat16", recompute=True,
+                            num_hidden_layers=FSDP_CELL["layers"]))),
+        "code_sep": dict(family="llama", seed=SEED, config=asdict(
+            codellama_7b_config(dtype="bfloat16", recompute=True,
+                                num_hidden_layers=SEP_CELL["layers"]))),
+        "7b_fp32": dict(family="llama", seed=SEED, config=asdict(
+            llama_7b_config(dtype="float32", recompute=True,
+                            num_hidden_layers=MESH_PARITY["layers"]))),
+    }
+    bf16 = dict(name="adamw", learning_rate=TRAIN_LR,
+                moment_dtype="bfloat16")
+    fp32 = dict(name="adamw", learning_rate=TRAIN_LR)
+    par = dict(model="7b_fp32", optimizer=fp32, clip=1.0,
+               steps=MESH_PARITY["steps"], grad_norms=True,
+               random=dict(shape=list(MESH_PARITY["batch"]), seed=SEED + 1,
+                           count=MESH_PARITY["steps"]))
+    sep_par = dict(par, random=dict(shape=list(MESH_PARITY["sep_batch"]),
+                                    seed=SEED + 2,
+                                    count=MESH_PARITY["steps"]))
+
+    def sep(mode):
+        return dict(sequence_parallel=True, seq_parallel_mode=mode)
+    two = [
+        dict(name="train_7b_zero2_dp2", model="7b_zero", mesh={"dp": 2},
+             stage=2, optimizer=bf16, clip=1.0, steps=ZERO_CELL["steps"],
+             random=dict(shape=list(ZERO_CELL["batch"]), seed=SEED,
+                         count=ZERO_CELL["steps"])),
+        dict(name="train_long_sep2_ring", model="code_sep",
+             hybrid={"sep": 2}, config=sep("ring"), optimizer=bf16,
+             clip=1.0, steps=SEP_CELL["steps"],
+             random=dict(shape=list(SEP_CELL["batch"]), seed=SEED + 2,
+                         count=SEP_CELL["steps"])),
+        dict(name="train_long_sep2_ulysses", model="code_sep",
+             hybrid={"sep": 2}, config=sep("ulysses"), optimizer=bf16,
+             clip=1.0, steps=SEP_CELL["steps"],
+             random=dict(shape=list(SEP_CELL["batch"]), seed=SEED + 2,
+                         count=SEP_CELL["steps"])),
+        dict(par, name="parity_one", mesh=None),
+        dict(par, name="parity_zero1_dp2", mesh={"dp": 2}, stage=1),
+        dict(par, name="parity_zero2_dp2", mesh={"dp": 2}, stage=2),
+        dict(sep_par, name="parity_sep_one", mesh=None),
+        dict(sep_par, name="parity_ring_sep2", hybrid={"sep": 2},
+             config=sep("ring")),
+        dict(sep_par, name="parity_ulysses_sep2", hybrid={"sep": 2},
+             config=sep("ulysses")),
+    ]
+    four = [
+        dict(name="train_7b_fsdp2_tp2", model="7b_fsdp",
+             mesh={"fsdp": 2, "tp": 2}, optimizer=bf16, clip=1.0,
+             steps=FSDP_CELL["steps"],
+             random=dict(shape=list(FSDP_CELL["batch"]), seed=SEED,
+                         count=FSDP_CELL["steps"])),
+        dict(par, name="parity_fsdp2_tp2", mesh={"fsdp": 2, "tp": 2}),
+    ]
+    return models, two, four
+
+
+def _param_shapes(config: dict):
+    """The whole model's parameter shapes and element size (a skeleton on
+    ``meta``)."""
+    import torch
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    cfg = LlamaConfig(**config)
+    m = LlamaForCausalLM(cfg, device="meta")
+    item = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    return {n: tuple(p.shape) for n, p in m.named_parameters()}, item
+
+
+def fsdp_collective_bytes(shapes, item, specs, sizes):
+    """The payload a 2-D rank hands the collectives a step: its slices to
+    the gathers (each gather's input, minor axis first) and the gradients
+    to the reduce-scatters (each one's input, major axis first)."""
+    gather = scatter = 0
+    for name, shape in shapes.items():
+        spec = specs[name]
+        names = [n for e in spec for n in ((e,) if isinstance(e, str)
+                                           else tuple(e or ()))]
+        whole = math.prod(shape) * item
+        part = math.prod(sizes[n] for n in names)
+        cur = whole // part
+        for n in reversed(names):
+            gather += cur
+            cur *= sizes[n]
+        cur = whole
+        for n in names:
+            scatter += cur
+            cur //= sizes[n]
+    return dict(train_gather=gather, reduce_scatter=scatter)
+
+
+def train_mesh_want(case, models, rank, n_ranks):
+    """Every rank's flash launches in a cell: a layer's forward twice a
+    step (recompute) and its backward once; the ring's rank ``r`` runs
+    ``r + 1`` blocks a pass (the masked hops none), Ulysses one whole
+    block at half the heads (two-kernel backward at 16k)."""
+    from paddle_tpu_torch.ops.flash_attention import fused_bwd_taken
+    cfg = models[case["model"]]["config"]
+    L, steps = cfg["num_hidden_layers"], case["steps"]
+    S = case["random"]["shape"][1]
+    blocks = 1
+    if case.get("hybrid"):
+        S //= case["hybrid"]["sep"]
+        if case["config"]["seq_parallel_mode"] == "ring":
+            blocks = rank + 1
+        else:
+            S *= case["hybrid"]["sep"]
+    fused = fused_bwd_taken(S)
+    return {"flash_fwd": 2 * L * steps * blocks,
+            "flash_bwd_fused": L * steps * blocks if fused else 0,
+            "flash_bwd_two_kernel": 0 if fused else L * steps * blocks}
+
+
+def train_mesh_bytes(case, models, rk, n):
+    """The collective payload a rank's counts must equal, by op."""
+    from paddle_tpu_torch.ops.sequence_parallel import ring_bytes
+    cfg = models[case["model"]]["config"]
+    L, steps = cfg["num_hidden_layers"], case["steps"]
+    shapes, item = _param_shapes(cfg)
+    if case.get("mesh") and "dp" in case["mesh"] and len(case["mesh"]) == 1:
+        # stage 2 scatters each bucket, stage 1 sums it whole (none)
+        total = sum(rk["bucket_bytes"])
+        return {"reduce_scatter": (total * steps if case["stage"] == 2
+                                   else None),
+                "all_gather": total // n * steps}
+    if case.get("mesh"):
+        sizes = dict(case["mesh"])
+        return {k: v * steps for k, v in fsdp_collective_bytes(
+            shapes, item, {k: tuple(v) for k, v in rk["specs"].items()},
+            sizes).items()}
+    B, S = case["random"]["shape"]
+    H, D = cfg["num_attention_heads"], \
+        cfg["hidden_size"] // cfg["num_attention_heads"]
+    local = (B, S // n, H, D)
+    if case["config"]["seq_parallel_mode"] == "ring":
+        fwd = ring_bytes(local, item, n, backward=False)
+        bwd = ring_bytes(local, item, n, backward=True)
+        return {"ring_kv": L * steps * (2 * fwd["ring_kv"] + bwd["ring_kv"]),
+                "ring_dkv": L * steps * bwd["ring_dkv"]}
+    # Ulysses: q, k, v there and the output back in each of the two
+    # forward passes, and the four gradients in the backward
+    return {"all_to_all": L * steps * 12 * math.prod(local) * item}
+
+
+def phase_train_mesh():
+    """Multi-device training on the one card (module notes, 11b): the
+    flash kernels at the sequence-parallel shapes, then the worlds."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    ring_rows = []
+    for case in RING_FLASH_CASES:
+        ring_rows += check_flash(*case, gen=gen, timed=True)
+        torch.cuda.empty_cache()
+    ring_rows += check_ring_backward(gen)
+    torch.cuda.empty_cache()
+    print("train_mesh kernels: %.1f s" % (time.perf_counter() - t0),
+          flush=True)
+    return dict(train_mesh_worlds(*train_mesh_cases()), ring_rows=ring_rows)
+
+
+def train_mesh_worlds(models, two, four, device=None):
+    """Phase 11b's two worlds (``device=None``: the card) and their
+    gates; returns the rows and each cell's launches summed over its
+    ranks."""
+    from paddle_tpu_torch.distributed.launch import run_world
+    got = {}
+    for world, cases in ((2, two), (4, four)):
+        t1 = time.perf_counter()
+        out = run_world("paddle_tpu_torch.testing.sharded:train_cases",
+                        world, dict(device=device, backend="gloo",
+                                    models=models, cases=cases),
+                        timeout=MESH_TIMEOUT)
+        print("train_mesh: %d ranks in %.1f s (%s)" % (
+            world, time.perf_counter() - t1, MESH_NOTE % world), flush=True)
+        got.update({c["name"]: (c, r, world) for c, r in zip(cases, out)})
+    rows, launches = {}, {}
+    for name, (case, res, world) in got.items():
+        cfg = models[case["model"]]["config"]
+        ranks = res["ranks"]
+        row = dict(phase=name, ranks=len(ranks), layers=cfg[
+            "num_hidden_layers"], dtype=cfg["dtype"], batch=case["random"][
+                "shape"], steps=case["steps"], losses=res["losses"],
+            mesh=case.get("mesh") or case.get("hybrid"),
+            note=MESH_NOTE % len(ranks),
+            walls=[r["wall"] for r in ranks],
+            peak_bytes=[r["peak_bytes"] for r in ranks],
+            param_bytes=[r["param_bytes"] for r in ranks],
+            state_bytes=[r["state_bytes"] for r in ranks],
+            launches=[r["launches"] for r in ranks],
+            collectives_rank0=ranks[0]["collectives"])
+        B, S = case["random"]["shape"]
+        row["tokens_per_s"] = B * S * case["steps"] / max(row["walls"])
+        if not all(math.isfinite(x) for x in res["losses"]):
+            raise AssertionError("%s: non-finite loss %s" % (name,
+                                                             res["losses"]))
+        if len(ranks) > 1:
+            for r, rk in enumerate(ranks):
+                want = train_mesh_want(case, models, r, len(ranks))
+                if device is not None:       # the CPU launches nothing
+                    want = {k: 0 for k in want}
+                if rk["launches"] != want:
+                    raise AssertionError("%s rank %d launches %s, want %s"
+                                         % (name, r, rk["launches"], want))
+            n = (case.get("hybrid") or {}).get("sep") or len(ranks)
+            want_b = train_mesh_bytes(case, models, ranks[0], n)
+            row["collective_bytes_want"] = want_b
+            for rk in ranks:
+                for op, b in want_b.items():
+                    if rk["collectives"]["bytes"].get(op) != b:
+                        raise AssertionError(
+                            "%s rank %d: %s bytes %s, want %s"
+                            % (name, rk["rank"], op,
+                               rk["collectives"]["bytes"].get(op), b))
+            if "gather_bytes_per_step" in ranks[0]:
+                g = ranks[0]["gather_bytes_per_step"] * case["steps"]
+                row["train_params_gather_bytes"] = g
+                for rk in ranks:
+                    if rk["metrics"][
+                            "spmd_allgather_bytes_total{train_params}"] != g:
+                        raise AssertionError("%s: train_params gather bytes"
+                                             % name)
+        launches[name] = {k: sum(r["launches"][k] for r in ranks)
+                          for k in ranks[0]["launches"]}
+        rows[name] = row
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    for name in ("train_7b_zero2_dp2", "train_7b_fsdp2_tp2",
+                 "train_long_sep2_ring", "train_long_sep2_ulysses"):
+        cfg = LlamaConfig(**models[got[name][0]["model"]]["config"])
+        first = rows[name]["losses"][0]
+        rows[name]["expected_first_loss"] = init_loss(cfg)
+        if not abs(first - init_loss(cfg)) <= 0.5:
+            raise AssertionError("%s: first loss %g is not within 0.5 of "
+                                 "the random-init value %g"
+                                 % (name, first, init_loss(cfg)))
+    from paddle_tpu_torch.testing.sharded import grad_norms
+    gates, grad_gates = {}, {}
+    norms = {}
+    for name, (case, res, _) in got.items():
+        if case.get("grad_norms"):
+            shapes, _ = _param_shapes(models[case["model"]]["config"])
+            norms[name] = grad_norms(res["ranks"], shapes)
+    for name, one in (("parity_zero1_dp2", "parity_one"),
+                      ("parity_zero2_dp2", "parity_one"),
+                      ("parity_fsdp2_tp2", "parity_one"),
+                      ("parity_ring_sep2", "parity_sep_one"),
+                      ("parity_ulysses_sep2", "parity_sep_one")):
+        a, b = rows[name]["losses"], rows[one]["losses"]
+        gates[name] = max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        rel = [{k: abs(g[k] - w[k]) / w[k] for k in w}
+               for g, w in zip(norms[name], norms[one])]
+        if set(rel[0]) != set(norms[one][0]):
+            raise AssertionError("%s: gradients of %s, want %s" % (
+                name, sorted(rel[0]), sorted(norms[one][0])))
+        grad_gates[name] = [max(r.values()) for r in rel]
+        rows[name]["grad_norms_step1"] = norms[name][0]
+    for name, row in rows.items():
+        emit(row)
+    emit(dict(phase="train_mesh_parity_fp32", rtol=PARITY_RTOL,
+              max_rel_diff=gates, grad_rtol=GRAD_RTOL,
+              grad_norm_max_rel_diff_by_step=grad_gates,
+              grad_norms_one_card_step1={
+                  one: norms[one][0] for one in ("parity_one",
+                                                 "parity_sep_one")}))
+    for name, rel in gates.items():
+        if not rel <= PARITY_RTOL:
+            raise AssertionError("%s: losses vs one card, max rel diff %g "
+                                 "> %g" % (name, rel, PARITY_RTOL))
+    for name, rel in grad_gates.items():
+        if not max(rel) <= GRAD_RTOL:
+            raise AssertionError("%s: gradient norms vs one card, max rel "
+                                 "diff by step %s > %g"
+                                 % (name, rel, GRAD_RTOL))
+    return dict(rows=rows, launches=launches)
+
+
+def kernel_summary(rows, serving, flash_rows, train_launches,
+                   ring_rows=()):
     """One entry per kernel variant for the final JSON line: the times at
     the variant's main-path shape, the worst error of any shape, and the
-    launches of the run of the path that drives it (``path``)."""
+    launches of the run of the path that drives it (``path``); the flash
+    kernels also carry their times at phase 11b's sequence-parallel
+    shapes (``seq_parallel_shapes``)."""
     def pick(rs, case):
         return next(r for r in rs if r["case"] == case
                     and r["dtype"] == "bfloat16")
@@ -5545,7 +5986,15 @@ def kernel_summary(rows, serving, flash_rows, train_launches):
                         max_abs_err=max(x["max_abs_err"] for x in rs),
                         ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                        library_ms=r["library_ms"]))
+                        library_ms=r["library_ms"],
+                        seq_parallel_shapes={
+                            x["case"]: dict(
+                                ms=x["kernel_ms"], plain_ms=x["plain_ms"],
+                                bound_ms=x["bound_ms"],
+                                bound_by=x["bound_by"],
+                                library_ms=x["library_ms"],
+                                max_abs_err=x["max_abs_err"])
+                            for x in ring_rows if x["kernel"] == name}))
     return out
 
 
@@ -5677,12 +6126,14 @@ def main() -> int:
     layerwise = run("train_7b_layerwise", phase_train_7b_layerwise)
     run("layerwise_parity", phase_layerwise_parity)
     families = run("train_families", phase_train_families)
+    mesh_train = run("train_mesh", phase_train_mesh)
     emit({"kernels": kernel_summary(
         rows, serving, flash_rows,
         dict({"train_7b": train["launches"],
               "train_long_16k": long["launches"],
               "train_7b_layerwise": layerwise["launches"]},
-             **{k: v["launches"] for k, v in families.items()}))})
+             **{k: v["launches"] for k, v in families.items()},
+             **mesh_train["launches"]), mesh_train["ring_rows"])})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

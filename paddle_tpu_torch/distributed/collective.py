@@ -1,4 +1,5 @@
-"""The collectives of the sharded serving steps, through one module.
+"""The collectives of the sharded serving and training steps, through one
+module.
 
 Two kinds of process group carry them (``process_mesh.init_world`` and
 ``ProcessMesh.bind``):
@@ -17,9 +18,22 @@ backend, so nothing is staged in this module.  bf16 sums are taken in
 fp32 (``all_reduce``): the result rounds once, the same on every rank.
 The data-movement collectives carry bf16 as its bit patterns.
 
-``STATS`` counts calls and wall seconds per collective in this process; the bytes the engines report follow the reference's static
-accounting (``jit/spmd.TPContext.collective_bytes``), not what a backend
-moves.
+The training steps add two: :func:`reduce_scatter` (a rank's row of the
+sum of a ``[size, cols]`` matrix; the reference's ``psum_scatter``) and
+:func:`shift` (send to the next rank of the axis, receive from the
+previous one; the reference's ``ppermute`` over ``(i, i + 1 mod n)``).
+``bf16`` is summed in fp32 here too, where XLA's scatter sums in the
+operand's dtype.  gloo takes CUDA tensors for ``reduce_scatter_tensor``
+(fp32 and fp16, PyTorch 2.11 on an H100), but not for point-to-point
+sends: a send of a CUDA tensor closes the connection.  So ``shift`` of a
+CUDA tensor on a gloo group goes through reused pinned host buffers (copy
+out, send and receive on the host, copy back, all inside the op's
+seconds); over nccl nothing is staged.
+
+``STATS`` counts calls, wall seconds and payload bytes (each call's input
+on this rank) per collective in this process; the bytes the engines
+report follow the reference's static accounting
+(``jit/spmd.TPContext.collective_bytes``), not what a backend moves.
 """
 from __future__ import annotations
 
@@ -30,9 +44,11 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["STATS", "reset_stats", "stats", "all_reduce", "all_reduce_max",
-           "all_gather", "all_gather_rows", "all_to_all", "broadcast"]
+           "all_gather", "all_gather_rows", "all_to_all", "broadcast",
+           "reduce_scatter", "shift"]
 
-STATS: Dict[str, Dict[str, float]] = {"calls": {}, "seconds": {}}
+STATS: Dict[str, Dict[str, float]] = {"calls": {}, "seconds": {},
+                                      "bytes": {}}
 
 
 def reset_stats() -> None:
@@ -45,9 +61,12 @@ def stats() -> Dict[str, Dict[str, float]]:
     return {k: dict(v) for k, v in STATS.items()}
 
 
-def _count(op: str, seconds: float) -> None:
+def _count(op: str, seconds: float, t: torch.Tensor = None) -> None:
     STATS["calls"][op] = STATS["calls"].get(op, 0) + 1
     STATS["seconds"][op] = STATS["seconds"].get(op, 0.0) + seconds
+    if t is not None:
+        STATS["bytes"][op] = (STATS["bytes"].get(op, 0)
+                              + t.numel() * t.element_size())
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -63,7 +82,7 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     dist.all_reduce(work, op=dist.ReduceOp.SUM, group=group)
     out = work.to(t.dtype) if work is not t else t
     _sync(out)
-    _count("all_reduce", time.perf_counter() - t0)
+    _count("all_reduce", time.perf_counter() - t0, t)
     return out
 
 
@@ -72,7 +91,7 @@ def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
     t0 = time.perf_counter()
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     _sync(t)
-    _count("all_reduce", time.perf_counter() - t0)
+    _count("all_reduce", time.perf_counter() - t0, t)
     return t
 
 
@@ -94,7 +113,7 @@ def all_gather(t: torch.Tensor, dim: int, group, size: int,
     if t.dtype == torch.bfloat16:
         out = out.view(torch.bfloat16)
     _sync(out)
-    _count(op, time.perf_counter() - t0)
+    _count(op, time.perf_counter() - t0, t)
     return out
 
 
@@ -107,7 +126,7 @@ def all_gather_rows(out: torch.Tensor, t: torch.Tensor, group,
     dst = _wire(out)
     dist.all_gather(list(dst.unbind(0)), _wire(t.contiguous()), group=group)
     _sync(out)
-    _count(op, time.perf_counter() - t0)
+    _count(op, time.perf_counter() - t0, t)
     return out
 
 
@@ -122,7 +141,7 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     if t.dtype == torch.bfloat16:
         out = out.view(torch.bfloat16)
     _sync(out)
-    _count("all_to_all", time.perf_counter() - t0)
+    _count("all_to_all", time.perf_counter() - t0, t)
     return out
 
 
@@ -131,5 +150,71 @@ def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     control group (the world's default gloo group), in place."""
     t0 = time.perf_counter()
     dist.broadcast(t, src=src, group=group)
-    _count("broadcast", time.perf_counter() - t0)
+    _count("broadcast", time.perf_counter() - t0, t)
     return t
+
+
+# the shift's pinned host buffers on gloo, by (direction, shape, dtype)
+_HOST: Dict[tuple, torch.Tensor] = {}
+
+
+def _host_buffer(tag: str, like: torch.Tensor) -> torch.Tensor:
+    key = (tag, tuple(like.shape), like.dtype)
+    buf = _HOST.get(key)
+    if buf is None:
+        buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+        _HOST[key] = buf
+    return buf
+
+
+def reduce_scatter(flat: torch.Tensor, group, op: str = "reduce_scatter"
+                   ) -> torch.Tensor:
+    """``flat`` [size, cols] summed over ``group``; returns row ``r`` of
+    the sum on the group's rank ``r`` (a new tensor of ``cols``).  bf16
+    is summed in fp32 and rounded once, as :func:`all_reduce` does."""
+    if flat.shape[0] != dist.get_world_size(group):
+        raise ValueError("reduce_scatter: %d rows for a group of %d"
+                         % (flat.shape[0], dist.get_world_size(group)))
+    t0 = time.perf_counter()
+    work = flat.to(torch.float32) if flat.dtype == torch.bfloat16 \
+        else flat.contiguous()
+    out = torch.empty(work.shape[1:], dtype=work.dtype, device=work.device)
+    dist.reduce_scatter_tensor(out.view(-1), work.view(-1),
+                               op=dist.ReduceOp.SUM, group=group)
+    if flat.dtype == torch.bfloat16:
+        out = out.to(torch.bfloat16)
+    _sync(out)
+    _count(op, time.perf_counter() - t0, flat)
+    return out
+
+
+def shift(t: torch.Tensor, group, ranks, index: int,
+          op: str = "shift") -> torch.Tensor:
+    """Send ``t`` to the next rank of ``group`` and return what the
+    previous one sent (rank ``i`` receives rank ``i - 1``'s, mod the
+    size): the reference's ``ppermute`` over ``perm = [(i, (i + 1) %
+    n)]``.  ``ranks`` are the group's global ranks in order and
+    ``index`` this rank's place in them."""
+    t0 = time.perf_counter()
+    n = len(ranks)
+    src = _wire(t.contiguous())
+    if n == 1:
+        out = src.clone()
+    else:
+        nxt, prv = ranks[(index + 1) % n], ranks[(index - 1) % n]
+        staged = src.is_cuda and dist.get_backend(group) == "gloo"
+        send = _host_buffer("shift_out", src) if staged else src
+        recv = (_host_buffer("shift_in", src) if staged
+                else torch.empty_like(src))
+        if staged:
+            send.copy_(src)
+        ops = [dist.P2POp(dist.isend, send, nxt, group),
+               dist.P2POp(dist.irecv, recv, prv, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        out = recv.to(src.device, copy=True) if staged else recv
+    if t.dtype == torch.bfloat16:
+        out = out.view(torch.bfloat16)
+    _sync(out)
+    _count(op, time.perf_counter() - t0, t)
+    return out

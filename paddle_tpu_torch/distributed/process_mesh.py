@@ -42,16 +42,17 @@ def init_world(rank: int, world_size: int, init_method: str) -> None:
 
 class AxisComm:
     """This rank's view of one mesh axis: the axis ``name``, its ``size``,
-    this rank's ``index`` along it, and the collectives over the axis's
-    data group."""
+    this rank's ``index`` along it, the global ``ranks`` of its group in
+    axis order, and the collectives over the axis's data group."""
 
     def __init__(self, name: str, size: int, index: int, group,
-                 backend: str):
+                 backend: str, ranks: Sequence[int]):
         self.name = name
         self.size = int(size)
         self.index = int(index)
         self.group = group
         self.backend = backend
+        self.ranks = [int(r) for r in ranks]
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         return C.all_reduce(t, self.group)
@@ -71,6 +72,15 @@ class AxisComm:
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         return C.all_to_all(t, self.group)
+
+    def reduce_scatter(self, flat: torch.Tensor,
+                       op: str = "reduce_scatter") -> torch.Tensor:
+        """``flat`` [size, cols] summed over the axis; this rank's row."""
+        return C.reduce_scatter(flat, self.group, op)
+
+    def shift(self, t: torch.Tensor, op: str = "shift") -> torch.Tensor:
+        """``t`` to the next rank of the axis; the previous rank's back."""
+        return C.shift(t, self.group, self.ranks, self.index, op)
 
     def __repr__(self):
         return ("AxisComm(%r, size=%d, index=%d, backend=%r)"
@@ -162,7 +172,8 @@ class ProcessMesh:
                 group = dist.new_group(ranks, backend=self.backend)
                 if rank in ranks:
                     mine = AxisComm(name, self._shape[ax],
-                                    ranks.index(rank), group, self.backend)
+                                    ranks.index(rank), group, self.backend,
+                                    ranks)
             comms[name] = mine
         self._comms = comms
         return comms

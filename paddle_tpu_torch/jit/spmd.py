@@ -51,7 +51,8 @@ __all__ = ["PartitionSpec", "P", "ShardingConfig", "SpecLayout",
            "ep_mesh", "cp_mesh", "mesh_2d", "tp_serving_context", "tp_embed",
            "tp_gather_logits", "tp_gather_logits_q8", "prune_spec_axes",
            "spec_axes", "fsdp_gather", "port_spec", "shard_tensor",
-           "shard_model", "full_shapes"]
+           "shard_model", "full_shapes", "reference_shapes",
+           "gather_spec_axes", "scatter_spec_axes"]
 
 
 class PartitionSpec(tuple):
@@ -633,10 +634,20 @@ def _layout_for(sizes: Dict[str, int], tp_axis: Optional[str],
                       ep_axis=named("ep"))
 
 
+def reference_shapes(shapes: Dict[str, Tuple[int, ...]]
+                     ) -> Dict[str, Tuple[int, ...]]:
+    """The port's parameter shapes in the reference's layout (a 2-D
+    Linear weight ``[out, in]`` as ``[in, out]``), which the spec tables
+    and their pruning are written for."""
+    return {k: (tuple(v)[::-1] if _is_linear_weight(k) and len(v) == 2
+                else tuple(v)) for k, v in shapes.items()}
+
+
 def _specs_for(config, shapes, layout, mesh) -> Dict[str, PartitionSpec]:
     fn = mixtral_param_specs if getattr(config, "num_local_experts", 0) \
         else llama_param_specs
-    return fn(shapes.keys(), layout, shapes=shapes, mesh=mesh)
+    return fn(shapes.keys(), layout, shapes=reference_shapes(shapes),
+              mesh=mesh)
 
 
 def tp_serving_context(model, mesh, sharding: Optional[ShardingConfig]
@@ -822,6 +833,35 @@ def fsdp_gather(x: torch.Tensor, spec, comm: AxisComm) -> torch.Tensor:
     if dim is None:
         return x
     return comm.all_gather(x, dim)
+
+
+def gather_spec_axes(x: torch.Tensor, spec, comms: Dict[str, AxisComm],
+                     op: str = "all_gather") -> torch.Tensor:
+    """The whole value of a placed slice ``x`` (reference:
+    ``gather_spec_axes``; ``spec`` in the port's layout): one all-gather
+    along each dim whose entry names an axis, the minor name of a tuple
+    entry first, so every block lands at its global offset.  ``op`` names
+    the calls in ``STATS``."""
+    for dim, entry in enumerate(spec):
+        for name in reversed(_entry_names(entry)):
+            x = comms[name].all_gather(x, dim, op=op)
+    return x
+
+
+def scatter_spec_axes(g: torch.Tensor, spec, comms: Dict[str, AxisComm],
+                      op: str = "reduce_scatter") -> torch.Tensor:
+    """The inverse of :func:`gather_spec_axes` for a gradient: one
+    reduce-scatter along each spec-named dim, the major name of a tuple
+    entry first (the reference's tiled ``psum_scatter`` per name), so
+    this rank keeps its placed slice of the sum over those axes."""
+    for dim, entry in enumerate(spec):
+        for name in _entry_names(entry):
+            c = comms[name]
+            moved = g.movedim(dim, 0)
+            rows = moved.shape[0] // c.size
+            row = c.reduce_scatter(moved.reshape(c.size, -1), op)
+            g = row.view((rows,) + tuple(moved.shape[1:])).movedim(0, dim)
+    return g
 
 
 def unslice(rows: torch.Tensor, at: int, shape, dim: int,

@@ -8,6 +8,14 @@ Two paths, as in the reference:
   card, their plain versions on the CPU), and ``config.recompute``
   recomputes each decoder layer in the backward
   (``torch.utils.checkpoint``) while the model is in training mode.
+  With ``config.sequence_parallel`` under a hybrid group whose sep degree
+  is above 1 (``distributed.topology``), each rank keeps its slice of
+  the sequence of the ``input_ids`` it is given (rank ``i`` the positions
+  ``i * S_local ..``): rope at those positions, and attention by
+  ``ops.sequence_parallel.sdpa_ring`` or ``sdpa_ulysses``
+  (``seq_parallel_mode``); the logits are the rank's slice, and
+  :class:`LlamaPretrainingCriterion` takes the matching slice of the
+  shifted global labels.
 - With caches (inference): ``forward(input_ids, caches, position_offset)``
   returns ``(logits, new caches)`` under ``torch.no_grad``, with separate
   rope and causal attention and no kernel.  ``generate`` runs greedy
@@ -56,6 +64,10 @@ class LlamaConfig:
     attention_bias: bool = False
     # recompute each decoder layer in the backward (training mode only)
     recompute: bool = False
+    # shard the sequence over the hybrid group's sep axis (training)
+    sequence_parallel: bool = False
+    # "ring" (k/v rotation) or "ulysses" (all-to-all head swap)
+    seq_parallel_mode: str = "ring"
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -99,6 +111,11 @@ class LlamaAttention(nn.Module):
 
     def __init__(self, config: LlamaConfig, device=None, dtype=None):
         super().__init__()
+        sp_mode = getattr(config, "seq_parallel_mode", "ring")
+        if sp_mode not in ("ring", "ulysses"):
+            raise ValueError(
+                f"seq_parallel_mode must be 'ring' or 'ulysses', got "
+                f"{sp_mode!r}")
         self.config = config
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
@@ -121,9 +138,22 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x):
         """``x`` [B, S, h] -> ``out`` [B, S, h] through the fused rope +
-        flash path (positions from 0)."""
+        flash path (positions from 0), or under sequence parallelism this
+        rank's slice through the ring or Ulysses."""
         B, S = x.shape[0], x.shape[1]
         q, k, v = self._qkv(x)
+        hcg = sep_group(self.config)
+        if hcg is not None:
+            from ..ops.sequence_parallel import sdpa_ring, sdpa_ulysses
+            q, k = PF.fused_rotary_position_embedding(
+                q, k, position_offset=hcg.get_sep_parallel_rank() * S,
+                rotary_emb_base=self.config.rope_theta)
+            fn = sdpa_ulysses if getattr(self.config, "seq_parallel_mode",
+                                         "ring") == "ulysses" else sdpa_ring
+            out = fn(q, self._repeat_kv(k), self._repeat_kv(v), hcg,
+                     axis_name="sep", is_causal=True)
+            return self.o_proj(out.reshape(B, S,
+                                           self.num_heads * self.head_dim))
         out = flash_attention_rope(q, self._repeat_kv(k), self._repeat_kv(v),
                                    self.config.rope_theta, is_causal=True)
         return self.o_proj(out.reshape(B, S, self.num_heads * self.head_dim))
@@ -153,6 +183,29 @@ class LlamaAttention(nn.Module):
             return t
         return t.repeat_interleave(self.num_heads // self.num_kv_heads,
                                    dim=2)
+
+
+def sep_group(config):
+    """The hybrid group when ``config`` trains sequence-parallel over a sep
+    axis above 1 (reference: ``LlamaAttention._ring_axis``), else None."""
+    if not getattr(config, "sequence_parallel", False):
+        return None
+    from ..distributed.topology import get_hybrid_communicate_group
+    hcg = get_hybrid_communicate_group()
+    if hcg is not None and hcg.get_sep_parallel_world_size() > 1:
+        return hcg
+    return None
+
+
+def sep_slice(t: torch.Tensor, hcg) -> torch.Tensor:
+    """This sep rank's slice of dim 1 (the sequence) of ``t``."""
+    n = hcg.get_sep_parallel_world_size()
+    S = t.shape[1]
+    if S % n:
+        raise ValueError("sequence parallelism: sequence length %d does "
+                         "not divide by the sep degree %d" % (S, n))
+    i = hcg.get_sep_parallel_rank()
+    return t[:, i * (S // n):(i + 1) * (S // n)]
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -257,6 +310,9 @@ class LlamaForCausalLM(nn.Module):
         ``caches`` (a list of per-layer ``(k, v)``, ``(None, None)`` for
         empty) -> ``(logits, new caches)`` under ``torch.no_grad``."""
         if caches is None:
+            hcg = sep_group(self.config)
+            if hcg is not None:
+                input_ids = sep_slice(input_ids, hcg)
             return self.lm_logits(self.llama(input_ids))
         with torch.no_grad():
             h, caches = self.llama(input_ids, caches, position_offset)
@@ -320,7 +376,14 @@ class LlamaPretrainingCriterion(nn.Module):
     """Shift-by-one LM loss with fp32 softmax (reference:
     ``LlamaPretrainingCriterion``): the labels roll left by one and the
     last position is filled with ``ignore_index``, so the logits are never
-    sliced; the loss is the mean over valid labels."""
+    sliced; the loss is the mean over valid labels.
+
+    Under sequence parallelism (logits of a rank's slice of the sequence,
+    global ``labels``) the global labels are shifted first, so a rank's
+    last position takes the next rank's first label, then sliced; the
+    loss is this rank's sum over its valid labels divided by the count of
+    valid labels over the sep ranks, so the ranks' losses (and gradients)
+    sum to the global mean."""
 
     def __init__(self, config: Optional[LlamaConfig] = None,
                  ignore_index: int = -100):
@@ -333,8 +396,25 @@ class LlamaPretrainingCriterion(nn.Module):
                           dtype=labels.dtype, device=labels.device)
         shift = torch.cat([labels[:, 1:], tail], dim=1)
         V = logits.shape[-1]
-        return PF.cross_entropy(logits.reshape(-1, V), shift.reshape(-1),
-                                ignore_index=self.ignore_index)
+        hcg = None
+        if logits.shape[1] != labels.shape[1]:
+            from ..distributed.topology import get_hybrid_communicate_group
+            hcg = get_hybrid_communicate_group()
+            if hcg is None or hcg.get_sep_parallel_world_size() \
+                    * logits.shape[1] != labels.shape[1]:
+                raise ValueError(
+                    "logits of %d positions for labels of %d: only a "
+                    "sequence-parallel rank's logits are a slice"
+                    % (logits.shape[1], labels.shape[1]))
+        if hcg is None:
+            return PF.cross_entropy(logits.reshape(-1, V),
+                                    shift.reshape(-1),
+                                    ignore_index=self.ignore_index)
+        shift = sep_slice(shift, hcg).reshape(-1)
+        total, count = PF.cross_entropy_sum(logits.reshape(-1, V), shift,
+                                            ignore_index=self.ignore_index)
+        count = hcg.get_sep_parallel_group().all_reduce(count.reshape(1))
+        return total / torch.clamp(count[0], min=1.0)
 
 
 @torch.no_grad()

@@ -175,6 +175,10 @@ class MixtralForCausalLM(nn.Module):
     def __init__(self, config: MixtralConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if config.sequence_parallel:
+            raise NotImplementedError(
+                "MixtralForCausalLM: sequence parallelism is not ported "
+                "for the MoE family (Llama and Qwen2 train under sep)")
         self.config = config
         dev = resolve_device(device)
         dtype = config.torch_dtype

@@ -81,6 +81,17 @@ class _SoftmaxXent(torch.autograd.Function):
         return p.to(logits.dtype), None, None
 
 
+def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
+                      ignore_index: int = -100):
+    """``(sum, count)``: the fp32 sum of the softmax cross-entropy over the
+    rows whose label is not ``ignore_index``, and their fp32 count (the
+    two halves of :func:`cross_entropy`'s mean)."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, 0).long()
+    loss = _SoftmaxXent.apply(logits, safe, valid)
+    return loss.sum(), valid.to(torch.float32).sum()
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_index: int = -100) -> torch.Tensor:
     """Mean softmax cross-entropy over the rows whose label is not
@@ -88,10 +99,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     ``cross_entropy``, hard labels, ``reduction="mean"``): ``logits``
     [N, V] in any float dtype, ``labels`` [N] int; the softmax runs in
     fp32, the loss is fp32 and the gradient is in the logits' dtype."""
-    valid = labels != ignore_index
-    safe = torch.where(valid, labels, 0).long()
-    loss = _SoftmaxXent.apply(logits, safe, valid)
-    return loss.sum() / torch.clamp(valid.to(torch.float32).sum(), min=1.0)
+    total, count = cross_entropy_sum(logits, labels, ignore_index)
+    return total / torch.clamp(count, min=1.0)
 
 
 def scaled_dot_product_attention(q: torch.Tensor, k: torch.Tensor,

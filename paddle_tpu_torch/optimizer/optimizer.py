@@ -9,7 +9,9 @@ the reference's order of operations, the moments are stored in
 is the port's choice where the reference returns new arrays: it keeps one
 copy of the parameters and moments on the card.  ``p`` and the state may
 be views, so the layerwise step (``jit/layerwise.py``) applies the same
-rule to one layer's slice of its stacked buffers.
+rule to one layer's slice of its stacked buffers, and the sharded
+training step to a rank's rows or placed slice of a parameter, whose
+state :meth:`Optimizer.state_for` creates at that slice's shape.
 """
 from __future__ import annotations
 
@@ -30,6 +32,11 @@ class Optimizer:
     what ``AdamW``'s ``apply_decay_param_fun`` sees.  With
     ``multi_precision``, a bf16/fp16 parameter keeps an fp32 master copy in
     its state and is updated from it."""
+
+    # the update rule is elementwise over (param, grad, state), so a
+    # sharded step may apply it to a rank's slice of a parameter; a rule
+    # with cross-element reductions (factored statistics) sets False
+    shardable_update = True
 
     def __init__(self, learning_rate: float = 0.001,
                  parameters: Optional[Params] = None, weight_decay=None,
@@ -58,11 +65,21 @@ class Optimizer:
         """The state of the parameter ``name``, created at first use."""
         st = self._state.get(name)
         if st is None:
-            p = dict(self._params)[name]
-            st = self._init_state(name, p)
-            if self._multi_precision and p.dtype in (torch.bfloat16,
-                                                     torch.float16):
-                st["master"] = p.detach().to(torch.float32)
+            st = self.state_for(name, dict(self._params)[name])
+        return st
+
+    def state_for(self, name: str, like: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+        """The state of ``name``, created at first use at the shape of
+        ``like`` (the parameter, or the slice of it that this rank
+        updates: a sharded step never holds a whole moment of a sharded
+        parameter); the fp32 master is ``like``'s."""
+        st = self._state.get(name)
+        if st is None:
+            st = self._init_state(name, like)
+            if self._multi_precision and like.dtype in (torch.bfloat16,
+                                                        torch.float16):
+                st["master"] = like.detach().to(torch.float32)
             self._state[name] = st
         return st
 
@@ -190,6 +207,9 @@ class Adafactor(Optimizer):
     ``scale_parameter``, scaled by ``max(epsilon2, rms(p))``; ``beta1``
     adds a first moment stored in ``moment_dtype``; ``weight_decay``
     decays by the same scaled step size."""
+
+    # factored statistics and the RMS clip reduce across elements
+    shardable_update = False
 
     def __init__(self, learning_rate: float = 0.001,
                  beta1: Optional[float] = None, epsilon1: float = 1e-30,

@@ -122,3 +122,35 @@ def layerwise_params_from_paddle_tpu(np_params) -> Dict:
     out["blocks"] = {name: copy(a) for name, a in
                      np_params["blocks"].items()}
     return out
+
+
+def gather_placed(arrays: Dict[str, torch.Tensor], specs, mesh
+                  ) -> Dict[str, np.ndarray]:
+    """Whole arrays (numpy, the port's layout) from this rank's placed
+    slices: each array gathered over every axis its spec (port layout;
+    absent = whole) names, with ``jit.spmd.gather_spec_axes``.  Collective:
+    every rank of ``mesh`` calls it with the same keys in the same
+    order.  :func:`paddle_tpu_names` gives the reference's layout."""
+    from ..jit.spmd import gather_spec_axes
+    comms = mesh.bind() if mesh is not None else {}
+    out = {}
+    for k, v in arrays.items():
+        spec = specs.get(k, ())
+        whole = gather_spec_axes(v.detach(), spec, comms) if spec else v
+        out[k] = whole.detach().to("cpu", torch.float32).numpy()
+    return out
+
+
+def paddle_tpu_names(np_arrays: Dict[str, np.ndarray]
+                     ) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`state_from_paddle_tpu` for whole arrays: a
+    Linear weight (``<name>``) and its parameter-shaped optimizer state
+    (``opt.<name>.<leaf>``) transposed back to the reference's
+    ``[in, out]``."""
+    out = {}
+    for k, a in np_arrays.items():
+        base = k[len("opt."):].rsplit(".", 1)[0] if k.startswith("opt.") \
+            else k
+        out[k] = (np.ascontiguousarray(a.T)
+                  if _is_linear_weight(base) and a.ndim == 2 else a)
+    return out

@@ -1464,3 +1464,48 @@ def test_tiny_sharded_engine_on_card_matches_one_card(cuda, mesh):
     for r in sharded["ranks"]:
         assert r["launches"]["ragged"] == \
             one["ranks"][0]["launches"]["ragged"] > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_hop_kernels_match_plain(cuda, dtype):
+    """A ring hop's kernels on the card (``ops.sequence_parallel``): the
+    flash forward with lse and no rope on the diagonal block (causal) and
+    on a full block, and both backward forms on each block against the
+    out and lse of the whole causal row (the second rank of a two-rank
+    ring), each against its plain version; then the ring's merge of the
+    two hops' forwards equals the whole row's."""
+    gen = torch.Generator(cuda).manual_seed(7)
+    B, S, H, D = 1, 256, 4, 128
+    q, k, v, g, _ = _flash_case(B, S, 2 * S, H, D, dtype, False, gen)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    bf16 = dtype == "bfloat16"
+    parts = []
+    for lo, causal in ((0, False), (S, True)):
+        kb, vb = k[:, lo:lo + S].contiguous(), v[:, lo:lo + S].contiguous()
+        o, l = fa.flash_fwd(q, kb, vb, causal)
+        want_o, want_l = fa._flash_fwd_plain(q, kb, vb, causal)
+        noise = (flash_noise("flash_fwd", q, kb, vb, None, None, None,
+                             causal, None)[0] if bf16 else None)
+        assert flash_excess(o, want_o, flash_tolerance(
+            want_o, dtype, noise)) <= 1.0
+        assert (l - want_l).abs().max().item() <= 1e-4
+        parts.append((o, l))
+        for kern in ("flash_bwd_fused", "flash_bwd_two_kernel"):
+            got = getattr(fa, kern)(q, kb, vb, out, lse, g, causal)
+            want = fa._flash_bwd_plain(q, kb, vb, out, lse, g, causal,
+                                       form=FLASH_FORM[kern])
+            noise = (flash_noise(kern, q, kb, vb, out, lse, g, causal, None)
+                     if bf16 else (None,) * 3)
+            for a, b, f in zip(got, want, noise):
+                assert flash_excess(a, b, flash_tolerance(b, dtype,
+                                                          f)) <= 1.0
+    # the ring's logaddexp merge of the two hops is the whole row
+    (o0, l0), (o1, l1) = parts
+    tot = torch.logaddexp(l0, l1)
+    w0 = torch.exp(l0 - tot).transpose(1, 2)[..., None]
+    w1 = torch.exp(l1 - tot).transpose(1, 2)[..., None]
+    merged = o0.float() * w0 + o1.float() * w1
+    assert (tot - lse).abs().max().item() <= 1e-4
+    tol = 2e-5 if not bf16 else 2 ** -7 * 4
+    assert (merged - out.float()).abs().max().item() <= tol * max(
+        1.0, out.float().abs().max().item())

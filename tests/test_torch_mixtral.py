@@ -188,8 +188,9 @@ def test_moe_ffn_matches_reference_and_dense_dispatch(k):
 def test_expert_parallel_and_sharding_raise(pair):
     """Expert-parallel serving is ported (``tests/test_torch_ep_serving.
     py``): ``moe_ffn``'s ep path takes a rank's ``AxisComm`` and an engine
-    mesh a ``ProcessMesh``, anything else raises ``TypeError``.  Sharded
-    training is not ported and still raises."""
+    mesh a ``ProcessMesh``, anything else raises ``TypeError``; so does
+    the sharded ``TrainStep`` (ported: ZeRO over dp, fsdp x tp).
+    ``shard_mixtral`` is not ported and still raises."""
     _ref, port = pair
     x = torch.zeros(4, 64)
     blk = port.mixtral.layers[0].block_sparse_moe
@@ -204,7 +205,7 @@ def test_expert_parallel_and_sharding_raise(pair):
             ContinuousBatchingEngine(port, max_batch_size=2, num_blocks=8,
                                      block_size=4, device="cpu",
                                      mixed_step=True, **{option: object()})
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(TypeError, match=kind):
             TrainStep(port, MixtralPretrainingCriterion(port),
                       AdamW(1e-3, parameters=port.named_parameters()),
                       **{option: object()})

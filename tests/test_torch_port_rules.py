@@ -83,7 +83,8 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                    "observability/telemetry.py",
                    "distributed/process_mesh.py",
                    "distributed/collective.py", "distributed/launch.py",
-                   "jit/spmd.py", "testing/sharded.py"):
+                   "jit/spmd.py", "testing/sharded.py",
+                   "distributed/topology.py", "ops/sequence_parallel.py"):
         assert os.path.join("paddle_tpu_torch", module) in scanned
 
 
@@ -131,7 +132,8 @@ def test_importing_the_port_loads_no_jax():
         "'observability.telemetry', 'models.mixtral', 'models.qwen', "
         "'ops.moe_gate', 'distributed.process_mesh', "
         "'distributed.collective', 'distributed.launch', 'jit.spmd', "
-        "'testing.sharded'):\n"
+        "'testing.sharded', 'distributed.topology', "
+        "'ops.sequence_parallel'):\n"
         "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -266,13 +268,26 @@ def test_training_path_on_cpu_launches_no_flash_kernel():
     assert [f.launches for f in FLASH_COUNTERS] == before
 
 
-@pytest.mark.parametrize("option", ["mesh", "sharding"])
+# the sharded steps are ported (ZeRO-1/2 over dp, fsdp x tp); what they
+# still refuse raises as the reference does: a mesh whose other axes are
+# live besides the dp axis (no fsdp axis to take the 2-D path), and a
+# sharding config without a mesh
+UNPORTED_TRAIN = {
+    "mesh": (dict(mesh=ProcessMesh([2, 2], ["dp", "mp"]),
+                  sharding=ShardingConfig(stage=2)),
+             NotImplementedError, "pure data parallelism"),
+    "sharding": (dict(sharding=ShardingConfig(stage=2)), ValueError,
+                 "requires a mesh"),
+}
+
+
+@pytest.mark.parametrize("option", sorted(UNPORTED_TRAIN))
 def test_unported_train_step_options_raise(option):
     model = _tiny()
     opt = AdamW(1e-3, parameters=model.named_parameters())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TrainStep(model, LlamaPretrainingCriterion(), opt,
-                  **{option: object()})
+    kw, error, match = UNPORTED_TRAIN[option]
+    with pytest.raises(error, match=match):
+        TrainStep(model, LlamaPretrainingCriterion(), opt, **kw)
 
 
 def test_layerwise_path_on_cpu_launches_no_kernel():
