@@ -192,11 +192,11 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    gather: ``max_batch_size * V/2 + 4`` bytes at the top budget),
    serve_qwen2_tp2 (14/2) and serve_mixtral_ep2 (experts halved,
    attention and pools whole on each rank), each at ``TP_SERVE_LAYERS``
-   (8) layers, on phase 3's traffic;
+   (4) layers, on phase 3's traffic;
    every rank's launches exact for its engine, per-rank pool bytes
    exactly 1/tp of the one-card cell's, the counted collective bytes
    equal to ``TPContext.collective_bytes`` of the run's step shapes,
-   Mixtral's routed = packed tokens x 2 x 16 with none dropped and its
+   Mixtral's routed = packed tokens x 2 x layers with none dropped and its
    per-rank expert bytes 1/ep.  Then parity_tp_2l (7B widths, 2 layers, fp32): tp 2 mixed,
    split and w8, ep 2 Mixtral (at capacity factor E/k) over two ranks,
    tp 4 (8/8) and ep2 x tp2 over four, each against its one-card twin
@@ -298,6 +298,31 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    ``GRAD_RTOL``.
    Depth and steps as ``ZERO_CELL``, ``FSDP_CELL``, ``SEP_CELL`` and
    ``MESH_PARITY`` set them (cut to keep the run inside its limit).
+   Training that survives and moves (:func:`check_resilience`,
+   ``testing.resilience``): in the four-rank world
+   train_7b_zero2_dp4_ckpt_reshape (7B widths, 1 layer, 4 x 2048, bf16):
+   one ZeRO-2 step on dp 4, an async ``CheckpointManager.save`` (its
+   stall, the write seconds, each rank's snapshot bytes), then
+   ``live_reshape`` to dp 2 and one step (the live arm, while the write
+   goes on), and a fresh dp-2 step on ranks 0-1 restored from the
+   checkpoint taking the same step (the restart arm): the arms' losses,
+   parameters and state bitwise equal, the bytes on the wire the plan's
+   ``moved_bytes`` < 0.5 x the full gather, each rank's peak in the
+   CUDA allocator over the reshape, beyond the new slices it keeps,
+   within the largest destination slice and the host bytes each leaf's
+   exchange staged less than that whole leaf, the payload Σ the whole values'
+   bytes, the step valid, flash launches exact on every rank and arm;
+   in the two-rank world train_7b_pp2 (2 layers, one a stage, 4
+   micro-batches of 1 x 2048, recompute): each stage's flash launches
+   (2 x layers x micro-batches forward, half that backward) and its
+   point-to-point bytes (M x 1 x 2048 x 4096 x 2 each way) exact.  Their
+   parity in fp32 at ``MESH_PARITY``'s batch: parity_ckpt_reshape (the
+   same flow, 1 layer; the live arm bitwise the restart, the restart's
+   step within ``CKPT_RTOL`` of the uninterrupted one-card run) and
+   parity_pp2 against parity_pp_one (2 layers, 2 steps: losses and
+   gradient norms as the other parity runs).  Sizes as ``CKPT_CELL`` and
+   ``PP_CELL``; the checkpoints go to a temporary directory removed
+   after the worlds.
 12. Before the last line, one JSON object with every kernel variant's
    numbers; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -4779,8 +4804,9 @@ MESH_TIMEOUT = 900.0
 # the depth of phase 4b's serve cells (7B, Qwen2-7B and Mixtral-8x7B
 # widths): each of their steps makes 2L + 1 gloo sums (ep: 3 exchanges a
 # layer) through the host (~3.2 ms each), so their walls grow with the
-# layers
-TP_SERVE_LAYERS = 8
+# layers; 8 until phase 11b's checkpoint and pipeline cells took the run
+# to 1,120 s on a slow host (4b 135.9 s of it)
+TP_SERVE_LAYERS = 4
 SERVED = {}       # the one-card cells' tokens and pool bytes, by cell name
 PARITY_MIXTRAL = dict(expert_capacity_factor=4.0)   # E / k: eager drops none
 
@@ -5481,6 +5507,13 @@ FSDP_CELL = dict(layers=1, steps=1, batch=(4, 2048))      # fsdp 2 x tp 2
 SEP_CELL = dict(layers=1, steps=1, batch=(1, 16384))      # sep 2, CodeLlama
 # the fp32 parity runs: 7B widths, short sequences
 MESH_PARITY = dict(layers=1, steps=2, batch=(4, 128), sep_batch=(1, 256))
+# training that survives and moves: a ZeRO-2 dp-4 step, its async
+# checkpoint, then live_reshape to dp 2 against the restart from that
+# checkpoint (one step each arm); the pipeline at pp 2, one layer a stage,
+# 4 micro-batches of 1 x 2048; their fp32 parity at MESH_PARITY's batch
+CKPT_CELL = dict(layers=1, steps=1, after=1, batch=(4, 2048))
+PP_CELL = dict(layers=2, micro=4, steps=1, batch=(4, 2048))
+CKPT_RTOL = 1e-5       # a restored step against the uninterrupted run
 # the same runs' gradients at every step, parameter by parameter, against
 # the one-card run's: the losses alone see little of a gradient's size
 # (Adam's first move is lr·sign(g), and its later ones a ratio of
@@ -5564,9 +5597,10 @@ def check_ring_backward(gen):
     return rows
 
 
-def train_mesh_cases():
+def train_mesh_cases(ckpt_dir):
     """The models and the two worlds' cases of phase 11b
-    (``testing.sharded.train_cases``)."""
+    (``testing.sharded.train_cases``); the checkpoint cells write under
+    ``ckpt_dir``."""
     from dataclasses import asdict
     from paddle_tpu_torch.models.llama import llama_7b_config
     models = {
@@ -5582,7 +5616,12 @@ def train_mesh_cases():
         "7b_fp32": dict(family="llama", seed=SEED, config=asdict(
             llama_7b_config(dtype="float32", recompute=True,
                             num_hidden_layers=MESH_PARITY["layers"]))),
+        "7b_fp32_pp": dict(family="llama", seed=SEED, config=asdict(
+            llama_7b_config(dtype="float32", recompute=True,
+                            num_hidden_layers=PP_CELL["layers"]))),
     }
+    assert CKPT_CELL["layers"] == FSDP_CELL["layers"]
+    assert PP_CELL["layers"] == ZERO_CELL["layers"]
     bf16 = dict(name="adamw", learning_rate=TRAIN_LR,
                 moment_dtype="bfloat16")
     fp32 = dict(name="adamw", learning_rate=TRAIN_LR)
@@ -5619,6 +5658,14 @@ def train_mesh_cases():
              config=sep("ring")),
         dict(sep_par, name="parity_ulysses_sep2", hybrid={"sep": 2},
              config=sep("ulysses")),
+        dict(name="train_7b_pp2", kind="pipeline", model="7b_zero",
+             mesh={"pipe": 2}, micro=PP_CELL["micro"], remat=True,
+             optimizer=bf16, clip=1.0, steps=PP_CELL["steps"],
+             random=dict(shape=list(PP_CELL["batch"]), seed=SEED,
+                         count=PP_CELL["steps"])),
+        dict(par, name="parity_pp_one", model="7b_fp32_pp", mesh=None),
+        dict(par, name="parity_pp2", model="7b_fp32_pp", kind="pipeline",
+             mesh={"pipe": 2}, micro=PP_CELL["micro"], remat=True),
     ]
     four = [
         dict(name="train_7b_fsdp2_tp2", model="7b_fsdp",
@@ -5627,6 +5674,17 @@ def train_mesh_cases():
              random=dict(shape=list(FSDP_CELL["batch"]), seed=SEED,
                          count=FSDP_CELL["steps"])),
         dict(par, name="parity_fsdp2_tp2", mesh={"fsdp": 2, "tp": 2}),
+        dict(name="train_7b_zero2_dp4_ckpt_reshape", kind="checkpoint",
+             model="7b_fsdp", mesh={"dp": 4}, stage=2, optimizer=bf16,
+             clip=1.0, steps=CKPT_CELL["steps"], live={"dp": 2},
+             after=CKPT_CELL["after"], dir=ckpt_dir + "/bf16",
+             random=dict(shape=list(CKPT_CELL["batch"]), seed=SEED,
+                         count=CKPT_CELL["steps"] + CKPT_CELL["after"])),
+        # at step 1 as parity_one's first step, then the live and the
+        # restart arm each take parity_one's second step
+        dict(par, name="parity_ckpt_reshape", kind="checkpoint", mesh={
+            "dp": 4}, stage=2, steps=1, live={"dp": 2}, after=1,
+            dir=ckpt_dir + "/fp32", grad_norms=False),
     ]
     return models, two, four
 
@@ -5733,7 +5791,163 @@ def phase_train_mesh():
     torch.cuda.empty_cache()
     print("train_mesh kernels: %.1f s" % (time.perf_counter() - t0),
           flush=True)
-    return dict(train_mesh_worlds(*train_mesh_cases()), ring_rows=ring_rows)
+    import shutil
+    import tempfile
+    ckpt_dir = tempfile.mkdtemp(prefix="ptt_ckpt_")
+    out = train_mesh_worlds(*train_mesh_cases(ckpt_dir))
+    shutil.rmtree(ckpt_dir)        # an error here fails the phase
+    return dict(out, ring_rows=ring_rows)
+
+
+def _flash_want(L: int, steps: int) -> dict:
+    """A rank's flash launches for ``steps`` steps over ``L`` layers at
+    2048 positions under recompute."""
+    return {"flash_fwd": 2 * L * steps, "flash_bwd_fused": L * steps,
+            "flash_bwd_two_kernel": 0}
+
+
+def check_resilience(got, models, rows, launches, device=None):
+    """Phase 11b's checkpoint, live-reshape and pipeline cells
+    (``testing.resilience``): their rows, launches summed over ranks and
+    arms, and their gates."""
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    zero = {k: 0 for k in _flash_want(1, 1)}
+    for name, (case, res, world) in got.items():
+        kind = case.get("kind")
+        if kind not in ("checkpoint", "pipeline"):
+            continue
+        cfg = models[case["model"]]["config"]
+        L = cfg["num_hidden_layers"]
+        ranks = res["ranks"]
+        B, S = case["random"]["shape"]
+        row = dict(phase=name, ranks=len(ranks), layers=L,
+                   dtype=cfg["dtype"], batch=[B, S],
+                   mesh=case["mesh"], note=MESH_NOTE % len(ranks),
+                   losses=res["losses"] if kind == "pipeline" else {
+                       k: v for k, v in res["losses"].items()
+                       if k != "plan_leaves"}, case_s=res["case_s"])
+        total = dict(zero)
+        if kind == "pipeline":
+            Lp = L // case["mesh"]["pipe"]
+            M = case["micro"]
+            act = M * (B // M) * S * cfg["hidden_size"] * (
+                2 if cfg["dtype"] == "bfloat16" else 4) * case["steps"]
+            for rk in ranks:
+                want = {"flash_fwd": 2 * Lp * M * case["steps"],
+                        "flash_bwd_fused": Lp * M * case["steps"],
+                        "flash_bwd_two_kernel": 0}
+                if device is not None:
+                    want = dict(zero)
+                if rk["launches"] != want:
+                    raise AssertionError("%s stage %d launches %s, want %s"
+                                         % (name, rk["stage"],
+                                            rk["launches"], want))
+                op = "pipe_fwd" if rk["stage"] == 0 else "pipe_bwd"
+                if rk["collectives"]["bytes"].get(op) != act:
+                    raise AssertionError("%s stage %d: %s bytes %s, want %s"
+                                         % (name, rk["stage"], op, rk[
+                                             "collectives"]["bytes"].get(op),
+                                            act))
+                for k in total:
+                    total[k] += rk["launches"][k]
+            row.update(walls=[rk["wall"] for rk in ranks],
+                       peak_bytes=[rk["peak_bytes"] for rk in ranks],
+                       param_bytes=[rk["param_bytes"] for rk in ranks],
+                       p2p_bytes_each_way=act,
+                       collectives_by_stage=[rk["collectives"]
+                                             for rk in ranks])
+            row["tokens_per_s"] = B * S * case["steps"] / max(row["walls"])
+            first = res["losses"][0]
+        else:
+            lo = res["losses"]
+            k, n = case["steps"], case["after"]
+            plan = ranks[0]["plan"]
+            if lo["live"] != lo["restart"] or not all(
+                    rk["bitwise"] for rk in ranks if "bitwise" in rk):
+                raise AssertionError("%s: the live arm %s is not bitwise "
+                                     "the restart %s" % (name, lo["live"],
+                                                         lo["restart"]))
+            if sum("bitwise" in rk for rk in ranks) != case["live"]["dp"]:
+                raise AssertionError("%s: arms on %s ranks" % (name, ranks))
+            wire = sum(rk["plan"]["wire_bytes"] for rk in ranks)
+            if wire != plan["moved_bytes"] or not (
+                    plan["moved_bytes"]
+                    < 0.5 * plan["full_gather_equiv_bytes"]):
+                raise AssertionError("%s: %d bytes on the wire, plan %s"
+                                     % (name, wire, plan))
+            for rk in ranks:
+                p = rk["plan"]
+                if (p["alloc_peak_bytes"] - p["new_bytes"]
+                        > p["per_chip_peak_bytes"]
+                        or not p["host_staging_share"] < 1):
+                    raise AssertionError("%s rank %d staged %s" % (
+                        name, rk["rank"], p))
+            payload = sum(rk["snapshot_bytes"] for rk in ranks)
+            if payload != lo["global_bytes"]:
+                raise AssertionError("%s: payload %d bytes, whole values "
+                                     "%d" % (name, payload,
+                                             lo["global_bytes"]))
+            if any(rk["valid_steps"] != [k] for rk in ranks):
+                raise AssertionError("%s: valid checkpoints %s" % (
+                    name, [rk["valid_steps"] for rk in ranks]))
+            for rk in ranks:
+                for arm, count in (("before", k), ("live", n),
+                                   ("restart", n)):
+                    if arm not in rk["launches"]:
+                        continue
+                    want = _flash_want(L, count) if device is None \
+                        else dict(zero)
+                    if rk["launches"][arm] != want:
+                        raise AssertionError(
+                            "%s rank %d %s launches %s, want %s" % (
+                                name, rk["rank"], arm,
+                                rk["launches"][arm], want))
+                    for key in total:
+                        total[key] += rk["launches"][arm][key]
+            row.update(
+                save_stall_s=[rk["save_stall_s"] for rk in ranks],
+                write_s=[rk["write_s"] for rk in ranks],
+                snapshot_bytes=[rk["snapshot_bytes"] for rk in ranks],
+                payload_bytes=payload, reshape_s=[rk["reshape_s"]
+                                                  for rk in ranks],
+                restore_s=[rk.get("restore_s") for rk in ranks],
+                payloads_read=[rk.get("payloads_read") for rk in ranks],
+                plan={x: plan[x] for x in (
+                    "moved_bytes", "adopted_bytes",
+                    "full_gather_equiv_bytes", "moved_over_full_gather",
+                    "per_chip_peak_bytes")},
+                wire_bytes=[rk["plan"]["wire_bytes"] for rk in ranks],
+                alloc_peak_bytes=[rk["plan"]["alloc_peak_bytes"]
+                                  for rk in ranks],
+                new_bytes=[rk["plan"]["new_bytes"] for rk in ranks],
+                host_staging_bytes=[rk["plan"]["host_staging_bytes"]
+                                    for rk in ranks],
+                host_staging_share=[rk["plan"]["host_staging_share"]
+                                    for rk in ranks],
+                walls=[rk["walls"] for rk in ranks])
+            first = lo["before"][0]
+        launches[name] = total
+        if cfg["dtype"] == "bfloat16":
+            want = init_loss(LlamaConfig(**cfg))
+            row["expected_first_loss"] = want
+            if not abs(first - want) <= 0.5:
+                raise AssertionError("%s: first loss %g is not within 0.5 "
+                                     "of %g" % (name, first, want))
+        if not all(math.isfinite(x) for x in (
+                res["losses"] if kind == "pipeline"
+                else res["losses"]["before"] + res["losses"]["live"])):
+            raise AssertionError("%s: non-finite loss %s" % (name,
+                                                             res["losses"]))
+        rows[name] = row
+    # the fp32 restart against the uninterrupted one-card run
+    par = rows["parity_ckpt_reshape"]["losses"]
+    one = rows["parity_one"]["losses"]
+    rel = [abs(par["before"][0] - one[0]) / abs(one[0]),
+           abs(par["restart"][0] - one[1]) / abs(one[1])]
+    rows["parity_ckpt_reshape"]["rel_vs_one_card"] = rel
+    if not (rel[0] <= PARITY_RTOL and rel[1] <= CKPT_RTOL):
+        raise AssertionError("parity_ckpt_reshape: the restored step vs the "
+                             "uninterrupted one-card run, rel %s" % rel)
 
 
 def train_mesh_worlds(models, two, four, device=None):
@@ -5753,13 +5967,15 @@ def train_mesh_worlds(models, two, four, device=None):
         got.update({c["name"]: (c, r, world) for c, r in zip(cases, out)})
     rows, launches = {}, {}
     for name, (case, res, world) in got.items():
+        if case.get("kind"):
+            continue           # check_resilience
         cfg = models[case["model"]]["config"]
         ranks = res["ranks"]
         row = dict(phase=name, ranks=len(ranks), layers=cfg[
             "num_hidden_layers"], dtype=cfg["dtype"], batch=case["random"][
                 "shape"], steps=case["steps"], losses=res["losses"],
             mesh=case.get("mesh") or case.get("hybrid"),
-            note=MESH_NOTE % len(ranks),
+            note=MESH_NOTE % len(ranks), case_s=res.get("case_s"),
             walls=[r["wall"] for r in ranks],
             peak_bytes=[r["peak_bytes"] for r in ranks],
             param_bytes=[r["param_bytes"] for r in ranks],
@@ -5810,6 +6026,7 @@ def train_mesh_worlds(models, two, four, device=None):
             raise AssertionError("%s: first loss %g is not within 0.5 of "
                                  "the random-init value %g"
                                  % (name, first, init_loss(cfg)))
+    check_resilience(got, models, rows, launches, device)
     from paddle_tpu_torch.testing.sharded import grad_norms
     gates, grad_gates = {}, {}
     norms = {}
@@ -5821,7 +6038,8 @@ def train_mesh_worlds(models, two, four, device=None):
                       ("parity_zero2_dp2", "parity_one"),
                       ("parity_fsdp2_tp2", "parity_one"),
                       ("parity_ring_sep2", "parity_sep_one"),
-                      ("parity_ulysses_sep2", "parity_sep_one")):
+                      ("parity_ulysses_sep2", "parity_sep_one"),
+                      ("parity_pp2", "parity_pp_one")):
         a, b = rows[name]["losses"], rows[one]["losses"]
         gates[name] = max(abs(x - y) / abs(y) for x, y in zip(a, b))
         rel = [{k: abs(g[k] - w[k]) / w[k] for k in w}
@@ -5838,7 +6056,8 @@ def train_mesh_worlds(models, two, four, device=None):
               grad_norm_max_rel_diff_by_step=grad_gates,
               grad_norms_one_card_step1={
                   one: norms[one][0] for one in ("parity_one",
-                                                 "parity_sep_one")}))
+                                                 "parity_sep_one",
+                                                 "parity_pp_one")}))
     for name, rel in gates.items():
         if not rel <= PARITY_RTOL:
             raise AssertionError("%s: losses vs one card, max rel diff %g "

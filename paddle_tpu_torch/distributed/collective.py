@@ -30,22 +30,33 @@ CUDA tensor on a gloo group goes through reused pinned host buffers (copy
 out, send and receive on the host, copy back, all inside the op's
 seconds); over nccl nothing is staged.
 
+Point-to-point transfers: :func:`send` and :func:`recv` (a pipeline
+stage's activations and cotangents, blocking, in schedule order) and
+:func:`exchange` (a batch of sends and receives posted together, the
+live reshape's moves).  On a gloo group a CUDA tensor goes through pinned
+host buffers, as in ``shift``.
+
 ``STATS`` counts calls, wall seconds and payload bytes (each call's input
-on this rank) per collective in this process; the bytes the engines
-report follow the reference's static accounting
-(``jit/spmd.TPContext.collective_bytes``), not what a backend moves.
+on this rank; a receive counts what it received) per collective in this
+process; the bytes the engines report follow the reference's static
+accounting (``jit/spmd.TPContext.collective_bytes``), not what a backend
+moves.  Every call runs under the comm watchdog
+(``comm_watchdog.comm_task``, off unless ``FLAGS_comm_task_timeout_s``
+is set).
 """
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
+from .comm_watchdog import comm_task
+
 __all__ = ["STATS", "reset_stats", "stats", "all_reduce", "all_reduce_max",
            "all_gather", "all_gather_rows", "all_to_all", "broadcast",
-           "reduce_scatter", "shift"]
+           "reduce_scatter", "shift", "send", "recv", "exchange"]
 
 STATS: Dict[str, Dict[str, float]] = {"calls": {}, "seconds": {},
                                       "bytes": {}}
@@ -74,12 +85,20 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize(t.device)
 
 
+def _watch(op: str, group) -> comm_task:
+    """The watchdog's task for one call on ``group`` (its ranks asked only
+    when the watchdog is on)."""
+    return comm_task(op, lambda: dist.get_process_group_ranks(group)
+                     if group is not None else None)
+
+
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over ``group``; returns the sum (``t`` itself, summed in
     place, unless bf16: that is summed in fp32 and rounded once)."""
     t0 = time.perf_counter()
     work = t.to(torch.float32) if t.dtype == torch.bfloat16 else t
-    dist.all_reduce(work, op=dist.ReduceOp.SUM, group=group)
+    with _watch("all_reduce", group):
+        dist.all_reduce(work, op=dist.ReduceOp.SUM, group=group)
     out = work.to(t.dtype) if work is not t else t
     _sync(out)
     _count("all_reduce", time.perf_counter() - t0, t)
@@ -89,7 +108,8 @@ def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
     """Elementwise max of ``t`` over ``group``, in place; returns ``t``."""
     t0 = time.perf_counter()
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    with _watch("all_reduce", group):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
     _sync(t)
     _count("all_reduce", time.perf_counter() - t0, t)
     return t
@@ -108,7 +128,8 @@ def all_gather(t: torch.Tensor, dim: int, group, size: int,
     t0 = time.perf_counter()
     src = _wire(t.contiguous())
     parts = [torch.empty_like(src) for _ in range(size)]
-    dist.all_gather(parts, src, group=group)
+    with _watch(op, group):
+        dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
     if t.dtype == torch.bfloat16:
         out = out.view(torch.bfloat16)
@@ -124,7 +145,9 @@ def all_gather_rows(out: torch.Tensor, t: torch.Tensor, group,
     allocated.  ``op`` names the call in ``STATS``."""
     t0 = time.perf_counter()
     dst = _wire(out)
-    dist.all_gather(list(dst.unbind(0)), _wire(t.contiguous()), group=group)
+    with _watch(op, group):
+        dist.all_gather(list(dst.unbind(0)), _wire(t.contiguous()),
+                        group=group)
     _sync(out)
     _count(op, time.perf_counter() - t0, t)
     return out
@@ -137,7 +160,8 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     t0 = time.perf_counter()
     src = _wire(t.contiguous())
     out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=group)
+    with _watch("all_to_all", group):
+        dist.all_to_all_single(out, src, group=group)
     if t.dtype == torch.bfloat16:
         out = out.view(torch.bfloat16)
     _sync(out)
@@ -145,16 +169,20 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def broadcast(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
-    """Broadcast the host tensor ``t`` from global rank ``src`` over the
-    control group (the world's default gloo group), in place."""
+def broadcast(t: torch.Tensor, src: int = 0, group=None,
+              op: str = "broadcast") -> torch.Tensor:
+    """Broadcast ``t`` from global rank ``src`` over ``group`` (default:
+    the control group, the world's default gloo group, on host tensors),
+    in place; bf16 travels as its bit patterns."""
     t0 = time.perf_counter()
-    dist.broadcast(t, src=src, group=group)
-    _count("broadcast", time.perf_counter() - t0, t)
+    with _watch(op, group):
+        dist.broadcast(_wire(t), src=src, group=group)
+    _sync(t)
+    _count(op, time.perf_counter() - t0, t)
     return t
 
 
-# the shift's pinned host buffers on gloo, by (direction, shape, dtype)
+# pinned host buffers for CUDA tensors on gloo, by (tag, shape, dtype)
 _HOST: Dict[tuple, torch.Tensor] = {}
 
 
@@ -165,6 +193,11 @@ def _host_buffer(tag: str, like: torch.Tensor) -> torch.Tensor:
         buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
         _HOST[key] = buf
     return buf
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """gloo closes the connection on a point-to-point CUDA tensor."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
 def reduce_scatter(flat: torch.Tensor, group, op: str = "reduce_scatter"
@@ -179,8 +212,9 @@ def reduce_scatter(flat: torch.Tensor, group, op: str = "reduce_scatter"
     work = flat.to(torch.float32) if flat.dtype == torch.bfloat16 \
         else flat.contiguous()
     out = torch.empty(work.shape[1:], dtype=work.dtype, device=work.device)
-    dist.reduce_scatter_tensor(out.view(-1), work.view(-1),
-                               op=dist.ReduceOp.SUM, group=group)
+    with _watch(op, group):
+        dist.reduce_scatter_tensor(out.view(-1), work.view(-1),
+                                   op=dist.ReduceOp.SUM, group=group)
     if flat.dtype == torch.bfloat16:
         out = out.to(torch.bfloat16)
     _sync(out)
@@ -202,7 +236,7 @@ def shift(t: torch.Tensor, group, ranks, index: int,
         out = src.clone()
     else:
         nxt, prv = ranks[(index + 1) % n], ranks[(index - 1) % n]
-        staged = src.is_cuda and dist.get_backend(group) == "gloo"
+        staged = _staged(src, group)
         send = _host_buffer("shift_out", src) if staged else src
         recv = (_host_buffer("shift_in", src) if staged
                 else torch.empty_like(src))
@@ -210,11 +244,87 @@ def shift(t: torch.Tensor, group, ranks, index: int,
             send.copy_(src)
         ops = [dist.P2POp(dist.isend, send, nxt, group),
                dist.P2POp(dist.irecv, recv, prv, group)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        with _watch(op, group):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
         out = recv.to(src.device, copy=True) if staged else recv
     if t.dtype == torch.bfloat16:
         out = out.view(torch.bfloat16)
     _sync(out)
     _count(op, time.perf_counter() - t0, t)
     return out
+
+
+def send(t: torch.Tensor, dst: int, group, op: str = "send") -> None:
+    """Send ``t`` to global rank ``dst`` of ``group``; returns once the
+    peer took it (blocking: a pipeline's sends run in schedule order)."""
+    t0 = time.perf_counter()
+    src = _wire(t.detach().contiguous())
+    if _staged(src, group):
+        buf = _host_buffer(op, src)
+        buf.copy_(src)
+        src = buf
+    with _watch(op, group):
+        dist.send(src, dst=dst, group=group)
+    _count(op, time.perf_counter() - t0, t)
+
+
+def recv(shape, dtype: torch.dtype, device, src: int, group,
+         op: str = "recv") -> torch.Tensor:
+    """Receive a ``shape`` / ``dtype`` tensor from global rank ``src`` of
+    ``group``, onto ``device``; counted under ``op`` with the bytes it
+    received."""
+    t0 = time.perf_counter()
+    out = torch.empty(shape, dtype=dtype, device=device)
+    wire = _wire(out)
+    buf = _host_buffer(op, wire) if _staged(wire, group) else wire
+    with _watch(op, group):
+        dist.recv(buf, src=src, group=group)
+    if buf is not wire:
+        wire.copy_(buf)
+    _sync(out)
+    _count(op, time.perf_counter() - t0, out)
+    return out
+
+
+def exchange(sends: Sequence[Tuple[torch.Tensor, int]],
+             recvs: Sequence[Tuple[torch.Tensor, int]], group,
+             op: str = "exchange") -> int:
+    """Post every ``(tensor, global dst rank)`` send and every ``(out,
+    global src rank)`` receive of this rank together, then wait for all
+    of them (every rank posts its part of one exchange).  A receive lands
+    in its (contiguous) ``out`` in place.  Counted under ``op`` with the
+    bytes this rank sent.  Returns the bytes of the host buffers it
+    staged (a CUDA tensor on gloo goes through the host; else 0)."""
+    t0 = time.perf_counter()
+    ops: List[dist.P2POp] = []
+    copies = []
+    sent = staged = 0
+    for t, dst in sends:
+        w = _wire(t.contiguous())
+        if _staged(w, group):
+            w = w.to("cpu")
+            staged += w.numel() * w.element_size()
+        ops.append(dist.P2POp(dist.isend, w, dst, group))
+        sent += t.numel() * t.element_size()
+    for out, src in recvs:
+        w = _wire(out)
+        if _staged(w, group):
+            host = torch.empty(w.shape, dtype=w.dtype)
+            staged += host.numel() * host.element_size()
+            copies.append((w, host))
+            w = host
+        ops.append(dist.P2POp(dist.irecv, w, src, group))
+    if ops:
+        with _watch(op, group):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+    for w, host in copies:
+        w.copy_(host)
+    if recvs:
+        _sync(recvs[0][0])
+    STATS["calls"][op] = STATS["calls"].get(op, 0) + 1
+    STATS["seconds"][op] = (STATS["seconds"].get(op, 0.0)
+                            + time.perf_counter() - t0)
+    STATS["bytes"][op] = STATS["bytes"].get(op, 0) + sent
+    return staged

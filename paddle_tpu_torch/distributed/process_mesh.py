@@ -13,7 +13,9 @@ data group per axis (the ranks that share every other coordinate) over
 the mesh's ``backend`` — ``"gloo"`` or ``"nccl"``, always given by the
 caller — and returns this rank's :class:`AxisComm` per axis.  The
 world's default group, made by :func:`init_world`, is the gloo control
-group on host tensors.
+group on host tensors.  A mesh smaller than the world is the world's
+first ranks (a step moved onto fewer ranks by
+``jit.redistribute.live_reshape``).
 """
 from __future__ import annotations
 
@@ -139,7 +141,27 @@ class ProcessMesh:
     def bind(self) -> Dict[str, AxisComm]:
         """Create the per-axis data groups (collectively: every rank of the
         world calls this for the same mesh, in the same order) and return
-        this rank's :class:`AxisComm` per axis.  Idempotent per mesh."""
+        this rank's :class:`AxisComm` per axis.  Idempotent per mesh.
+
+        For a program that runs on the mesh: a rank outside it raises,
+        after it took its part in creating the groups.  Code that moves
+        state onto a smaller mesh calls :meth:`make_groups` instead."""
+        comms = self.make_groups()
+        rank = dist.get_rank()
+        if not self.holds(rank):
+            raise ValueError(
+                "mesh %s holds %d ranks but the world has %d: rank %d is "
+                "outside it" % (dict(zip(self._dim_names, self._shape)),
+                                self.size, dist.get_world_size(), rank))
+        return comms
+
+    def make_groups(self) -> Dict[str, AxisComm]:
+        """:meth:`bind` for every rank of the world, the mesh's or not.
+
+        A mesh may hold fewer ranks than the world: it is then ranks ``[0,
+        size)``, and a rank outside it gets no :class:`AxisComm` (an empty
+        dict), though it still takes part in creating every group, since
+        ``new_group`` is collective over the world."""
         if self._comms is not None:
             return self._comms
         if self.backend is None:
@@ -154,7 +176,7 @@ class ProcessMesh:
                 "paddle_tpu_torch.distributed.launch (or call "
                 "process_mesh.init_world) first" % (self._shape, self.size))
         world = dist.get_world_size()
-        if world != self.size:
+        if world < self.size:
             raise ValueError(
                 "mesh %s holds %d ranks but the world has %d"
                 % (dict(zip(self._dim_names, self._shape)), self.size, world))
@@ -174,9 +196,15 @@ class ProcessMesh:
                     mine = AxisComm(name, self._shape[ax],
                                     ranks.index(rank), group, self.backend,
                                     ranks)
-            comms[name] = mine
+            if mine is not None:
+                comms[name] = mine
         self._comms = comms
         return comms
+
+    def holds(self, rank: int) -> bool:
+        """Whether global rank ``rank`` is in the mesh (ranks ``[0,
+        size)`` of the world)."""
+        return 0 <= int(rank) < self.size
 
     def __eq__(self, other):
         return (isinstance(other, ProcessMesh)

@@ -36,8 +36,9 @@ actuator from re-acting on the same committed action every step while
 its effect is still propagating through the windows.
 
 Construction is the only knob: a router without an ElasticController
-attached behaves exactly as before.  Resharding a live engine's mesh
-is not ported: the port serves on one device per engine.
+attached behaves exactly as before.  The controller scales the pool of
+engines; it does not reshard a live engine's mesh (an engine's mesh is
+fixed when it is built, whether it serves on one device or over ranks).
 """
 from __future__ import annotations
 

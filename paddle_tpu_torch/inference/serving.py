@@ -182,9 +182,11 @@ class GenerationRequest:
     t_done: float = 0.0
 
 
-_PORT_SCOPE = ("the port serves on one device through the split or mixed "
-               "engine, greedy or sampled, with model-dtype or int8 pools, "
-               "int8 weights, an optional draft model and the prefix cache")
+_PORT_SCOPE = ("the port serves through the split or mixed engine, greedy "
+               "or sampled, with model-dtype or int8 pools, int8 weights, "
+               "an optional draft model and the prefix cache, on one "
+               "device or over a tp, ep, cp, fsdp or replica mesh of "
+               "torch.distributed ranks")
 
 
 def _unported(options: Dict[str, bool]) -> None:

@@ -42,6 +42,14 @@ each given the same global batch and model:
   before the clip (divided by the data degree: the mean over replicas).
 
 Losses are combined as the gradients are (the mean over replicas).
+
+Checkpoints: :meth:`TrainStep.ckpt_values` gives what a
+``distributed.checkpoint.CheckpointManager`` saves (each value with its
+placement), :meth:`TrainStep.load_train_state` restores one saved under
+any mesh; ``jit.redistribute.live_reshape`` moves a sharded step onto
+another mesh without one (its rebuilt 2-D step is given
+``placed_shapes``, the whole shapes whose slices the parameters already
+hold).
 """
 from __future__ import annotations
 
@@ -76,7 +84,8 @@ class TrainStep:
 
     def __init__(self, model: nn.Module, criterion: Callable,
                  optimizer: Optimizer, clip_norm: Optional[float] = None,
-                 mesh=None, sharding: Optional[ShardingConfig] = None):
+                 mesh=None, sharding: Optional[ShardingConfig] = None,
+                 placed_shapes: Optional[Dict[str, tuple]] = None):
         self.model = model
         self.criterion = criterion
         self.optimizer = optimizer
@@ -89,6 +98,9 @@ class TrainStep:
                                                    ShardingConfig):
             raise TypeError("sharding must be a jit.spmd.ShardingConfig; "
                             "got %r" % type(sharding).__name__)
+        # the 2-D step's parameters already hold this rank's slices of
+        # these whole shapes (``jit.redistribute.live_reshape``)
+        self._placed_shapes = placed_shapes
         if mesh is not None or sharding is not None:
             self._setup_sharded(mesh, sharding or ShardingConfig())
         else:
@@ -170,10 +182,10 @@ class TrainStep:
         self._fsdp_deg = sizes["fsdp"]
         layout = SpecLayout(tp_axis="tp" if sizes.get("tp", 1) > 1
                             else None, fsdp_axis="fsdp")
-        shapes = reference_shapes({k: tuple(p.shape)
-                                   for k, p in self._params})
+        whole = self._placed_shapes or {k: tuple(p.shape)
+                                        for k, p in self._params}
         specs = llama_param_specs([k for k, _ in self._params], layout,
-                                  shapes=shapes, mesh=pm)
+                                  shapes=reference_shapes(whole), mesh=pm)
         self._shardable, self._specs = {}, {}
         self._gather_bytes_per_step = 0
         with torch.no_grad():
@@ -184,11 +196,13 @@ class TrainStep:
                 self._shardable[k], self._specs[k] = ok, spec
                 part = math.prod(sizes[a] for a in spec_axes(spec))
                 if part > 1:
-                    nbytes = p.numel() * p.element_size()
+                    nbytes = math.prod(whole[k]) * p.element_size()
                     self._gather_bytes_per_step += nbytes - nbytes // part
-                    # the stored slice; the whole tensor is freed
-                    p.data = shard_tensor(p.data, spec, pm,
-                                          self._coords).contiguous().clone()
+                    if self._placed_shapes is None:
+                        # the stored slice; the whole tensor is freed
+                        p.data = shard_tensor(
+                            p.data, spec, pm,
+                            self._coords).contiguous().clone()
                 self.optimizer.state_for(k, p.data)
         self._stored = {k: p.data for k, p in self._params}
         from ..observability import default_registry
@@ -533,29 +547,96 @@ class TrainStep:
         return out
 
     @torch.no_grad()
-    def load_opt_state_arrays(self, flat: Dict[str, object]) -> None:
+    def load_opt_state_arrays(self, flat) -> None:
         """Restore whole arrays (numpy or tensors, as
         :meth:`opt_state_arrays` gives them gathered) into this step's
         state, each re-sliced to this step's placement (reference:
-        ``load_opt_state_arrays``).  Unknown keys are ignored; missing
-        keys keep their fresh init; a shape that does not fit raises."""
+        ``load_opt_state_arrays``).  ``flat`` may also be a checkpoint
+        (``distributed.checkpoint.TrainState``): then each leaf's box under
+        this step's placement is assembled from only the shards that
+        overlap it.  Unknown keys are ignored; missing keys keep their
+        fresh init; a shape that does not fit raises."""
+        from .redistribute import spec_box
+        boxed = hasattr(flat, "box_tensor")
         for k, p in self._params:
             st = self.optimizer.state(k)
             for name, cur in st.items():
-                full = flat.get(f"opt.{k}.{name}")
-                if full is None:
-                    continue
-                val = torch.as_tensor(full)
-                if self._leaf_sharded(k, p, val.shape):
-                    if self._mode == "1d":
-                        r = val.shape[0] // self._deg
-                        val = val[self._idx * r:(self._idx + 1) * r]
-                    else:
-                        val = shard_tensor(val, self._specs[k], self._mesh,
-                                           self._coords)
+                key = f"opt.{k}.{name}"
+                if boxed:
+                    if key not in flat.arrays:
+                        continue
+                    whole = flat.global_shape(key)
+                    spec, sizes, coords = P(), {}, {}
+                    if self._leaf_sharded(k, p, whole):
+                        spec = self.leaf_specs()[key]
+                        sizes = self._mesh.axis_sizes()
+                        coords = (self._coords if self._mode == "2d"
+                                  else {self._comm.name: self._idx})
+                    val = flat.box_tensor(key, spec_box(whole, spec, sizes,
+                                                        coords))
+                else:
+                    full = flat.get(key)
+                    if full is None:
+                        continue
+                    val = torch.as_tensor(full)
+                    if self._leaf_sharded(k, p, val.shape):
+                        if self._mode == "1d":
+                            r = val.shape[0] // self._deg
+                            val = val[self._idx * r:(self._idx + 1) * r]
+                        else:
+                            val = shard_tensor(val, self._specs[k],
+                                               self._mesh, self._coords)
                 if tuple(val.shape) != tuple(cur.shape):
                     raise ValueError(
                         f"checkpointed state {k}.{name} has shape "
                         f"{tuple(val.shape)}, current run expects "
                         f"{tuple(cur.shape)}")
-                cur.copy_(val.to(device=cur.device, dtype=cur.dtype))
+                cur.copy_(val)
+
+    # -- checkpoints ---------------------------------------------------------
+    def _mesh_or_none(self):
+        return self._mesh if self._mode in ("1d", "2d") else None
+
+    def _param_spec(self, k: str) -> tuple:
+        return tuple(self._specs.get(k, P())) if self._mode == "2d" else P()
+
+    def ckpt_values(self) -> Dict[str, object]:
+        """What a checkpoint of this step holds (the reference tests'
+        ``_ckpt_values``): ``model.<k>`` for every entry of the model's
+        state dict and ``opt.<k>.<leaf>`` for every optimizer-state leaf,
+        the fp32 ``master`` included; on a sharded step each is a
+        ``jit.redistribute.Placed`` (this rank's slice, its spec, the
+        mesh), else the tensor."""
+        from .redistribute import Placed
+        mesh = self._mesh_or_none()
+        out: Dict[str, object] = {}
+        for k, t in self.model.state_dict().items():
+            out["model." + k] = (Placed(t, self._param_spec(k), mesh)
+                                 if mesh is not None else t)
+        specs = self.leaf_specs()
+        for k, v in self.opt_state_arrays().items():
+            out[k] = Placed(v, specs[k], mesh) if mesh is not None else v
+        return out
+
+    @torch.no_grad()
+    def load_train_state(self, state) -> None:
+        """Restore a checkpoint (``distributed.checkpoint.TrainState``)
+        saved under any mesh onto this step's placement: each parameter's
+        and (through :meth:`load_opt_state_arrays`) each state leaf's box
+        assembled from only the shards that overlap it, and the
+        optimizer's step count from ``meta["global_step"]`` when it is
+        there."""
+        from .redistribute import spec_box
+        mesh = self._mesh_or_none()
+        sizes = mesh.axis_sizes() if mesh is not None else {}
+        coords = self._coords if self._mode == "2d" else {}
+        params = dict(self._params)
+        for k, t in self.model.state_dict().items():
+            spec = self._param_spec(k)
+            whole = (self._full_shape(k, params[k]) if k in params
+                     else tuple(t.shape))
+            box = spec_box(whole, spec, sizes, coords)
+            t.copy_(state.box_tensor("model." + k, box))
+        self.load_opt_state_arrays(state)
+        if "global_step" in state.meta:
+            self.optimizer._global_step = int(state.meta["global_step"])

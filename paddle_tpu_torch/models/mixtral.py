@@ -243,8 +243,9 @@ class MixtralPretrainingCriterion(nn.Module):
 
 
 def shard_mixtral(model, mesh, ep_axis="model", fsdp_axis="sharding"):
-    """Expert-parallel + FSDP layout: not ported (the port serves and
-    trains MoE models on one device)."""
+    """Expert-parallel + FSDP training layout: not ported (the port trains
+    MoE models on one device; it serves them over ep meshes through
+    ``jit.spmd.shard_model``)."""
     raise NotImplementedError(
-        "shard_mixtral (expert parallelism over a mesh) is not ported to "
-        "paddle_tpu_torch yet; it waits for the multi-device slice")
+        "shard_mixtral (expert-parallel training over a mesh) is not "
+        "ported to paddle_tpu_torch yet; it is ROADMAP queue 1 item 5.4")

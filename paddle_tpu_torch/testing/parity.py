@@ -154,3 +154,23 @@ def paddle_tpu_names(np_arrays: Dict[str, np.ndarray]
         out[k] = (np.ascontiguousarray(a.T)
                   if _is_linear_weight(base) and a.ndim == 2 else a)
     return out
+
+
+def train_state_from_paddle_tpu(state):
+    """A reference checkpoint (``distributed.checkpoint.TrainState`` as the
+    port's manager loads it) in the port's layout: every shard of a Linear
+    weight and of its parameter-shaped optimizer state (``model.<name>``,
+    ``opt.<name>.<leaf>``) transposed to ``[out, in]``, offsets and shapes
+    swapped with it; everything else as it is."""
+    from ..distributed.checkpoint import TrainState
+    arrays = {}
+    for key, shards in state.arrays.items():
+        base = key.split(".", 1)[1]
+        if key.startswith("opt."):
+            base = base.rsplit(".", 1)[0]
+        if _is_linear_weight(base) and len(shards[0][1]) == 2:
+            shards = [(tuple(off[::-1]), tuple(shape[::-1]), dt,
+                       np.ascontiguousarray(np.asarray(a).T))
+                      for off, shape, dt, a in shards]
+        arrays[key] = shards
+    return TrainState(arrays, dict(state.meta))

@@ -459,14 +459,20 @@ def grad_norms(ranks, shapes) -> list:
     """Each step's gradient norm a parameter, before the clip, from the
     ``grad_sq`` of every rank of a case (:func:`_record_grads`) and the
     parameters' whole ``shapes``: a slice of ``1/part`` of a parameter is
-    held by ``world/part`` ranks, so each rank's squares count
-    ``part/world``."""
-    n = len(ranks)
-    return [{k: math.sqrt(sum(
-        r["grad_sq"][i][k][0] * math.prod(shapes[k])
-        / (r["grad_sq"][i][k][1] * n) for r in ranks))
-        for k in ranks[0]["grad_sq"][i]}
-        for i in range(len(ranks[0]["grad_sq"]))]
+    held by ``n/part`` of the ``n`` ranks that hold the parameter at all
+    (a pipeline stage's ranks hold its layers alone), so each rank's
+    squares count ``part/n``."""
+    out = []
+    for i in range(len(ranks[0]["grad_sq"])):
+        keys = sorted({k for r in ranks for k in r["grad_sq"][i]})
+        step = {}
+        for k in keys:
+            held = [r["grad_sq"][i][k] for r in ranks if k in r["grad_sq"][i]]
+            step[k] = math.sqrt(sum(sq * math.prod(shapes[k]) / (numel *
+                                                                len(held))
+                                    for sq, numel in held))
+        out.append(step)
+    return out
 
 
 def _train_case(rank, case, spec, device, backend):
@@ -689,10 +695,14 @@ def train_cases(rank: int, world: int, args: Dict):
       rank updates with them, :func:`_record_grads`), "resume": n,
       "bad_batch"}``; or ``{"name", "kind": "attention",
       "mode": "ring"|"ulysses", "sep", "dp", "causal", "dtype", "q", "k",
-      "v", "g"}``.
+      "v", "g"}``; or a ``"kind": "checkpoint"``, ``"pipeline"``,
+      ``"outside"``, ``"redistribute"``, ``"spmd_pipeline"`` or
+      ``"state_dict"`` case
+      (:mod:`.resilience`).
 
-    A training case returns, from rank 0, its losses (the warm-up's
-    first) and every rank's wall, launches, collective stats, parameter
+    Each case's result carries its seconds on rank 0 (``case_s``: set-up,
+    run and teardown).  A training case returns, from rank 0, its losses
+    (the warm-up's first) and every rank's wall, launches, collective stats, parameter
     and optimizer-state bytes and shapes, peak device memory and metric
     deltas (with ``return_params`` / ``return_state`` its parameters and
     state, numpy)."""
@@ -704,8 +714,19 @@ def train_cases(rank: int, world: int, args: Dict):
         torch.backends.cudnn.allow_tf32 = False
     out = []
     for case in args["cases"]:
+        t0 = time.perf_counter()
         if case.get("kind") == "attention":
             res = _attention_case(rank, case, device, backend)
+        elif case.get("kind") in ("checkpoint", "pipeline", "outside"):
+            from . import resilience
+            fn = getattr(resilience, case["kind"] + "_case")
+            res = fn(rank, case, args["models"][case["model"]], device,
+                     backend)
+        elif case.get("kind") in ("redistribute", "spmd_pipeline",
+                                  "state_dict"):
+            from . import resilience
+            fn = getattr(resilience, case["kind"] + "_case")
+            res = fn(rank, case, device, backend)
         else:
             spec = args["models"][case["model"]]
             case = dict(case, family=spec["family"],
@@ -714,5 +735,7 @@ def train_cases(rank: int, world: int, args: Dict):
             res = _train_case(rank, case, spec, device, backend)
             if not case.get("mesh") and not case.get("hybrid"):
                 dist.barrier()
+        if rank == 0 and isinstance(res, dict):
+            res["case_s"] = time.perf_counter() - t0
         out.append(res if rank == 0 else None)
     return out
