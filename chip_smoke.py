@@ -322,7 +322,30 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    parity_pp2 against parity_pp_one (2 layers, 2 steps: losses and
    gradient norms as the other parity runs).  Sizes as ``CKPT_CELL`` and
    ``PP_CELL``; the checkpoints go to a temporary directory removed
-   after the worlds.
+   after the worlds.  Mixtral over ranks (``MIXTRAL_CELL``,
+   ``MIXTRAL_PARITY``): in the two-rank world train_mixtral_ep2
+   (Mixtral-8x7B widths, 1 layer, bf16, ``shard_mixtral`` at ep 2, 1 x
+   2048 tokens a rank, one step; no recompute, as the reference's Mixtral
+   layers): each rank's expert, parameter, state and peak bytes, its
+   dispatch all_to_all's bytes and seconds, exact flash launches; a rank
+   stores exactly half the one-card banks, the payload is the analytic
+   ``4 L E min(C, N_local) D`` elements a step (:func:`moe_all_to_all_bytes`),
+   the aux term > 0 and the first loss within 0.5 of ln V + h·σ²/2 plus
+   it (:func:`check_mixtral_ep`); parity_mixtral_ep2 and
+   parity_mixtral_ring_sep2 (fp32, same widths, 1 layer, 2 x 128, SGD)
+   against parity_mixtral_one: losses and gradient norms within
+   ``PARITY_RTOL`` / ``GRAD_RTOL`` (both route the whole batch, the
+   one-card step's math).
+   In the four-rank world, after parity_fsdp2_tp2, handoff_fsdp2_tp2
+   (:func:`check_handoff`, ``HANDOFF``): one fsdp 2 x tp 2 step of the
+   fp32 1-layer 7B, then an fsdp 2 x tp 2 mixed engine built from the
+   trained model adopts every stored slice (storage and data pointer
+   unchanged, no copy) and its greedy tokens equal the one-card engine's
+   on the gathered weights.
+11c. The optimizers (:func:`phase_optimizers`): SGD, Momentum, Adagrad,
+   RMSProp, Adadelta, Adamax, Lamb, Rprop and LBFGS (fixed step and strong
+   Wolfe), 3 steps of the CPU tests' small MLP on the card against the
+   CPU, fp32 with TF32 off, every parameter within ``OPTIMIZER_RTOL``.
 12. Before the last line, one JSON object with every kernel variant's
    numbers; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -5514,6 +5537,19 @@ MESH_PARITY = dict(layers=1, steps=2, batch=(4, 128), sep_batch=(1, 256))
 CKPT_CELL = dict(layers=1, steps=1, after=1, batch=(4, 2048))
 PP_CELL = dict(layers=2, micro=4, steps=1, batch=(4, 2048))
 CKPT_RTOL = 1e-5       # a restored step against the uninterrupted run
+# Mixtral-8x7B widths over ranks, 1 layer: shard_mixtral at ep 2 in bf16
+# (1 x 2048 tokens a rank, one step), and the fp32 parity runs (ep 2 and a
+# ring over sep 2 against the one-card step on the same 2 x 128 batch).
+# The sep ranks hold the whole fp32 model (6.9 GB) and sum its gradients
+# through the host a step, so that run takes one step, and the parity runs
+# update with SGD: two sep ranks with AdamW's fp32 moments and its
+# temporaries on a whole 1.75 GiB bank do not fit the card together
+MIXTRAL_CELL = dict(layers=1, steps=1, batch=(2, 2048))
+MIXTRAL_PARITY = dict(layers=1, steps=2, sep_steps=1, batch=(2, 128),
+                      lr=0.05)
+# the train -> serve handoff after the 2-D parity cell: 7B widths fp32, 1
+# layer, one fsdp 2 x tp 2 step, then two short prompts, 2 new tokens
+HANDOFF = dict(steps=1, new_tokens=2)
 # the same runs' gradients at every step, parameter by parameter, against
 # the one-card run's: the losses alone see little of a gradient's size
 # (Adam's first move is lr·sign(g), and its later ones a ratio of
@@ -5603,6 +5639,7 @@ def train_mesh_cases(ckpt_dir):
     ``ckpt_dir``."""
     from dataclasses import asdict
     from paddle_tpu_torch.models.llama import llama_7b_config
+    from paddle_tpu_torch.models.mixtral import mixtral_8x7b_config
     models = {
         "7b_zero": dict(family="llama", seed=SEED, config=asdict(
             llama_7b_config(dtype="bfloat16", recompute=True,
@@ -5619,6 +5656,13 @@ def train_mesh_cases(ckpt_dir):
         "7b_fp32_pp": dict(family="llama", seed=SEED, config=asdict(
             llama_7b_config(dtype="float32", recompute=True,
                             num_hidden_layers=PP_CELL["layers"]))),
+        "mx_bf16": dict(family="mixtral", seed=SEED, config=asdict(
+            mixtral_8x7b_config(dtype="bfloat16",
+                                num_hidden_layers=MIXTRAL_CELL["layers"]))),
+        "mx_fp32": dict(family="mixtral", seed=SEED, config=asdict(
+            mixtral_8x7b_config(dtype="float32",
+                                num_hidden_layers=MIXTRAL_PARITY[
+                                    "layers"]))),
     }
     assert CKPT_CELL["layers"] == FSDP_CELL["layers"]
     assert PP_CELL["layers"] == ZERO_CELL["layers"]
@@ -5632,6 +5676,12 @@ def train_mesh_cases(ckpt_dir):
     sep_par = dict(par, random=dict(shape=list(MESH_PARITY["sep_batch"]),
                                     seed=SEED + 2,
                                     count=MESH_PARITY["steps"]))
+    mx_par = dict(par, model="mx_fp32", steps=MIXTRAL_PARITY["steps"],
+                  optimizer=dict(name="sgd", learning_rate=MIXTRAL_PARITY[
+                      "lr"]),
+                  random=dict(shape=list(MIXTRAL_PARITY["batch"]),
+                              seed=SEED + 3,
+                              count=MIXTRAL_PARITY["steps"]))
 
     def sep(mode):
         return dict(sequence_parallel=True, seq_parallel_mode=mode)
@@ -5666,6 +5716,14 @@ def train_mesh_cases(ckpt_dir):
         dict(par, name="parity_pp_one", model="7b_fp32_pp", mesh=None),
         dict(par, name="parity_pp2", model="7b_fp32_pp", kind="pipeline",
              mesh={"pipe": 2}, micro=PP_CELL["micro"], remat=True),
+        dict(name="train_mixtral_ep2", model="mx_bf16", mesh={"ep": 2},
+             optimizer=bf16, clip=1.0, steps=MIXTRAL_CELL["steps"],
+             random=dict(shape=list(MIXTRAL_CELL["batch"]), seed=SEED,
+                         count=MIXTRAL_CELL["steps"])),
+        dict(mx_par, name="parity_mixtral_one", mesh=None),
+        dict(mx_par, name="parity_mixtral_ep2", mesh={"ep": 2}),
+        dict(mx_par, name="parity_mixtral_ring_sep2", hybrid={"sep": 2},
+             config=sep("ring"), steps=MIXTRAL_PARITY["sep_steps"]),
     ]
     four = [
         dict(name="train_7b_fsdp2_tp2", model="7b_fsdp",
@@ -5674,6 +5732,11 @@ def train_mesh_cases(ckpt_dir):
              random=dict(shape=list(FSDP_CELL["batch"]), seed=SEED,
                          count=FSDP_CELL["steps"])),
         dict(par, name="parity_fsdp2_tp2", mesh={"fsdp": 2, "tp": 2}),
+        dict(par, name="handoff_fsdp2_tp2", kind="handoff",
+             mesh={"fsdp": 2, "tp": 2}, steps=HANDOFF["steps"],
+             grad_norms=False, engine=dict(ENGINE_KW),
+             ops=[["add", p.tolist(), HANDOFF["new_tokens"]]
+                  for p in short_prompts(32000)] + [["run"]]),
         dict(name="train_7b_zero2_dp4_ckpt_reshape", kind="checkpoint",
              model="7b_fsdp", mesh={"dp": 4}, stage=2, optimizer=bf16,
              clip=1.0, steps=CKPT_CELL["steps"], live={"dp": 2},
@@ -5691,11 +5754,17 @@ def train_mesh_cases(ckpt_dir):
 
 def _param_shapes(config: dict):
     """The whole model's parameter shapes and element size (a skeleton on
-    ``meta``)."""
+    ``meta``; a config with experts is Mixtral's)."""
     import torch
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    cfg = LlamaConfig(**config)
-    m = LlamaForCausalLM(cfg, device="meta")
+    from paddle_tpu_torch.models.mixtral import (MixtralConfig,
+                                                 MixtralForCausalLM)
+    if config.get("num_local_experts"):
+        cfg = MixtralConfig(**config)
+        m = MixtralForCausalLM(cfg, device="meta")
+    else:
+        cfg = LlamaConfig(**config)
+        m = LlamaForCausalLM(cfg, device="meta")
     item = torch.empty((), dtype=cfg.torch_dtype).element_size()
     return {n: tuple(p.shape) for n, p in m.named_parameters()}, item
 
@@ -5739,7 +5808,10 @@ def train_mesh_want(case, models, rank, n_ranks):
         else:
             S *= case["hybrid"]["sep"]
     fused = fused_bwd_taken(S)
-    return {"flash_fwd": 2 * L * steps * blocks,
+    # recompute runs each layer's forward twice (Mixtral's layers, like
+    # the reference's, do not recompute)
+    fwd = 2 if cfg.get("recompute") else 1
+    return {"flash_fwd": fwd * L * steps * blocks,
             "flash_bwd_fused": L * steps * blocks if fused else 0,
             "flash_bwd_two_kernel": 0 if fused else L * steps * blocks}
 
@@ -5756,6 +5828,8 @@ def train_mesh_bytes(case, models, rk, n):
         return {"reduce_scatter": (total * steps if case["stage"] == 2
                                    else None),
                 "all_gather": total // n * steps}
+    if case.get("mesh") and "ep" in case["mesh"]:
+        return {"moe_all_to_all": moe_all_to_all_bytes(case, cfg, n, item)}
     if case.get("mesh"):
         sizes = dict(case["mesh"])
         return {k: v * steps for k, v in fsdp_collective_bytes(
@@ -5765,14 +5839,28 @@ def train_mesh_bytes(case, models, rk, n):
     H, D = cfg["num_attention_heads"], \
         cfg["hidden_size"] // cfg["num_attention_heads"]
     local = (B, S // n, H, D)
+    passes = 2 if cfg.get("recompute") else 1     # forward passes a step
     if case["config"]["seq_parallel_mode"] == "ring":
         fwd = ring_bytes(local, item, n, backward=False)
         bwd = ring_bytes(local, item, n, backward=True)
-        return {"ring_kv": L * steps * (2 * fwd["ring_kv"] + bwd["ring_kv"]),
+        return {"ring_kv": L * steps * (passes * fwd["ring_kv"]
+                                        + bwd["ring_kv"]),
                 "ring_dkv": L * steps * bwd["ring_dkv"]}
-    # Ulysses: q, k, v there and the output back in each of the two
-    # forward passes, and the four gradients in the backward
-    return {"all_to_all": L * steps * 12 * math.prod(local) * item}
+    # Ulysses: q, k, v there and the output back in each forward pass,
+    # and the four gradients in the backward
+    return {"all_to_all": L * steps * (4 * passes + 4) * math.prod(local)
+            * item}
+
+
+def moe_all_to_all_bytes(case, cfg, n, item):
+    """A shard_mixtral rank's dispatch payload: the send buffer ``[E,
+    min(C, N_local), D]`` (C the global capacity) four times a layer and
+    step (out and back, forward and backward)."""
+    B, S = case["random"]["shape"]
+    E, k = cfg["num_local_experts"], cfg["num_experts_per_tok"]
+    cap = max(1, int(cfg["expert_capacity_factor"] * B * S * k / E))
+    send = E * min(cap, B * S // n) * cfg["hidden_size"] * item
+    return 4 * cfg["num_hidden_layers"] * case["steps"] * send
 
 
 def phase_train_mesh():
@@ -6026,7 +6114,9 @@ def train_mesh_worlds(models, two, four, device=None):
             raise AssertionError("%s: first loss %g is not within 0.5 of "
                                  "the random-init value %g"
                                  % (name, first, init_loss(cfg)))
+    check_mixtral_ep(got, models, rows)
     check_resilience(got, models, rows, launches, device)
+    check_handoff(got)
     from paddle_tpu_torch.testing.sharded import grad_norms
     gates, grad_gates = {}, {}
     norms = {}
@@ -6039,7 +6129,9 @@ def train_mesh_worlds(models, two, four, device=None):
                       ("parity_fsdp2_tp2", "parity_one"),
                       ("parity_ring_sep2", "parity_sep_one"),
                       ("parity_ulysses_sep2", "parity_sep_one"),
-                      ("parity_pp2", "parity_pp_one")):
+                      ("parity_pp2", "parity_pp_one"),
+                      ("parity_mixtral_ep2", "parity_mixtral_one"),
+                      ("parity_mixtral_ring_sep2", "parity_mixtral_one")):
         a, b = rows[name]["losses"], rows[one]["losses"]
         gates[name] = max(abs(x - y) / abs(y) for x, y in zip(a, b))
         rel = [{k: abs(g[k] - w[k]) / w[k] for k in w}
@@ -6057,7 +6149,8 @@ def train_mesh_worlds(models, two, four, device=None):
               grad_norms_one_card_step1={
                   one: norms[one][0] for one in ("parity_one",
                                                  "parity_sep_one",
-                                                 "parity_pp_one")}))
+                                                 "parity_pp_one",
+                                                 "parity_mixtral_one")}))
     for name, rel in gates.items():
         if not rel <= PARITY_RTOL:
             raise AssertionError("%s: losses vs one card, max rel diff %g "
@@ -6068,6 +6161,153 @@ def train_mesh_worlds(models, two, four, device=None):
                                  "diff by step %s > %g"
                                  % (name, rel, GRAD_RTOL))
     return dict(rows=rows, launches=launches)
+
+
+def check_mixtral_ep(got, models, rows):
+    """train_mixtral_ep2's own gates: a rank stores exactly half the
+    one-card expert banks, the router aux term of the first step (the
+    ranks' shares summed over the step's divisor, the rank count) is
+    > 0, and the first loss lies within 0.5 of ln V + h·σ²/2 plus that
+    term; each rank's bytes and its dispatch all_to_all's bytes and
+    seconds are reported."""
+    from paddle_tpu_torch.models.mixtral import MixtralConfig
+    case, res, _ = got["train_mixtral_ep2"]
+    cfg = MixtralConfig(**models[case["model"]]["config"])
+    ranks = res["ranks"]
+    item = 2 if cfg.dtype == "bfloat16" else 4
+    banks = (3 * cfg.num_local_experts * cfg.hidden_size
+             * cfg.intermediate_size * item * cfg.num_hidden_layers)
+    aux = sum(a for rk in ranks for _, a in rk["moe"][0]) / len(ranks)
+    row = rows["train_mixtral_ep2"]
+    row.update(one_card_expert_bytes=banks,
+               expert_bytes=[rk["expert_bytes"] for rk in ranks],
+               dropped=[d for d, _ in ranks[0]["moe"][0]], aux=aux,
+               expected_first_loss=init_loss(cfg)
+               + cfg.router_aux_loss_coef * aux,
+               moe_all_to_all=[dict(
+                   bytes=rk["collectives"]["bytes"].get("moe_all_to_all"),
+                   seconds=rk["collectives"]["seconds"].get(
+                       "moe_all_to_all")) for rk in ranks])
+    for rk in ranks:
+        if rk["expert_bytes"] * 2 != banks:
+            raise AssertionError("train_mixtral_ep2 rank %d: expert bytes "
+                                 "%d, want half of %d"
+                                 % (rk["rank"], rk["expert_bytes"], banks))
+    if not aux > 0:
+        raise AssertionError("train_mixtral_ep2: aux term %g" % aux)
+    if not abs(res["losses"][0] - row["expected_first_loss"]) <= 0.5:
+        raise AssertionError("train_mixtral_ep2: first loss %g is not "
+                             "within 0.5 of %g" % (
+                                 res["losses"][0],
+                                 row["expected_first_loss"]))
+
+
+def check_handoff(got):
+    """The 2-D train -> fsdp-serve handoff after parity_fsdp2_tp2: on every
+    rank each parameter kept the storage and data pointer the train step
+    stored and every fsdp-sharded slice was adopted without a copy; the
+    fsdp 2 x tp 2 engine's greedy tokens equal the one-card engine's on
+    the gathered trained weights."""
+    case, res, _ = got["handoff_fsdp2_tp2"]
+    row = dict(phase="handoff_fsdp2_tp2", ranks=len(res["ranks"]),
+               case_s=res.get("case_s"), losses=res["losses"],
+               adopted=[rk["adopted"] for rk in res["ranks"]],
+               fsdp_slices=[rk["fsdp_slices"] for rk in res["ranks"]],
+               same_storage=all(all(rk["same"].values())
+                                for rk in res["ranks"]),
+               tokens=res["tokens"], one_card_tokens=res["one_card"],
+               note=MESH_NOTE % len(res["ranks"]))
+    emit(row)
+    if not row["same_storage"] or any(
+            rk["adopted"] != rk["fsdp_slices"] or not rk["fsdp_slices"]
+            for rk in res["ranks"]):
+        raise AssertionError("handoff: slices not adopted by identity %s"
+                             % row)
+    if res["tokens"] != res["one_card"] or not all(res["tokens"]):
+        raise AssertionError("handoff: tokens %s, one card %s"
+                             % (res["tokens"], res["one_card"]))
+
+
+# the optimizers' phase: the CPU tests' problem (an 8 -> 16 -> 2 tanh MLP
+# on 32 rows, tests/test_torch_optimizers.py), 3 steps of each rule on the
+# card against the same on the CPU (fp32, TF32 off).  A larger problem
+# holds gradients near zero, where a sign-like first step (Adamax's m/u,
+# Adagrad's g/sqrt(g^2) from a zero accumulator) or L-BFGS's line search
+# turns the two devices' summation orders into more than 1e-5
+OPTIMIZER_RTOL = 1e-5
+
+
+def phase_optimizers():
+    """Each optimizer the rest of ``optimizer/`` brings (SGD, Momentum,
+    Adagrad, RMSProp, Adadelta, Adamax, Lamb, Rprop, with weight decay
+    where it takes one) and LBFGS with and without the strong-Wolfe
+    search: 3 steps on the card and on the CPU from the same weights and
+    batch; every parameter within ``OPTIMIZER_RTOL`` of the CPU's
+    (relative to its largest element)."""
+    import torch
+    from paddle_tpu_torch import optimizer as optim
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    init = [rng.randn(8, 16).astype(np.float32) * 0.5,
+            rng.randn(16).astype(np.float32) * 0.1,
+            rng.randn(16, 2).astype(np.float32) * 0.5,
+            rng.randn(2).astype(np.float32) * 0.1]
+    x = rng.randn(32, 8).astype(np.float32)
+    y = rng.randn(32, 2).astype(np.float32)
+    rules = [("SGD", dict(learning_rate=0.1, weight_decay=0.1)),
+             ("Momentum", dict(learning_rate=0.05, weight_decay=0.1,
+                               use_nesterov=True)),
+             ("Adagrad", dict(learning_rate=0.1, weight_decay=0.1,
+                              initial_accumulator_value=0.1)),
+             ("RMSProp", dict(learning_rate=0.01, momentum=0.5,
+                              weight_decay=0.1)),
+             ("Adadelta", dict(learning_rate=1.0, weight_decay=0.1)),
+             ("Adamax", dict(learning_rate=0.05, weight_decay=0.1)),
+             ("Lamb", dict(learning_rate=0.05, lamb_weight_decay=0.1)),
+             ("Rprop", dict(learning_rate=0.01)),
+             ("LBFGS", dict(learning_rate=0.5, max_iter=2, history_size=3)),
+             ("LBFGS", dict(learning_rate=0.5, max_iter=2, history_size=3,
+                            line_search_fn="strong_wolfe"))]
+
+    def run(name, kw, dev):
+        ps = [("p%d" % i, torch.nn.Parameter(torch.tensor(a, device=dev)))
+              for i, a in enumerate(init)]
+        xs, ys = torch.tensor(x, device=dev), torch.tensor(y, device=dev)
+
+        def loss():
+            w1, b1, w2, b2 = (p for _, p in ps)
+            d = torch.tanh(xs @ w1 + b1) @ w2 + b2 - ys
+            return (d * d).mean()
+        opt = getattr(optim, name)(parameters=ps, **kw)
+        for _ in range(3):
+            if name == "LBFGS":
+                def closure():
+                    out = loss()
+                    out.backward()
+                    return out
+                opt.step(closure)
+            else:
+                loss().backward()
+                opt.step()
+                opt.clear_grad()
+        return [p.detach().cpu().numpy() for _, p in ps]
+    t0 = time.perf_counter()
+    diffs = {}
+    try:
+        for name, kw in rules:
+            key = name + ("_" + kw["line_search_fn"]
+                          if kw.get("line_search_fn") else "")
+            got, want = run(name, kw, "cuda"), run(name, kw, "cpu")
+            diffs[key] = max(float(np.abs(g - w).max() / np.abs(w).max())
+                             for g, w in zip(got, want))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    emit(dict(phase="optimizers_card_vs_cpu", rtol=OPTIMIZER_RTOL,
+              max_rel_diff=diffs, seconds=time.perf_counter() - t0))
+    bad = {k: v for k, v in diffs.items() if not v <= OPTIMIZER_RTOL}
+    if bad:
+        raise AssertionError("optimizers on the card vs the CPU: %s" % bad)
 
 
 def kernel_summary(rows, serving, flash_rows, train_launches,
@@ -6346,6 +6586,7 @@ def main() -> int:
     run("layerwise_parity", phase_layerwise_parity)
     families = run("train_families", phase_train_families)
     mesh_train = run("train_mesh", phase_train_mesh)
+    run("optimizers", phase_optimizers)
     emit({"kernels": kernel_summary(
         rows, serving, flash_rows,
         dict({"train_7b": train["launches"],

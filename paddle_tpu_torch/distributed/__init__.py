@@ -4,5 +4,6 @@
 collectives and point-to-point transfers of the sharded steps, with their
 counts), :mod:`.comm_watchdog` (their deadline monitor),
 :mod:`.checkpoint` (sharded async checkpoints), :mod:`.pipelining`
-(GPipe over a ``pipe`` axis) and :mod:`.launch` (the rank launcher of the
-tests and ``chip_smoke.py``)."""
+(GPipe over a ``pipe`` axis), :mod:`.sharding` (``group_sharded_parallel``,
+implemented in ``fleet/meta_parallel``) and :mod:`.launch` (the rank
+launcher of the tests and ``chip_smoke.py``)."""

@@ -30,6 +30,11 @@ CUDA tensor on a gloo group goes through reused pinned host buffers (copy
 out, send and receive on the host, copy back, all inside the op's
 seconds); over nccl nothing is staged.
 
+The expert-parallel training path takes them with autograd:
+:func:`all_to_all_diff` (its adjoint the same all_to_all) and the pair
+:func:`all_gather_diff` / :func:`reduce_scatter_diff` (each the other's
+adjoint).
+
 Point-to-point transfers: :func:`send` and :func:`recv` (a pipeline
 stage's activations and cotangents, blocking, in schedule order) and
 :func:`exchange` (a batch of sends and receives posted together, the
@@ -56,7 +61,8 @@ from .comm_watchdog import comm_task
 
 __all__ = ["STATS", "reset_stats", "stats", "all_reduce", "all_reduce_max",
            "all_gather", "all_gather_rows", "all_to_all", "broadcast",
-           "reduce_scatter", "shift", "send", "recv", "exchange"]
+           "reduce_scatter", "shift", "send", "recv", "exchange",
+           "all_to_all_diff", "all_gather_diff", "reduce_scatter_diff"]
 
 STATS: Dict[str, Dict[str, float]] = {"calls": {}, "seconds": {},
                                       "bytes": {}}
@@ -153,20 +159,95 @@ def all_gather_rows(out: torch.Tensor, t: torch.Tensor, group,
     return out
 
 
-def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+def all_to_all(t: torch.Tensor, group, op: str = "all_to_all"
+               ) -> torch.Tensor:
     """Split ``t`` along dim 0 into equal chunks, chunk ``g`` to rank
     ``g`` of ``group``; returns the received chunks stacked along dim 0
-    in rank order (the tiled all_to_all with split and concat axis 0)."""
+    in rank order (the tiled all_to_all with split and concat axis 0).
+    ``op`` names the call in ``STATS``."""
     t0 = time.perf_counter()
     src = _wire(t.contiguous())
     out = torch.empty_like(src)
-    with _watch("all_to_all", group):
+    with _watch(op, group):
         dist.all_to_all_single(out, src, group=group)
     if t.dtype == torch.bfloat16:
         out = out.view(torch.bfloat16)
     _sync(out)
-    _count("all_to_all", time.perf_counter() - t0, t)
+    _count(op, time.perf_counter() - t0, t)
     return out
+
+
+# -- differentiable forms ---------------------------------------------------
+class _AllToAll(torch.autograd.Function):
+    """The tiled all_to_all is its own inverse: chunk ``g`` of rank ``r``
+    lands as chunk ``r`` of rank ``g``, and the same call sends it back,
+    so the adjoint moves the cotangent by the same all_to_all."""
+
+    @staticmethod
+    def forward(ctx, t, group, op):
+        ctx.group, ctx.op = group, op
+        return all_to_all(t, group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all(g, ctx.group, ctx.op), None, None
+
+
+def all_to_all_diff(t: torch.Tensor, group, op: str = "all_to_all"
+                    ) -> torch.Tensor:
+    """:func:`all_to_all` with autograd (the backward counted under the
+    same ``op``)."""
+    return _AllToAll.apply(t, group, op)
+
+
+class _AllGather(torch.autograd.Function):
+    """The tiled all-gather along ``dim``; its adjoint is the
+    reduce-scatter: this rank's block of the sum of every rank's
+    cotangent."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, size, op):
+        ctx.dim, ctx.group, ctx.size, ctx.op = dim, group, size, op
+        return all_gather(t, dim, group, size, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        moved = g.movedim(ctx.dim, 0)
+        rows = moved.shape[0] // ctx.size
+        row = reduce_scatter(moved.reshape(ctx.size, -1), ctx.group,
+                             ctx.op + "_grad")
+        return (row.view((rows,) + tuple(moved.shape[1:]))
+                .movedim(0, ctx.dim), None, None, None, None)
+
+
+def all_gather_diff(t: torch.Tensor, dim: int, group, size: int,
+                    op: str = "all_gather") -> torch.Tensor:
+    """:func:`all_gather` with autograd (the backward a
+    :func:`reduce_scatter` counted under ``op + "_grad"``)."""
+    return _AllGather.apply(t, dim, group, size, op)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """:func:`reduce_scatter` of a ``[size, cols]`` matrix; its adjoint
+    gathers every rank's cotangent row back into the matrix."""
+
+    @staticmethod
+    def forward(ctx, flat, group, op):
+        ctx.group, ctx.op, ctx.size = group, op, flat.shape[0]
+        return reduce_scatter(flat, group, op)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows = all_gather(g.reshape(1, -1), 0, ctx.group, ctx.size,
+                          ctx.op + "_grad")
+        return rows, None, None
+
+
+def reduce_scatter_diff(flat: torch.Tensor, group,
+                        op: str = "reduce_scatter") -> torch.Tensor:
+    """:func:`reduce_scatter` with autograd (the backward an
+    :func:`all_gather` counted under ``op + "_grad"``)."""
+    return _ReduceScatter.apply(flat, group, op)
 
 
 def broadcast(t: torch.Tensor, src: int = 0, group=None,

@@ -209,16 +209,18 @@ def _attend_layer(layer, x, cos, sin, cache, write, attend, w=None,
     quantized weights by name, dequantized from the int8 tree (the
     model's own weights when None).  Under tp (``tp``: the engine's
     :class:`~paddle_tpu_torch.jit.spmd.TPContext`) the model is this
-    rank's shard: the attention module's head counts are the rank's, the
-    pools hold its kv heads, and o_proj and the FFN end in a sum over
+    rank's shard: the projections give the rank's heads, the pools hold
+    its kv heads, and o_proj and the FFN end in a sum over
     the tp ranks."""
     N = x.shape[0]
     at = layer.self_attn
-    H, Hkv, D = at.num_heads, at.num_kv_heads, at.head_dim
+    D = at.head_dim
     h = layer.input_layernorm(x)
-    q = _proj(at, "q_proj", h, w).view(N, H, D)
-    k = _proj(at, "k_proj", h, w).view(N, Hkv, D)
-    v = _proj(at, "v_proj", h, w).view(N, Hkv, D)
+    # the head counts are the projections' (a rank's, under tp)
+    q = _proj(at, "q_proj", h, w).view(N, -1, D)
+    k = _proj(at, "k_proj", h, w).view(N, -1, D)
+    v = _proj(at, "v_proj", h, w).view(N, -1, D)
+    H = q.shape[1]
     q, k, k_amax, v_amax = rope_qkv_epilogue(q, k, v, cos, sin,
                                              with_amax=cache.quantized)
     write(k, v, k_amax, v_amax)

@@ -37,7 +37,7 @@ from __future__ import annotations
 import contextlib
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -877,6 +877,56 @@ def unslice(rows: torch.Tensor, at: int, shape, dim: int,
     return dst
 
 
+def fsdp_groups(model, specs: Dict[str, PartitionSpec], fsdp_axis: str
+                ) -> Dict[object, List[Tuple[str, torch.Tensor, int]]]:
+    """The fsdp-sharded parameters of a decoder-stack model by module group
+    (``"embed"``, ``"norm"``, ``"head"``, then each layer's index), each
+    as ``(name, parameter, fsdp dim)`` in the module's parameter order;
+    ``specs`` in the port's layout, by name (a name it lacks is left out).
+    The fsdp serving engine (:class:`FsdpParams`) packs and gathers a
+    group at a time in this order, and the 2-D ``TrainStep`` stores its
+    slices so, for the engine to adopt them."""
+    from ..models.llama import inner_model
+    stack = inner_model(model)
+    names = {id(p): n for n, p in model.named_parameters() if n in specs}
+    mods = {"embed": stack.embed_tokens, "norm": stack.norm,
+            "head": model.lm_head}
+    mods.update(enumerate(stack.layers))
+    out: Dict[object, List[Tuple[str, torch.Tensor, int]]] = {}
+    for key, mod in mods.items():
+        if mod is None:
+            continue
+        items = []
+        for p in mod.parameters():
+            n = names.get(id(p))
+            if n is None:
+                continue
+            dim = _fsdp_dim(specs[n], fsdp_axis)
+            if dim is not None:
+                items.append((n, p, dim))
+        out[key] = items
+    return out
+
+
+def _packed(items) -> Optional[torch.Tensor]:
+    """The one buffer ``items``' tensors already lie in back to back, in
+    order (a 2-D ``TrainStep``'s stored slices), or None."""
+    if not items:
+        return None
+    first = items[0][1].data
+    base, size = first.data_ptr(), first.element_size()
+    storage = first.untyped_storage().data_ptr()
+    off = 0
+    for _, p, _ in items:
+        t = p.data
+        if not t.is_contiguous() or t.dtype != first.dtype \
+                or t.untyped_storage().data_ptr() != storage \
+                or t.data_ptr() != base + off * size:
+            return None
+        off += t.numel()
+    return first.as_strided((off,), (1,), first.storage_offset())
+
+
 class _FsdpGroup:
     """The fsdp-sharded parameters of one module group (the embedding, a
     decoder layer, the final norm, the LM head), their stored pieces held
@@ -893,12 +943,15 @@ class _FsdpGroup:
 
 class FsdpParams:
     """The serving prologue under an fsdp axis (reference:
-    ``_wrap_sharded``'s fsdp gather), one group at a time.
+    ``_wrap_sharded``'s fsdp gather), one group at a time
+    (:func:`fsdp_groups`).
 
     At construction each group's stored pieces are moved into ONE flat
     buffer (the parameters become views of it), so a group crosses the
-    fsdp ranks in one all-gather.  :meth:`gather` (a context manager)
-    gathers a group into a wire scratch, lays each parameter's tp compute
+    fsdp ranks in one all-gather; pieces that already lie so (a 2-D
+    ``TrainStep``'s, the train -> serve handoff) are adopted as they are,
+    with no copy (``adopted`` counts them).  :meth:`gather` (a context
+    manager) gathers a group into a wire scratch, lays each parameter's tp compute
     shard out in a compute scratch, points the parameters at it for the
     duration and back at their pieces after: a rank holds its stored
     shards plus one group's compute shard, never a second model.  The two
@@ -910,42 +963,37 @@ class FsdpParams:
     own codes), left out of the groups."""
 
     def __init__(self, model, tp: TPContext, skip: Iterable[str] = ()):
-        from ..models.llama import inner_model
         self.comm = tp.fsdp_comm
         F = self.comm.size
-        stack = inner_model(model)
         skip = set(skip)
-        names = {id(p): n for n, p in model.named_parameters()
-                 if n not in skip}
         self.tied = model.lm_head is None
-        mods = {"embed": stack.embed_tokens, "norm": stack.norm,
-                "head": None if self.tied else model.lm_head}
-        mods.update(enumerate(stack.layers))
         dtypes = {p.dtype for n, p in model.named_parameters()
                   if n not in skip}
         if len(dtypes) != 1:
             raise ValueError("the fsdp gather packs one dtype; the model "
                              "holds %s" % sorted(map(str, dtypes)))
         dtype = dtypes.pop()
-        dev = stack.embed_tokens.weight.device
+        specs = {n: port_spec(n, tp.specs[n]) for n, _ in
+                 model.named_parameters() if n not in skip}
         self.groups: Dict[object, _FsdpGroup] = {}
+        self.adopted = 0
+        dev = next(model.parameters()).device
         with torch.no_grad():
-            for key, mod in mods.items():
-                if mod is None:
-                    continue
+            for key, found in fsdp_groups(model, specs,
+                                          tp.fsdp_axis).items():
                 items, off = [], 0
-                for p in mod.parameters():
-                    n = names.get(id(p))
-                    if n is None:
-                        continue
-                    dim = _fsdp_dim(port_spec(n, tp.specs[n]),
-                                    tp.fsdp_axis)
-                    if dim is not None:
-                        items.append((p, dim, tuple(p.shape), off))
-                        off += p.numel()
-                flat = torch.empty(off, dtype=dtype, device=dev)
+                for _n, p, dim in found:
+                    items.append((p, dim, tuple(p.shape), off))
+                    off += p.numel()
+                flat = _packed(found)
+                if flat is not None:
+                    # a 2-D train step's stored slices: adopted, no copy
+                    self.adopted += len(items)
+                else:
+                    flat = torch.empty(off, dtype=dtype, device=dev)
+                    for p, _d, shape, o in items:
+                        flat[o:o + p.numel()].copy_(p.reshape(-1))
                 for p, _d, shape, o in items:
-                    flat[o:o + p.numel()].copy_(p.reshape(-1))
                     p.data = flat[o:o + p.numel()].view(shape)
                 self.groups[key] = _FsdpGroup(items, flat)
         big = max(g.numel for g in self.groups.values())

@@ -24,7 +24,7 @@ each given the same global batch and model:
   take one coalesced ``all_reduce`` a dtype.  The clip norm sums the
   sharded squares over the axis and counts the replicated ones once; the
   update runs on this rank's rows with state created at the rows' shape,
-  then one ``all_gather`` a parameter re-assembles it.
+  then one ``all_gather`` a bucket re-assembles the bucket's parameters.
 - ``mesh=`` a mesh with an ``fsdp`` axis (``spmd.mesh_2d``): fsdp x tp
   (x dp) storage (reference ``_setup_sharded_2d``, ``_build_sharded_2d``).
   Each parameter is stored at its ``llama_param_specs`` placement (ZeRO-3
@@ -53,6 +53,7 @@ hold).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import warnings
 from typing import Callable, Dict, List, Optional
@@ -62,6 +63,7 @@ from torch import nn
 
 from ..distributed import collective as C
 from ..distributed.process_mesh import as_mesh
+from ..ops.moe_gate import RoutingGroup, routing_over
 from ..optimizer import Optimizer
 from .spmd import (P, ShardingConfig, SpecLayout, llama_param_specs,
                    port_spec, reference_shapes, resolve_mesh_axis,
@@ -94,6 +96,8 @@ class TrainStep:
                         if p.requires_grad]
         self._mode = None
         self._replica = None
+        self._routing = None
+        self._placement = None
         if sharding is not None and not isinstance(sharding,
                                                    ShardingConfig):
             raise TypeError("sharding must be a jit.spmd.ShardingConfig; "
@@ -101,8 +105,28 @@ class TrainStep:
         # the 2-D step's parameters already hold this rank's slices of
         # these whole shapes (``jit.redistribute.live_reshape``)
         self._placed_shapes = placed_shapes
+        # an optimizer that group_sharded_parallel marked brings its own
+        # mesh and stage; an implicit marker the step cannot honor
+        # degrades to the replicated step instead of failing a
+        # construction that worked before
+        implicit = False
+        if mesh is None and sharding is None:
+            marker = getattr(optimizer, "_sharded_update", None)
+            if marker is not None:
+                mesh, sharding = marker
+                implicit = True
         if mesh is not None or sharding is not None:
-            self._setup_sharded(mesh, sharding or ShardingConfig())
+            try:
+                self._setup_sharded(mesh, sharding or ShardingConfig())
+            except (ValueError, NotImplementedError) as e:
+                if not implicit:
+                    raise
+                warnings.warn(
+                    f"ignoring the optimizer's _sharded_update marker "
+                    f"({e}); building the replicated TrainStep instead",
+                    stacklevel=2)
+                self._mode = None
+                self._setup_hybrid()
         else:
             self._setup_hybrid()
 
@@ -130,8 +154,23 @@ class TrainStep:
                          else hcg.get_data_parallel_group())
         self._dp = dp
         self._dp_index = hcg.get_data_parallel_rank()
+        if getattr(cfg, "num_local_experts", 0):
+            # the reference runs the hybrid step on GSPMD-global arrays:
+            # its MoE blocks route the replicas' tokens as one set
+            comm = self._replica
+            self._routing = RoutingGroup(
+                lambda t: comm.all_gather(t[None], 0), self._dp_index,
+                hcg.get_sep_parallel_rank() if seq else 0, dp)
 
     def _setup_sharded(self, mesh, cfg: ShardingConfig) -> None:
+        placement = getattr(self.model, "_ptt_ep", None)
+        if placement is not None:
+            if mesh is not None and as_mesh(mesh) != placement.mesh:
+                raise ValueError(
+                    "a shard_mixtral model trains over the mesh it was "
+                    "placed on (%r), not %r" % (placement.mesh, mesh))
+            self._setup_2d(placement.mesh, cfg, placement)
+            return
         if mesh is not None:
             pm = as_mesh(mesh)
             if "fsdp" in pm.dim_names and pm.size > 1:
@@ -168,7 +207,13 @@ class TrainStep:
                 self.optimizer.state(k)
         self._buckets, self._nonshard = self._grad_buckets()
 
-    def _setup_2d(self, pm, cfg: ShardingConfig) -> None:
+    def _setup_2d(self, pm, cfg: ShardingConfig, placement=None) -> None:
+        """The 2-D step's storage: each parameter at its
+        ``llama_param_specs`` placement (packed, a module group at a
+        time, as the fsdp serving engine gathers them:
+        ``spmd.fsdp_groups``), or at a ``shard_mixtral`` placement, which
+        the parameters already hold (``placement``; the expert banks then
+        stay split over ep for compute)."""
         if not getattr(self.optimizer, "shardable_update", True):
             raise _not_elementwise(self.optimizer)
         self._mode = "2d"
@@ -179,30 +224,48 @@ class TrainStep:
         self._coords = {n: c.index for n, c in self._comms.items()}
         self._deg = pm.size
         self._live = [a for a in pm.dim_names if sizes[a] > 1]
-        self._fsdp_deg = sizes["fsdp"]
-        layout = SpecLayout(tp_axis="tp" if sizes.get("tp", 1) > 1
-                            else None, fsdp_axis="fsdp")
-        whole = self._placed_shapes or {k: tuple(p.shape)
-                                        for k, p in self._params}
-        specs = llama_param_specs([k for k, _ in self._params], layout,
-                                  shapes=reference_shapes(whole), mesh=pm)
-        self._shardable, self._specs = {}, {}
+        self._placement = placement
+        if placement is not None:
+            self._fsdp_deg = sizes.get(placement.fsdp_axis, 1)
+            whole = placement.whole_shapes
+            specs = placement.specs
+        else:
+            self._fsdp_deg = sizes["fsdp"]
+            layout = SpecLayout(tp_axis="tp" if sizes.get("tp", 1) > 1
+                                else None, fsdp_axis="fsdp")
+            whole = self._placed_shapes or {k: tuple(p.shape)
+                                            for k, p in self._params}
+            specs = {k: port_spec(k, v) for k, v in llama_param_specs(
+                [k for k, _ in self._params], layout,
+                shapes=reference_shapes(whole), mesh=pm).items()}
+        self._shardable, self._specs, self._compute = {}, {}, {}
         self._gather_bytes_per_step = 0
         with torch.no_grad():
             for k, p in self._params:
-                ok = bool(spec_axes(specs[k])) \
-                    and self._state_param_shaped(k, p)
-                spec = port_spec(k, specs[k]) if ok else P()
+                ok = bool(spec_axes(specs[k])) and (
+                    placement is not None
+                    or self._state_param_shaped(k, p))
+                spec = specs[k] if ok else P()
                 self._shardable[k], self._specs[k] = ok, spec
-                part = math.prod(sizes[a] for a in spec_axes(spec))
+                self._compute[k] = (placement.compute_spec(k)
+                                    if placement is not None else spec)
+                gathered = spec_axes(self._compute[k])
+                part = math.prod(sizes[a] for a in gathered)
                 if part > 1:
-                    nbytes = math.prod(whole[k]) * p.element_size()
+                    # the compute value (a bank's E/ep experts) arrives
+                    # but for this rank's own slice of it
+                    nbytes = math.prod(whole[k]) * p.element_size() \
+                        // math.prod(sizes[a] for a in spec_axes(spec)
+                                     if a not in gathered)
                     self._gather_bytes_per_step += nbytes - nbytes // part
-                    if self._placed_shapes is None:
-                        # the stored slice; the whole tensor is freed
-                        p.data = shard_tensor(
-                            p.data, spec, pm,
-                            self._coords).contiguous().clone()
+            if placement is None and self._placed_shapes is None:
+                self._store_slices()
+            if placement is None:
+                from .spmd import _ShardInfo
+                # the placement the fsdp x tp serving engine adopts
+                self.model._ptt_shard = _ShardInfo(
+                    sizes, dict(self._coords), dict(whole))
+            for k, p in self._params:
                 self.optimizer.state_for(k, p.data)
         self._stored = {k: p.data for k, p in self._params}
         from ..observability import default_registry
@@ -219,6 +282,39 @@ class TrainStep:
             "(train_params) and the sharded serving prologue's fsdp "
             "gather (serving_params)", labels=("site",)
         ).labels(site="train_params")
+
+    def _store_slices(self) -> None:
+        """Keep this rank's slice of each sharded parameter (the whole
+        tensor is freed).  A module group's fsdp-sharded slices are laid
+        back to back in one buffer, in the order the fsdp serving engine
+        packs them (``spmd.fsdp_groups``), so an engine built from the
+        trained model adopts them without a copy; the other slices (and a
+        model that is not a decoder stack) are stored alone."""
+        from .spmd import fsdp_groups
+        try:
+            groups = fsdp_groups(self.model, self._specs, "fsdp")
+        except ValueError:
+            groups = {}
+        packed = set()
+        for items in groups.values():
+            dtypes = {p.dtype for _, p, _ in items}
+            if len(dtypes) != 1:
+                continue
+            pieces = [shard_tensor(p.data, self._specs[n], self._mesh,
+                                   self._coords) for n, p, _ in items]
+            flat = torch.empty(sum(x.numel() for x in pieces),
+                               dtype=dtypes.pop(),
+                               device=items[0][1].device)
+            off = 0
+            for (n, p, _), x in zip(items, pieces):
+                flat[off:off + x.numel()].copy_(x.reshape(-1))
+                p.data = flat[off:off + x.numel()].view(x.shape)
+                off += x.numel()
+                packed.add(n)
+        for k, p in self._params:
+            if k not in packed and spec_axes(self._specs[k]):
+                p.data = shard_tensor(p.data, self._specs[k], self._mesh,
+                                      self._coords).contiguous().clone()
 
     def _state_param_shaped(self, k: str, p: torch.Tensor) -> bool:
         """Every state leaf of ``p`` with a dim has ``p``'s shape (the
@@ -363,7 +459,7 @@ class TrainStep:
         comm = self._replica
         batch = self._slice_batch(batch, self._dp_index, self._dp) \
             if self._dp > 1 else list(batch)
-        with torch.enable_grad():
+        with torch.enable_grad(), routing_over(self._routing):
             loss = self._loss(batch)
         by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
         for _, p in self._params:
@@ -424,13 +520,24 @@ class TrainStep:
                     continue
                 st = self.optimizer.state(k)
                 if self._shardable[k]:
-                    rows = self._rows(p)
-                    self.optimizer._update_rule(rows, grads[k], st, lr)
-                    C.all_gather_rows(p.data.view(deg, -1),
-                                      rows.reshape(-1).clone(), comm.group)
+                    self.optimizer._update_rule(self._rows(p), grads[k], st,
+                                                lr)
                 else:
                     self.optimizer._update_rule(p.data, grads[k], st, lr)
                 p.grad = None
+            # the updated rows back on every rank: one all_gather a bucket
+            for bucket in self._buckets:
+                mine = torch.cat([self._rows(params[k]).reshape(-1)
+                                  for k in bucket])
+                rows = torch.empty((deg, mine.numel()), dtype=mine.dtype,
+                                   device=mine.device)
+                C.all_gather_rows(rows, mine, comm.group)
+                off = 0
+                for k in bucket:
+                    whole = params[k].data.view(deg, -1)
+                    c = whole.shape[1]
+                    whole.copy_(rows[:, off:off + c])
+                    off += c
             loss = comm.all_reduce(loss.reshape(1))[0]
             if mean:
                 loss = loss / deg
@@ -448,14 +555,20 @@ class TrainStep:
         comms, specs = self._comms, self._specs
         mean = self._cfg.loss_reduction == "mean"
         with torch.no_grad():
-            # the ZeRO-3 compute gather: the whole value of every param,
-            # for this step only
+            # the ZeRO-3 compute gather: the whole value of every param
+            # (a shard_mixtral bank: its E/ep experts), for this step only
             for k, p in self._params:
-                p.data = gather_spec_axes(self._stored[k], specs[k], comms,
-                                          op="train_gather")
+                p.data = gather_spec_axes(self._stored[k], self._compute[k],
+                                          comms, op="train_gather")
+        # a shard_mixtral model's tokens route over the mesh as one set,
+        # as the reference's GSPMD-global batch does
+        local = (self._placement.local(self._deg if mean else 1)
+                 if self._placement is not None
+                 else contextlib.nullcontext())
         try:
-            loss = self._loss(self._slice_batch(
-                batch, self._linear_index(), self._deg))
+            with local:
+                loss = self._loss(self._slice_batch(
+                    batch, self._linear_index(), self._deg))
         finally:
             for k, p in self._params:
                 p.data = self._stored[k]
@@ -467,7 +580,8 @@ class TrainStep:
                 p.grad = None
                 if g is None:
                     continue
-                g = scatter_spec_axes(g, specs[k], comms).contiguous()
+                g = scatter_spec_axes(g, self._compute[k],
+                                      comms).contiguous()
                 rest = tuple(a for a in self._live
                              if a not in spec_axes(specs[k]))
                 if rest:

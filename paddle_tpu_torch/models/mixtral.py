@@ -16,10 +16,24 @@ the eager model equals the engines only where nothing can drop:
 Attention, norms, embedding, LM head, ``generate`` and weight
 initialization are Llama's (``models/llama.py``).  Parameters live in
 ``config.dtype`` on the device given at construction (``device=None`` is
-the CUDA card).  ``shard_mixtral`` (expert parallelism) is not ported.
+the CUDA card).
+
+Over ranks the block routes the token set the reference routes, as one
+set (``ops.moe_gate.routed_moe_ffn``): the reference's sequence
+parallelism, hybrid data parallelism and ``shard_mixtral`` run on
+GSPMD-global arrays, so their capacity, slot order and aux term are the
+whole batch's; its ZeRO and 2-D steps run one ``shard_map`` replica a
+shard, so those route each replica's batch alone (the block's own path).
+The step that spans ranks makes the set current (``moe_gate.routing_over``);
+under a sep group outside a step the model routes over the sep ranks.
+:func:`shard_mixtral` places the model over a mesh of ranks (expert banks
+split over ep, a rank keeping only its slices); it trains through
+``TrainStep(model, ..., mesh=mesh)`` and its own forward gives the whole
+batch's logits.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import List, Optional
 
@@ -28,16 +42,17 @@ from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
 from ..nn.layers import Embedding, Linear, RMSNorm
-from ..ops.moe_gate import (assignment_slots, combine_from_buffers,
+from ..ops.moe_gate import (RoutingGroup, assignment_slots,
+                            combine_from_buffers, current_routing,
                             dispatch_to_buffers, grouped_expert_swiglu,
-                            topk_gate)
+                            routed_moe_ffn, routing_over, topk_gate)
 from .llama import (KVCache, LlamaAttention, LlamaConfig, LlamaForCausalLM,
-                    LlamaPretrainingCriterion)
+                    LlamaPretrainingCriterion, sep_group, sep_slice)
 
 __all__ = ["MixtralConfig", "MixtralSparseMoeBlock", "MixtralDecoderLayer",
            "MixtralModel", "MixtralForCausalLM",
            "MixtralPretrainingCriterion", "mixtral_tiny_config",
-           "mixtral_8x7b_config", "shard_mixtral"]
+           "mixtral_8x7b_config", "shard_mixtral", "MixtralPlacement"]
 
 
 @dataclass
@@ -78,7 +93,11 @@ class MixtralSparseMoeBlock(nn.Module):
     capacity buffers ``[E, C, D]`` (drops beyond ``C``) -> three batched
     expert products -> weighted combine.  ``l_aux`` holds the last
     forward's load-balancing term ``E * sum_e f_e * P_e`` (``f_e`` from
-    the raw assignment, before capacity)."""
+    the raw assignment, before capacity; over ranks this rank's share of
+    the set's term, ``moe_gate.aux_share``) and ``dropped`` its dropped
+    assignments (the set's, over ranks).  ``ep``: this rank's ``AxisComm``
+    of the expert-parallel axis under :func:`shard_mixtral` (the banks
+    then hold its ``E/ep`` experts)."""
 
     def __init__(self, config: MixtralConfig, device=None, dtype=None):
         super().__init__()
@@ -93,6 +112,8 @@ class MixtralSparseMoeBlock(nn.Module):
         self.w_up = nn.Parameter(torch.empty(E, D, M, **kw))
         self.w_down = nn.Parameter(torch.empty(E, M, D, **kw))
         self.l_aux: Optional[torch.Tensor] = None
+        self.dropped: Optional[torch.Tensor] = None
+        self.ep = None
 
     def capacity(self, n_tokens: int) -> int:
         return max(1, int(self.capacity_factor * n_tokens * self.top_k
@@ -101,6 +122,19 @@ class MixtralSparseMoeBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         flat = x.reshape(-1, x.shape[-1])
         E, k = self.num_experts, self.top_k
+        group = current_routing()
+        if group is not None or self.ep is not None:
+            if group is None:
+                raise RuntimeError(
+                    "an expert-parallel MoE block routes over the ranks of "
+                    "its mesh: run the sharded model through its own "
+                    "forward or TrainStep(..., mesh=)")
+            out, self.l_aux, self.dropped = routed_moe_ffn(
+                flat, x.shape[0] if x.dim() == 3 else 1, self.gate.weight,
+                self.w_gate, self.w_up, self.w_down, top_k=k,
+                num_experts=E, capacity_factor=self.capacity_factor,
+                group=group, ep_axis=self.ep)
+            return out.reshape(x.shape)
         capacity = self.capacity(flat.shape[0])
         logits = (flat.to(torch.float32)
                   @ self.gate.weight.to(torch.float32).t())     # [N, E]
@@ -114,6 +148,7 @@ class MixtralSparseMoeBlock(nn.Module):
                                    keep).to(flat.dtype)
         frac = oh.sum(dim=1).mean(dim=0)                        # [E]
         self.l_aux = E * (frac * probs.mean(dim=0)).sum()
+        self.dropped = (~keep).sum()
         return out.reshape(x.shape)
 
 
@@ -175,10 +210,6 @@ class MixtralForCausalLM(nn.Module):
     def __init__(self, config: MixtralConfig, device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if config.sequence_parallel:
-            raise NotImplementedError(
-                "MixtralForCausalLM: sequence parallelism is not ported "
-                "for the MoE family (Llama and Qwen2 train under sep)")
         self.config = config
         dev = resolve_device(device)
         dtype = config.torch_dtype
@@ -204,7 +235,21 @@ class MixtralForCausalLM(nn.Module):
         """As ``LlamaForCausalLM.forward``: the logits (autograd on), or
         with ``caches`` ``(logits, new caches)`` under no_grad."""
         if caches is None:
+            placement = getattr(self, "_ptt_ep", None)
+            if placement is not None and not placement.inside:
+                return placement.forward(self, input_ids)
+            hcg = sep_group(self.config)
+            if hcg is not None:
+                input_ids = sep_slice(input_ids, hcg)
+                if current_routing() is None:
+                    with routing_over(sep_routing(hcg)):
+                        return self.lm_logits(self.mixtral(input_ids))
             return self.lm_logits(self.mixtral(input_ids))
+        if getattr(self, "_ptt_ep", None) is not None:
+            raise NotImplementedError(
+                "a shard_mixtral model trains and runs whole-batch "
+                "forwards; serve Mixtral over an ep mesh through "
+                "jit.spmd.shard_model and the engines")
         with torch.no_grad():
             h, caches = self.mixtral(input_ids, caches, position_offset)
             return self.lm_logits(h), caches
@@ -242,10 +287,173 @@ class MixtralPretrainingCriterion(nn.Module):
         return self._ce(logits, labels) + self._model[0].router_aux_loss()
 
 
-def shard_mixtral(model, mesh, ep_axis="model", fsdp_axis="sharding"):
-    """Expert-parallel + FSDP training layout: not ported (the port trains
-    MoE models on one device; it serves them over ep meshes through
-    ``jit.spmd.shard_model``)."""
-    raise NotImplementedError(
-        "shard_mixtral (expert-parallel training over a mesh) is not "
-        "ported to paddle_tpu_torch yet; it is ROADMAP queue 1 item 5.4")
+def sep_routing(hcg) -> RoutingGroup:
+    """The token set of a sequence-parallel forward outside a training
+    step: the sep ranks' slices of every row (each rank given the whole
+    batch)."""
+    comm = hcg.get_sep_parallel_group()
+    return RoutingGroup(lambda t: comm.all_gather(t[None], 0), 0,
+                        comm.index, 1.0)
+
+
+_BANKS = ("w_gate", "w_up", "w_down")
+
+
+def _placement_spec(name: str, ep: Optional[str],
+                    fsdp: Optional[str]) -> tuple:
+    """``shard_mixtral``'s placement of parameter ``name`` in the port's
+    layout (a Linear weight ``[out, in]``): the reference's table with its
+    Linear entries swapped."""
+    from ..jit.spmd import P
+    if name.endswith(_BANKS):
+        return P(ep, None, fsdp)
+    if "embed_tokens" in name or name == "lm_head.weight" \
+            or any(p in name for p in ("q_proj.weight", "k_proj.weight",
+                                       "v_proj.weight")):
+        return P(ep, fsdp)
+    if "o_proj.weight" in name:
+        return P(fsdp, ep)
+    return P()
+
+
+class MixtralPlacement:
+    """What :func:`shard_mixtral` leaves on the model (``_ptt_ep``): the
+    mesh, this rank's ``AxisComm`` per axis, each parameter's placement
+    (port layout, pruned to what its dims divide), the ep and fsdp axes
+    and the whole shapes.
+
+    A rank stores only its slice of each parameter.  For compute every
+    parameter is gathered whole over its placement's axes except the
+    expert banks' E dim, which stays split over ep (:meth:`compute_spec`):
+    a rank runs only its experts.  The tokens are split by rows over the
+    mesh in rank order (:meth:`linear_index`) and routed as one set over
+    every rank (:meth:`routing`)."""
+
+    def __init__(self, mesh, comms, specs, ep_axis, fsdp_axis,
+                 whole_shapes):
+        self.mesh = mesh
+        self.comms = comms
+        self.specs = specs
+        self.ep_axis = ep_axis
+        self.fsdp_axis = fsdp_axis
+        self.whole_shapes = whole_shapes
+        self.inside = False
+
+    def compute_spec(self, name: str) -> tuple:
+        from ..jit.spmd import P, _entry_names
+        spec = self.specs[name]
+        if not name.endswith(_BANKS):
+            return spec
+        return P(*[tuple(n for n in _entry_names(e) if n != self.ep_axis)
+                   or None for e in spec])
+
+    def linear_index(self) -> int:
+        idx = 0
+        sizes = self.mesh.axis_sizes()
+        for a in self.mesh.dim_names:
+            idx = idx * sizes[a] + self.comms[a].index
+        return idx
+
+    def gather_ranks(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` stacked along a new dim 0, in rank order."""
+        out = t[None]
+        for a in reversed(self.mesh.dim_names):
+            out = self.comms[a].all_gather(out, 0)
+        return out
+
+    def routing(self, scale: float) -> RoutingGroup:
+        return RoutingGroup(self.gather_ranks, self.linear_index(), 0,
+                            scale)
+
+    @contextlib.contextmanager
+    def local(self, scale: float):
+        """Inside the ``with``, the model runs this rank's rows as given
+        (no whole-batch forward), its MoE blocks routing over the mesh
+        with the aux share's ``scale`` (``moe_gate.RoutingGroup``)."""
+        self.inside = True
+        try:
+            with routing_over(self.routing(scale)):
+                yield
+        finally:
+            self.inside = False
+
+    @contextlib.contextmanager
+    def gathered(self, model: nn.Module):
+        """Every parameter at its compute value (:meth:`compute_spec`) for
+        the ``with`` block, back at its stored slice after."""
+        from ..jit.spmd import gather_spec_axes
+        stored = {}
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                stored[k] = p.data
+                p.data = gather_spec_axes(p.data, self.compute_spec(k),
+                                          self.comms)
+        try:
+            yield
+        finally:
+            for k, p in model.named_parameters():
+                p.data = stored[k]
+
+    @torch.no_grad()
+    def forward(self, model, input_ids: torch.Tensor) -> torch.Tensor:
+        """The whole batch's logits on every rank: this rank's rows through
+        the model at the compute values, routed over the mesh, then one
+        all-gather a mesh axis."""
+        from ..distributed.collective import all_gather_diff
+        n = self.mesh.size
+        if input_ids.shape[0] % n:
+            raise ValueError(
+                "shard_mixtral: batch dim0=%d is not divisible by the mesh "
+                "size %d (the rows split over the ranks)"
+                % (input_ids.shape[0], n))
+        rows = input_ids.shape[0] // n
+        idx = self.linear_index()
+        with self.gathered(model), self.local(1.0):
+            out = model(input_ids[idx * rows:(idx + 1) * rows])
+        for a in reversed(self.mesh.dim_names):
+            c = self.comms[a]
+            out = all_gather_diff(out, 0, c.group, c.size)
+        return out
+
+
+@torch.no_grad()
+def shard_mixtral(model: MixtralForCausalLM, mesh, ep_axis: str = "model",
+                  fsdp_axis: str = "sharding") -> MixtralForCausalLM:
+    """Expert-parallel and fsdp placement of ``model`` over the ranks of
+    ``mesh`` (a ``distributed.process_mesh.ProcessMesh``; every rank
+    calls this with the same whole model), the reference's placements:
+    the expert banks split E over ``ep_axis`` and dim 2 over
+    ``fsdp_axis``; the attention projections, the embedding and the LM
+    head Megatron columns and rows with ``ep_axis`` standing in for tp and
+    their other dim over ``fsdp_axis``; the router and the norms
+    replicated.  An axis the mesh lacks, or whose degree a dim does not
+    divide, is dropped from that dim.  Each rank keeps only its slices
+    (the whole tensors are freed); the MoE blocks dispatch to the experts'
+    owners over ``ep_axis`` (:class:`MixtralPlacement`).  Returns the
+    model."""
+    from ..distributed.process_mesh import as_mesh
+    from ..jit.spmd import prune_spec_axes, shard_tensor
+    pm = as_mesh(mesh)
+    sizes = pm.axis_sizes()
+    comms = pm.bind()
+    coords = {a: c.index for a, c in comms.items()}
+    ep = ep_axis if sizes.get(ep_axis, 1) > 1 else None
+    fsdp = fsdp_axis if sizes.get(fsdp_axis, 1) > 1 else None
+    if ep is not None and model.config.num_local_experts % sizes[ep]:
+        raise ValueError(
+            "shard_mixtral: %d experts do not split over an ep degree of %d"
+            % (model.config.num_local_experts, sizes[ep]))
+    whole = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    specs = {}
+    for k, p in model.named_parameters():
+        spec = prune_spec_axes(_placement_spec(k, ep, fsdp), whole[k], pm)
+        if k.endswith(_BANKS) and ep is not None and spec[:1] != (ep,):
+            raise ValueError("shard_mixtral: bank %s does not split E "
+                             "over %r" % (k, ep))
+        specs[k] = spec
+        p.data = shard_tensor(p.data, spec, pm, coords).contiguous().clone()
+    for layer in model.mixtral.layers:
+        layer.block_sparse_moe.ep = comms[ep] if ep is not None else None
+    model._ptt_ep = MixtralPlacement(pm, comms, specs, ep_axis, fsdp_axis,
+                                     whole)
+    return model

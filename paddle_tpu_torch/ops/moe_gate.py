@@ -7,7 +7,11 @@ The one top-k gate and dispatch of the port.  Callers:
   drops, and the load-balancing aux term (computed by the caller from the
   raw assignment);
 - ``jit/serving_step.py``: :func:`moe_ffn` is the dropless MoE FFN of the
-  serving steps, on one device or over an ep mesh axis.
+  serving steps, on one device or over an ep mesh axis;
+- the training steps over ranks: :func:`routed_moe_ffn` routes a token
+  set that spans ranks (:class:`RoutingGroup`, made current by
+  :func:`routing_over`) as the reference routes its global batch, with an
+  expert-parallel dispatch over all_to_alls under ``shard_mixtral``.
 
 Every rounding point is the reference's: router logits in fp32, the
 softmax in fp32, the dispatch an fp32 scatter-add cast back to the input
@@ -29,11 +33,16 @@ are XLA einsums outside any Pallas kernel.
 """
 from __future__ import annotations
 
+import contextlib
+from typing import Callable, List, Optional
+
 import torch
 import torch.nn.functional as F
 
 __all__ = ["topk_gate", "assignment_slots", "dispatch_to_buffers",
-           "grouped_expert_swiglu", "combine_from_buffers", "moe_ffn"]
+           "grouped_expert_swiglu", "combine_from_buffers", "moe_ffn",
+           "RoutingGroup", "routing_over", "current_routing",
+           "global_slots", "route_capacity", "aux_share", "routed_moe_ffn"]
 
 
 def topk_gate(logits: torch.Tensor, k: int, renormalize: bool = True):
@@ -188,3 +197,157 @@ def _moe_ffn_ep(x, gate_w, wg, wu, wd, top_k, comm, ep):
     back = comm.all_to_all(back)
     out_r = combine_from_buffers(back, top_i, slot, top_w).to(x.dtype)
     return comm.all_gather(out_r, 0)
+
+
+# ---------------------------------------------------------------------------
+# routing over a token set that spans ranks (training)
+# ---------------------------------------------------------------------------
+class RoutingGroup:
+    """The token set a MoE block routes over when it spans ranks: the
+    reference routes a GSPMD-global batch (sequence parallelism, a hybrid
+    group's data ranks, ``shard_mixtral``) as one set, so the capacity,
+    the slot order and the aux term's ``f_e`` and ``P_e`` are those of
+    the whole set, not of a rank's slice.
+
+    - ``gather(t)``: every rank's ``t`` stacked along a new dim 0, in the
+      group's order (small tensors: the per-row expert counts);
+    - ``row_block``, ``seq_block``: where this rank's rows sit in the
+      global ``[B, S]`` token order (row block ``row_block`` of the batch,
+      sequence block ``seq_block`` of each row); every rank holds the same
+      number of rows and of positions a row;
+    - ``scale``: what the training step divides the sum of the ranks'
+      gradients by (the data degree for a mean, 1 for a sum), so each
+      rank's aux term is its tokens' share of the global term times
+      ``scale``."""
+
+    def __init__(self, gather: Callable[[torch.Tensor], torch.Tensor],
+                 row_block: int, seq_block: int, scale: float):
+        self.gather = gather
+        self.row_block = int(row_block)
+        self.seq_block = int(seq_block)
+        self.scale = float(scale)
+
+
+_ROUTING: List[RoutingGroup] = []
+
+
+@contextlib.contextmanager
+def routing_over(group: Optional[RoutingGroup]):
+    """Route every MoE block run inside the ``with`` over ``group`` (None:
+    each forward routes its own tokens)."""
+    _ROUTING.append(group)
+    try:
+        yield
+    finally:
+        _ROUTING.pop()
+
+
+def current_routing() -> Optional[RoutingGroup]:
+    return _ROUTING[-1] if _ROUTING else None
+
+
+def global_slots(oh: torch.Tensor, n_rows: int, group: RoutingGroup):
+    """Each assignment's capacity slot in the whole token set's order.
+
+    ``oh`` [N, k, E] is this rank's one-hot assignment (``N = n_rows *
+    S`` tokens, rows major).  The ranks' per-row counts are gathered once;
+    an assignment's slot is the count of assignments to its expert by the
+    tokens before it in the global order (rows, then sequence blocks
+    within a row, then positions, then the k choices): an exclusive scan
+    over the ranks.  Returns ``(slot int32 [N, k], totals f32 [E],
+    n_global)``: the set's assignment count per expert and its token
+    count."""
+    N, k, E = oh.shape
+    per_row = oh.reshape(n_rows, (N // n_rows) * k, E)
+    counts = per_row.sum(dim=1)                                # [Bl, E]
+    where = torch.tensor([group.row_block, group.seq_block],
+                         dtype=torch.float32, device=oh.device)
+    mine = torch.cat([counts, where.expand(n_rows, 2)], dim=1)
+    every = group.gather(mine)                                 # [n, Bl, E+2]
+    n = every.shape[0]
+    local_rows = torch.arange(n_rows, device=oh.device,
+                              dtype=torch.float32)
+    rows = every[..., E] * n_rows + local_rows                 # [n, Bl]
+    seqs = every[..., E + 1]
+    my_rows = group.row_block * n_rows + local_rows            # [Bl]
+    before = (rows[None] < my_rows[:, None, None]) | (
+        (rows[None] == my_rows[:, None, None])
+        & (seqs[None] < group.seq_block))                      # [Bl, n, Bl]
+    base = (before[..., None].to(torch.float32)
+            * every[None, ..., :E]).sum(dim=(1, 2))            # [Bl, E]
+    pos = per_row.cumsum(dim=1) - 1.0 + base[:, None, :]
+    slot = (pos * per_row).sum(dim=-1).reshape(N, k).to(torch.int32)
+    return slot, every[..., :E].sum(dim=(0, 1)), n * N
+
+
+def route_capacity(capacity_factor: float, n_tokens: int, top_k: int,
+                   num_experts: int) -> int:
+    """The capacity of each expert's buffer for ``n_tokens`` routed
+    tokens: ``max(1, int(factor * n_tokens * k / E))``."""
+    return max(1, int(capacity_factor * n_tokens * top_k / num_experts))
+
+
+def aux_share(totals: torch.Tensor, probs: torch.Tensor, n_global: int,
+              scale: float) -> torch.Tensor:
+    """This rank's share of the load-balancing term ``E * sum_e f_e *
+    P_e`` of the whole token set: ``f_e`` from the set's counts
+    (``totals / n_global``, no gradient), ``P_e`` the set's mean router
+    probability, of which this rank's ``probs`` [N, E] give their sum;
+    times ``scale`` (:class:`RoutingGroup`)."""
+    E = probs.shape[-1]
+    frac = totals / n_global
+    return scale * E * (frac * probs.sum(dim=0) / n_global).sum()
+
+
+def routed_moe_ffn(x: torch.Tensor, n_rows: int, gate_w: torch.Tensor,
+                   wg: torch.Tensor, wu: torch.Tensor, wd: torch.Tensor, *,
+                   top_k: int, num_experts: int, capacity_factor: float,
+                   group: RoutingGroup, ep_axis=None):
+    """The capacity MoE FFN over a token set that spans ranks, with
+    autograd: this rank's tokens ``x [N, D]`` (``n_rows`` rows of the
+    batch), routed as part of ``group`` (:func:`global_slots`: the global
+    capacity ``route_capacity(N_global)``, global slot order, drops where
+    a global slot is past the capacity).
+
+    A rank sends each expert at most ``Cs = min(capacity, N)`` kept
+    assignments (an expert takes a token once), packed in its own order
+    into a send buffer ``[E, Cs, D]``.  With ``ep_axis`` (this rank's
+    ``AxisComm`` of the expert-parallel axis; ``wg/wu/wd`` this rank's
+    ``E/ep`` experts) one all_to_all ships each expert's rows to its
+    owner, the owner runs them through its experts as ``[E/ep, ep Cs,
+    D]``, and a second all_to_all ships the outputs home (each all_to_all's
+    adjoint is the same all_to_all, so the backward moves as much); the
+    payload is ``E * Cs * D`` elements a call and rank.  Without it the
+    whole bank runs here.
+
+    Returns ``(out [N, D] in x's dtype, aux share (:func:`aux_share`),
+    dropped assignments over the whole set (a tensor))``."""
+    N, D = x.shape
+    E, k = num_experts, top_k
+    logits = x.to(torch.float32) @ gate_w.to(torch.float32).t()
+    top_w, top_i, probs = topk_gate(logits, k)
+    oh = F.one_hot(top_i.long(), E).to(torch.float32)          # [N, k, E]
+    slot, totals, n_global = global_slots(oh, n_rows, group)
+    capacity = route_capacity(capacity_factor, n_global, k, E)
+    keep = slot < capacity
+    # this rank's kept assignments, packed per expert in its own order
+    kept = (oh * keep[..., None].to(torch.float32)).reshape(N * k, E)
+    local = ((kept.cumsum(dim=0) - 1.0) * kept).sum(dim=-1) \
+        .reshape(N, k).to(torch.int32)
+    cs = min(capacity, N)
+    disp = dispatch_to_buffers(x, top_i, local, keep, E, cs)   # [E, Cs, D]
+    if ep_axis is not None and ep_axis.size > 1:
+        from ..distributed.collective import all_to_all_diff
+        ep = ep_axis.size
+        el = E // ep
+        recv = all_to_all_diff(disp, ep_axis.group, "moe_all_to_all")
+        work = recv.view(ep, el, cs, D).transpose(0, 1).reshape(
+            el, ep * cs, D)
+        eo = grouped_expert_swiglu(work, wg, wu, wd)
+        back = eo.view(el, ep, cs, D).transpose(0, 1).reshape(E, cs, D)
+        back = all_to_all_diff(back, ep_axis.group, "moe_all_to_all")
+    else:
+        back = grouped_expert_swiglu(disp, wg, wu, wd)
+    out = combine_from_buffers(back, top_i, local, top_w, keep).to(x.dtype)
+    dropped = (totals - capacity).clamp(min=0).sum()
+    return out, aux_share(totals, probs, n_global, group.scale), dropped

@@ -1,6 +1,8 @@
 """Optimizers (counterpart of ``paddle_tpu/optimizer/optimizer.py``):
-the base with learning rate, weight decay and fp32 master weights, Adam
-with a moment dtype, AdamW with decoupled decay, and Adafactor.
+the base with learning rate (a float or an ``lr.LRScheduler``), weight
+decay, fp32 master weights and ``state_dict``; SGD, Momentum, Adagrad,
+RMSProp, Adadelta, Adamax, Lamb and Rprop; Adam with a moment dtype,
+AdamW with decoupled decay, and Adafactor.
 
 Each update rule (``_update_rule(p, g, state, lr)``) updates one tensor
 and its state in place under ``torch.no_grad``: the math runs in fp32 in
@@ -20,6 +22,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from .lr import LRScheduler
+
 _MOMENT_DTYPES = {"float32": torch.float32, "fp32": torch.float32,
                   "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
@@ -38,7 +42,7 @@ class Optimizer:
     # with cross-element reductions (factored statistics) sets False
     shardable_update = True
 
-    def __init__(self, learning_rate: float = 0.001,
+    def __init__(self, learning_rate: Union[float, LRScheduler] = 0.001,
                  parameters: Optional[Params] = None, weight_decay=None,
                  multi_precision: bool = False):
         if parameters is None:
@@ -48,14 +52,44 @@ class Optimizer:
             name, p = item if isinstance(item, tuple) else ("param_%d" % i,
                                                             item)
             self._params.append((name, p))
-        self._learning_rate = float(learning_rate)
+        self._learning_rate = (learning_rate
+                               if isinstance(learning_rate, LRScheduler)
+                               else float(learning_rate))
         self._weight_decay = weight_decay
         self._multi_precision = multi_precision
         self._state: Dict[str, Dict[str, torch.Tensor]] = {}
         self._global_step = 0
 
+    # -- learning rate -------------------------------------------------------
     def get_lr(self) -> float:
+        """The current rate: the scheduler's last value when the learning
+        rate is an ``lr.LRScheduler`` (its ``step()`` is the caller's)."""
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
         return self._learning_rate
+
+    def set_lr(self, value: float) -> None:
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError(
+                "cannot set_lr when lr is an LRScheduler instance")
+        self._learning_rate = float(value)
+
+    def set_lr_scheduler(self, scheduler: LRScheduler) -> None:
+        self._learning_rate = scheduler
+
+    def _decay_coeff(self) -> float:
+        """The L2 coefficient of ``weight_decay`` (a float or an
+        ``L2Decay``-style holder with ``_coeff``; 0 for None)."""
+        wd = self._weight_decay
+        if wd is None or wd is False:
+            return 0.0
+        return float(getattr(wd, "_coeff", wd))
+
+    def _decayed(self, p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """``g + coeff * p`` in fp32 (the reference's ``_apply_decay``)."""
+        g32 = g.to(torch.float32)
+        coeff = self._decay_coeff()
+        return g32 + coeff * p.to(torch.float32) if coeff else g32
 
     @property
     def params(self) -> List[Tuple[str, nn.Parameter]]:
@@ -103,6 +137,289 @@ class Optimizer:
     def clear_grad(self) -> None:
         for _, p in self._params:
             p.grad = None
+
+    clear_gradients = clear_grad
+
+    # -- checkpoints ---------------------------------------------------------
+    def state_dict(self) -> Dict[str, object]:
+        """``{"global_step", "LR_Scheduler" (a scheduler's own state),
+        "<param name>_<leaf>": tensor}`` (the reference's keys, each leaf
+        a copy)."""
+        out: Dict[str, object] = {"global_step": self._global_step}
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
+        for name, _ in self._params:
+            for k, v in self._state.get(name, {}).items():
+                out["%s_%s" % (name, k)] = v.detach().clone()
+        return out
+
+    @torch.no_grad()
+    def set_state_dict(self, state_dict: Dict[str, object]) -> None:
+        """Load :meth:`state_dict`'s keys: each parameter's state is made
+        fresh and the leaves found are copied in; a parameter with none
+        keeps no state."""
+        self._global_step = int(state_dict.get("global_step", 0))
+        if isinstance(self._learning_rate, LRScheduler) \
+                and "LR_Scheduler" in state_dict:
+            self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
+        for name, p in self._params:
+            st = self._init_state(name, p)
+            found = False
+            for k, cur in st.items():
+                v = state_dict.get("%s_%s" % (name, k))
+                if v is not None:
+                    st[k] = torch.as_tensor(v).to(cur.device, cur.dtype) \
+                        .clone()
+                    found = True
+            master = state_dict.get("%s_master" % name)
+            if master is not None:
+                st["master"] = torch.as_tensor(master).to(
+                    p.device, torch.float32).clone()
+                found = True
+            if found:
+                self._state[name] = st
+
+
+def _zeros32(p: torch.Tensor) -> torch.Tensor:
+    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+
+def _scalar32(value: float, p: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(float(value), dtype=torch.float32, device=p.device)
+
+
+class SGD(Optimizer):
+    """Plain gradient descent: ``p - lr * (g + coeff * p)``."""
+
+    def _update_rule(self, p, g, state, lr):
+        g32 = self._decayed(p, g)
+        base = state["master"] if "master" in state else p.to(torch.float32)
+        new = base - lr * g32
+        if "master" in state:
+            state["master"].copy_(new)
+        p.copy_(new)
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum (``use_nesterov``: the Nesterov form): the fp32
+    ``velocity`` ``v = momentum * v + g``, the step ``lr * v`` (or ``lr *
+    (g + momentum * v)``)."""
+
+    def __init__(self, learning_rate=0.001, momentum: float = 0.9,
+                 parameters: Optional[Params] = None,
+                 use_nesterov: bool = False, weight_decay=None,
+                 multi_precision: bool = False):
+        super().__init__(learning_rate, parameters, weight_decay,
+                         multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _init_state(self, name, p):
+        return {"velocity": _zeros32(p)}
+
+    def _update_rule(self, p, g, state, lr):
+        g32 = self._decayed(p, g)
+        v = self._momentum * state["velocity"] + g32
+        upd = g32 + self._momentum * v if self._nesterov else v
+        base = state["master"] if "master" in state else p.to(torch.float32)
+        new = base - lr * upd
+        state["velocity"].copy_(v)
+        if "master" in state:
+            state["master"].copy_(new)
+        p.copy_(new)
+
+
+class Adagrad(Optimizer):
+    """Adagrad: the fp32 sum of squared gradients ``moment`` (from
+    ``initial_accumulator_value``), the step ``lr * g / (sqrt(moment) +
+    epsilon)``."""
+
+    def __init__(self, learning_rate, epsilon: float = 1e-6,
+                 parameters: Optional[Params] = None, weight_decay=None,
+                 initial_accumulator_value: float = 0.0):
+        super().__init__(learning_rate, parameters, weight_decay)
+        self._eps = epsilon
+        self._init_acc = initial_accumulator_value
+
+    def _init_state(self, name, p):
+        return {"moment": torch.full(p.shape, float(self._init_acc),
+                                     dtype=torch.float32, device=p.device)}
+
+    def _update_rule(self, p, g, state, lr):
+        g32 = self._decayed(p, g)
+        acc = state["moment"] + g32.square()
+        new = p.to(torch.float32) - lr * g32 / (acc.sqrt() + self._eps)
+        state["moment"].copy_(acc)
+        p.copy_(new)
+
+
+class RMSProp(Optimizer):
+    """RMSProp with momentum and the ``centered`` form: ``mean_square``
+    (and ``mean_grad``) running averages at ``rho``, ``moment = momentum
+    * moment + lr * g / sqrt(ms (- mg^2) + epsilon)``, ``p - moment``."""
+
+    def __init__(self, learning_rate, rho: float = 0.95,
+                 epsilon: float = 1e-6, momentum: float = 0.0,
+                 centered: bool = False,
+                 parameters: Optional[Params] = None, weight_decay=None):
+        super().__init__(learning_rate, parameters, weight_decay)
+        self._rho, self._eps = rho, epsilon
+        self._momentum, self._centered = momentum, centered
+
+    def _init_state(self, name, p):
+        st = {"mean_square": _zeros32(p), "moment": _zeros32(p)}
+        if self._centered:
+            st["mean_grad"] = _zeros32(p)
+        return st
+
+    def _update_rule(self, p, g, state, lr):
+        g32 = self._decayed(p, g)
+        rho = self._rho
+        ms = rho * state["mean_square"] + (1 - rho) * g32.square()
+        if self._centered:
+            mg = rho * state["mean_grad"] + (1 - rho) * g32
+            state["mean_grad"].copy_(mg)
+            denom = (ms - mg.square() + self._eps).sqrt()
+        else:
+            denom = (ms + self._eps).sqrt()
+        mom = self._momentum * state["moment"] + lr * g32 / denom
+        state["mean_square"].copy_(ms)
+        state["moment"].copy_(mom)
+        p.copy_(p.to(torch.float32) - mom)
+
+
+class Adadelta(Optimizer):
+    """Adadelta: running averages of squared gradients and squared
+    updates at ``rho``, the update ``g * sqrt(asu + eps) / sqrt(asg +
+    eps)`` scaled by ``lr``."""
+
+    def __init__(self, learning_rate=0.001, epsilon: float = 1e-6,
+                 rho: float = 0.95, parameters: Optional[Params] = None,
+                 weight_decay=None):
+        super().__init__(learning_rate, parameters, weight_decay)
+        self._eps, self._rho = epsilon, rho
+
+    def _init_state(self, name, p):
+        return {"avg_squared_grad": _zeros32(p),
+                "avg_squared_update": _zeros32(p)}
+
+    def _update_rule(self, p, g, state, lr):
+        g32 = self._decayed(p, g)
+        rho, eps = self._rho, self._eps
+        asg = rho * state["avg_squared_grad"] + (1 - rho) * g32.square()
+        upd = g32 * (state["avg_squared_update"] + eps).sqrt() \
+            / (asg + eps).sqrt()
+        asu = rho * state["avg_squared_update"] + (1 - rho) * upd.square()
+        state["avg_squared_grad"].copy_(asg)
+        state["avg_squared_update"].copy_(asu)
+        p.copy_(p.to(torch.float32) - lr * upd)
+
+
+class Adamax(Optimizer):
+    """Adamax: the first moment, the infinity norm ``u = max(beta2 * u,
+    |g|)``, the step ``lr / (1 - beta1^t) * m / (u + epsilon)``."""
+
+    def __init__(self, learning_rate=0.001, beta1: float = 0.9,
+                 beta2: float = 0.999, epsilon: float = 1e-8,
+                 parameters: Optional[Params] = None, weight_decay=None):
+        super().__init__(learning_rate, parameters, weight_decay)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+
+    def _init_state(self, name, p):
+        return {"moment": _zeros32(p), "inf_norm": _zeros32(p),
+                "beta1_pow": _scalar32(1.0, p)}
+
+    def _update_rule(self, p, g, state, lr):
+        g32 = self._decayed(p, g)
+        b1 = self._beta1
+        b1p = state["beta1_pow"] * b1
+        m = b1 * state["moment"] + (1 - b1) * g32
+        u = torch.maximum(self._beta2 * state["inf_norm"], g32.abs())
+        new = p.to(torch.float32) - lr / (1 - b1p) * m / (u + self._eps)
+        state["moment"].copy_(m)
+        state["inf_norm"].copy_(u)
+        state["beta1_pow"].copy_(b1p)
+        p.copy_(new)
+
+
+class Lamb(Optimizer):
+    """Lamb (You et al. 2019): Adam's direction plus ``wd * p``, scaled by
+    the trust ratio ``||p|| / ||r||`` (1 where either norm is 0);
+    ``exclude_from_weight_decay_fn(name)`` True gives a parameter no
+    decay."""
+
+    # the trust ratio needs the whole parameter's norms: a rank's slice
+    # would change the math, so a sharded step keeps Lamb replicated
+    shardable_update = False
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay: float = 0.01,
+                 beta1: float = 0.9, beta2: float = 0.999,
+                 epsilon: float = 1e-6, parameters: Optional[Params] = None,
+                 exclude_from_weight_decay_fn: Optional[
+                     Callable[[str], bool]] = None):
+        super().__init__(learning_rate, parameters, lamb_weight_decay)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _init_state(self, name, p):
+        wd = self._decay_coeff()
+        if self._exclude_fn is not None and self._exclude_fn(name):
+            wd = 0.0
+        return {"moment1": _zeros32(p), "moment2": _zeros32(p),
+                "beta1_pow": _scalar32(1.0, p),
+                "beta2_pow": _scalar32(1.0, p), "wd": _scalar32(wd, p)}
+
+    def _update_rule(self, p, g, state, lr):
+        g32 = g.to(torch.float32)
+        p32 = p.to(torch.float32)
+        b1, b2 = self._beta1, self._beta2
+        b1p = state["beta1_pow"] * b1
+        b2p = state["beta2_pow"] * b2
+        m1 = b1 * state["moment1"] + (1 - b1) * g32
+        m2 = b2 * state["moment2"] + (1 - b2) * g32.square()
+        r = (m1 / (1 - b1p)) / ((m2 / (1 - b2p)).sqrt() + self._eps) \
+            + state["wd"] * p32
+        w_norm = torch.linalg.vector_norm(p32)
+        r_norm = torch.linalg.vector_norm(r)
+        trust = torch.where((w_norm > 0) & (r_norm > 0), w_norm / r_norm,
+                            torch.ones_like(w_norm))
+        for k, v in (("moment1", m1), ("moment2", m2), ("beta1_pow", b1p),
+                     ("beta2_pow", b2p)):
+            state[k].copy_(v)
+        p.copy_(p32 - lr * trust * r)
+
+
+class Rprop(Optimizer):
+    """Rprop: a per-element step size (``lr`` state, from the learning
+    rate) grown by ``etas[1]`` where the gradient keeps its sign, shrunk by
+    ``etas[0]`` where it flips (and that gradient zeroed), clipped to
+    ``learning_rate_range``; the step ``step size * sign(g)``."""
+
+    def __init__(self, learning_rate=0.001,
+                 learning_rate_range: Tuple[float, float] = (1e-5, 50),
+                 parameters: Optional[Params] = None,
+                 etas: Tuple[float, float] = (0.5, 1.2)):
+        super().__init__(learning_rate, parameters, None)
+        self._lr_range = learning_rate_range
+        self._etas = etas
+
+    def _init_state(self, name, p):
+        return {"prev_grad": _zeros32(p),
+                "lr": torch.full(p.shape, float(self.get_lr()),
+                                 dtype=torch.float32, device=p.device)}
+
+    def _update_rule(self, p, g, state, lr):
+        g32 = g.to(torch.float32)
+        sign = torch.sign(g32 * state["prev_grad"])
+        one = torch.ones_like(g32)
+        factor = torch.where(sign > 0, self._etas[1] * one,
+                             torch.where(sign < 0, self._etas[0] * one, one))
+        step = torch.clamp(state["lr"] * factor, self._lr_range[0],
+                           self._lr_range[1])
+        g_eff = torch.where(sign < 0, torch.zeros_like(g32), g32)
+        state["prev_grad"].copy_(g_eff)
+        state["lr"].copy_(step)
+        p.copy_(p.to(torch.float32) - step * torch.sign(g_eff))
 
 
 def adam_update(p: torch.Tensor, g: torch.Tensor,

@@ -31,6 +31,8 @@ from paddle_tpu_torch import observability as port_obs
 from paddle_tpu_torch.observability import capacity as port_capacity
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny_config
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(params=["reference", "port"])

@@ -51,6 +51,8 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            llama_tiny_config)
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.testing import ckpt_victim, faults
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 K, C = 3, 3             # steps before the save, steps after it

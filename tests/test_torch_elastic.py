@@ -31,6 +31,8 @@ from paddle_tpu_torch.inference import prefix_cache as port_prefix_cache
 from paddle_tpu_torch.inference import router as port_router
 from paddle_tpu_torch import observability as port_obs
 from paddle_tpu_torch.observability import capacity as port_capacity
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(params=["reference", "port"])

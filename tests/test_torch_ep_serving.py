@@ -39,6 +39,8 @@ from paddle_tpu_torch.models import (LlamaConfig, MixtralConfig,
                                      MixtralForCausalLM)
 from paddle_tpu_torch.ops import moe_gate as mg
 from paddle_tpu_torch.testing.parity import load_paddle_tpu_weights
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 PROMPTS = [[7, 9, 2], [3, 14, 15, 92, 65], list(range(1, 11))]
 BUDGET = 4

@@ -10,6 +10,8 @@ import pytest
 from paddle_tpu.testing import faults as ref_faults
 
 from paddle_tpu_torch.testing import faults as port_faults
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(params=["reference", "port"])

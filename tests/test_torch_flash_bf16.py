@@ -21,6 +21,8 @@ from paddle_tpu.ops import pallas_kernels as ref_pk
 
 from chip_smoke import flash_excess, flash_noise, flash_tolerance
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 # share of flash_tolerance each backward output may use against the
 # reference: the plain version and the reference round the same operands

@@ -39,6 +39,8 @@ from paddle_tpu_torch.observability import metrics as port_metrics
 from paddle_tpu_torch.ops.paged_attention import \
     KVPageBuffer as PortKVPageBuffer
 from paddle_tpu_torch.testing import faults as port_faults
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _modules(fleet, router, metrics, buf, faults):

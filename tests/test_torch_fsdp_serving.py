@@ -43,6 +43,8 @@ from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
                                      MixtralConfig, MixtralForCausalLM,
                                      Qwen2Config, Qwen2ForCausalLM)
 from paddle_tpu_torch.testing.parity import state_from_paddle_tpu
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 PROMPTS = [[7, 9, 2], [3, 14, 15, 92, 65], list(range(1, 11))]
 BUDGET = 4

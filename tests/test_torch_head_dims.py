@@ -27,6 +27,8 @@ from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import online_softmax as pos
 from paddle_tpu_torch.ops import paged_attention as pa
 from paddle_tpu_torch.quantization import functional as qf
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 t = torch.from_numpy
 # fp32, same algorithm, other summation order: rounding only

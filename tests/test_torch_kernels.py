@@ -19,6 +19,8 @@ from paddle_tpu.ops import pallas_kernels as ref_pk
 
 from paddle_tpu_torch.ops import kernels as pk
 from paddle_tpu_torch.ops import paged_attention as pa
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _rope_inputs(seed=0, N=37, H=4, Hkv=2, D=16):

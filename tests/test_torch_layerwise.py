@@ -33,6 +33,8 @@ from paddle_tpu_torch.ops import rms_norm as rn
 from paddle_tpu_torch.optimizer import Adafactor
 from paddle_tpu_torch.testing.parity import (layerwise_params_from_paddle_tpu,
                                              state_from_paddle_tpu)
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 def _bf16_ulp(a):
     """One bf16 ulp at each element of ``a`` (float32 numpy)."""

@@ -24,6 +24,8 @@ from paddle_tpu_torch.inference.router import ServingRouter
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.jit import serving_step as ss
 from paddle_tpu_torch.observability.request_trace import validate_span_chain
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 BUDGET = 8
 

@@ -35,13 +35,15 @@ from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.jit.train_step import TrainStep
 from paddle_tpu_torch.models import (MixtralConfig, MixtralForCausalLM,
                                      MixtralPretrainingCriterion,
-                                     MixtralSparseMoeBlock, shard_mixtral)
+                                     MixtralSparseMoeBlock)
 from paddle_tpu_torch.ops import dequant as dq
 from paddle_tpu_torch.ops import moe_gate as mg
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.quantization import functional as qf
 from paddle_tpu_torch.testing.parity import (load_paddle_tpu_weights,
                                              ptq_tree_from_paddle_tpu)
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 # fp32, same algorithm, other summation order: rounding only
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -190,15 +192,14 @@ def test_expert_parallel_and_sharding_raise(pair):
     py``): ``moe_ffn``'s ep path takes a rank's ``AxisComm`` and an engine
     mesh a ``ProcessMesh``, anything else raises ``TypeError``; so does
     the sharded ``TrainStep`` (ported: ZeRO over dp, fsdp x tp).
-    ``shard_mixtral`` is not ported and still raises."""
+    ``shard_mixtral`` is ported (``tests/test_torch_sharded_moe.py``
+    trains it over ranks)."""
     _ref, port = pair
     x = torch.zeros(4, 64)
     blk = port.mixtral.layers[0].block_sparse_moe
     with pytest.raises(TypeError, match="AxisComm"):
         mg.moe_ffn(x, blk.gate.weight, blk.w_gate, blk.w_up, blk.w_down,
                    top_k=2, ep_axis="ep", ep_degree=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        shard_mixtral(port, mesh=object())
     for option, kind in (("mesh", "ProcessMesh"),
                          ("sharding", "ShardingConfig")):
         with pytest.raises(TypeError, match=kind):

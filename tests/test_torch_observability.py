@@ -26,6 +26,8 @@ from paddle_tpu import observability as ref_obs
 from test_torch_split_serving import TINY, _pair
 from paddle_tpu_torch import observability as port_obs
 from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -36,6 +36,8 @@ from paddle_tpu_torch.distributed.launch import run_world
 from paddle_tpu_torch.models import LlamaConfig
 from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny_config
 from paddle_tpu_torch.testing.sharded import grad_norms
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 STEPS = 3
 TOL = 1e-5

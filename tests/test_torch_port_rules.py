@@ -31,6 +31,8 @@ from paddle_tpu_torch.ops.paged_attention import (paged_attention,
                                                   ragged_paged_attention)
 from paddle_tpu_torch.ops.rms_norm import rms_norm_tpu
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(paddle_tpu_torch.__file__)
@@ -84,7 +86,11 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                    "distributed/process_mesh.py",
                    "distributed/collective.py", "distributed/launch.py",
                    "jit/spmd.py", "testing/sharded.py",
-                   "distributed/topology.py", "ops/sequence_parallel.py"):
+                   "distributed/topology.py", "ops/sequence_parallel.py",
+                   "optimizer/lr.py", "optimizer/lbfgs.py",
+                   "distributed/sharding/__init__.py",
+                   "distributed/fleet/meta_parallel/sharding_api.py",
+                   "distributed/fleet/meta_parallel/sharding.py"):
         assert os.path.join("paddle_tpu_torch", module) in scanned
 
 
@@ -133,7 +139,9 @@ def test_importing_the_port_loads_no_jax():
         "'ops.moe_gate', 'distributed.process_mesh', "
         "'distributed.collective', 'distributed.launch', 'jit.spmd', "
         "'testing.sharded', 'distributed.topology', "
-        "'ops.sequence_parallel'):\n"
+        "'ops.sequence_parallel', 'optimizer.lr', 'optimizer.lbfgs', "
+        "'distributed.sharding', "
+        "'distributed.fleet.meta_parallel.sharding_api'):\n"
         "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
         "print('clean')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

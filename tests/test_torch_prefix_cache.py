@@ -39,6 +39,8 @@ from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.jit import serving_step as ss
 from paddle_tpu_torch.models.llama import llama_truncated_draft
 from paddle_tpu_torch.ops import paged_attention as pa
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 P = np.array([5, 17, 42, 7, 99, 3, 11, 23], np.int64)     # 2 full pages
 ENGINES = {"split": dict(prefill_buckets=(4, 8)),

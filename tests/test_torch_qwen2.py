@@ -33,6 +33,8 @@ from paddle_tpu_torch.models import (Qwen2Config, Qwen2ForCausalLM,
                                      qwen2_tiny_config)
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.testing.parity import load_paddle_tpu_weights
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 PROMPTS = [np.array([7, 9, 2], np.int64),
            np.array([3, 14, 15, 92, 65], np.int64),

@@ -34,6 +34,8 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            LlamaPretrainingCriterion,
                                            llama_tiny_config)
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 GATE = 0.5        # tools/bench_elastic.py MOVED_RATIO_GATE
 FIELDS = ("key", "shape", "itemsize", "nbytes", "n_dst_devices",

@@ -26,6 +26,8 @@ from paddle_tpu_torch.inference import router as port_router
 from paddle_tpu_torch.observability import MetricsServer as PortMetricsServer
 from paddle_tpu_torch.observability import exporters as port_exporters
 from paddle_tpu_torch.observability import request_trace as port_trace
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 
 # ---------------------------------------------------------------------------

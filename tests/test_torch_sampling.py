@@ -23,6 +23,8 @@ import paddle_tpu  # noqa: F401  (x64 on, as the reference serves)
 from paddle_tpu.ops import sampling as ref
 
 from paddle_tpu_torch.ops import sampling as ps
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 t = torch.from_numpy
 SEEDS = (0, 1, 12345, 2 ** 31 - 1)

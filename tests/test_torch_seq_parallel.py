@@ -40,6 +40,8 @@ from paddle_tpu_torch.distributed.launch import run_world
 from paddle_tpu_torch.models import LlamaConfig
 from paddle_tpu_torch.ops.sequence_parallel import (ring_bytes, ring_hops,
                                                     ulysses_attention)
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 ATTN_TOL = 1e-4
 GRAD_TOL = 2e-4

@@ -21,6 +21,8 @@ from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            param_count)
 from paddle_tpu_torch.testing.parity import (load_paddle_tpu_weights,
                                              state_from_paddle_tpu)
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 # the reference serving tests' _tiny_model (tests/test_serving.py)
 TINY = dict(num_hidden_layers=2, hidden_size=64, num_attention_heads=4,

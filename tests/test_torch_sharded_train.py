@@ -16,6 +16,10 @@ of the reference's trained parameters, param + optimizer bytes a rank
 against the replicated step, the ``train_fsdp_degree`` gauge and the
 ``train_params`` gather bytes equal to the reference's, the optimizer
 state round trip through ``opt_state_arrays``, and the errors.
+
+The same world runs the reference's three group_sharded_parallel marker
+tests, the differentiable collectives and the 2-D train -> fsdp-serve
+handoff.  Mixtral over ranks is ``tests/test_torch_sharded_moe.py``.
 """
 from concurrent.futures import ThreadPoolExecutor
 
@@ -48,6 +52,8 @@ from paddle_tpu_torch.optimizer import Adafactor, AdamW
 from paddle_tpu_torch.testing.parity import (paddle_tpu_names,
                                              state_from_paddle_tpu)
 from paddle_tpu_torch.testing.sharded import grad_norms
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 ZERO_STEPS = 10
 TWO_D_STEPS = 6
@@ -144,6 +150,14 @@ def world(tmp_path_factory):
         dict(name="dp2f2", model="m", mesh=MESHES["dp2f2"],
              steps=TWO_D_STEPS, batches=llama_b, return_params=True,
              grad_norms=True, **common),
+        dict(name="marker", kind="marker"),
+        dict(name="collectives", kind="collectives"),
+        dict(name="handoff", kind="handoff", model="m",
+             mesh=MESHES["f2t2"], steps=3, batches=llama_b, **common,
+             engine=dict(max_batch_size=4, num_blocks=64, block_size=4,
+                         mixed_step=True, prefill_chunk_size=4),
+             ops=[["add", [5, 7, 11], 6], ["add", [2, 3, 4, 5, 6], 6],
+                  ["run"]]),
     ]
     pool = ThreadPoolExecutor(1)
     fut = pool.submit(run_world, "paddle_tpu_torch.testing.sharded:"
@@ -222,8 +236,10 @@ def test_stage_2_reduce_scatters_once_a_bucket_and_stage_1_never(world):
                 == sum(buckets) * ZERO_STEPS
         else:
             assert "reduce_scatter" not in calls
-        n_rows = sum(rk["shardable"].values())
-        assert calls["all_gather"] == n_rows * ZERO_STEPS
+        # one all_gather of the updated rows a bucket
+        assert calls["all_gather"] == len(buckets) * ZERO_STEPS
+        assert rk["collectives"]["bytes"]["all_gather"] \
+            == sum(buckets) // 4 * ZERO_STEPS
     # small buckets split the qwen grads; one bucket holds the llama's
     assert len(out["q_z2"]["ranks"][0]["bucket_bytes"]) > 1
     assert len(out["z2"]["ranks"][0]["bucket_bytes"]) == 1
@@ -363,3 +379,133 @@ def test_state_round_trip_names_map_to_the_reference_layout():
     assert got["opt.lm_head.weight.moment1"].shape == (64, 128)
     assert got["lm_head.weight"].shape == (64, 128)
     assert got["opt.llama.norm.weight.moment1"].shape == (64,)
+
+
+# ---------------------------------------------------------------------------
+# the group_sharded_parallel marker
+# ---------------------------------------------------------------------------
+def test_group_sharded_levels_route_to_stages(world):
+    """'os' and 'os_g' mark the optimizer with the hybrid group's mesh:
+    a TrainStep built from it without a mesh runs ZeRO-1 / ZeRO-2 over
+    the data axis (a rank's moments its quarter of the rows) and trains
+    as the replicated step; 'p_g_os' marks nothing."""
+    out, _ = world
+    m = out["marker"]
+    for level, stage in (("os", 1), ("os_g", 2)):
+        r = m[level]
+        assert r["marker"] and r["mode"] == "1d" and r["stage"] == stage
+        assert r["axis"] == "data" and r["state_rows"] == (8, 8)
+        _close(r["losses"], m["plain"])
+    assert not m["p_g_os"]["marker"] and m["p_g_os"]["mode"] == "hybrid"
+
+
+def test_implicit_marker_degrades_to_replicated(world):
+    """Lamb (not elementwise) under a marker warns and builds the
+    replicated step, which trains."""
+    out, _ = world
+    r = out["marker"]["lamb"]
+    assert any("building the replicated TrainStep instead" in w
+               and "not elementwise" in w for w in r["warnings"])
+    assert r["mode"] == "hybrid" and np.isfinite(r["losses"]).all()
+
+
+def test_sum_reduction_loss_parity(world):
+    """loss_reduction='sum': the ranks' losses and gradients are summed,
+    so a sum-reduced criterion under ZeRO-2 matches the plain step."""
+    out, _ = world
+    m = out["marker"]
+    assert m["sum_sharded"]["mode"] == "1d"
+    got, want = m["sum_sharded"]["losses"], m["sum_plain"]
+    assert max(abs(a - b) / max(abs(a), 1.0) for a, b in zip(want, got)) \
+        <= 1e-5
+    assert want[0] > 100
+
+
+def test_non_elementwise_optimizers_do_not_shard():
+    """Lamb keeps ``shardable_update = False``, which the marker's degrade
+    path relies on; the new elementwise rules shard."""
+    from paddle_tpu_torch import optimizer as optim
+    assert not optim.Lamb.shardable_update
+    assert all(c.shardable_update for c in (
+        optim.SGD, optim.Momentum, optim.Adagrad, optim.RMSProp,
+        optim.Adadelta, optim.Adamax, optim.Rprop))
+
+
+# ---------------------------------------------------------------------------
+# the 2-D train -> fsdp-serve handoff
+# ---------------------------------------------------------------------------
+def test_train_to_serve_adopts_every_slice_and_matches_one_card(world):
+    """An fsdp 2 x tp 2 engine built from the model a 2-D TrainStep
+    trained adopts the step's stored slices: every parameter keeps its
+    storage and data pointer, every fsdp-sharded slice is adopted with no
+    copy, and the greedy tokens equal the one-card engine's on the
+    gathered trained weights."""
+    out, _ = world
+    r = out["handoff"]
+    assert len(r["ranks"]) == 4
+    for rk in r["ranks"]:
+        assert all(rk["same"].values()), rk["same"]
+        assert rk["adopted"] == rk["fsdp_slices"] > 0
+        assert rk["degrees"] == (2, 2)
+    assert r["tokens"] == r["one_card"]
+    assert all(len(t) > 0 for t in r["tokens"])
+    assert np.isfinite(r["losses"]).all()
+
+
+# ---------------------------------------------------------------------------
+# the differentiable collectives and the group-sharded save
+# ---------------------------------------------------------------------------
+def test_differentiable_collectives_and_their_adjoints(world):
+    """Over the 4 ranks: ``all_to_all_diff`` sends chunk g of rank r to
+    rank g and moves the cotangent back by the same all_to_all;
+    ``all_gather_diff`` stacks every rank's input and its adjoint is the
+    reduce-scatter (rank r's block of the sum of every rank's weights);
+    ``reduce_scatter_diff`` sums row r to rank r and its adjoint gathers
+    each rank's cotangent row back."""
+    ranks = world[0]["collectives"]
+    n, c = len(ranks), 4
+    x = [r + np.arange(n * c, dtype=np.float32) for r in range(n)]
+
+    def w(r, size):
+        return (r + 1) * (1 + np.arange(size, dtype=np.float32))
+    for r, got in enumerate(ranks):
+        y, g = got["all_to_all"]
+        np.testing.assert_array_equal(y, np.concatenate(
+            [x[s][r * c:(r + 1) * c] for s in range(n)]))
+        # chunk s of rank r's input landed as chunk r of rank s's output
+        np.testing.assert_array_equal(g, np.concatenate(
+            [w(s, n * c)[r * c:(r + 1) * c] for s in range(n)]))
+        y, g = got["all_gather"]
+        np.testing.assert_array_equal(y, np.concatenate(x))
+        size = n * n * c
+        np.testing.assert_array_equal(g, sum(
+            w(s, size) for s in range(n))[r * n * c:(r + 1) * n * c])
+        y, g = got["reduce_scatter"]
+        np.testing.assert_array_equal(y, sum(
+            xs.reshape(n, c)[r] for xs in x))
+        np.testing.assert_array_equal(g, np.concatenate(
+            [w(s, c) for s in range(n)]))
+
+
+def test_save_group_sharded_model_writes_model_and_optimizer(tmp_path):
+    """``save_group_sharded_model`` (one process) writes the wrapped
+    layer's state dict and the optimizer's, readable by pickle."""
+    import pickle
+    from paddle_tpu_torch.distributed.sharding import (
+        group_sharded_parallel, save_group_sharded_model)
+    model = _tiny()
+    opt = AdamW(1e-3, parameters=model.named_parameters())
+    wrapped, sopt, _ = group_sharded_parallel(model, opt, level="os_g")
+    ids = torch.from_numpy(_batches(128)[0][0])
+    step = TrainStep(wrapped, LlamaPretrainingCriterion(), sopt)
+    assert step._mode is None and np.isfinite(step(ids, ids).item())
+    save_group_sharded_model(wrapped, str(tmp_path), sopt)
+    with open(tmp_path / "model.pdmodel", "rb") as f:
+        sd = pickle.load(f)
+    assert sorted(sd) == sorted(model.state_dict())
+    assert torch.equal(sd["lm_head.weight"], model.lm_head.weight.detach())
+    with open(tmp_path / "model.pdopt", "rb") as f:
+        osd = pickle.load(f)
+    assert osd["global_step"] == 1
+    assert torch.equal(osd["lm_head.weight_moment1"],
+                       opt.state("lm_head.weight")["moment1"])

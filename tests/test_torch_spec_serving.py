@@ -25,6 +25,8 @@ from paddle_tpu_torch.jit.serving_step import MixedStep
 from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            llama_tiny_config,
                                            llama_truncated_draft)
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 BUDGET = 6
 # per request of the churn: a filtered sampled one, a greedy one (both

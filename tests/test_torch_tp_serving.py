@@ -40,6 +40,8 @@ from paddle_tpu_torch.inference.serving import ContinuousBatchingEngine
 from paddle_tpu_torch.jit import spmd
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.testing.parity import load_paddle_tpu_weights
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 PROMPTS = [[7, 9, 2], [3, 14, 15, 92, 65], list(range(1, 11))]
 BUDGET = 4

@@ -35,6 +35,8 @@ from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.optimizer import Adam, AdamW
 from paddle_tpu_torch.testing.parity import load_paddle_tpu_weights
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 # fp32, same algorithm, other summation order: rounding only
 FP32_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -30,6 +30,8 @@ from paddle_tpu_torch.ops import dequant as dq
 from paddle_tpu_torch.quantization import functional as qf
 from paddle_tpu_torch.testing.parity import (ptq_tree_from_paddle_tpu,
                                              state_from_paddle_tpu)
+from paddle_tpu_torch.testing.threads import \
+    one_intra_op_thread  # noqa: F401  (autouse)
 
 SUFFIX = qf.WEIGHT_SCALE_SUFFIX
 ENGINES = {"mixed": dict(mixed_step=True, prefill_chunk_size=8),
