@@ -346,6 +346,20 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    RMSProp, Adadelta, Adamax, Lamb, Rprop and LBFGS (fixed step and strong
    Wolfe), 3 steps of the CPU tests' small MLP on the card against the
    CPU, fp32 with TF32 off, every parameter within ``OPTIMIZER_RTOL``.
+11d. GPT-2 small through the paddle API (:func:`phase_gpt2_api`): the
+   flash kernels at its attention shapes against their plain versions,
+   timed with bound and SDPA time (#1 and #2 at 8 x 1024 x 12 x 64 bf16
+   causal, #1 and #3 at 1 x 16384 x 12 x 64, where the router takes the
+   two-kernel backward); gpt_api_parity (GPT-2 small widths, 2 layers,
+   dropout 0, 1 x 512, fp32, TF32 off: 2 AdamW steps with
+   ``ClipGradByGlobalNorm(1.0)`` on the card and on the CPU from the same
+   weights, losses and every parameter's gradient norm before the clip
+   within ``GPT_PARITY_RTOL``); train_gpt2_api (12 layers, 8 x 1024,
+   ``amp.auto_cast`` O1 bf16, AdamW with the clip, 5 steps on one
+   repeated batch: each loss, step seconds, tokens/s, MFU against 989
+   TFLOP/s, peak memory, a profiled step's idle share; flash launches
+   exact a step, 12 of #1 and #2 and none of #3; losses finite and
+   falling).
 12. Before the last line, one JSON object with every kernel variant's
    numbers; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -4303,7 +4317,7 @@ TRAIN_STEPS, TRAIN_WARMUP = 4, 1
 def _train_launches():
     """The training kernels' launch counts: the three flash kernels and
     RMSNorm (#4, the layerwise step's norms; ``TrainStep``'s model runs
-    the plain norm of ``nn.functional``)."""
+    the plain norm of ``models/_functional``)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops.rms_norm import rms_norm_tpu
     out = {k: getattr(fa, k).launches for k in ALL_FLASH}
@@ -6310,8 +6324,238 @@ def phase_optimizers():
         raise AssertionError("optimizers on the card vs the CPU: %s" % bad)
 
 
+# ---------------------------------------------------------------------------
+# phase 11d: GPT-2 small trained through the paddle API
+# ---------------------------------------------------------------------------
+# the flash kernels at GPT-2 small's attention shapes (12 heads of 64,
+# causal, bf16): #1 and #2 at the training batch, #3 at a key length where
+# the router takes the two-kernel backward (``fused_bwd_taken`` false)
+GPT_FLASH_CASES = (
+    ("gpt2_8x1024", 8, 1024, 1024, 12, 64, "bfloat16", False, True,
+     ("flash_fwd", "flash_bwd_fused")),
+    ("gpt2_d64_16k", 1, 16384, 16384, 12, 64, "bfloat16", False, True,
+     ("flash_fwd", "flash_bwd_two_kernel")),
+)
+GPT_BATCH = (8, 1024)          # train_gpt2_api: batch x sequence
+GPT_STEPS = 5
+GPT_LR = 1e-3
+# gpt_api_parity: GPT-2 small widths at 2 layers, fp32, card vs CPU
+GPT_PARITY = dict(layers=2, batch=1, seq=512, steps=2)
+GPT_PARITY_RTOL = 1e-5
+# a parameter whose gradient is rounding noise on both devices (the key
+# projection's bias: a shift of every key of a query cancels in the
+# softmax) is held against this share of the largest gradient norm
+GPT_NOISE_FLOOR = 1e-3
+
+
+def gpt2_flops_per_step(cfg, B, S):
+    """The model's operations a training step (forward and backward, no
+    recompute): 6 per parameter of every matmul (the blocks' projections
+    and MLP, and the tied LM head) and token, plus causal attention's 12 D
+    a visible (query, key) pair and head a layer (4 D forward, 8 D
+    backward)."""
+    d, f, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
+                  cfg.num_hidden_layers)
+    mm = L * (4 * d * d + 2 * d * f) + V * d
+    pairs = S * (S + 1) // 2
+    D = d // cfg.num_attention_heads
+    return (6.0 * mm * B * S
+            + 12.0 * D * pairs * cfg.num_attention_heads * L * B)
+
+
+def _gpt_batch(cfg, B, S):
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, cfg.vocab_size, (B, S + 1)).astype(np.int64)
+    return ids[:, :-1], ids[:, 1:]
+
+
+def _gpt_loss(paddle, model, x, y, vocab):
+    logits = model(x)
+    return paddle.nn.functional.cross_entropy(
+        logits.reshape([-1, vocab]), y.reshape([-1]))
+
+
+def gpt_api_parity():
+    """GPT-2 small's widths at ``GPT_PARITY["layers"]`` layers, dropout 0,
+    fp32 with TF32 off: 2 AdamW steps with ``ClipGradByGlobalNorm(1.0)``
+    through the paddle API on the card (the fp32 flash kernels) and on the
+    CPU (their plain versions) from the same weights.  Both losses and
+    every parameter's gradient norm before the clip within
+    ``GPT_PARITY_RTOL`` (relative; a gradient at the noise floor against
+    ``GPT_NOISE_FLOOR`` of the largest norm)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.device import device_guard
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    t0 = time.perf_counter()
+    cfg = GPTConfig(num_hidden_layers=GPT_PARITY["layers"],
+                    hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    B, S = GPT_PARITY["batch"], GPT_PARITY["seq"]
+    x_np, y_np = _gpt_batch(cfg, B, S)
+    paddle.seed(SEED)
+    with device_guard("cpu"):
+        cpu_model = GPTForCausalLM(cfg)
+    state = {k: v._value.detach().clone()
+             for k, v in cpu_model.state_dict().items()}
+    with device_guard("gpu"):
+        card_model = GPTForCausalLM(cfg)
+        missing, unexpected = card_model.set_state_dict(state)
+    if missing or unexpected:
+        raise AssertionError("gpt_api_parity: state keys %s %s"
+                             % (missing, unexpected))
+
+    def run(model, place):
+        with device_guard(place):
+            opt = paddle.optimizer.AdamW(
+                GPT_LR, parameters=model.parameters(),
+                grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+            params = dict(model.named_parameters())
+            x, y = paddle.to_tensor(x_np), paddle.to_tensor(y_np)
+            losses, norms = [], []
+            for _ in range(GPT_PARITY["steps"]):
+                loss = _gpt_loss(paddle, model, x, y, cfg.vocab_size)
+                loss.backward()
+                losses.append(float(loss))
+                norms.append({k: float(p.grad._value.double().norm())
+                              for k, p in params.items()})
+                opt.step()
+                opt.clear_grad()
+        return losses, norms
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got_l, got_n = run(card_model, "gpu")
+        want_l, want_n = run(cpu_model, "cpu")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(got_l, want_l)]
+    norm_rel = []
+    for got, want in zip(got_n, want_n):
+        floor = GPT_NOISE_FLOOR * max(want.values())
+        norm_rel.append({k: abs(got[k] - w) / max(w, floor)
+                         for k, w in want.items()})
+    worst = max(max(r.values()) for r in norm_rel)
+    row = dict(phase="gpt_api_parity", layers=cfg.num_hidden_layers,
+               hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+               vocab=cfg.vocab_size, batch=B, seq=S, dtype="float32",
+               rtol=GPT_PARITY_RTOL, card_losses=got_l, cpu_losses=want_l,
+               loss_rel_diff=loss_rel, grad_norms_card=got_n,
+               grad_norms_cpu=want_n, max_grad_norm_rel_diff=worst,
+               seconds=time.perf_counter() - t0)
+    emit(row)
+    if not max(loss_rel) <= GPT_PARITY_RTOL or not worst <= GPT_PARITY_RTOL:
+        bad = {k: v for r in norm_rel for k, v in r.items()
+               if not v <= GPT_PARITY_RTOL}
+        raise AssertionError("gpt_api_parity: card vs CPU losses %s, "
+                             "gradient norms over the tolerance %s"
+                             % (loss_rel, bad))
+    del cpu_model, card_model
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_gpt2_api():
+    """GPT-2 small (the reference's ``GPTConfig``: 12 layers, dropout 0.1)
+    trained eagerly through the paddle API on the card: batch
+    ``GPT_BATCH``, ``amp.auto_cast(level="O1", dtype="bfloat16")``, AdamW
+    with ``ClipGradByGlobalNorm(1.0)``, ``GPT_STEPS`` steps on one
+    repeated batch.  The flash launches must be exact a step (#1 and #2
+    once a layer, #3 never); the losses finite and falling; then one more
+    step under the profiler (the device's idle share)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.device import device_guard
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = GPTConfig()
+    B, S = GPT_BATCH
+    paddle.seed(SEED)
+    with device_guard("gpu"):
+        t0 = time.perf_counter()
+        model = GPTForCausalLM(cfg)
+        opt = paddle.optimizer.AdamW(
+            GPT_LR, parameters=model.parameters(),
+            grad_clip=paddle.nn.ClipGradByGlobalNorm(1.0))
+        x_np, y_np = _gpt_batch(cfg, B, S)
+        x, y = paddle.to_tensor(x_np), paddle.to_tensor(y_np)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+
+        def step():
+            with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = _gpt_loss(paddle, model, x, y, cfg.vocab_size)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        _reset_train_launches()
+        losses, step_s = [], []
+        for _ in range(GPT_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss = step()
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t1)
+        launches = _train_launches()
+        peak = torch.cuda.max_memory_allocated()
+        steady = float(np.median(step_s[1:]))
+        profile = profile_device(step, steady)
+    flops = gpt2_flops_per_step(cfg, B, S)
+    n_params = sum(p.size for p in model.parameters())
+    row = dict(phase="train_gpt2_api_bf16_O1", layers=cfg.num_hidden_layers,
+               hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+               vocab=cfg.vocab_size, params=n_params, batch=B, seq=S,
+               steps=GPT_STEPS, lr=GPT_LR, init_s=init_s, losses=losses,
+               step_s=step_s, steady_step_s=steady,
+               tokens_per_s=B * S / steady, flops_per_step=flops,
+               mfu=flops / steady / PEAK_FLOPS["bfloat16"],
+               peak_memory_bytes=peak, launches=launches,
+               launches_per_step={k: v / GPT_STEPS
+                                  for k, v in launches.items()},
+               profile=profile)
+    emit(row)
+    L = cfg.num_hidden_layers
+    want = {"flash_fwd": L * GPT_STEPS, "flash_bwd_fused": L * GPT_STEPS,
+            "flash_bwd_two_kernel": 0, "rms_norm": 0}
+    if launches != want:
+        raise AssertionError("train_gpt2_api launches %s, want %s"
+                             % (launches, want))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("train_gpt2_api: non-finite loss %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise AssertionError("train_gpt2_api: the loss did not fall %s"
+                             % losses)
+    del model, opt
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_gpt2_api():
+    """Phase 11d: the flash kernels at GPT-2 small's shapes against their
+    plain versions (timed, with the bound and SDPA's time), then
+    :func:`gpt_api_parity` and :func:`train_gpt2_api`."""
+    import torch
+    from paddle_tpu_torch.ops import flash_attention as fa
+    if not fa.fused_bwd_taken(GPT_BATCH[1]) or fa.fused_bwd_taken(
+            GPT_FLASH_CASES[1][3]):
+        raise AssertionError("GPT's flash cases do not route as claimed")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    flash_rows = []
+    for case in GPT_FLASH_CASES:
+        flash_rows += check_flash(*case, gen=gen, timed=True)
+        torch.cuda.empty_cache()
+    parity = gpt_api_parity()
+    train = train_gpt2_api()
+    return dict(flash_rows=flash_rows, parity=parity, train=train,
+                launches=train["launches"])
+
+
 def kernel_summary(rows, serving, flash_rows, train_launches,
-                   ring_rows=()):
+                   ring_rows=(), gpt_rows=()):
     """One entry per kernel variant for the final JSON line: the times at
     the variant's main-path shape, the worst error of any shape, and the
     launches of the run of the path that drives it (``path``); the flash
@@ -6453,7 +6697,15 @@ def kernel_summary(rows, serving, flash_rows, train_launches,
                                 bound_by=x["bound_by"],
                                 library_ms=x["library_ms"],
                                 max_abs_err=x["max_abs_err"])
-                            for x in ring_rows if x["kernel"] == name}))
+                            for x in ring_rows if x["kernel"] == name},
+                        gpt2_api_shapes={
+                            x["case"]: dict(
+                                ms=x["kernel_ms"], plain_ms=x["plain_ms"],
+                                bound_ms=x["bound_ms"],
+                                bound_by=x["bound_by"],
+                                library_ms=x["library_ms"],
+                                max_abs_err=x["max_abs_err"])
+                            for x in gpt_rows if x["kernel"] == name}))
     return out
 
 
@@ -6587,13 +6839,16 @@ def main() -> int:
     families = run("train_families", phase_train_families)
     mesh_train = run("train_mesh", phase_train_mesh)
     run("optimizers", phase_optimizers)
+    gpt = run("gpt2_api", phase_gpt2_api)
     emit({"kernels": kernel_summary(
         rows, serving, flash_rows,
         dict({"train_7b": train["launches"],
               "train_long_16k": long["launches"],
-              "train_7b_layerwise": layerwise["launches"]},
+              "train_7b_layerwise": layerwise["launches"],
+              "train_gpt2_api": gpt["launches"]},
              **{k: v["launches"] for k, v in families.items()},
-             **mesh_train["launches"]), mesh_train["ring_rows"])})
+             **mesh_train["launches"]), mesh_train["ring_rows"],
+        gpt["flash_rows"])})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..nn import functional as PF
+from ..models import _functional as PF
 from ..models.llama import inner_model
 from ..ops.dequant import layer_weights
 from ..ops.kernels import rope_qkv_epilogue, rope_tables_for_positions

@@ -1,5 +1,6 @@
 """The model families of the port: Llama, Mixtral (sparse MoE) and
-Qwen2."""
+Qwen2.  GPT-2 through the paddle API is ``models.gpt``, imported on its
+own (it builds the API's op table)."""
 from .llama import (LlamaConfig, LlamaForCausalLM,  # noqa: F401
                     LlamaPretrainingCriterion, llama_7b_config,
                     llama_tiny_config)

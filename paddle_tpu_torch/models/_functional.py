@@ -1,5 +1,7 @@
-"""Functional ops of the Llama path (counterparts of
-``paddle_tpu/nn/functional`` and ``paddle_tpu/incubate/nn/functional``).
+"""Torch-tensor functional ops of the model families (counterparts of
+``paddle_tpu/nn/functional`` and ``paddle_tpu/incubate/nn/functional``),
+kept apart from the paddle API's ``nn.functional``, whose functions take
+API tensors and have other signatures for the same names.
 
 Each keeps the reference's order of operations, so fp32 results agree
 with it to rounding and the eager model stays the oracle the serving

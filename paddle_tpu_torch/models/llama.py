@@ -37,8 +37,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..core.device import DeviceLike, resolve_device
-from ..nn import functional as PF
-from ..nn.layers import Embedding, Linear, RMSNorm
+from . import _functional as PF
+from ._layers import Embedding, Linear, RMSNorm
 from ..ops.flash_attention import flash_attention_rope
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

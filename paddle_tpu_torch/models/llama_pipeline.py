@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.pipelining import spmd_pipeline
-from ..nn import functional as PF
+from ..models import _functional as PF
 from ..distributed.process_mesh import as_mesh
 from ..jit.spmd import (P, gather_spec_axes, port_spec, prune_spec_axes,
                         scatter_spec_axes, shard_tensor, spec_axes)

@@ -41,7 +41,7 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike, resolve_device
-from ..nn.layers import Embedding, Linear, RMSNorm
+from ._layers import Embedding, Linear, RMSNorm
 from ..ops.moe_gate import (RoutingGroup, assignment_slots,
                             combine_from_buffers, current_routing,
                             dispatch_to_buffers, grouped_expert_swiglu,

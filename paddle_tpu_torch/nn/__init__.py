@@ -1,0 +1,31 @@
+"""``paddle.nn`` of the port (counterpart of ``paddle_tpu/nn``): ``Layer``
+and ``Parameter``, the initializers, the layers over ``nn.functional``,
+the transformer layers and the gradient clips.  Convolution, pooling,
+the recurrent layers and the decoders are a later slice."""
+from ..ops import _table  # noqa: F401  (the Tensor's methods)
+from .layer_base import Layer, Parameter
+from . import functional
+from . import initializer
+from .layers import (  # noqa: F401
+    Linear, Embedding, Dropout, Dropout2D, Dropout3D, AlphaDropout, Flatten,
+    Identity, Upsample, UpsamplingNearest2D, UpsamplingBilinear2D,
+    PixelShuffle, PixelUnshuffle, Unfold, Fold,
+    Sequential, LayerList, ParameterList, LayerDict, Unflatten,
+    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, SyncBatchNorm,
+    LayerNorm, RMSNorm, GroupNorm, InstanceNorm1D, InstanceNorm2D,
+    InstanceNorm3D, LocalResponseNorm,
+    ReLU, ReLU6, GELU, SiLU, Silu, Swish, Sigmoid, Tanh, Softmax, Softmax2D,
+    LogSoftmax, Softplus, Softsign, LeakyReLU, ELU, CELU, SELU, Mish,
+    Hardtanh, Hardsigmoid, Hardswish, Hardshrink, Softshrink, Tanhshrink,
+    LogSigmoid, ThresholdedReLU, Maxout, GLU, PReLU, RReLU,
+    CrossEntropyLoss, MSELoss, L1Loss, NLLLoss, BCELoss, BCEWithLogitsLoss,
+    KLDivLoss, SmoothL1Loss, CTCLoss, MarginRankingLoss, SoftMarginLoss,
+    MultiMarginLoss, MultiLabelSoftMarginLoss, PoissonNLLLoss,
+    GaussianNLLLoss, TripletMarginLoss, CosineEmbeddingLoss,
+    HingeEmbeddingLoss, Bilinear, CosineSimilarity, Pad1D, Pad2D, Pad3D,
+    ZeroPad2D,
+)
+from .transformer import (MultiHeadAttention, TransformerEncoderLayer,
+                          TransformerEncoder, TransformerDecoderLayer,
+                          TransformerDecoder, Transformer)
+from .clip import ClipGradByNorm, ClipGradByValue, ClipGradByGlobalNorm

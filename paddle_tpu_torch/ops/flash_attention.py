@@ -267,16 +267,21 @@ def _flash_bwd_plain(q, k, v, out, lse, g, causal: bool, rope: Rope = None,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _chunked_sdpa(q, k, v, causal: bool):
-    """The reference's memory-bounded fallback (``_chunked_sdpa``, no
-    mask): fp32 online softmax over key blocks of ``_CHUNK_K``, in the
-    layout [B, S, H, D].  Plain PyTorch, differentiable by autograd; taken
-    for head dims over 128 (``_kernel_ok``)."""
+def _chunked_sdpa(q, k, v, causal: bool, mask=None):
+    """The reference's memory-bounded fallback (``_chunked_sdpa``): fp32
+    online softmax over key blocks of ``_CHUNK_K``, in the layout [B, S,
+    H, D].  ``mask`` (broadcastable to [B, H, Sq, Sk]) is the reference's
+    too: a bool mask keeps the keys it marks, a float one is added to the
+    scaled scores.  Plain PyTorch, differentiable by autograd; taken for
+    head dims over 128 (``_kernel_ok``) and for the API's masked
+    attention."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     qf = q.to(torch.float32).transpose(1, 2) * (1.0 / math.sqrt(D))
     kf = k.to(torch.float32).transpose(1, 2)
     vf = v.to(torch.float32).transpose(1, 2)
+    if mask is not None and mask.dtype != torch.bool:
+        mask = mask.to(torch.float32)
     rows = torch.arange(Sq, device=q.device)[:, None]
     m = torch.full((B, H, Sq), float("-inf"), device=q.device)
     l = torch.zeros(B, H, Sq, device=q.device)
@@ -288,6 +293,12 @@ def _chunked_sdpa(q, k, v, causal: bool):
         if causal:
             cols = torch.arange(c0, c1, device=q.device)[None, :]
             valid = rows + (Sk - Sq) >= cols
+        if mask is not None:
+            mb = mask[..., c0:c1]
+            if mb.dtype == torch.bool:
+                valid = valid & mb
+            else:
+                s = s + mb
         s = s.masked_fill(~valid, float("-inf"))
         m_new = torch.maximum(m, s.amax(dim=-1))
         m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)

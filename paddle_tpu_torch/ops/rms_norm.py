@@ -4,7 +4,7 @@
 Kernel: ``csrc/rms_norm.cu`` replaces ``_rms_kernel`` (launched by
 ``rms_norm_tpu``).  It computes ``x * rsqrt(mean(x^2) + eps) * w`` in fp32
 and rounds once to ``x``'s dtype.  That is where this norm differs from
-``nn.functional.rms_norm`` and the reference's layerwise ``_rms_norm``,
+``models/_functional.rms_norm`` and the reference's layerwise ``_rms_norm``,
 which round before the weight multiply: equal in fp32 and, at ``w = 1``,
 in bf16 too; otherwise at most one bf16 ulp apart.  ``round_first=True``
 selects the kernel's variant with the layerwise rounding point,

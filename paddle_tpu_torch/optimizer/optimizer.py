@@ -44,14 +44,22 @@ class Optimizer:
 
     def __init__(self, learning_rate: Union[float, LRScheduler] = 0.001,
                  parameters: Optional[Params] = None, weight_decay=None,
-                 multi_precision: bool = False):
+                 multi_precision: bool = False, grad_clip=None):
         if parameters is None:
             raise ValueError("parameters must be provided")
         self._params: List[Tuple[str, nn.Parameter]] = []
+        # the paddle API's Parameters by name (their torch parameters are
+        # what the update rules see)
+        self._api_params: Dict[str, object] = {}
         for i, item in enumerate(parameters):
-            name, p = item if isinstance(item, tuple) else ("param_%d" % i,
-                                                            item)
+            name, p = item if isinstance(item, tuple) else (
+                getattr(item, "name", None) or "param_%d" % i, item)
+            value = getattr(p, "_value", None)
+            if isinstance(value, nn.Parameter):
+                self._api_params[name] = p
+                p = value
             self._params.append((name, p))
+        self._grad_clip = grad_clip
         self._learning_rate = (learning_rate
                                if isinstance(learning_rate, LRScheduler)
                                else float(learning_rate))
@@ -127,12 +135,25 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        """Update every parameter that has a gradient, in place."""
+        """Update every parameter that has a gradient, in place, after
+        ``grad_clip`` (if any) has clipped the gradients."""
         lr = self.get_lr()
-        for name, p in self._params:
-            if p.grad is not None:
-                self._update_rule(p, p.grad, self.state(name), lr)
+        live = [(name, p) for name, p in self._params if p.grad is not None]
+        grads = [p.grad for _, p in live]
+        if self._grad_clip is not None and live:
+            grads = self._clipped(live, grads)
+        for (name, p), g in zip(live, grads):
+            self._update_rule(p, g, self.state(name), lr)
         self._global_step += 1
+
+    def _clipped(self, live, grads):
+        """``grad_clip`` over ``(param, grad)`` API-tensor pairs (the
+        reference's clip interface)."""
+        from ..core.tensor import Tensor
+        pairs = [(self._api_params[name] if name in self._api_params
+                  else Tensor._from_value(p), Tensor._from_value(g))
+                 for (name, p), g in zip(live, grads)]
+        return [g._value for _, g in self._grad_clip(pairs)]
 
     def clear_grad(self) -> None:
         for _, p in self._params:
@@ -208,9 +229,10 @@ class Momentum(Optimizer):
     def __init__(self, learning_rate=0.001, momentum: float = 0.9,
                  parameters: Optional[Params] = None,
                  use_nesterov: bool = False, weight_decay=None,
-                 multi_precision: bool = False):
+                 multi_precision: bool = False, grad_clip=None):
         super().__init__(learning_rate, parameters, weight_decay,
-                         multi_precision)
+                         multi_precision,
+                         grad_clip=grad_clip)
         self._momentum = momentum
         self._nesterov = use_nesterov
 
@@ -236,8 +258,10 @@ class Adagrad(Optimizer):
 
     def __init__(self, learning_rate, epsilon: float = 1e-6,
                  parameters: Optional[Params] = None, weight_decay=None,
-                 initial_accumulator_value: float = 0.0):
-        super().__init__(learning_rate, parameters, weight_decay)
+                 initial_accumulator_value: float = 0.0,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay,
+                         grad_clip=grad_clip)
         self._eps = epsilon
         self._init_acc = initial_accumulator_value
 
@@ -261,8 +285,10 @@ class RMSProp(Optimizer):
     def __init__(self, learning_rate, rho: float = 0.95,
                  epsilon: float = 1e-6, momentum: float = 0.0,
                  centered: bool = False,
-                 parameters: Optional[Params] = None, weight_decay=None):
-        super().__init__(learning_rate, parameters, weight_decay)
+                 parameters: Optional[Params] = None, weight_decay=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay,
+                         grad_clip=grad_clip)
         self._rho, self._eps = rho, epsilon
         self._momentum, self._centered = momentum, centered
 
@@ -295,8 +321,10 @@ class Adadelta(Optimizer):
 
     def __init__(self, learning_rate=0.001, epsilon: float = 1e-6,
                  rho: float = 0.95, parameters: Optional[Params] = None,
-                 weight_decay=None):
-        super().__init__(learning_rate, parameters, weight_decay)
+                 weight_decay=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay,
+                         grad_clip=grad_clip)
         self._eps, self._rho = epsilon, rho
 
     def _init_state(self, name, p):
@@ -321,8 +349,10 @@ class Adamax(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1: float = 0.9,
                  beta2: float = 0.999, epsilon: float = 1e-8,
-                 parameters: Optional[Params] = None, weight_decay=None):
-        super().__init__(learning_rate, parameters, weight_decay)
+                 parameters: Optional[Params] = None, weight_decay=None,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay,
+                         grad_clip=grad_clip)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
 
     def _init_state(self, name, p):
@@ -356,8 +386,10 @@ class Lamb(Optimizer):
                  beta1: float = 0.9, beta2: float = 0.999,
                  epsilon: float = 1e-6, parameters: Optional[Params] = None,
                  exclude_from_weight_decay_fn: Optional[
-                     Callable[[str], bool]] = None):
-        super().__init__(learning_rate, parameters, lamb_weight_decay)
+                     Callable[[str], bool]] = None,
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, lamb_weight_decay,
+                         grad_clip=grad_clip)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
         self._exclude_fn = exclude_from_weight_decay_fn
 
@@ -398,8 +430,10 @@ class Rprop(Optimizer):
     def __init__(self, learning_rate=0.001,
                  learning_rate_range: Tuple[float, float] = (1e-5, 50),
                  parameters: Optional[Params] = None,
-                 etas: Tuple[float, float] = (0.5, 1.2)):
-        super().__init__(learning_rate, parameters, None)
+                 etas: Tuple[float, float] = (0.5, 1.2),
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, None,
+                         grad_clip=grad_clip)
         self._lr_range = learning_rate_range
         self._etas = etas
 
@@ -464,9 +498,11 @@ class Adam(Optimizer):
                  beta2: float = 0.999, epsilon: float = 1e-8,
                  parameters: Optional[Params] = None, weight_decay=None,
                  multi_precision: bool = False,
-                 moment_dtype: str = "float32"):
+                 moment_dtype: str = "float32",
+                 grad_clip=None):
         super().__init__(learning_rate, parameters, weight_decay,
-                         multi_precision)
+                         multi_precision,
+                         grad_clip=grad_clip)
         if str(moment_dtype) not in _MOMENT_DTYPES:
             raise ValueError("moment_dtype must be one of %s; got %r"
                              % (sorted(_MOMENT_DTYPES), moment_dtype))
@@ -496,9 +532,11 @@ class AdamW(Adam):
                  weight_decay: float = 0.01,
                  apply_decay_param_fun: Optional[Callable[[str], bool]]
                  = None, multi_precision: bool = False,
-                 moment_dtype: str = "float32"):
+                 moment_dtype: str = "float32",
+                 grad_clip=None):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, multi_precision, moment_dtype)
+                         weight_decay, multi_precision, moment_dtype,
+                         grad_clip=grad_clip)
         self._apply_decay_param_fun = apply_decay_param_fun
 
     def _init_state(self, name, p):
@@ -534,8 +572,10 @@ class Adafactor(Optimizer):
                  decay_rate: float = 0.8, scale_parameter: bool = True,
                  parameters: Optional[Params] = None,
                  weight_decay: Optional[float] = None,
-                 moment_dtype: str = "float32"):
-        super().__init__(learning_rate, parameters, weight_decay)
+                 moment_dtype: str = "float32",
+                 grad_clip=None):
+        super().__init__(learning_rate, parameters, weight_decay,
+                         grad_clip=grad_clip)
         if str(moment_dtype) not in _MOMENT_DTYPES:
             raise ValueError("moment_dtype must be one of %s; got %r"
                              % (sorted(_MOMENT_DTYPES), moment_dtype))

@@ -46,6 +46,26 @@ def state_from_paddle_tpu(np_state: Dict[str, np.ndarray]
     return out
 
 
+def _torch_of(a) -> torch.Tensor:
+    """A copy of numpy ``a`` as a torch tensor; an ml_dtypes bfloat16
+    array (what the reference's ``numpy()`` gives for bf16) through its
+    ``uint16`` bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(
+            np.int16).copy()).view(torch.bfloat16)
+    return torch.tensor(np.ascontiguousarray(a))
+
+
+def api_state_from_paddle_tpu(np_state: Dict[str, np.ndarray]
+                              ) -> Dict[str, torch.Tensor]:
+    """A reference paddle-API ``Layer.state_dict()`` (as numpy) as the
+    port's ``Layer.set_state_dict`` input: the same keys and the same
+    ``[in, out]`` layouts (the API's ``Linear`` is paddle's in both
+    packages), bf16 carried through its ``uint16`` bits."""
+    return {name: _torch_of(arr) for name, arr in np_state.items()}
+
+
 def ptq_tree_from_paddle_tpu(np_tree: Dict[str, np.ndarray]
                              ) -> Dict[str, torch.Tensor]:
     """Map a reference PTQ tree (``quantize_param_tree`` of the

@@ -70,7 +70,8 @@ def test_ast_scan_finds_no_jax_or_reference_import():
     for module in ("ops/flash_attention.py", "optimizer/optimizer.py",
                    "jit/train_step.py", "models/llama.py",
                    "models/mixtral.py", "models/qwen.py", "ops/moe_gate.py",
-                   "nn/functional.py", "quantization/functional.py",
+                   "models/_functional.py", "models/_layers.py",
+                   "quantization/functional.py",
                    "ops/online_softmax.py", "jit/serving_step.py",
                    "jit/layerwise.py", "ops/rms_norm.py",
                    "inference/prefix_cache.py", "inference/router.py",
@@ -90,8 +91,24 @@ def test_ast_scan_finds_no_jax_or_reference_import():
                    "optimizer/lr.py", "optimizer/lbfgs.py",
                    "distributed/sharding/__init__.py",
                    "distributed/fleet/meta_parallel/sharding_api.py",
-                   "distributed/fleet/meta_parallel/sharding.py"):
+                   "distributed/fleet/meta_parallel/sharding.py") + API_MODULES:
         assert os.path.join("paddle_tpu_torch", module) in scanned
+
+
+# the paddle API's modules, under the reference's names
+API_MODULES = ("core/dtypes.py", "core/flags.py", "core/device.py",
+               "core/tensor.py", "core/dispatch.py", "autograd/__init__.py",
+               "autograd/tape.py", "autograd/py_layer.py",
+               "ops/registry.py", "ops/_helpers.py", "ops/_table.py",
+               "ops/inplace.py", "ops/math.py", "ops/creation.py",
+               "ops/reduction.py", "ops/logic.py", "ops/manipulation.py",
+               "ops/random.py", "ops/linalg.py", "amp/__init__.py",
+               "amp/amp_lists.py", "nn/__init__.py", "nn/layer_base.py",
+               "nn/initializer.py", "nn/layers.py", "nn/transformer.py",
+               "nn/clip.py", "nn/functional/__init__.py",
+               "nn/functional/activation.py", "nn/functional/common.py",
+               "nn/functional/norm.py", "nn/functional/loss.py",
+               "models/gpt.py", "framework_io.py")
 
 
 def test_no_fork_start_method():
@@ -143,11 +160,109 @@ def test_importing_the_port_loads_no_jax():
         "'distributed.sharding', "
         "'distributed.fleet.meta_parallel.sharding_api'):\n"
         "    assert 'paddle_tpu_torch.' + m in sys.modules, m\n"
-        "print('clean')\n")
+        "for m in %r:\n"
+        "    m = 'paddle_tpu_torch.' + m[:-3].replace('/', '.')\n"
+        "    m = m[:-len('.__init__')] if m.endswith('.__init__') else m\n"
+        "    assert m in sys.modules, m\n"
+        "print('clean')\n" % (API_MODULES,))
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "clean"
+
+
+def test_engines_do_not_build_the_api_op_table():
+    """Importing the port, its engines and its rank launcher builds no
+    part of the paddle API (its names load at first use)."""
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch\n"
+        "import paddle_tpu_torch.inference.serving\n"
+        "import paddle_tpu_torch.jit.train_step\n"
+        "import paddle_tpu_torch.distributed.launch\n"
+        "import paddle_tpu_torch.models.llama\n"
+        "bad = [m for m in ('paddle_tpu_torch.ops._table', "
+        "'paddle_tpu_torch.nn.layer_base', 'paddle_tpu_torch.core.tensor') "
+        "if m in sys.modules]\n"
+        "assert not bad, bad\n"
+        "import paddle_tpu_torch as paddle\n"
+        "assert paddle.matmul is not None and paddle.nn.Linear\n"
+        "assert 'paddle_tpu_torch.ops._table' in sys.modules\n"
+        "print('lazy')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "lazy"
+
+
+def test_api_tensors_default_to_the_card():
+    """With no ``set_device("cpu")`` (and no ``place=``) an API tensor is
+    made on the card; where there is none that raises, as
+    ``resolve_device`` does, and nothing lands on the CPU on its own."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the card is valid here")
+    from paddle_tpu_torch.core import device as dev
+    old = dev._CURRENT_DEVICE[0]
+    dev._CURRENT_DEVICE[0] = None
+    try:
+        assert paddle_tpu_torch.get_device() == "gpu:0"
+        with pytest.raises(RuntimeError, match="CUDA"):
+            paddle_tpu_torch.to_tensor([1.0, 2.0])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            paddle_tpu_torch.zeros([2])
+        with pytest.raises(RuntimeError, match="CUDA"):
+            paddle_tpu_torch.nn.Linear(2, 2)
+        t = paddle_tpu_torch.to_tensor([1.0], place="cpu")
+        assert t.place == paddle_tpu_torch.CPUPlace()
+    finally:
+        dev._CURRENT_DEVICE[0] = old
+
+
+def test_api_attention_on_cpu_launches_no_kernel():
+    """The API's attention on CPU tensors, by each route and through GPT,
+    runs the flash kernels' plain versions and counts no launch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.device import device_guard
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    before = [f.launches for f in FLASH_COUNTERS]
+    with device_guard("cpu"):
+        q = paddle.to_tensor(np.random.RandomState(0).randn(
+            1, 8, 2, 16).astype(np.float32), stop_gradient=False)
+        F = paddle.nn.functional
+        for kw in (dict(is_causal=True), dict(
+                attn_mask=paddle.to_tensor(np.ones((8, 8), bool)))):
+            F.scaled_dot_product_attention(q, q, q, **kw).sum().backward()
+        model = GPTForCausalLM(GPTConfig(
+            vocab_size=32, hidden_size=32, num_hidden_layers=1,
+            num_attention_heads=2, intermediate_size=64,
+            max_position_embeddings=8))
+        model(paddle.to_tensor(np.arange(8).reshape(1, 8))).sum().backward()
+    assert [f.launches for f in FLASH_COUNTERS] == before
+
+
+def test_api_functional_hides_no_kernel_error():
+    """No ``try`` in the API's ``nn.functional`` (the reference's attention
+    wraps its kernel in ``except Exception: pass``; the port's must let a
+    kernel that fails to build or launch fail the call), and the
+    attention's no-mask route calls the flash kernels' entry itself."""
+    bad = []
+    fdir = os.path.join(PKG, "nn", "functional")
+    for name in sorted(os.listdir(fdir)):
+        if not name.endswith(".py"):
+            continue
+        path = os.path.join(fdir, name)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, (ast.Try, ast.ExceptHandler)):
+                bad.append("%s:%d" % (name, node.lineno))
+    assert not bad, bad
+    with open(os.path.join(fdir, "common.py")) as f:
+        src = f.read()
+    route = src[src.index("def _flash_route"):src.index(
+        "def scaled_dot_product_attention")]
+    assert "_fa.flash_attention(q, k, v, is_causal)" in route
+    assert "_fa._chunked_sdpa(q, k, v, is_causal, mask=m[0])" in route
 
 
 def _tiny(device="cpu", layers=1):

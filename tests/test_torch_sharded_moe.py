@@ -134,10 +134,14 @@ def _ref_mixtral_first_step(factor):
         return inner(x)
     blk.forward = record
 
+    # drawn outside the trace: a key drawn inside ``fn`` would leave a
+    # tracer in the reference's global generator, and every later draw
+    # from it in this process would fail
+    key = ref_random.next_key()
+
     def fn(p):
         seen.clear()
-        loss, _ = step._make_loss_fn(frozen, batch,
-                                     ref_random.next_key())(p)
+        loss, _ = step._make_loss_fn(frozen, batch, key)(p)
         return loss, (seen[0], getattr(blk.l_aux, "_value", blk.l_aux))
     (loss, (x, aux)), grads = jax.jit(jax.value_and_grad(
         fn, has_aux=True))(params)
