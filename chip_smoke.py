@@ -10,8 +10,10 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    TF32 off for fp32 matmuls and convolutions.
 1. Build: compile every kernel under ``paddle_tpu_torch/csrc`` with
    ``nvcc`` for sm_90a into ``build/paddle_tpu_torch`` (git-ignored), one
-   ``nvcc`` per source started together; print the build seconds and the
-   ``-Xptxas -v`` register/shared-memory lines.
+   ``nvcc`` per source started together, and the DataLoader's
+   shared-memory ring (``io/_native/ringbuf.cc``) with the host ``c++``;
+   print the build seconds and the ``-Xptxas -v`` register/shared-memory
+   lines.
 2. Serving kernels against their plain PyTorch versions on the card, at
    the shapes the serving paths give them: ragged paged attention (fp32/
    bf16 and int8 pools; for bf16 q the tensor-core kernel over the host
@@ -360,6 +362,24 @@ Phases (any failure ends the run with a nonzero exit; no phase is caught):
    TFLOP/s, peak memory, a profiled step's idle share; flash launches
    exact a step, 12 of #1 and #2 and none of #3; losses finite and
    falling).
+11e. ResNet-50 through the paddle API (:func:`phase_resnet_api`):
+   api2_card_vs_cpu (a transposed convolution, a masked max pool and its
+   unpool, ``grid_sample``, a bidirectional LSTM over cells with
+   ``sequence_length``, ``rnnt_loss`` and beam search, card vs CPU in
+   fp32 within ``API2_RTOL``, masks and beam ids equal);
+   resnet_api_parity (``resnet18``, 10 classes, 8 x 3 x 64 x 64, TF32
+   off: 2 Momentum steps card vs CPU; in fp64 the losses, every gradient
+   norm and every BatchNorm buffer within ``RESNET_PARITY_RTOL``, in fp32
+   the losses, the rest reported beside the CPU's own fp32-vs-fp64
+   distance);
+   train_resnet50_api (ResNet-50 bf16, 1000 classes, batch 128 x 224 x
+   224, ``Momentum(0.1, 0.9)`` through ``TrainStep``, fed by
+   ``io.DataLoader(num_workers=2)`` over shared-memory rings: images/s,
+   MFU, peak memory, the loader's wait, a profiled step's device time by
+   kind and idle share; the first loss within ``RESNET_LOSS0_TOL`` of
+   ln 1000, BatchNorm's statistics moved and finite, every batch a ring
+   frame, the first batch bitwise the single-process loader's, no
+   hand-written kernel launched: ResNet's path runs none).
 12. Before the last line, one JSON object with every kernel variant's
    numbers; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -518,6 +538,11 @@ def phase_build():
     built = _build.build()
     print("build: %d kernels in %.2f s (wall, parallel nvcc)"
           % (len(built), time.perf_counter() - t0), flush=True)
+    from paddle_tpu_torch.io import shm_ring
+    t1 = time.perf_counter()
+    ring = shm_ring.build()
+    print("build: the DataLoader's ring (host c++) in %.2f s -> %s"
+          % (time.perf_counter() - t1, ring), flush=True)
     for name, b in sorted(built.items()):
         print("build %s: %.2f s -> %s" % (name, b.seconds, b.path))
         for line in b.ptxas.splitlines():
@@ -6554,6 +6579,475 @@ def phase_gpt2_api():
                 launches=train["launches"])
 
 
+# ---------------------------------------------------------------------------
+# phase 11e: ResNet-50 trained through the paddle API
+# ---------------------------------------------------------------------------
+RESNET_BATCH = 128             # bench.py::_bench_resnet50's line
+RESNET_IMAGE = 224
+RESNET_CLASSES = 1000
+RESNET_TIMED = 4               # after one warm step; then one profiled step
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+RESNET_WORKERS = 2
+RESNET50_MACS = 4.089e9        # bench.py: forward multiply-adds an image
+# The first loss against ln 1000: the fc layer is Xavier-uniform with a
+# zero bias, so the logits start zero-mean with a variance of 2 * 2048 /
+# (2048 + 1000) * E[f^2] over the pooled features f.  For labels drawn
+# apart from the logits the expected cross-entropy lies between ln V
+# (equal logits) and ln V + var / 2 (Gaussian logits): a variance up to 2
+# keeps it within one nat of ln 1000.  A CPU run of the port at this
+# init (seed 0, 16 of these images, fp32 and bf16): variance 1.475,
+# first loss 7.581-7.627 = ln 1000 + 0.67-0.72 (ln V + var / 2 = 7.645).
+RESNET_LOSS0_TOL = 1.0
+# resnet_api_parity: card vs CPU, fp64 and fp32 (TF32 off)
+RESNET_PARITY = dict(batch=8, image=64, classes=10, steps=2)
+RESNET_PARITY_RTOL = 1e-5
+RESNET_NOISE_FLOOR = 1e-3      # of the largest gradient norm (as GPT's)
+IMAGE_MEAN, IMAGE_STD = 127.5, 64.0
+
+
+def _synthetic_images(n: int, size: int, classes: int):
+    """A seeded synthetic ImageNet-shaped dataset: uint8 HWC images (what
+    a decoded JPEG is) and int64 labels, each drawn from a generator
+    seeded by ``(SEED, index)`` (the same bytes in any worker)."""
+    from paddle_tpu_torch.io import Dataset
+
+    class SyntheticImages(Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            rng = np.random.default_rng((SEED, i))
+            img = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+            return img, np.int64(rng.integers(0, classes))
+
+    return SyntheticImages()
+
+
+def _normalise(paddle, img):
+    """uint8 NHWC on the card -> normalised bf16 NCHW, with paddle ops."""
+    x = paddle.transpose(img, [0, 3, 1, 2]).astype("float32")
+    return ((x - IMAGE_MEAN) / IMAGE_STD).astype("bfloat16")
+
+
+def _resnet_kind(name: str) -> str:
+    n = name.lower()
+    if "batch_norm" in n or "bn_" in n or "batchnorm" in n:
+        return "batch_norm"
+    if any(w in n for w in ("conv", "implicit", "fprop", "dgrad", "wgrad",
+                            "cudnn", "nchwtonhwc", "nhwctonchw", "xmma")):
+        return "conv"
+    if "pool" in n:
+        return "pooling"
+    if any(w in n for w in ("gemm", "gemv", "cutlass", "nvjet", "sm90")):
+        return "matmul"
+    if "elementwise" in n or "reduce" in n:
+        return "elementwise"
+    return "other"
+
+
+def _profile_windows(windows):
+    """Each ``(label, fn)`` of one step under its own ``torch.profiler``
+    window (device activity only): device seconds by kernel kind (every
+    kernel of the window labelled ``optimizer`` counts as the optimizer's),
+    the top kernels, and the idle share of the windows' summed wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    by_kind, top, wall, busy = {}, [], 0.0, 0.0
+    for label, fn in windows:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA \
+                    or e.self_device_time_total <= 0:
+                continue
+            s = e.self_device_time_total / 1e6
+            kind = label if label == "optimizer" else _resnet_kind(e.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + s
+            busy += s
+            top.append(dict(name=e.key[:80], device_s=s, calls=e.count,
+                            window=label))
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    top.sort(key=lambda r: -r["device_s"])
+    return dict(profiled_wall_s=wall, device_busy_s=busy,
+                device_idle_share=1.0 - busy / wall,
+                device_s_by_kind=by_kind, top_kernels=top[:10])
+
+
+def train_resnet50_api():
+    """ResNet-50 (1000 classes, ``model.bfloat16()``) trained through the
+    paddle API on the card, as bench.py's ResNet-50 line builds it:
+    ``Momentum(0.1, momentum=0.9)``, ``F.cross_entropy`` and ``TrainStep``
+    at batch 128 x 3 x 224 x 224, fed by ``io.DataLoader(num_workers=2)``
+    over seeded uint8 HWC images normalised to bf16 NCHW on the card with
+    paddle ops.  One warm step, ``RESNET_TIMED`` timed steps (host clock,
+    each ending in a sync: images/s, MFU at 3 x 2 x 4.089 GMAC an image
+    against 989 TFLOP/s, the loader's wait a batch), one profiled step
+    (device time by kind, idle share).  Gates: losses finite, the first
+    within ``RESNET_LOSS0_TOL`` of ln 1000, BatchNorm's running
+    statistics moved and finite, every batch read from a worker's ring
+    (frames = batches) and the first batch bitwise the single-process
+    loader's."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.device import device_guard
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.jit.train_step import TrainStep
+    from paddle_tpu_torch.models.resnet import resnet50
+    F = paddle.nn.functional
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    B, S = RESNET_BATCH, RESNET_IMAGE
+    n_batches = 1 + RESNET_TIMED + 1
+    data = _synthetic_images(n_batches * B, S, RESNET_CLASSES)
+    paddle.seed(SEED)
+    with device_guard("gpu"):
+        t0 = time.perf_counter()
+        model = resnet50(num_classes=RESNET_CLASSES)
+        model.bfloat16()
+        opt = paddle.optimizer.Momentum(RESNET_LR, momentum=RESNET_MOMENTUM,
+                                        parameters=model.parameters())
+        step = TrainStep(model, lambda lg, lb: F.cross_entropy(lg, lb), opt)
+        stats0 = {k: v._value.float().clone() for k, v in
+                  model.state_dict().items() if k.endswith(("_mean",
+                                                            "_variance"))}
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        single = next(iter(DataLoader(data, batch_size=B)))
+        single = [t.numpy() for t in single]
+        loader = DataLoader(data, batch_size=B, num_workers=RESNET_WORKERS,
+                            drop_last=True)
+        _reset_train_launches()
+        it = iter(loader)
+        losses, step_s, wait_s = [], [], []
+        first = None
+        for i in range(1 + RESNET_TIMED):
+            t1 = time.perf_counter()
+            img, lab = next(it)
+            wait_s.append(time.perf_counter() - t1)
+            if first is None:
+                first = [img.numpy(), lab.numpy()]
+            loss = step(_normalise(paddle, img), lab)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+        img, lab = next(it)
+        x = _normalise(paddle, img)
+
+        def fwd_bwd():
+            step._loss((x, lab))
+
+        def update():
+            opt.step()
+            opt.clear_grad()
+
+        profile = _profile_windows([("forward_backward", fwd_bwd),
+                                    ("optimizer", update)])
+        for _ in it:                       # the loader runs to its end
+            pass
+        launches = _train_launches()
+        peak = torch.cuda.max_memory_allocated()
+        stats1 = {k: v._value.float() for k, v in
+                  model.state_dict().items() if k in stats0}
+    timed = step_s[1:]
+    images_per_s = B * len(timed) / sum(timed)
+    flops_per_image = 3 * 2 * RESNET50_MACS
+    moved = sum(bool((stats1[k] != stats0[k]).any()) for k in stats0)
+    finite_stats = all(bool(torch.isfinite(v).all()) for v in stats1.values())
+    row = dict(phase="train_resnet50_api_bf16", batch=B, image=S,
+               classes=RESNET_CLASSES,
+               params=sum(p.size for p in model.parameters()),
+               workers=RESNET_WORKERS, init_s=init_s, losses=losses,
+               step_s=step_s, images_per_s=images_per_s,
+               flops_per_image=flops_per_image,
+               mfu=images_per_s * flops_per_image / PEAK_FLOPS["bfloat16"],
+               peak_memory_bytes=peak, loader_wait_s=wait_s,
+               loader_wait_timed_mean_s=float(np.mean(wait_s[1:])),
+               ring_frames=loader.ring_frames, ring_bytes=loader.ring_bytes,
+               batches=n_batches, bn_buffers=len(stats0),
+               bn_buffers_moved=moved, launches=launches, profile=profile)
+    emit(row)
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("train_resnet50_api: non-finite loss %s"
+                             % losses)
+    if not abs(losses[0] - math.log(RESNET_CLASSES)) <= RESNET_LOSS0_TOL:
+        raise AssertionError("train_resnet50_api: first loss %s is not "
+                             "within %s of ln %d" % (losses[0],
+                                                     RESNET_LOSS0_TOL,
+                                                     RESNET_CLASSES))
+    if moved != len(stats0) or not finite_stats:
+        raise AssertionError("train_resnet50_api: %d of %d BN buffers "
+                             "moved, finite %s" % (moved, len(stats0),
+                                                   finite_stats))
+    if loader.ring_frames != n_batches or loader.ring_bytes < \
+            n_batches * B * S * S * 3:
+        raise AssertionError("train_resnet50_api: %d frames (%d bytes) "
+                             "for %d batches" % (loader.ring_frames,
+                                                 loader.ring_bytes,
+                                                 n_batches))
+    if not all(np.array_equal(a, b) for a, b in zip(first, single)):
+        raise AssertionError("train_resnet50_api: the ring's first batch "
+                             "differs from the single-process loader's")
+    if any(launches.values()):
+        raise AssertionError("train_resnet50_api launched a hand-written "
+                             "kernel: %s" % launches)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def _parity_errors(got, want):
+    """Card against CPU: the losses' relative differences, every
+    parameter's gradient-norm difference at each step relative to its
+    norm (or to ``RESNET_NOISE_FLOOR`` of the step's largest, as phase
+    11d), and the BatchNorm buffers' largest difference relative to
+    each buffer's magnitude."""
+    (got_l, got_n, got_b), (want_l, want_n, want_b) = got, want
+    loss = [abs(a - b) / abs(b) for a, b in zip(got_l, want_l)]
+    norms = []
+    for g, w in zip(got_n, want_n):
+        floor = RESNET_NOISE_FLOOR * max(w.values())
+        norms.append({k: abs(g[k] - v) / max(v, floor) for k, v in w.items()})
+    bufs = max(float(np.abs(got_b[k] - want_b[k]).max()
+                     / max(np.abs(want_b[k]).max(), 1e-30)) for k in want_b)
+    return loss, norms, bufs
+
+
+def resnet_api_parity():
+    """``resnet18`` (``RESNET_PARITY``: 10 classes, 8 x 3 x 64 x 64), 2
+    Momentum steps on the card and on the CPU from the same weights and
+    batches (TF32 off), in fp64 and in fp32.  fp64: the losses, every
+    parameter's gradient norm at each step and every BatchNorm buffer
+    after the steps within ``RESNET_PARITY_RTOL``.  fp32: the losses
+    within it; the gradient norms and buffers are reported beside the
+    CPU's own fp32 distance from its fp64 run, because they are not
+    resolved at 1e-5 in fp32 (a CPU run of this cell: the BatchNorm
+    parameters' gradient norms 5.1e-3 from fp64 at step 1, 0.11 at step
+    2; a sum over a map whose terms cancel)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.device import device_guard
+    from paddle_tpu_torch.models.resnet import resnet18
+    F = paddle.nn.functional
+    t0 = time.perf_counter()
+    cfg = RESNET_PARITY
+    rng = np.random.RandomState(SEED)
+    xs = [rng.randn(cfg["batch"], 3, cfg["image"], cfg["image"]).astype(
+        np.float32) for _ in range(cfg["steps"])]
+    ys = [rng.randint(0, cfg["classes"], (cfg["batch"],)).astype(np.int64)
+          for _ in range(cfg["steps"])]
+    paddle.seed(SEED)
+    with device_guard("cpu"):
+        state = {k: v._value.detach().clone() for k, v in
+                 resnet18(num_classes=cfg["classes"]).state_dict().items()}
+
+    def run(place, dtype):
+        with device_guard(place):
+            model = resnet18(num_classes=cfg["classes"])
+            missing, unexpected = model.set_state_dict(state)
+            if missing or unexpected:
+                raise AssertionError("resnet_api_parity: state keys %s %s"
+                                     % (missing, unexpected))
+            model.to(dtype=dtype)
+            opt = paddle.optimizer.Momentum(
+                RESNET_LR, momentum=RESNET_MOMENTUM,
+                parameters=model.parameters())
+            params = dict(model.named_parameters())
+            losses, norms = [], []
+            for x, y in zip(xs, ys):
+                loss = F.cross_entropy(model(paddle.to_tensor(
+                    x.astype(dtype))), paddle.to_tensor(y))
+                loss.backward()
+                losses.append(float(loss))
+                norms.append({k: float(p.grad._value.double().norm())
+                              for k, p in params.items()})
+                opt.step()
+                opt.clear_grad()
+            bufs = {k: v._value.double().cpu().numpy() for k, v in
+                    model.state_dict().items()
+                    if k.endswith(("_mean", "_variance"))}
+        return losses, norms, bufs
+
+    runs = {(place, dtype): run(place, dtype) for dtype in ("float64",
+                                                             "float32")
+            for place in ("gpu", "cpu")}
+    l64, n64, b64 = _parity_errors(runs["gpu", "float64"],
+                                   runs["cpu", "float64"])
+    l32, n32, b32 = _parity_errors(runs["gpu", "float32"],
+                                   runs["cpu", "float32"])
+    _, cpu_noise, cpu_b = _parity_errors(runs["cpu", "float32"],
+                                         runs["cpu", "float64"])
+    bad = {k: v for step in n64 for k, v in step.items()
+           if not v <= RESNET_PARITY_RTOL}
+    row = dict(phase="resnet_api_parity", depth=18,
+               rtol=RESNET_PARITY_RTOL,
+               fp64=dict(card_losses=runs["gpu", "float64"][0],
+                         cpu_losses=runs["cpu", "float64"][0],
+                         loss_rel_diff=l64,
+                         max_grad_norm_rel_diff=max(max(s.values())
+                                                    for s in n64),
+                         max_bn_buffer_rel_diff=b64),
+               fp32=dict(card_losses=runs["gpu", "float32"][0],
+                         cpu_losses=runs["cpu", "float32"][0],
+                         loss_rel_diff=l32,
+                         max_grad_norm_rel_diff=[max(s.values())
+                                                 for s in n32],
+                         max_bn_buffer_rel_diff=b32,
+                         cpu_fp32_vs_fp64_grad_norm=[max(s.values())
+                                                     for s in cpu_noise],
+                         cpu_fp32_vs_fp64_bn_buffers=cpu_b),
+               seconds=time.perf_counter() - t0, **cfg)
+    emit(row)
+    if not max(l64) <= RESNET_PARITY_RTOL or bad \
+            or not b64 <= RESNET_PARITY_RTOL:
+        raise AssertionError("resnet_api_parity (fp64): losses %s, gradient "
+                             "norms over the tolerance %s, BN buffers %s"
+                             % (l64, bad, b64))
+    if not max(l32) <= RESNET_PARITY_RTOL:
+        raise AssertionError("resnet_api_parity (fp32): losses %s" % l32)
+    torch.cuda.empty_cache()
+    return row
+
+
+API2_RTOL = 1e-5
+
+
+def _api2_cases():
+    """One case a family of the slice's API, each ``(name, fn, inputs)``:
+    ``fn(paddle, *tensors)`` gives the output tensors, its layers built on
+    the current device with seeded weights; float inputs get
+    gradients."""
+    f32 = np.float32
+    rng = np.random.RandomState(SEED)
+    lstm_w = [(rng.randn(*s) * 0.3).astype(f32)
+              for s in [(32, 6), (32, 8), (32,), (32,)] * 2]
+    beam_w = [[(rng.randn(*s) * 0.5).astype(f32) for s in shapes]
+              for shapes in ([(24, 8), (24, 8), (24,), (24,)], [(11, 8)],
+                             [(8, 11), (11,)])]
+
+    def load(layers, weights):
+        for layer, ws in zip(layers, weights):
+            for q, v in zip(layer.parameters(), ws):
+                q.set_value(v)
+
+    def conv_t(p, x, w, b):
+        return [p.nn.functional.conv2d_transpose(
+            x, w, b, stride=2, padding=1, output_padding=1, groups=2)]
+
+    def pool_unpool(p, x):
+        out, mask = p.nn.functional.max_pool2d(x, 3, 2, 1,
+                                               return_mask=True)
+        return [out, mask, p.nn.functional.max_unpool2d(
+            out, mask, 3, 2, 1, output_size=x.shape)]
+
+    def grid(p, x, g):
+        return [p.nn.functional.grid_sample(x, g, align_corners=False)]
+
+    def bilstm(p, x):
+        fw, bw = p.nn.LSTMCell(6, 8), p.nn.LSTMCell(6, 8)
+        load((fw, bw), (lstm_w[:4], lstm_w[4:]))
+        out, ((hf, cf), (hb, cb)) = p.nn.BiRNN(fw, bw)(
+            x, sequence_length=p.to_tensor(np.array([5, 3, 1], np.int64)))
+        return [out, hf, cf, hb, cb]
+
+    def rnnt(p, logits):
+        return [p.nn.functional.rnnt_loss(
+            logits, p.to_tensor(np.array([[1, 2], [3, 1]], np.int64)),
+            p.to_tensor(np.array([4, 3], np.int64)),
+            p.to_tensor(np.array([2, 1], np.int64)))]
+
+    def beam(p, h0):
+        cell, emb, head = (p.nn.GRUCell(8, 8), p.nn.Embedding(11, 8),
+                           p.nn.Linear(8, 11))
+        load((cell, emb, head), beam_w)
+        dec = p.nn.BeamSearchDecoder(cell, 0, 10, 3, embedding_fn=emb,
+                                     output_fn=head)
+        return list(p.nn.dynamic_decode(dec, h0, max_step_num=6))
+
+    return [
+        ("conv2d_transpose", conv_t, [rng.randn(2, 4, 6, 6).astype(f32),
+                                      rng.randn(4, 3, 3, 3).astype(f32),
+                                      rng.randn(6).astype(f32)]),
+        ("max_pool2d_mask_unpool", pool_unpool,
+         [rng.randn(2, 3, 9, 9).astype(f32)]),
+        ("grid_sample", grid, [rng.randn(2, 3, 7, 8).astype(f32),
+                               rng.uniform(-1.1, 1.1, (2, 5, 4, 2)).astype(
+                                   f32)]),
+        ("bilstm_sequence_length", bilstm, [rng.randn(3, 5, 6).astype(f32)]),
+        ("rnnt_loss", rnnt, [rng.randn(2, 4, 3, 5).astype(f32)]),
+        ("beam_search", beam, [rng.randn(2, 8).astype(f32)]),
+    ]
+
+
+def api2_card_vs_cpu():
+    """Each case of :func:`_api2_cases` on the card and on the CPU from
+    the same inputs (fp32, TF32 off): every float output and every float
+    input's gradient of ``sum(out * c)`` within ``API2_RTOL`` of its
+    largest magnitude; integer outputs (masks, beam ids) equal."""
+    import torch
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.core.device import device_guard
+    t0 = time.perf_counter()
+    rows = []
+
+    def run(fn, inputs, place):
+        with device_guard(place):
+            ts = [paddle.to_tensor(a, stop_gradient=False) for a in inputs]
+            outs = fn(paddle, *ts)
+            loss = None
+            crng = np.random.RandomState(SEED + 1)
+            for o in outs:
+                if o._value.is_floating_point() and not o.stop_gradient:
+                    c = paddle.to_tensor(np.asarray(
+                        crng.randn(*o.shape), np.float32))
+                    term = (o * c).sum()
+                    loss = term if loss is None else loss + term
+            if loss is not None:
+                loss.backward()
+            grads = [None if t.grad is None else t.grad.numpy() for t in ts]
+            return [o.numpy() for o in outs], grads
+
+    bad = []
+    for name, fn, inputs in _api2_cases():
+        got, got_g = run(fn, inputs, "gpu")
+        want, want_g = run(fn, inputs, "cpu")
+        errs = []
+        for g, w in list(zip(got, want)) + [
+                (g, w) for g, w in zip(got_g, want_g) if w is not None]:
+            if g.shape != w.shape:
+                errs.append(float("inf"))
+            elif w.dtype.kind == "f":
+                errs.append(float(np.abs(g - w).max()
+                                  / max(np.abs(w).max(), 1e-30)))
+            else:
+                errs.append(0.0 if np.array_equal(g, w) else float("inf"))
+        row = dict(case=name, max_rel_err=max(errs))
+        rows.append(row)
+        if not max(errs) <= API2_RTOL:
+            bad.append(row)
+    emit(dict(phase="api2_card_vs_cpu", rtol=API2_RTOL, cases=rows,
+              seconds=time.perf_counter() - t0))
+    if bad:
+        raise AssertionError("api2_card_vs_cpu: %s" % bad)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_resnet_api():
+    """Phase 11e: :func:`api2_card_vs_cpu`, :func:`resnet_api_parity`,
+    then :func:`train_resnet50_api`."""
+    cases = api2_card_vs_cpu()
+    parity = resnet_api_parity()
+    train = train_resnet50_api()
+    return dict(cases=cases, parity=parity, train=train,
+                launches=train["launches"])
+
+
 def kernel_summary(rows, serving, flash_rows, train_launches,
                    ring_rows=(), gpt_rows=()):
     """One entry per kernel variant for the final JSON line: the times at
@@ -6840,12 +7334,14 @@ def main() -> int:
     mesh_train = run("train_mesh", phase_train_mesh)
     run("optimizers", phase_optimizers)
     gpt = run("gpt2_api", phase_gpt2_api)
+    resnet = run("resnet_api", phase_resnet_api)
     emit({"kernels": kernel_summary(
         rows, serving, flash_rows,
         dict({"train_7b": train["launches"],
               "train_long_16k": long["launches"],
               "train_7b_layerwise": layerwise["launches"],
-              "train_gpt2_api": gpt["launches"]},
+              "train_gpt2_api": gpt["launches"],
+              "train_resnet50_api": resnet["launches"]},
              **{k: v["launches"] for k, v in families.items()},
              **mesh_train["launches"]), mesh_train["ring_rows"],
         gpt["flash_rows"])})

@@ -59,8 +59,8 @@ __version__ = "0.1.0"
 
 # the API's subpackages, imported at first use
 _SUBMODULES = ("nn", "amp", "autograd", "optimizer", "models", "ops",
-               "core", "distributed", "inference", "jit", "observability",
-               "quantization", "testing")
+               "core", "distributed", "inference", "io", "jit",
+               "observability", "quantization", "testing")
 
 # the subpackages that do not need the op table
 _ENGINE_PACKAGES = ("distributed", "inference", "jit", "observability",

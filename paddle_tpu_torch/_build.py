@@ -13,6 +13,10 @@ see a half-written library.  All missing libraries build at once, one
 There is no fallback: if ``nvcc`` is missing or fails, ``BuildError`` is
 raised.  Each C entry point returns ``cudaGetLastError()``;
 :func:`check` turns a nonzero code into an exception.
+
+:func:`build_host` builds a host-only C++ library (the DataLoader's
+shared-memory ring, ``io/_native/ringbuf.cc``) the same way with the host
+compiler (``c++``), which needs no CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -124,6 +128,39 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, BuiltKernel]:
     if failed:
         raise BuildError("nvcc failed for " + "\n".join(failed))
     return out
+
+
+HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
+
+
+def build_host(name: str, source: str) -> str:
+    """The path of ``source`` (one host C++ file) built into
+    ``build/paddle_tpu_torch/<name>-<hash>.so`` with the host compiler,
+    content-hash keyed and installed atomically like the kernels.  Raises
+    ``BuildError`` when there is no compiler or it fails."""
+    h = hashlib.sha256()
+    with open(source, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(HOST_FLAGS).encode())
+    so = os.path.join(BUILD_DIR, "%s-%s.so" % (name, h.hexdigest()[:16]))
+    if os.path.exists(so):
+        return so
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise BuildError("no host C++ compiler (c++ or g++) to build %s"
+                         % source)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = "%s.tmp.%d" % (so, os.getpid())
+    proc = subprocess.run([cxx, *HOST_FLAGS, "-o", tmp, source],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise BuildError("%s failed for %s (exit %d):\n%s"
+                         % (cxx, source, proc.returncode, proc.stdout))
+    os.replace(tmp, so)           # atomic: the last concurrent build wins
+    return so
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -4,7 +4,8 @@ black list), ``decorate`` (O2 casts the model's parameters and gives the
 optimizer fp32 master weights) and ``GradScaler`` (dynamic loss
 scaling).  The cast happens in ``core.dispatch.apply_op``, the one door
 every API op goes through; torch's autograd carries each gradient back to
-its input's dtype."""
+its input's dtype.  ``amp.debugging`` holds the tensor checker and the
+operator statistics."""
 from __future__ import annotations
 
 import contextlib
@@ -201,3 +202,6 @@ class GradScaler:
         self._scale = sd.get("scale", self._scale)
         self._good_steps = sd.get("incr_count", 0)
         self._bad_steps = sd.get("decr_count", 0)
+
+
+from . import debugging  # noqa: E402,F401  (paddle.amp.debugging)

@@ -4,8 +4,11 @@
 API tensors, applies the AMP cast of the active ``auto_cast`` scope
 (:func:`amp_policy`, the reference's O1/O2 white/black-list rule), runs
 the op's PyTorch function (torch's autograd records it), wraps the
-outputs and, under ``FLAGS_check_nan_inf``, checks them.  There is no
-tape of its own and no JIT or SOT hook: those are later slices.
+outputs and, under ``FLAGS_check_nan_inf``, checks them.  One hook slot,
+``_amp_debug_hook``, gives ``amp.debugging`` (the tensor checker and the
+operator statistics) each op's name and outputs; while it is empty the
+door costs one list read.  There is no tape of its own and no JIT or SOT
+hook: those are later slices.
 """
 from __future__ import annotations
 
@@ -17,6 +20,10 @@ from .flags import get_flag
 
 _amp_state = {"enabled": False, "dtype": None, "level": "O1",
               "white": frozenset(), "black": frozenset()}
+
+# amp.debugging's per-op hook ``hook(name, output_values)``; None while no
+# debugging tool is on (``amp/debugging.py``)
+_amp_debug_hook = [None]
 
 
 def amp_policy(name: str, level: str, target, white, black):
@@ -87,6 +94,9 @@ def apply_op(name: str, fn: Callable, tensor_args: Sequence,
     flat = out if isinstance(out, (tuple, list)) else (out,)
     if get_flag("check_nan_inf"):
         _check_nan_inf(name, flat)
+    dbg = _amp_debug_hook[0]
+    if dbg is not None:
+        dbg(name, flat)
     if isinstance(out, (tuple, list)):
         return tuple(Tensor._from_value(v) for v in out)
     t = Tensor._from_value(out)

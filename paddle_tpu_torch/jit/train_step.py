@@ -3,6 +3,11 @@
     step = TrainStep(model, criterion, optimizer, clip_norm=1.0)
     loss = step(input_ids, labels)
 
+``model`` is a ``torch.nn.Module`` (the models of ``models/``) or a
+paddle-API ``nn.Layer`` with a criterion over API tensors (``ResNet`` with
+``lambda logits, labels: F.cross_entropy(logits, labels)`` and
+``optimizer.Momentum``: the reference's construction).
+
 One call runs the forward and the loss (fp32), the backward, the global
 gradient-norm clip (``scale = clip / max(||g||, clip)`` with the norm in
 fp32, each gradient scaled in fp32 and cast back to its own dtype), the
@@ -92,6 +97,10 @@ class TrainStep:
         self.criterion = criterion
         self.optimizer = optimizer
         self.clip_norm = clip_norm
+        # a paddle-API ``nn.Layer`` (its running statistics, BatchNorm's,
+        # update in place in its forward, which is the step's); the step
+        # then returns the loss as an API Tensor, as the reference's does
+        self._api_model = "_api_params" in vars(model)
         self._params = [(k, p) for k, p in optimizer.params
                         if p.requires_grad]
         self._mode = None
@@ -391,7 +400,9 @@ class TrainStep:
 
     def _loss(self, batch) -> torch.Tensor:
         *inputs, labels = batch
-        loss = self.criterion(self.model(*inputs), labels).to(torch.float32)
+        loss = self.criterion(self.model(*inputs), labels)
+        # a paddle-API model and criterion give an API Tensor
+        loss = getattr(loss, "_value", loss).to(torch.float32)
         loss.backward()
         return loss.detach()
 
@@ -432,6 +443,9 @@ class TrainStep:
                 self._clip(grads)
         self.optimizer.step()
         self.optimizer.clear_grad()
+        if self._api_model:
+            from ..core.tensor import Tensor
+            return Tensor._from_value(loss)
         return loss
 
     @staticmethod

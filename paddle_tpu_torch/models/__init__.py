@@ -1,6 +1,7 @@
 """The model families of the port: Llama, Mixtral (sparse MoE) and
-Qwen2.  GPT-2 through the paddle API is ``models.gpt``, imported on its
-own (it builds the API's op table)."""
+Qwen2.  GPT-2 and the ResNet family through the paddle API are
+``models.gpt`` and ``models.resnet``, each imported on its own (they build
+the API's op table)."""
 from .llama import (LlamaConfig, LlamaForCausalLM,  # noqa: F401
                     LlamaPretrainingCriterion, llama_7b_config,
                     llama_tiny_config)

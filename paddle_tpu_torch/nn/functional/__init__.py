@@ -1,7 +1,7 @@
 """``paddle.nn.functional`` of the port (counterpart of
 ``paddle_tpu/nn/functional``): activations, the common ops (linear,
-dropout, embedding, attention), the norms and the losses.  Convolution,
-pooling, the vision ops and the extended set are a later slice."""
+dropout, embedding, attention), convolution and pooling, the norms, the
+losses, the vision ops and the extended set."""
 from .activation import (relu, relu6, relu_, gelu, silu, swish, softmax,
                          log_softmax, softplus, softsign, sigmoid, tanh,
                          hardtanh, hardsigmoid, hardswish, leaky_relu, elu,
@@ -14,6 +14,14 @@ from .common import (linear, dropout, dropout2d, dropout3d, alpha_dropout,
                      label_smooth, cosine_similarity, normalize, bilinear,
                      flash_attention, scaled_dot_product_attention,
                      zeropad2d)
+from .conv import (conv1d, conv2d, conv3d, conv1d_transpose, conv2d_transpose,
+                   conv3d_transpose)
+from .pooling import (avg_pool1d, avg_pool2d, avg_pool3d, max_pool1d,
+                      max_pool2d, max_pool3d, adaptive_avg_pool1d,
+                      adaptive_avg_pool2d, adaptive_avg_pool3d,
+                      adaptive_max_pool2d, max_unpool2d,
+                      fractional_max_pool2d, adaptive_max_pool1d,
+                      adaptive_max_pool3d, max_unpool1d, max_unpool3d)
 from .norm import (batch_norm, layer_norm, instance_norm, group_norm,
                    local_response_norm, rms_norm)
 from .loss import (cross_entropy, softmax_with_cross_entropy,
@@ -26,6 +34,11 @@ from .loss import (cross_entropy, softmax_with_cross_entropy,
                    multi_label_soft_margin_loss, poisson_nll_loss,
                    gaussian_nll_loss, dice_loss, npair_loss,
                    margin_cross_entropy)
+from .vision import (affine_grid, grid_sample, channel_shuffle,
+                     temporal_shift)
+from .extended import (pairwise_distance, triplet_margin_with_distance_loss,
+                       hsigmoid_loss, rnnt_loss, class_center_sample,
+                       fractional_max_pool3d)
 
 
 def _inplace_act(fn):

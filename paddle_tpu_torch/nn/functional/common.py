@@ -267,13 +267,8 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
                 name=None):
     """Resize: nearest (half-pixel centres, as the reference's
     ``jax.image``), linear/bilinear/trilinear (half-pixel, or
-    corner-aligned with ``align_corners``) and area (adaptive average
-    pooling).  Bicubic is not ported: the reference's cubic kernel
-    (Keys, a = -0.5) is not torch's (a = -0.75)."""
-    if mode == "bicubic":
-        raise NotImplementedError(
-            "interpolate(mode='bicubic') is not ported: the reference's "
-            "cubic kernel differs from torch's")
+    corner-aligned with ``align_corners``), bicubic (:func:`_cubic_resize`)
+    and area (adaptive average pooling)."""
     channel_last = not data_format.startswith("NC")
 
     def fn(v):
@@ -288,7 +283,9 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
             sf = scale_factor if isinstance(scale_factor, (list, tuple)) \
                 else [scale_factor] * nd
             tgt = tuple(int(s * f) for s, f in zip(spatial, sf))
-        if mode == "area":
+        if mode == "bicubic":
+            out = _cubic_resize(v, tgt, align_corners).to(v.dtype)
+        elif mode == "area":
             out = TF.adaptive_avg_pool1d(v, tgt) if nd == 1 else (
                 TF.adaptive_avg_pool2d(v, tgt) if nd == 2
                 else TF.adaptive_avg_pool3d(v, tgt))
@@ -303,6 +300,63 @@ def interpolate(x, size=None, scale_factor=None, mode="nearest",
                                  and nd == 2).to(v.dtype)
         return torch.movedim(out, 1, -1) if channel_last else out
     return apply_op("interpolate", fn, (x,))
+
+
+def _keys_cubic(x):
+    """Keys' cubic kernel, a = -0.5 (torch's bicubic takes a = -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def _cubic_weights(in_size, out_size, inv_scale, translation, antialias,
+                   device, dtype):
+    """The ``[in, out]`` resampling matrix of one dim, as
+    ``jax.image.compute_weight_mat`` builds it: the kernel at each output
+    sample's distance to each input pixel (widened by the inverse scale
+    when an antialiased resize shrinks), each column renormalised, and
+    columns whose sample falls outside the input zeroed, in ``dtype``."""
+    kernel_scale = torch.clamp(inv_scale, min=1.0) if antialias else 1.0
+    sample_f = (torch.arange(out_size, dtype=dtype, device=device) + 0.5) \
+        * inv_scale - translation * inv_scale - 0.5
+    x = torch.abs(sample_f[None, :] - torch.arange(
+        in_size, dtype=dtype, device=device)[:, None]) / kernel_scale
+    w = _keys_cubic(x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(
+        np.float32).eps), w / torch.where(total != 0, total, 1.0), 0.0)
+    keep = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(keep[None, :], w, 0.0)
+
+
+def _cubic_resize(v, tgt, align_corners):
+    """Bicubic resize of ``v`` [N, C, *sp] to ``tgt``, the reference's
+    way: ``jax.image.resize`` (half-pixel centres, antialiased when it
+    shrinks, only the dims whose size changes), or with
+    ``align_corners`` ``scale_and_translate`` at scale ``(out - 1) / (in -
+    1)`` and translation ``(1 - scale) / 2``, no antialiasing, in fp32."""
+    f32 = torch.float32
+    spatial = tuple(v.shape[2:])
+    if align_corners:
+        v = v.to(f32)
+    out = v
+    for i, (n, o) in enumerate(zip(spatial, tgt)):
+        if align_corners:
+            # float32 scales, as the reference passes them
+            scale = torch.tensor((o - 1) / (n - 1) if n > 1 else 1.0,
+                                 dtype=f32, device=v.device)
+            w = _cubic_weights(n, o, 1.0 / scale, 0.5 * (1.0 - scale),
+                               False, v.device, f32)
+        elif n == o:
+            continue
+        else:
+            # Python-float scales: float64 under the reference's x64
+            w = _cubic_weights(n, o, torch.tensor(
+                n / o, dtype=torch.float64, device=v.device), 0.0, True,
+                v.device, torch.float64)
+        out = torch.movedim(torch.matmul(torch.movedim(out, 2 + i, -1),
+                                         w.to(out.dtype)), -1, 2 + i)
+    return out
 
 
 def upsample(x, size=None, scale_factor=None, mode="nearest",

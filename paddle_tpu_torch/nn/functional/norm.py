@@ -4,8 +4,8 @@ the reference's API function is plain jnp: the RMSNorm kernel (#4) runs
 on the layerwise training path, not here."""
 from __future__ import annotations
 
-import numpy as np
 import torch
+import torch.nn.functional as TF
 
 from ...core.dispatch import apply_op
 from ...core.tensor import Tensor
@@ -21,52 +21,48 @@ def _var(v, dims, keepdim):
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW", use_global_stats=None, name=None):
-    """Batch norm; in training (without global stats) the running
-    statistics are updated in place: ``momentum * old + (1 - momentum) *
-    batch`` with the unbiased batch variance."""
-    channel_axis = 1 if data_format.startswith("NC") else -1
+    """Batch norm.  With the running statistics (eval, or
+    ``use_global_stats``) it is elementwise; in training without them it
+    runs ``torch.nn.functional.batch_norm`` (cuDNN or torch's own kernel on
+    the card), which normalises by the batch's mean and biased variance and
+    updates the running statistics in place as the reference does,
+    ``momentum * old + (1 - momentum) * batch`` with the unbiased batch
+    variance — torch's rule at ``momentum' = 1 - momentum``."""
+    channel_last = not data_format.startswith("NC")
     use_stats = (not training) if use_global_stats is None \
         else use_global_stats
+    # the buffers the op updates: held here, outside the op's operands,
+    # so an AMP cast of the operands never redirects the update to a copy
+    update = training and not use_stats and isinstance(
+        running_mean, Tensor) and isinstance(running_var, Tensor) \
+        and isinstance(x, Tensor)
     has_w, has_b = weight is not None, bias is not None
 
     def fn(v, mean, var, *wb):
-        ch = channel_axis % v.dim()
-        axes = tuple(i for i in range(v.dim()) if i != ch)
+        if channel_last:
+            v = torch.movedim(v, -1, 1)
+        w = wb[0] if has_w else None
+        b = wb[-1] if has_b else None
         if use_stats:
-            m, s2 = mean, var
+            # elementwise in the statistics too: they may carry gradients
+            shape = [1] * v.dim()
+            shape[1] = v.shape[1]
+            out = (v - mean.reshape(shape)) * torch.rsqrt(
+                var.reshape(shape) + epsilon)
+            if w is not None:
+                out = out * w.reshape(shape)
+            if b is not None:
+                out = out + b.reshape(shape)
+        elif update:
+            out = TF.batch_norm(v, running_mean._value, running_var._value,
+                                w, b, True, 1.0 - momentum, epsilon)
         else:
-            m, s2 = v.mean(dim=axes), _var(v, axes, False)
-        shape = [1] * v.dim()
-        shape[ch] = v.shape[ch]
-        out = (v - m.reshape(shape)) * torch.rsqrt(s2.reshape(shape)
-                                                   + epsilon)
-        i = 0
-        if has_w:
-            out = out * wb[0].reshape(shape)
-            i = 1
-        if has_b:
-            out = out + wb[i].reshape(shape)
-        return out
+            out = TF.batch_norm(v, None, None, w, b, True, 0.0, epsilon)
+        return torch.movedim(out, 1, -1) if channel_last else out
 
     wb = tuple(targ(t) for t in (weight, bias) if t is not None)
-    out = apply_op("batch_norm", fn,
-                   (x, targ(running_mean), targ(running_var)) + wb)
-    if training and not use_stats and isinstance(running_mean, Tensor) \
-            and isinstance(x, Tensor):
-        with torch.no_grad():
-            v = x._value
-            ch = channel_axis % v.dim()
-            axes = tuple(i for i in range(v.dim()) if i != ch)
-            m, v2 = v.mean(dim=axes), _var(v, axes, False)
-            n = float(np.prod([v.shape[a] for a in axes]))
-            unbiased = v2 * (n / max(n - 1.0, 1.0))
-            running_mean._set_data((momentum * running_mean._value
-                                    + (1 - momentum) * m).to(
-                running_mean._value.dtype))
-            running_var._set_data((momentum * running_var._value
-                                   + (1 - momentum) * unbiased).to(
-                running_var._value.dtype))
-    return out
+    return apply_op("batch_norm", fn,
+                    (x, targ(running_mean), targ(running_var)) + wb)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,

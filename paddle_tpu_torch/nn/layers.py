@@ -1,15 +1,18 @@
 """The paddle API's layers (counterpart of ``paddle_tpu/nn/layers.py``):
 parameter containers over ``nn.functional``.  ``Linear`` stores its weight
 as paddle's ``[in, out]`` (the models' torch-layout layers are
-``models/_layers.py``).  Convolution, pooling and the layers over the
-extended functionals are a later slice.
+``models/_layers.py``); convolution weights keep paddle's layouts.
 """
 from __future__ import annotations
 
 
 import numpy as np
+import torch
 
+from ..core.dispatch import apply_op
 from ..core.tensor import Tensor
+from ..ops._helpers import targ
+from ..ops.random import generator_for
 from .layer_base import Layer
 from . import functional as F
 from . import initializer as I
@@ -911,3 +914,532 @@ class RReLU(Layer):
 
     def forward(self, x):
         return F.rrelu(x, self._lower, self._upper, self.training)
+
+
+# -- convolution -------------------------------------------------------------
+class _ConvNd(Layer):
+    """A convolution's parameters, paddle's layouts: weight ``[out,
+    in/groups, *k]`` (``[in, out/groups, *k]`` for a transpose), both
+    uniform in ``+-1/sqrt(fan_in)``."""
+
+    def __init__(self, nd, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 transpose=False, output_padding=0):
+        super().__init__()
+        from .functional.conv import _pair
+        k = _pair(kernel_size, nd)
+        self._stride, self._padding, self._dilation = stride, padding, dilation
+        self._groups = groups
+        self._data_format = data_format
+        self._transpose = transpose
+        self._output_padding = output_padding
+        if transpose:
+            wshape = [in_channels, out_channels // groups] + list(k)
+        else:
+            wshape = [out_channels, in_channels // groups] + list(k)
+        fan_in = in_channels * int(np.prod(k)) // groups
+        bound = 1.0 / np.sqrt(fan_in)
+        self.weight = self.create_parameter(
+            wshape, attr=weight_attr,
+            default_initializer=I.Uniform(-bound, bound))
+        if bias_attr is not False:
+            self.bias = self.create_parameter(
+                [out_channels], attr=bias_attr,
+                default_initializer=I.Uniform(-bound, bound), is_bias=True)
+        else:
+            self.bias = None
+
+    def _conv_args(self):
+        return (self.weight, self.bias, self._stride, self._padding,
+                self._dilation, self._groups, self._data_format)
+
+    def _transpose_args(self, output_size):
+        return (self.weight, self.bias, self._stride, self._padding,
+                self._output_padding, self._groups, self._dilation,
+                output_size, self._data_format)
+
+
+class Conv1D(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCL"):
+        super().__init__(1, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, padding_mode,
+                         weight_attr, bias_attr, data_format)
+
+    def forward(self, x):
+        return F.conv1d(x, *self._conv_args())
+
+
+class Conv2D(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCHW"):
+        super().__init__(2, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, padding_mode,
+                         weight_attr, bias_attr, data_format)
+
+    def forward(self, x):
+        return F.conv2d(x, *self._conv_args())
+
+
+class Conv3D(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format="NCDHW"):
+        super().__init__(3, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, padding_mode,
+                         weight_attr, bias_attr, data_format)
+
+    def forward(self, x):
+        return F.conv3d(x, *self._conv_args())
+
+
+class Conv1DTranspose(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format="NCL"):
+        super().__init__(1, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, transpose=True,
+                         output_padding=output_padding)
+
+    def forward(self, x, output_size=None):
+        return F.conv1d_transpose(x, *self._transpose_args(output_size))
+
+
+class Conv2DTranspose(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format="NCHW"):
+        super().__init__(2, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, transpose=True,
+                         output_padding=output_padding)
+
+    def forward(self, x, output_size=None):
+        return F.conv2d_transpose(x, *self._transpose_args(output_size))
+
+
+class Conv3DTranspose(_ConvNd):
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, dilation=1, groups=1,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW"):
+        super().__init__(3, in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, groups, "zeros", weight_attr,
+                         bias_attr, data_format, transpose=True,
+                         output_padding=output_padding)
+
+    def forward(self, x, output_size=None):
+        return F.conv3d_transpose(x, *self._transpose_args(output_size))
+
+
+# -- pooling -----------------------------------------------------------------
+class _Pool(Layer):
+    """A pool: its functional and the arguments after ``x``."""
+
+    _fn = None
+
+    def __init__(self, *args):
+        super().__init__()
+        self._args = args
+
+    def forward(self, x):
+        return type(self)._fn(x, *self._args)
+
+
+class MaxPool1D(_Pool):
+    _fn = staticmethod(F.max_pool1d)
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 return_mask=False, ceil_mode=False, name=None):
+        super().__init__(kernel_size, stride, padding, return_mask,
+                         ceil_mode)
+
+
+class MaxPool2D(_Pool):
+    _fn = staticmethod(F.max_pool2d)
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 return_mask=False, ceil_mode=False, data_format="NCHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, return_mask,
+                         ceil_mode, data_format)
+
+
+class MaxPool3D(_Pool):
+    _fn = staticmethod(F.max_pool3d)
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 return_mask=False, ceil_mode=False, data_format="NCDHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, return_mask,
+                         ceil_mode, data_format)
+
+
+class AvgPool1D(_Pool):
+    _fn = staticmethod(F.avg_pool1d)
+
+    def __init__(self, kernel_size, stride=None, padding=0, exclusive=True,
+                 ceil_mode=False, name=None):
+        super().__init__(kernel_size, stride, padding, exclusive, ceil_mode)
+
+
+class AvgPool2D(_Pool):
+    _fn = staticmethod(F.avg_pool2d)
+
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 exclusive=True, divisor_override=None, data_format="NCHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode, exclusive,
+                         divisor_override, data_format)
+
+
+class AvgPool3D(_Pool):
+    _fn = staticmethod(F.avg_pool3d)
+
+    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
+                 exclusive=True, divisor_override=None, data_format="NCDHW",
+                 name=None):
+        super().__init__(kernel_size, stride, padding, ceil_mode, exclusive,
+                         divisor_override, data_format)
+
+
+class AdaptiveAvgPool1D(_Pool):
+    _fn = staticmethod(F.adaptive_avg_pool1d)
+
+    def __init__(self, output_size, name=None):
+        super().__init__(output_size)
+
+
+class AdaptiveAvgPool2D(_Pool):
+    _fn = staticmethod(F.adaptive_avg_pool2d)
+
+    def __init__(self, output_size, data_format="NCHW", name=None):
+        super().__init__(output_size, data_format)
+
+
+class AdaptiveAvgPool3D(_Pool):
+    _fn = staticmethod(F.adaptive_avg_pool3d)
+
+    def __init__(self, output_size, data_format="NCDHW", name=None):
+        super().__init__(output_size, data_format)
+
+
+class AdaptiveMaxPool1D(_Pool):
+    _fn = staticmethod(F.adaptive_max_pool1d)
+
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__(output_size, return_mask)
+
+
+class AdaptiveMaxPool2D(_Pool):
+    # the reference's layer drops return_mask
+    _fn = staticmethod(F.adaptive_max_pool2d)
+
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__(output_size)
+
+
+class AdaptiveMaxPool3D(_Pool):
+    _fn = staticmethod(F.adaptive_max_pool3d)
+
+    def __init__(self, output_size, return_mask=False, name=None):
+        super().__init__(output_size, return_mask)
+
+
+class FractionalMaxPool2D(_Pool):
+    _fn = staticmethod(F.fractional_max_pool2d)
+
+    def __init__(self, output_size, kernel_size=None, random_u=None,
+                 return_mask=False, name=None):
+        super().__init__(output_size, kernel_size, random_u, return_mask)
+
+
+class FractionalMaxPool3D(_Pool):
+    _fn = staticmethod(F.fractional_max_pool3d)
+
+    def __init__(self, output_size, kernel_size=None, random_u=None,
+                 return_mask=False, name=None):
+        super().__init__(output_size, kernel_size, random_u, return_mask)
+
+
+class _MaxUnPool(Layer):
+    _fn = None
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+        super().__init__()
+        self._args = (kernel_size, stride, padding, data_format, output_size)
+
+    def forward(self, x, indices):
+        return type(self)._fn(x, indices, *self._args)
+
+
+class MaxUnPool1D(_MaxUnPool):
+    _fn = staticmethod(F.max_unpool1d)
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format,
+                         output_size)
+
+
+class MaxUnPool2D(_MaxUnPool):
+    _fn = staticmethod(F.max_unpool2d)
+
+
+class MaxUnPool3D(_MaxUnPool):
+    _fn = staticmethod(F.max_unpool3d)
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+        super().__init__(kernel_size, stride, padding, data_format,
+                         output_size)
+
+
+# -- vision, distance and the extended losses --------------------------------
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups, self.data_format = groups, data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class PairwiseDistance(Layer):
+    """``||x - y + eps||_p`` over the last axis (the reference's
+    ``linalg.norm`` of the difference)."""
+
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self._p, self._eps, self._keepdim = p, epsilon, keepdim
+
+    def forward(self, x, y):
+        p, keep = self._p, self._keepdim
+
+        def fn(v):
+            a = torch.abs(v)
+            if p in (np.inf, float("inf")):
+                return torch.amax(a, dim=-1, keepdim=keep)
+            if p in (-np.inf, float("-inf")):
+                return torch.amin(a, dim=-1, keepdim=keep)
+            if p == 0:
+                return torch.sum((v != 0).to(v.dtype), dim=-1, keepdim=keep)
+            return torch.pow(torch.sum(torch.pow(a, p), dim=-1,
+                                       keepdim=keep), 1.0 / p)
+        return apply_op("norm", fn, (targ(x - y + self._eps),))
+
+
+class TripletMarginWithDistanceLoss(Layer):
+    """The triplet loss under a distance callable (without one,
+    ``F.triplet_margin_loss``)."""
+
+    def __init__(self, distance_function=None, margin=1.0, swap=False,
+                 reduction="mean", name=None):
+        super().__init__()
+        self._dist = distance_function
+        self._margin, self._swap = margin, swap
+        self._reduction = reduction
+
+    def forward(self, input, positive, negative):
+        if self._dist is None:
+            return F.triplet_margin_loss(
+                input, positive, negative, margin=self._margin,
+                swap=self._swap, reduction=self._reduction)
+        from ..ops import math as _m, reduction as _r
+        d_pos = self._dist(input, positive)
+        d_neg = self._dist(input, negative)
+        if self._swap:
+            d_neg = _m.minimum(d_neg, self._dist(positive, negative))
+        loss = _m.clip(d_pos - d_neg + self._margin, min=0.0)
+        if self._reduction == "mean":
+            return _r.mean(loss)
+        if self._reduction == "sum":
+            return _r.sum(loss)
+        return loss
+
+
+class SpectralNorm(Layer):
+    """Spectral normalisation of a weight passed to ``forward``: ``W /
+    sigma_max(W)``, sigma by power iteration over the matricised weight
+    (``dim`` its rows), ``weight_u``/``weight_v`` persistent buffers drawn
+    by numpy's ``RandomState(0)`` (the reference's draws, bit for bit)."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 name=None, dtype="float32"):
+        super().__init__()
+        self._dim = dim
+        self._power_iters = power_iters
+        self._eps = eps
+        shape = list(weight_shape)
+        h = shape[dim]
+        w = int(np.prod([s for i, s in enumerate(shape) if i != dim]))
+        rng = np.random.RandomState(0)
+        self.register_buffer("weight_u", Tensor(
+            rng.randn(h).astype("float32")))
+        self.register_buffer("weight_v", Tensor(
+            rng.randn(w).astype("float32")))
+
+    def forward(self, weight):
+        mat = weight
+        if self._dim != 0:
+            perm = [self._dim] + [i for i in range(len(weight.shape))
+                                  if i != self._dim]
+            mat = weight.transpose(perm)
+        mat2 = mat.reshape([mat.shape[0], -1])
+        u, v = self.weight_u, self.weight_v
+        with torch.no_grad():
+            for _ in range(self._power_iters):
+                v = F.normalize(mat2.t().matmul(u.unsqueeze(1)).squeeze(1),
+                                epsilon=self._eps, axis=0)
+                u = F.normalize(mat2.matmul(v.unsqueeze(1)).squeeze(1),
+                                epsilon=self._eps, axis=0)
+            self.weight_u._value.copy_(u._value)
+            self.weight_v._value.copy_(v._value)
+        sigma = u.unsqueeze(0).matmul(mat2).matmul(
+            v.unsqueeze(1)).reshape([])
+        return weight / sigma
+
+
+class FeatureAlphaDropout(Layer):
+    """Alpha dropout of whole channels (feature maps), keeping the
+    self-normalising statistics (SELU's alpha')."""
+
+    _ALPHA_P = 1.7580993408473766   # -selu_alpha * selu_scale
+
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(
+                f"FeatureAlphaDropout p must be in [0, 1), got {p}")
+        self.p = p
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        p = self.p
+        alpha_p = -self._ALPHA_P
+        a = (1.0 / ((1 - p) * (1 + p * alpha_p ** 2)) ** 0.5)
+        b = -a * alpha_p * p
+
+        def fn(v):
+            shape = (v.shape[0], v.shape[1]) + (1,) * (v.dim() - 2)
+            keep = torch.rand(shape, generator=generator_for(v.device),
+                              device=v.device) < (1 - p)
+            return (torch.where(keep, v, alpha_p) * a + b).to(v.dtype)
+        return apply_op("feature_alpha_dropout", fn, (x,))
+
+
+class AdaptiveLogSoftmaxWithLoss(Layer):
+    """Hierarchical softmax with frequency cutoffs: a head over [the
+    common classes + one token a cluster] and a tail projection a cluster,
+    each narrower by ``div_value``; ``forward`` gathers only the targets'
+    entries."""
+
+    def __init__(self, in_features, n_classes, cutoffs, div_value=4.0,
+                 head_bias=False, name=None):
+        super().__init__()
+        cutoffs = list(cutoffs)
+        if (not cutoffs or cutoffs != sorted(cutoffs)
+                or len(set(cutoffs)) != len(cutoffs)
+                or cutoffs[-1] > n_classes - 1 or min(cutoffs) <= 0):
+            raise ValueError(
+                "cutoffs must be unique, increasing, positive ints "
+                "< n_classes")
+        self.in_features = in_features
+        self.n_classes = n_classes
+        self.cutoffs = cutoffs + [n_classes]
+        self.div_value = div_value
+        self.shortlist_size = self.cutoffs[0]
+        self.n_clusters = len(self.cutoffs) - 1
+        self.head_size = self.shortlist_size + self.n_clusters
+        self.head = Linear(in_features, self.head_size,
+                           bias_attr=head_bias if head_bias else False)
+        self.tail = LayerList()
+        for i in range(self.n_clusters):
+            hsz = max(1, int(in_features / (div_value ** (i + 1))))
+            osz = self.cutoffs[i + 1] - self.cutoffs[i]
+            self.tail.append(Sequential(
+                Linear(in_features, hsz, bias_attr=False),
+                Linear(hsz, osz, bias_attr=False)))
+
+    def _full_log_prob(self, input):
+        from ..ops.manipulation import concat
+        head_out = F.log_softmax(self.head(input), axis=-1)
+        parts = [head_out[..., :self.shortlist_size]]
+        for i, tail in enumerate(self.tail):
+            gate = head_out[..., self.shortlist_size + i:
+                            self.shortlist_size + i + 1]
+            parts.append(F.log_softmax(tail(input), axis=-1) + gate)
+        return concat(parts, axis=-1)
+
+    def forward(self, input, label):
+        head_lp = F.log_softmax(self.head(input), axis=-1)
+        cluster_lps = [F.log_softmax(t(input), axis=-1) for t in self.tail]
+        c = self.cutoffs
+        short = self.shortlist_size
+
+        def fn(hlp, lab, *clps):
+            lab = lab.to(torch.int64)
+            sl = torch.clamp(lab, 0, short - 1)
+            out = torch.gather(hlp, -1, sl[..., None])[..., 0]
+            for i, clp in enumerate(clps):
+                rel = torch.clamp(lab - c[i], 0, clp.shape[-1] - 1)
+                val = torch.gather(clp, -1, rel[..., None])[..., 0] \
+                    + hlp[..., short + i]
+                out = torch.where((lab >= c[i]) & (lab < c[i + 1]), val,
+                                  out)
+            return out
+
+        output = apply_op("adaptive_log_softmax", fn,
+                          tuple([head_lp, label] + cluster_lps))
+        return output, -output.mean()
+
+    def log_prob(self, input):
+        return self._full_log_prob(input)
+
+    def predict(self, input):
+        return self._full_log_prob(input).argmax(axis=-1)
+
+
+class HSigmoidLoss(Layer):
+    """Hierarchical sigmoid over the default complete binary tree or a
+    custom path table."""
+
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False,
+                 name=None):
+        super().__init__()
+        if num_classes < 2:
+            raise ValueError("num_classes must be >= 2")
+        self._num_classes = num_classes
+        self.weight = self.create_parameter(
+            [num_classes - 1, feature_size], attr=weight_attr)
+        if bias_attr is not False:
+            self.bias = self.create_parameter(
+                [num_classes - 1], attr=bias_attr, is_bias=True)
+        else:
+            self.bias = None
+
+    def forward(self, input, label, path_table=None, path_code=None):
+        return F.hsigmoid_loss(input, label, self._num_classes,
+                               self.weight, self.bias,
+                               path_table=path_table, path_code=path_code)
+
+
+class RNNTLoss(Layer):
+    def __init__(self, blank=0, fastemit_lambda=0.0, reduction="mean",
+                 name=None):
+        super().__init__()
+        self.blank = blank
+        self.fastemit_lambda = fastemit_lambda
+        self.reduction = reduction
+
+    def forward(self, input, label, input_lengths, label_lengths):
+        return F.rnnt_loss(input, label, input_lengths, label_lengths,
+                           blank=self.blank,
+                           fastemit_lambda=self.fastemit_lambda,
+                           reduction=self.reduction)

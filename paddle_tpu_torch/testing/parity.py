@@ -57,13 +57,34 @@ def _torch_of(a) -> torch.Tensor:
     return torch.tensor(np.ascontiguousarray(a))
 
 
-def api_state_from_paddle_tpu(np_state: Dict[str, np.ndarray]
+def api_state_from_paddle_tpu(np_state: Dict[str, np.ndarray], layer=None
                               ) -> Dict[str, torch.Tensor]:
     """A reference paddle-API ``Layer.state_dict()`` (as numpy) as the
-    port's ``Layer.set_state_dict`` input: the same keys and the same
-    ``[in, out]`` layouts (the API's ``Linear`` is paddle's in both
-    packages), bf16 carried through its ``uint16`` bits."""
-    return {name: _torch_of(arr) for name, arr in np_state.items()}
+    port's ``Layer.set_state_dict`` input, bf16 carried through its
+    ``uint16`` bits.  The keys and layouts are the same in both packages:
+    the API's ``Linear`` ``[in, out]``; a convolution's weight ``[out,
+    in/groups, *k]`` and a transpose's ``[in, out/groups, *k]``;
+    BatchNorm's ``_mean``/``_variance`` buffers; the recurrent layers'
+    ``weight_ih_l{k}[_reverse]``, ``weight_hh_...``, ``bias_ih_...``,
+    ``bias_hh_...``; ``weight_norm``'s ``weight_g``/``weight_v``,
+    ``spectral_norm``'s ``weight_orig`` and ``SpectralNorm``'s
+    ``weight_u``/``weight_v`` buffers.  With ``layer`` (a port ``Layer``)
+    the state must match its keys both ways and its shapes, or
+    ``KeyError``/``ValueError`` names the difference."""
+    out = {name: _torch_of(arr) for name, arr in np_state.items()}
+    if layer is not None:
+        have = {k: tuple(v.shape) for k, v in layer.state_dict().items()}
+        missing = sorted(set(have) - set(out))
+        unexpected = sorted(set(out) - set(have))
+        if missing or unexpected:
+            raise KeyError("reference/port state mismatch: missing %s, "
+                           "unexpected %s" % (missing, unexpected))
+        bad = ["%s: port %s vs reference %s" % (k, have[k],
+                                               tuple(out[k].shape))
+               for k in out if tuple(out[k].shape) != have[k]]
+        if bad:
+            raise ValueError("; ".join(bad))
+    return out
 
 
 def ptq_tree_from_paddle_tpu(np_tree: Dict[str, np.ndarray]

@@ -188,9 +188,14 @@ def test_functionals_match_reference(group):
 def test_every_ported_functional_is_tested():
     tested = {_fn_name(c) for c in FUNCTIONALS}
     import paddle_tpu_torch.nn.functional as PF
+    # conv, pooling, vision and the extended set are held by
+    # test_torch_api_conv.py and test_torch_api_vision.py
+    elsewhere = {"paddle_tpu_torch.nn.functional." + m
+                 for m in ("conv", "pooling", "vision", "extended")}
     public = {n for n in dir(PF) if not n.startswith("_")
               and callable(getattr(PF, n)) and not n.endswith("_")
-              and n not in ("activation", "common", "norm", "loss")}
+              and n not in ("activation", "common", "norm", "loss")
+              and getattr(PF, n).__module__ not in elsewhere}
     untested = public - tested - {
         "dropout2d", "dropout3d", "alpha_dropout", "upsample",
         "gumbel_softmax", "scaled_dot_product_attention",

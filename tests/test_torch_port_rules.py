@@ -108,15 +108,28 @@ API_MODULES = ("core/dtypes.py", "core/flags.py", "core/device.py",
                "nn/clip.py", "nn/functional/__init__.py",
                "nn/functional/activation.py", "nn/functional/common.py",
                "nn/functional/norm.py", "nn/functional/loss.py",
-               "models/gpt.py", "framework_io.py")
+               "models/gpt.py", "framework_io.py",
+               "nn/functional/conv.py", "nn/functional/pooling.py",
+               "nn/functional/vision.py", "nn/functional/extended.py",
+               "nn/rnn.py", "nn/decode.py", "nn/utils/__init__.py",
+               "models/resnet.py", "io/__init__.py", "io/dataset.py",
+               "io/sampler.py", "io/bucketing.py", "io/shm_ring.py",
+               "io/worker.py", "io/dataloader.py", "amp/debugging.py")
+
+
+# the one forked process of the port: the DataLoader's workers, which
+# never use the card (io/worker.py imports no torch; the parent makes the
+# tensors)
+FORKED = (os.path.join("io", "dataloader.py"),)
 
 
 def test_no_fork_start_method():
     """No rank or server process of the port is forked: a fork of a
     process that touched CUDA cannot use the card.  The sources name no
-    ``fork`` start method and call no ``os.fork``; the rank launcher
-    starts its ranks with ``subprocess``."""
-    bad = []
+    ``fork`` start method and call no ``os.fork``, but for the
+    DataLoader's workers (``FORKED``), whose module imports no torch; the
+    rank launcher starts its ranks with ``subprocess``."""
+    bad, forked = [], set()
     for path in _port_sources():
         with open(path) as f:
             tree = ast.parse(f.read(), path)
@@ -125,11 +138,23 @@ def test_no_fork_start_method():
                 "fork", "forkserver")) or (
                 isinstance(node, ast.Attribute) and node.attr == "fork")
             if hit:
-                bad.append("%s:%d" % (os.path.relpath(path, ROOT),
-                                       node.lineno))
+                rel = os.path.relpath(path, PKG)
+                if rel in FORKED:
+                    forked.add(rel)
+                else:
+                    bad.append("%s:%d" % (os.path.relpath(path, ROOT),
+                                           node.lineno))
     assert not bad, bad
+    assert forked == set(FORKED)
     with open(os.path.join(PKG, "distributed", "launch.py")) as f:
         assert "subprocess.Popen" in f.read()
+    with open(os.path.join(PKG, "io", "worker.py")) as f:
+        tree = ast.parse(f.read())
+    imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names] + [
+        n.module or "" for n in ast.walk(tree)
+        if isinstance(n, ast.ImportFrom)]
+    assert not any(m.split(".")[0] == "torch" for m in imported), imported
 
 
 def test_importing_the_port_loads_no_jax():
@@ -465,3 +490,104 @@ def test_cuda_source_states_what_it_replaces_and_its_bound(name):
             bound += f.read()
     for entry in entries:
         assert entry in bound, entry
+
+
+def test_the_ring_source_is_the_ports_own_and_builds_with_the_host():
+    """The DataLoader's ring builds from ``paddle_tpu_torch/io/_native``
+    (the port's own copy; nothing of ``paddle_tpu`` is read) with the host
+    compiler into the git-ignored ``build/`` tree."""
+    from paddle_tpu_torch import _build
+    from paddle_tpu_torch.io import shm_ring
+    assert shm_ring.SOURCE == os.path.join(PKG, "io", "_native",
+                                           "ringbuf.cc")
+    path = shm_ring.build()
+    assert path.startswith(_build.BUILD_DIR) and os.path.exists(path)
+    with open(shm_ring.SOURCE) as f:
+        text = f.read()
+    assert "paddle_tpu/" not in text.replace("paddle_tpu_torch/", "")
+    with open(os.path.join(PKG, "io", "shm_ring.py")) as f:
+        assert "_native_build" not in f.read()
+
+
+def _caught(handler):
+    """The names of the exceptions ``handler`` catches (``queue.Full`` ->
+    ``Full``)."""
+    t = handler.type
+    elts = [] if t is None else list(t.elts) if isinstance(t, ast.Tuple) \
+        else [t]
+    return {getattr(n, "attr", getattr(n, "id", None)) for n in elts}
+
+
+def _broad(handler):
+    return handler.type is None or bool(
+        _caught(handler) & {"Exception", "BaseException"})
+
+
+def test_the_loader_swallows_no_worker_or_build_error():
+    """No ``except`` of ``io/`` or of the build helper passes an error
+    over: none is bare, none has a body of only ``pass``/``continue``
+    unless it catches a control-flow exception (a full or empty queue,
+    the end of an iterator, the ring's read timeout), and every broad one
+    (``Exception``, ``BaseException``) hands the error on (raise, a call
+    that sends it) or sets the worker's nonzero exit."""
+    control = {"Full", "Empty", "StopIteration", "Timeout"}
+    bad = []
+    paths = [os.path.join(PKG, "io", n) for n in sorted(os.listdir(
+        os.path.join(PKG, "io"))) if n.endswith(".py")]
+    for path in paths + [os.path.join(PKG, "_build.py")]:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for h in (n for n in ast.walk(tree)
+                  if isinstance(n, ast.ExceptHandler)):
+            where = "%s:%d" % (os.path.relpath(path, ROOT), h.lineno)
+            caught = _caught(h)
+            trivial = all(isinstance(b, (ast.Pass, ast.Continue))
+                          for b in h.body)
+            if h.type is None or (trivial and not caught <= control):
+                bad.append(where)
+            if _broad(h):
+                body = [n for b in h.body for n in ast.walk(b)]
+                hands_on = any(isinstance(n, (ast.Raise, ast.Call))
+                               for n in body) or any(
+                    isinstance(n, ast.Assign) and any(
+                        getattr(t, "id", "") == "code" for t in n.targets)
+                    for n in body)
+                if not hands_on:
+                    bad.append(where + " (broad)")
+    assert not bad, bad
+
+
+def test_op_families_pass_with_the_tensor_checker_on():
+    """``apply_op``'s debug hook is the single door: a group of each op
+    family's reference cases passes with the tensor checker (warning
+    mode) and the operator statistics on, and every op of the groups
+    went through the hook."""
+    from paddle_tpu_torch.amp import debugging as dbg
+    from paddle_tpu_torch.core import dispatch
+    from paddle_tpu_torch.core.device import device_guard
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_api_ops as ops_tests
+    from torch_api_parity import run_cases
+    groups = ops_tests.GROUPS[::4]
+    seen = []
+    dbg.enable_tensor_checker(dbg.TensorCheckerConfig(
+        enable=True, debug_mode=dbg.DebugMode.CHECK_NAN_INF))
+    dbg.enable_operator_stats_collection()
+    hook = dispatch._amp_debug_hook[0]
+    dispatch._amp_debug_hook[0] = lambda name, outs: (seen.append(name),
+                                                      hook(name, outs))
+    try:
+        with device_guard("cpu"):
+            for group in groups:
+                run_cases(group, ops_tests._check_case)
+        stats = dbg.get_operator_stats()
+    finally:
+        dispatch._amp_debug_hook[0] = hook
+        dbg.disable_tensor_checker()
+        dbg.disable_operator_stats_collection()
+    assert dispatch._amp_debug_hook[0] is None
+    names = {c[1] for g in groups for c in g}
+    seen_ops = {n.split("::")[0] for n in seen}
+    assert set(stats) == seen_ops
+    assert len(names & seen_ops) >= len(names) // 2, sorted(
+        names - seen_ops)

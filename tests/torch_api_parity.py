@@ -264,3 +264,69 @@ def run_cases(cases, check):
             bad.append("%s: %s: %s" % (case[0], type(e).__name__,
                                        str(e).splitlines()[:3]))
     assert not bad, "\n".join(bad)
+
+
+def compare_scaled(ref, port, tol):
+    """:func:`compare_outputs` with each float output and gradient held to
+    ``tol`` of its largest magnitude (``max|got - want| <= tol *
+    max|want|``); integer outputs equal, dtypes and ``stop_gradient``
+    flags the reference's."""
+    (r_out, r_grads), (p_out, p_grads) = ref, port
+    rf, pf = _flat(r_out), _flat(p_out)
+    assert len(rf) == len(pf), (len(rf), len(pf))
+
+    def close(got, want, what):
+        got, want = np.asarray(got), np.asarray(want)
+        assert got.shape == want.shape, (what, got.shape, want.shape)
+        if want.dtype.kind in "fc":
+            scale = max(float(np.nanmax(np.abs(want))) if want.size else 0.0,
+                        1e-30)
+            err = float(np.nanmax(np.abs(got.astype(np.float64)
+                                         - want.astype(np.float64)))) \
+                if want.size else 0.0
+            assert np.array_equal(np.isnan(got), np.isnan(want)), what
+            assert err <= tol * scale, (what, err, scale)
+        else:
+            np.testing.assert_array_equal(got, want, err_msg=what)
+
+    for i, (a, b) in enumerate(zip(rf, pf)):
+        if _is_tensor(a):
+            assert _is_tensor(b), (i, type(b))
+            assert dtype_name(b) == dtype_name(a), (i, dtype_name(b),
+                                                    dtype_name(a))
+            assert b.stop_gradient == a.stop_gradient, i
+            close(b.numpy(), a.numpy(), "output %d" % i)
+        else:
+            assert b == a, (i, b, a)
+    assert (r_grads is None) == (p_grads is None), (r_grads, p_grads)
+    for i, (a, b) in enumerate(zip(r_grads or [], p_grads or [])):
+        if a is None or b is None:
+            z = a if b is None else b
+            assert z is None or not np.any(z), i
+            continue
+        close(b, a, "grad %d" % i)
+
+
+def run_layers(ref_layer, port_layer, makers, seed, grad=True):
+    """``ref_layer`` and ``port_layer`` (the same weights) on the same
+    seeded inputs: the reference traced (:func:`run_reference_traced`)
+    where it can, else eagerly; outputs and the inputs' gradients."""
+    rng = np.random.RandomState(seed)
+    values = [m(rng) for m in makers]
+    get = lambda p: ref_layer if p is R else port_layer  # noqa: E731
+    try:
+        ref = run_reference_traced(get, values, {}, seed + 1, grad)
+    except _Untraceable:
+        ref = run_one(R, get, values, {}, seed + 1, grad)
+    return ref, run_one(P, get, values, {}, seed + 1, grad)
+
+
+def carried(ref_layer, port_layer):
+    """``port_layer`` with ``ref_layer``'s state, every key matched."""
+    from paddle_tpu_torch.testing.parity import api_state_from_paddle_tpu
+    state = {k: np.asarray(v.numpy())
+             for k, v in ref_layer.state_dict().items()}
+    missing, unexpected = port_layer.set_state_dict(
+        api_state_from_paddle_tpu(state))
+    assert not missing and not unexpected, (missing, unexpected)
+    return port_layer
